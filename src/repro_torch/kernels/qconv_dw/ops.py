@@ -1,0 +1,157 @@
+"""Public entry point of the fully-integer direct depthwise conv
+(counterpart of ``repro.kernels.qconv_dw.ops``, int8-activation mode).
+
+``qconv_dw_int8_act`` dispatches on the activation tensor's device: a CUDA
+tensor launches the hand-written kernel ``csrc/qconv_dw.cu`` through
+:func:`qconv_dw`; a CPU tensor runs the plain version
+(:func:`repro_torch.kernels.qconv_dw.ref.qconv_dw_int8_act_ref`).  The kernel
+reads the unpadded (B, H, W, C) codes with bounds checks, so the host makes
+none of the reference's padding and reshape copies.
+
+Not ported yet: the float-activation mode (the reference's ``qconv_dw``).  In
+this package :func:`qconv_dw` names the CUDA kernel's launch wrapper.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels._build import check, load_kernels
+from repro_torch.kernels.qconv_dw.ref import (ActQt, normalize_pads,
+                                              out_spatial,
+                                              qconv_dw_int8_act_ref)
+from repro_torch.kernels.qmatmul.ops import (_expect, check_epilogue,
+                                             scalar_scale)
+from repro_torch.kernels.qmatmul.ref import fold_scale
+from repro_torch.quant.pack import unpack_rows
+
+# split-row packing alignment for depthwise tap rows: a 3x3 window packs its
+# 9 tap rows into 16, not the matmul path's 128
+DW_PACK_ALIGN = 8
+
+# the kernel keeps a channel's taps in registers (MAX_TAPS in qconv_dw.cu)
+MAX_TAPS = 64
+
+__all__ = ["qconv_dw", "qconv_dw_int8_act", "qconv_dw_int8_act_plain",
+           "DW_PACK_ALIGN", "ActQt"]
+
+
+def qconv_dw(x_codes: torch.Tensor, w: torch.Tensor, s_eff: torch.Tensor,
+             bias: Optional[torch.Tensor] = None, *, kh: int, kw: int,
+             strides: Tuple[int, int], pads, bits: int, packed: bool,
+             relu: bool, act_qt: Optional[ActQt],
+             out_code: bool) -> torch.Tensor:
+    """Launch ``csrc/qconv_dw.cu`` on the current CUDA stream.
+
+    x_codes (B, H, W, C) int8; w (kh*kw, C) int8 tap rows, or with
+    ``packed`` the split-row (kp_rows, C) uint8 buffer with
+    kp_rows * 8/bits >= kh*kw; s_eff (C,) f32 folded scale; bias (C,) f32 or
+    None.  Returns (B, OH, OW, C) int8 codes when ``out_code``, else f32.
+    Counts launches in ``qconv_dw.launches``."""
+    dev = x_codes.device
+    if dev.type != "cuda":
+        raise ValueError(f"qconv_dw launches the CUDA kernel; got a {dev} "
+                         "tensor")
+    if bits not in (8, 4, 2) or (packed and bits == 8):
+        raise ValueError(f"unsupported bits={bits} (packed={packed})")
+    taps = kh * kw
+    if taps > MAX_TAPS:
+        raise ValueError(f"window {kh}x{kw} exceeds {MAX_TAPS} taps")
+    check_epilogue(act_qt, out_code)
+    _expect(x_codes, "x_codes", torch.int8, 4, dev)
+    B, H, W, C = x_codes.shape
+    _expect(w, "w", torch.uint8 if packed else torch.int8, 2, dev)
+    rows = w.shape[0]
+    if w.shape[1] != C:
+        raise ValueError(f"weight has {w.shape[1]} channels, input {C}")
+    if packed and rows * (8 // bits) < taps:
+        raise ValueError(f"packed tap rows {rows} (x{8 // bits}) do not cover "
+                         f"the {taps}-tap window")
+    if not packed and rows != taps:
+        raise ValueError(f"weight tap rows {rows} != window size {taps}")
+    _expect(s_eff, "s_eff", torch.float32, 1, dev)
+    if s_eff.shape[0] != C:
+        raise ValueError(f"s_eff has {s_eff.shape[0]} channels, expected {C}")
+    if bias is not None:
+        _expect(bias, "bias", torch.float32, 1, dev)
+        if bias.shape[0] != C:
+            raise ValueError(f"bias has {bias.shape[0]} channels, expected {C}")
+    sh, sw = (int(v) for v in strides)
+    oh, ow, (pt, _), (pl, _) = out_spatial(H, W, kh, kw, (sh, sw),
+                                           normalize_pads(pads))
+    out = torch.empty((B, oh, ow, C),
+                      dtype=torch.int8 if out_code else torch.float32,
+                      device=dev)
+    if out.numel() == 0:
+        return out
+    frac, qmin, qmax = act_qt if act_qt is not None else (0, 0, 0)
+    lib = load_kernels()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.repro_qconv_dw_i8(
+            x_codes.data_ptr(), w.data_ptr(), s_eff.data_ptr(),
+            None if bias is None else bias.data_ptr(), out.data_ptr(),
+            B, H, W, C, oh, ow, kh, kw, sh, sw, pt, pl, bits, int(packed),
+            rows if packed else taps, int(relu), int(act_qt is not None),
+            int(out_code), qmin, qmax, 2.0 ** frac, 2.0 ** -frac, stream)
+    check(rc, "qconv_dw")
+    qconv_dw.launches += 1
+    return out
+
+
+qconv_dw.launches = 0
+
+
+def qconv_dw_int8_act_plain(x_codes: torch.Tensor, x_scale: float,
+                            codes: torch.Tensor, scale: torch.Tensor,
+                            bias: Optional[torch.Tensor] = None, *, kh: int,
+                            kw: int, strides, pads, bits: int, relu: bool,
+                            act_qt: Optional[ActQt], out_code: bool,
+                            packed: bool,
+                            out_dtype: torch.dtype = torch.float32
+                            ) -> torch.Tensor:
+    """The kernel's plain version on any device, with the kernel's operands:
+    a packed tap buffer is unpacked to its view first."""
+    c = unpack_rows(codes, bits)[:kh * kw] if packed else codes
+    return qconv_dw_int8_act_ref(x_codes, x_scale, c, scale, bias, kh=kh,
+                                 kw=kw, strides=strides, pads=pads, bits=bits,
+                                 relu=relu, act_qt=act_qt, out_code=out_code,
+                                 out_dtype=out_dtype)
+
+
+def qconv_dw_int8_act(x_codes: torch.Tensor, x_scale, codes: torch.Tensor,
+                      scale: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                      *, kh: int, kw: int, strides=(1, 1), pads="SAME",
+                      bits: int = 8, relu: bool = False,
+                      act_qt: Optional[ActQt] = None, out_code: bool = False,
+                      packed: bool = False,
+                      out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Fully-integer direct depthwise conv: x_codes (B, H, W, C) int8
+    activation codes, int32 window MACs, the producer's scalar power-of-two
+    ``x_scale`` folded into the per-channel weight scale, and
+    ``out_code=True`` emitting the consumer's int8 codes.  ``codes`` is
+    (kh*kw, C) int8 or, with ``packed=True``, the split-row
+    (align(kh*kw, 8)/r, C) uint8 buffer."""
+    xs = scalar_scale(x_scale)
+    check_epilogue(act_qt, out_code)
+    k2 = kh * kw
+    if packed and codes.shape[0] * (8 // bits) < k2:
+        raise ValueError(f"packed tap rows {codes.shape[0]} do not cover the "
+                         f"{k2}-tap window")
+    pads = normalize_pads(pads)
+    if x_codes.device.type == "cuda":
+        s_eff = fold_scale(scale, xs, bits, packed).contiguous()
+        b = None if bias is None else \
+            bias.reshape(-1).to(torch.float32).contiguous()
+        y = qconv_dw(x_codes.contiguous(), codes.contiguous(), s_eff, b,
+                     kh=kh, kw=kw, strides=strides, pads=pads, bits=bits,
+                     packed=packed, relu=relu, act_qt=act_qt,
+                     out_code=out_code)
+        return y if out_code else y.to(out_dtype)
+    if x_codes.device.type == "cpu":
+        return qconv_dw_int8_act_plain(
+            x_codes, xs, codes, scale, bias, kh=kh, kw=kw, strides=strides,
+            pads=pads, bits=bits, relu=relu, act_qt=act_qt, out_code=out_code,
+            packed=packed, out_dtype=out_dtype)
+    raise ValueError(f"no qconv_dw_int8_act path for device {x_codes.device}")

@@ -1,0 +1,118 @@
+"""The flow's CNN models as parameter dictionaries (counterpart of
+``repro.models.cnn``): the paper's 2-block MNIST CNN and the
+depthwise-separable classifier.
+
+Weights are HWIO (conv) / (K, N) (Gemm) float32 tensors keyed exactly as the
+reference keys them, so the readers build the same IR from either package.
+``init_params`` / ``init_separable_params`` draw from a ``torch.Generator``
+(the reference draws from ``jax.random``: the numbers differ, the shapes and
+scales do not); :func:`params_from_jax` carries the reference's own arrays
+across, checked against the config, so both packages compute the same thing.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Mapping, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch.configs.mnist_cnn import CNNConfig
+from repro_torch.configs.separable_cnn import SeparableCNNConfig
+from repro_torch.device import DeviceLike
+
+Config = Union[CNNConfig, SeparableCNNConfig]
+
+_BN_STATS = ("scale", "bias", "mean", "var")
+
+
+def param_shapes(cfg: Config) -> Dict[str, Tuple[int, ...]]:
+    """Name -> shape of every parameter of ``cfg``'s model (HWIO convs)."""
+    shapes: Dict[str, Tuple[int, ...]] = {}
+    k = cfg.kernel_size
+    if isinstance(cfg, SeparableCNNConfig):
+        shapes["stem/w"] = (k, k, cfg.in_channels, cfg.stem_channels)
+        shapes["stem/b"] = (cfg.stem_channels,)
+        cin = cfg.stem_channels
+        for i, (cout, _) in enumerate(cfg.blocks):
+            shapes[f"dw{i}/w"] = (k, k, 1, cin)
+            shapes[f"dw{i}/b"] = (cin,)
+            shapes[f"pw{i}/w"] = (1, 1, cin, cout)
+            shapes[f"pw{i}/b"] = (cout,)
+            for layer, c in ((f"dw{i}", cin), (f"pw{i}", cout)):
+                for stat in _BN_STATS:
+                    shapes[f"{layer}_bn/{stat}"] = (c,)
+            cin = cout
+    else:
+        cin = cfg.in_channels
+        for i, cout in enumerate(cfg.conv_channels):
+            shapes[f"conv{i}/w"] = (k, k, cin, cout)
+            shapes[f"conv{i}/b"] = (cout,)
+            for stat in _BN_STATS:
+                shapes[f"bn{i}/{stat}"] = (cout,)
+            cin = cout
+    shapes["fc/w"] = (cfg.fc_in, cfg.n_classes)
+    shapes["fc/b"] = (cfg.n_classes,)
+    return shapes
+
+
+def _fan_in(name: str, shape: Tuple[int, ...]) -> int:
+    if name.startswith("dw"):
+        return shape[0] * shape[1]            # one filter per channel
+    return int(math.prod(shape[:-1]))
+
+
+def _init(cfg: Config, generator: torch.Generator,
+          device: DeviceLike) -> Dict[str, torch.Tensor]:
+    """Normal / sqrt(fan_in) weights, zero biases, identity BN statistics —
+    the reference's initialization scheme."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, shape in param_shapes(cfg).items():
+        if name.endswith("/w"):
+            t = torch.randn(shape, generator=generator, dtype=torch.float32)
+            t = t / math.sqrt(_fan_in(name, shape))
+        elif name.endswith(("/scale", "/var")):
+            t = torch.ones(shape, dtype=torch.float32)
+        else:
+            t = torch.zeros(shape, dtype=torch.float32)
+        out[name] = t.to(device) if device is not None else t
+    return out
+
+
+def init_params(cfg: CNNConfig, generator: torch.Generator,
+                device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """The 2-conv-block + FC MNIST classifier's parameters."""
+    return _init(cfg, generator, device)
+
+
+def init_separable_params(cfg: SeparableCNNConfig, generator: torch.Generator,
+                          device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """Conv stem + (depthwise 3x3, pointwise 1x1) separable blocks + FC."""
+    return _init(cfg, generator, device)
+
+
+def params_from_jax(params: Mapping[str, np.ndarray], device: DeviceLike,
+                    cfg: Optional[Config] = None) -> Dict[str, torch.Tensor]:
+    """The reference package's parameter arrays (as numpy) -> float32 tensors
+    on ``device``, checked name by name, shape by shape (HWIO) and dtype by
+    dtype against ``cfg`` (default: the published config whose names match —
+    separable-cnn when ``stem/w`` is present, else mnist-cnn).  Any mismatch
+    raises ``ValueError``."""
+    if cfg is None:
+        cfg = SeparableCNNConfig() if "stem/w" in params else CNNConfig()
+    expected = param_shapes(cfg)
+    missing = sorted(set(expected) - set(params))
+    extra = sorted(set(params) - set(expected))
+    if missing or extra:
+        raise ValueError(f"parameter names do not match {cfg.name}: "
+                         f"missing {missing}, unexpected {extra}")
+    out: Dict[str, torch.Tensor] = {}
+    for name, shape in expected.items():
+        arr = np.asarray(params[name])
+        if tuple(arr.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(arr.shape)}, expected "
+                             f"{shape} for {cfg.name}")
+        if arr.dtype != np.float32:
+            raise ValueError(f"{name}: dtype {arr.dtype}, expected float32")
+        out[name] = torch.from_numpy(np.array(arr)).to(device)
+    return out

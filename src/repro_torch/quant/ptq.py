@@ -1,0 +1,106 @@
+"""Post-training quantization, graph subset (counterpart of ``repro.quant.ptq``).
+
+The int8 master-code rule (:func:`quantize_channelwise`), the nested W4/W2
+views (:func:`derive_view`), the per-FIFO activation-code qtypes and the
+graph weight statistics.  The LM tree path (``QuantizedParams``,
+``quantize_tree_native``, ``dequantize_tree``) is not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.device import as_tensor
+from repro_torch.quant.fixedpoint import zero_fraction
+from repro_torch.quant.qtypes import DatatypeConfig, QType, fixed_for_range
+
+# parameters that stay in high precision (norms, scalar gains, recurrence)
+_SKIP_SUFFIXES = ("norm/w", "norm_w", "A_log", "dt_bias", "/D", "/b", "bias",
+                  "/mean", "/var", "/scale", "bq", "bk", "bv", "b_up", "b_down",
+                  "enc_pos", "dec_pos")
+
+
+def is_quantizable(path: str, arr) -> bool:
+    return arr.ndim >= 2 and not any(path.endswith(s) for s in _SKIP_SUFFIXES)
+
+
+def weight_qtype(w, bits: int) -> QType:
+    if bits >= 32:
+        return QType(32, None)
+    return fixed_for_range(bits, float(as_tensor(w).abs().max()))
+
+
+def effective_weight_dt(graph, init_name: str,
+                        default_dt: Optional[DatatypeConfig] = None
+                        ) -> Optional[DatatypeConfig]:
+    """The per-layer datatype governing an initializer: its (first) consumer
+    node's ``Node.dtconfig``, falling back to ``default_dt``."""
+    users = graph.consumer_index().get(init_name, [])
+    if users and users[0].dtconfig is not None:
+        return users[0].dtconfig
+    return default_dt
+
+
+def graph_weight_stats(graph, default_dt: Optional[DatatypeConfig] = None
+                       ) -> Dict[str, float]:
+    """Zero-weight fraction of an IR graph under per-layer precision (the
+    Table II "Zero weights" column)."""
+    zeros, total = 0.0, 0
+    for name, arr in graph.initializers.items():
+        if arr.ndim < 2:
+            continue
+        dt = effective_weight_dt(graph, name, default_dt)
+        w = as_tensor(np.asarray(arr))
+        qt = weight_qtype(w, dt.weight_bits if dt else 32)
+        zeros += float(zero_fraction(w, qt)) * arr.size
+        total += arr.size
+    return {"zero_weight_frac": zeros / max(total, 1)}
+
+
+def top1_agreement(logits, ref) -> float:
+    """Fraction of rows whose argmax matches the float reference's."""
+    a, b = as_tensor(logits), as_tensor(ref)
+    return float((a.argmax(-1).cpu() == b.argmax(-1).cpu())
+                 .to(torch.float32).mean())
+
+
+def act_code_qtype(bits: int, act_range: float) -> QType:
+    """The integer-code qtype of one activation FIFO: a power-of-two scale
+    (``2^-frac``) sized so the calibrated range fits ``min(bits, 8)`` signed
+    integers."""
+    return fixed_for_range(min(bits, 8), act_range)
+
+
+def _channel_scale(w: torch.Tensor) -> torch.Tensor:
+    """Symmetric per-output-channel scale; channel = last dim."""
+    m = torch.amax(w.to(torch.float32).abs(), dim=tuple(range(w.ndim - 1)),
+                   keepdim=True)
+    return torch.clamp_min(m, 1e-8) / 127.0
+
+
+def quantize_channelwise(w) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(int8 master codes, per-out-channel f32 scale) — THE master-code rule,
+    computed on the tensor's device."""
+    w = as_tensor(w)
+    s = _channel_scale(w)
+    codes = torch.clamp(torch.round(w.to(torch.float32) / s),
+                        -127, 127).to(torch.int8)
+    return codes, s.to(torch.float32)
+
+
+def derive_view(code_i8: torch.Tensor, bits: int) -> torch.Tensor:
+    """Nested truncation: int8 master -> effective int-``bits`` codes, still in
+    int8 domain (granularity 2^(8-bits)); shares the master's scale."""
+    if bits >= 8:
+        return code_i8
+    step = 1 << (8 - bits)
+    q = torch.clamp(torch.round(code_i8.to(torch.float32) / step),
+                    -(2 ** (bits - 1)), 2 ** (bits - 1) - 1)
+    return (q * step).to(torch.int8)
+
+
+def dequant(code_i8: torch.Tensor, scale: torch.Tensor, bits: int = 8,
+            dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    return (derive_view(code_i8, bits).to(torch.float32) * scale).to(dtype)

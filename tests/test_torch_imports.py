@@ -1,0 +1,98 @@
+"""The PyTorch/CUDA port stands alone: it imports with jax blocked, no source
+line of it imports jax or the reference package, and its entry points run on
+the GPU unless the caller asks for the CPU."""
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.configs.mnist_cnn import CNNConfig
+from repro_torch.core.flow import DesignFlow
+from repro_torch.core.reader import cnn_to_ir
+from repro_torch.core.writers.qtorch_writer import QTorchWriter
+from repro_torch.core.writers.torch_writer import TorchWriter
+from repro_torch.kernels import _build
+from repro_torch.models import cnn
+from repro_torch.quant.qtypes import DatatypeConfig
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+_FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)")
+
+
+def _modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        [str(PKG)], prefix="repro_torch."))
+
+
+def test_every_module_imports_with_jax_blocked():
+    code = (
+        "import sys, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['jaxlib'] = None\n"
+        f"mods = {_modules()!r}\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m == 'repro' or m.startswith('repro.')]\n"
+        "assert not bad, bad\n"
+        "print(len(mods))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) == len(_modules()) >= 20
+
+
+@pytest.mark.parametrize("path", sorted(
+    [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")] + ["chip_smoke.py"]))
+def test_no_source_line_imports_jax_or_repro(path):
+    for i, line in enumerate((ROOT / path).read_text().splitlines(), 1):
+        assert not _FORBIDDEN.match(line), f"{path}:{i}: {line.strip()}"
+
+
+def _graph():
+    params = cnn.init_params(CNNConfig(), torch.Generator().manual_seed(0))
+    return cnn_to_ir(CNNConfig(), params)
+
+
+@pytest.mark.parametrize("make", [
+    lambda g: DesignFlow(g),
+    lambda g: TorchWriter(g),
+    lambda g: QTorchWriter(g),
+], ids=["DesignFlow", "TorchWriter", "QTorchWriter"])
+def test_entry_points_default_to_cuda_and_refuse_without_it(make,
+                                                             monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make(_graph())
+
+
+def test_flow_runs_on_the_cpu_only_when_asked():
+    flow = DesignFlow(_graph(), device="cpu")
+    res = flow.run(("qtorch",), DatatypeConfig(8, 8))
+    assert res.writers["qtorch"].device == torch.device("cpu")
+    x = np.random.default_rng(0).random((1, 28, 28, 1), np.float32)
+    assert res.batched["qtorch"](x).device.type == "cpu"
+    assert repro_torch.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
+    """No kernel is built at import; building without nvcc fails loudly."""
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.nvcc_path()
+    assert len(_build.source_hash()) == 16
+    assert all((_build.CSRC / s).exists() for s in _build.SOURCES)
+
+
+def test_qtorch_refuses_the_unported_float_activation_mode():
+    with pytest.raises(NotImplementedError, match="fully-integer"):
+        QTorchWriter(_graph(), DatatypeConfig(16, 8), device="cpu")

@@ -1,0 +1,183 @@
+"""The port's numerics core against the reference, exactly: fixed-point
+quantization, nested views, the master-code rule, activation-code qtypes,
+split-row packing at both alignments, and the packed weight buffer of both
+CNNs (codes, scales, resident bytes, every CRC32 region seal)."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.mnist_cnn import CONFIG as J_CNN
+from repro.configs.separable_cnn import CONFIG as J_SEP
+from repro.core.reader import cnn_to_ir as j_cnn_to_ir
+from repro.core.reader import separable_cnn_to_ir as j_sep_to_ir
+from repro.models import cnn as j_models
+from repro.quant import fixedpoint as j_fp
+from repro.quant import pack as j_pack
+from repro.quant import ptq as j_ptq
+from repro.quant.qtypes import QType as JQType
+from repro.quant.qtypes import fixed_for_range as j_ffr
+
+from repro_torch.quant import fixedpoint as t_fp
+from repro_torch.quant import pack as t_pack
+from repro_torch.quant import ptq as t_ptq
+from repro_torch.quant.qtypes import QType as TQType
+from repro_torch.quant.qtypes import fixed_for_range as t_ffr
+
+QTYPES = [(8, 4), (8, 7), (16, 10), (4, 2), (2, 1), (8, -2)]
+
+
+def _x(seed=0, shape=(64, 33), scale=6.0):
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal(shape) * scale).astype(np.float32)
+    x.flat[:8] = [0.5, -0.5, 1.5, 2.5, -2.5, 0.0, 127.5, -128.5]   # ties
+    return x
+
+
+@pytest.mark.parametrize("bits,frac", QTYPES)
+def test_quantize_and_fake_quant_exact(bits, frac):
+    x = _x(bits + frac)
+    jq, tq = JQType(bits, frac), TQType(bits, frac)
+    np.testing.assert_array_equal(
+        t_fp.quantize(torch.from_numpy(x), tq).numpy(),
+        np.asarray(j_fp.quantize(jnp.asarray(x), jq)))
+    np.testing.assert_array_equal(
+        t_fp.fake_quant(torch.from_numpy(x), tq).numpy(),
+        np.asarray(j_fp.fake_quant(jnp.asarray(x), jq)))
+    # a statistic, not a code: both take an f32 mean, summed in another order
+    assert float(t_fp.zero_fraction(torch.from_numpy(x), tq)) == pytest.approx(
+        float(j_fp.zero_fraction(jnp.asarray(x), jq)), rel=1e-6)
+
+
+@pytest.mark.parametrize("max_abs", [1e-9, 0.01, 0.3, 1.0, 1.0001, 7.99, 8.0,
+                                     100.0])
+@pytest.mark.parametrize("bits", [2, 4, 8, 16])
+def test_fixed_for_range_and_act_code_qtype(bits, max_abs):
+    assert (t_ffr(bits, max_abs).bits, t_ffr(bits, max_abs).frac) == \
+        (j_ffr(bits, max_abs).bits, j_ffr(bits, max_abs).frac)
+    t, j = t_ptq.act_code_qtype(bits, max_abs), j_ptq.act_code_qtype(bits,
+                                                                     max_abs)
+    assert (t.bits, t.frac, t.qmin, t.qmax) == (j.bits, j.frac, j.qmin, j.qmax)
+
+
+@pytest.mark.parametrize("bits", [8, 4, 2])
+def test_derive_view_exact(bits):
+    codes = np.arange(-128, 128, dtype=np.int8).reshape(16, 16)
+    np.testing.assert_array_equal(
+        t_ptq.derive_view(torch.from_numpy(codes), bits).numpy(),
+        np.asarray(j_ptq.derive_view(jnp.asarray(codes), bits)))
+
+
+@pytest.mark.parametrize("shape", [(9, 8), (3, 3, 1, 16), (1, 1, 16, 32),
+                                   (1568, 10)])
+def test_quantize_channelwise_byte_exact(shape):
+    w = np.random.default_rng(len(shape)).standard_normal(shape).astype(
+        np.float32) * 0.2
+    w.reshape(-1, shape[-1])[:, 0] = 0.0          # an all-zero channel
+    tc, ts = t_ptq.quantize_channelwise(torch.from_numpy(w))
+    jc, js = j_ptq.quantize_channelwise(jnp.asarray(w))
+    assert tc.dtype == torch.int8 and ts.dtype == torch.float32
+    assert tc.numpy().tobytes() == np.asarray(jc).tobytes()
+    assert ts.numpy().tobytes() == np.asarray(js).tobytes()
+    for bits in (8, 4, 2):
+        np.testing.assert_array_equal(
+            t_ptq.dequant(tc, ts, bits).numpy(),
+            np.asarray(j_ptq.dequant(jc, js, bits, jnp.float32)))
+
+
+@pytest.mark.parametrize("bits", [4, 2])
+@pytest.mark.parametrize("rows,align", [(9, 8), (9, 128), (200, 128),
+                                        (1568, 128)])
+def test_pack_rows_bytes_and_roundtrip(bits, align, rows):
+    codes = np.random.default_rng(rows + bits).integers(
+        -127, 128, (rows, 24)).astype(np.int8)
+    tp = t_pack.pack_rows(torch.from_numpy(codes), bits, align=align)
+    jp = j_pack.pack_rows(jnp.asarray(codes), bits, align=align)
+    assert tp.dtype == torch.uint8
+    assert tp.numpy().tobytes() == np.asarray(jp).tobytes()
+    up = t_pack.unpack_rows(tp, bits).numpy()
+    np.testing.assert_array_equal(up, np.asarray(j_pack.unpack_rows(jp, bits)))
+    np.testing.assert_array_equal(
+        up[:rows], t_ptq.derive_view(torch.from_numpy(codes), bits).numpy())
+    assert (up[rows:] == 0).all()
+
+
+def _inits(which):
+    if which == "mnist-cnn":
+        p = j_models.init_params(J_CNN, jax.random.PRNGKey(0))
+        g = j_cnn_to_ir(J_CNN, {k: np.asarray(v) for k, v in p.items()})
+    else:
+        p = j_models.init_separable_params(J_SEP, jax.random.PRNGKey(0))
+        g = j_sep_to_ir(J_SEP, {k: np.asarray(v) for k, v in p.items()})
+    return g.initializers
+
+
+@pytest.mark.parametrize("which", ["mnist-cnn", "separable-cnn"])
+def test_packed_weights_codes_scales_bytes_and_crcs_equal(which):
+    inits = _inits(which)
+    tw = t_pack.PackedWeights.from_initializers(inits, "cpu")
+    jw = j_pack.PackedWeights.from_initializers(inits)
+    assert set(tw.tensors) == set(jw.tensors)
+    assert set(tw.passthrough) == set(jw.passthrough)
+    for name, jt in jw.tensors.items():
+        tt = tw.tensors[name]
+        assert tt.codes.numpy().tobytes() == np.asarray(jt.codes).tobytes()
+        assert tt.scale.numpy().tobytes() == np.asarray(jt.scale).tobytes()
+        # the alignment each writer streams: depthwise taps at 8, else 128
+        align = 8 if name.startswith("dw") else t_pack.PACK_ALIGN
+        for bits in (4, 2):
+            assert tt.packed_view(bits, align).numpy().tobytes() == \
+                np.asarray(jt.packed_view(bits, align)).tobytes()
+        assert tt.packed_view(4, align) is tt.packed_view(4, align)  # cached
+        for bits in (8, 4, 2):
+            assert tt.view_nbytes(bits) == jt.view_nbytes(bits)
+    # every sealed region, codes/scales/views, hashes identically
+    t_regions = {r.label(): r for r in tw.regions()}
+    j_regions = {r.label(): r for r in jw.regions()}
+    assert set(t_regions) == set(j_regions)
+    for label, r in t_regions.items():
+        assert r.nbytes == j_regions[label].nbytes
+        assert tw.tensors[r.tensor]._sealed_crc(r) == \
+            jw.tensors[r.tensor]._sealed_crc(j_regions[label])
+    assert tw.code_bytes() == jw.code_bytes()
+    for bits in (8, 4, 2):
+        assert tw.view_bytes(bits) == jw.view_bytes(bits)
+    assert tw.sharing_report(3) == jw.sharing_report(3)
+
+
+def test_region_verify_detects_a_flipped_byte():
+    tw = t_pack.PackedWeights.from_initializers(_inits("separable-cnn"), "cpu")
+    t = tw.tensors["pw1/w"]
+    t.packed_view(4)
+    assert tw.verify() == []
+    t.codes.view(-1)[3] ^= 0x10                 # a silent bit flip
+    bad = tw.verify()
+    assert [m.region.label() for m in bad] == ["pw1/w:codes"]
+    assert not bad[0].repairable
+    assert tw.verify(bits=4) == []              # the W4 view is untouched
+
+
+def test_weight_stats_and_top1_agreement():
+    from repro.core.ir import Graph as JGraph
+    from repro_torch.core.ir import Graph as TGraph
+    inits = _inits("mnist-cnn")
+    for dt in (8, 4, 2):
+        jg = JGraph("g", [], [], [], inits)
+        tg = TGraph("g", [], [], [], inits)
+        from repro.quant.qtypes import DatatypeConfig as JDT
+        from repro_torch.quant.qtypes import DatatypeConfig as TDT
+        # f32 means summed in another order: equal to a few ulps
+        assert t_ptq.graph_weight_stats(tg, TDT(32, dt))["zero_weight_frac"] \
+            == pytest.approx(j_ptq.graph_weight_stats(jg, JDT(32, dt))
+                             ["zero_weight_frac"], rel=1e-6)
+    rng = np.random.default_rng(0)
+    a, b = rng.random((20, 10)), rng.random((20, 10))
+    assert t_ptq.top1_agreement(a, b) == j_ptq.top1_agreement(a, b)
+
+
+@pytest.mark.parametrize("bits,dtype", [(16, torch.bfloat16), (8, torch.int8),
+                                        (4, torch.int8), (2, torch.int8)])
+def test_storage_dtype_maps_sub_byte_widths_to_int8(bits, dtype):
+    from repro_torch.quant.qtypes import storage_dtype
+    assert storage_dtype(bits) is dtype
