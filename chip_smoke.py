@@ -8,21 +8,37 @@ Phases, each of which raises (and exits non-zero) on failure:
 1. header — PyTorch/CUDA versions, the card's name and power limit;
 2. build — compiles the hand-written kernels (``src/repro_torch/csrc``) with
    nvcc into ``build/repro_torch/`` and loads them;
-3. kernels — each kernel against its plain PyTorch version on the card, over
-   bits {8,4,2} x packed x epilogue x ReLU x bias (x strides x pads for the
-   depthwise conv) at the main path's shapes and ragged ones: exact equality;
-4. main path — separable-cnn at its published config (28x28, stem 8, blocks
-   ((16,1),(32,2)), 10 classes) through ``DesignFlow.run(("qtorch",), D8-W8)``
-   and ``serve_adaptive`` with the pump running: 66 requests of 1-8 rows
-   whose budgets walk W8 -> W4 -> W2, every result held bit for bit against
-   the port's plain path on the CPU; the kernels' launch counters are zeroed
-   just before and read just after.  mnist-cnn takes the same steps after it;
-5. times — each kernel, its plain version and the nearest PyTorch library
-   call at the main path's batch-8 shapes: device time per call from the
-   profiler's CUDA activity (and the per-call time of back-to-back calls
-   between CUDA events, host overhead included), beside the least time the
-   card could take (bytes over 3.35 TB/s or int8 operations over 1,979
-   TOP/s, whichever is larger).
+3. kernels — each kernel and mode against its plain PyTorch version on the
+   card: ``qgemm`` (int8 activations, scalar and per-row activation scale)
+   and ``qconv_dw`` (int8) over bits {8,4,2} x packed x epilogue x ReLU x
+   bias (x strides x pads), exactly; ``qconv_dw`` in f32, exactly;
+   ``qgemm`` in f32 within the reference's ``max|y|*2^-7 + 1e-6`` (or one
+   requant quantum); ``conv2d_stream`` over the stream target's shapes, the
+   reference's test shapes and ragged ones in f32, bf16 and mixed dtypes
+   with and without bias, within 1e-4 (f32 out) or one bf16 ulp (bf16 out);
+4. main paths, each with the launch counters zeroed just before it and read
+   just after, on separable-cnn and mnist-cnn at their published widths:
+   a. the fully-integer ``qtorch`` target at D8-W8 through
+      ``serve_adaptive`` with the pump running: 66 requests of 1-8 rows
+      whose budgets walk W8 -> W4 -> W2, every result equal bit for bit to
+      the port's plain path on the CPU;
+   b. the stream target at D16-W8 (``DesignFlow.run(("stream",), ...)``)
+      through ``FlowResult.serve("stream")`` with the pump running, every
+      result within ``max|y|*2^-7 + 1e-6`` of the CPU plain path, the
+      topology identical to the CPU's;
+   c. ``compose_adaptive`` with points hi/mid/lo (mnist-cnn: on
+      separable-cnn the reference's own call fails), static and dynamic
+      switching equal on the card, both within the bf16 tolerance of the
+      CPU plain path;
+   d. the ``qtorch`` target at D16-W8 (float activations) through
+      ``serve_adaptive`` walking W8 -> W4 -> W2, within
+      ``max|y|*2^-7 + 1e-6`` of the CPU plain path;
+5. times — each kernel and mode, its plain version and the nearest PyTorch
+   library call at the main paths' batch-8 shapes: device time per call
+   from the profiler's CUDA activity (and the per-call time of back-to-back
+   calls between CUDA events, host overhead included), beside the least
+   time the card could take (bytes over 3.35 TB/s, or operations over
+   1,979 int8 TOP/s or 67 f32 TFLOP/s, whichever is larger).
 
 It prints one ``{"kernels": [...]}`` JSON line, and as its last line
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the repository's
@@ -42,6 +58,7 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 INT8_OPS_PER_S = 1979e12         # H100 SXM dense int8 tensor-core peak
+F32_FLOPS_PER_S = 67e12          # H100 SXM f32 on CUDA cores (no tensor cores)
 SEED = 0
 
 
@@ -76,17 +93,28 @@ def build() -> float:
 
 
 def kernels_vs_plain() -> dict:
+    """Every kernel and mode against its plain version; the exact ones must
+    agree to the bit, the others within their stated tolerance
+    (``failures`` empty)."""
     import torch
     from repro_torch.kernels import checks
+    sweeps = (("qgemm", checks.qgemm_sweep, {}, True),
+              ("qgemm_xscale", checks.qgemm_sweep, {"per_row": True}, True),
+              ("qconv_dw", checks.qconv_dw_sweep, {}, True),
+              ("qgemm_f32", checks.qgemm_float_sweep, {}, False),
+              ("qconv_dw_f32", checks.qconv_dw_float_sweep, {}, True),
+              ("conv2d_stream", checks.conv2d_stream_sweep, {}, False))
     out = {}
-    for name, sweep in (("qgemm", checks.qgemm_sweep),
-                        ("qconv_dw", checks.qconv_dw_sweep)):
+    for name, sweep, kw, exact in sweeps:
         t0 = time.perf_counter()
-        res = sweep("cuda")
+        res = sweep("cuda", **kw)
         torch.cuda.synchronize()
-        log(f"{name} vs plain ({time.perf_counter() - t0:.1f} s): "
-            + "\n  ".join(checks.summarize(res)))
-        if res["failures"] or res["max_abs_err"] != 0.0:
+        log(f"{name} vs plain ({time.perf_counter() - t0:.1f} s"
+            f"{', exact' if exact else ''}): "
+            + "\n  ".join(checks.summarize(res))
+            + (f" max_tol_frac={res['max_tol_frac']}"
+               if "max_tol_frac" in res else ""))
+        if res["failures"] or (exact and res["max_abs_err"] != 0.0):
             raise AssertionError(f"{name} disagrees with its plain version")
         out[name] = res
     return out
@@ -110,100 +138,262 @@ def _params(cfg, separable: bool, device: str):
     return {k: v.to(device) for k, v in p.items()}
 
 
-def main_path(name: str, cfg, separable: bool, device: str = "cuda") -> dict:
-    """DesignFlow -> serve_adaptive on ``device`` (the card); every served
-    result equal to the port's plain CPU path.  Returns launch counts and
-    serving stats."""
-    import numpy as np
+def _counters() -> dict:
+    """Each kernel's launch wrapper, whose ``launches`` counts its launches."""
+    from repro_torch.kernels.conv2d_stream.ops import conv2d_stream_cuda
+    from repro_torch.kernels.qconv_dw.ops import qconv_dw, qconv_dw_f32
+    from repro_torch.kernels.qmatmul.ops import qgemm, qgemm_f32
+    return {"qgemm": qgemm, "qgemm_f32": qgemm_f32, "qconv_dw": qconv_dw,
+            "qconv_dw_f32": qconv_dw_f32, "conv2d_stream": conv2d_stream_cuda}
+
+
+def _zero_counts() -> None:
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def _read_counts() -> dict:
+    return {k: fn.launches for k, fn in _counters().items()}
+
+
+def _expect_launched(name: str, launches: dict, kernels, device: str) -> None:
+    """On the card the path must have gone through these kernels (a CPU
+    rehearsal runs their plain versions and launches nothing)."""
+    for k in kernels:
+        if device == "cuda" and launches[k] <= 0:
+            raise AssertionError(f"{name}: {k} never launched on its path")
+
+
+def _workload(cfg, n: int, seed: int):
+    """Calibration batch (a tensor) and ``n`` requests of 1-8 rows (numpy),
+    from a seed."""
     import torch
-    from repro_torch.core.adaptive import RuntimePolicy
-    from repro_torch.core.flow import DEFAULT_POINTS, DesignFlow
-    from repro_torch.core.reader import cnn_to_ir, separable_cnn_to_ir
-    from repro_torch.kernels.qconv_dw.ops import qconv_dw
-    from repro_torch.kernels.qmatmul.ops import qgemm
-    from repro_torch.quant.qtypes import DatatypeConfig
-
-    to_ir = separable_cnn_to_ir if separable else cnn_to_ir
-    params = _params(cfg, separable, device)
-    g = torch.Generator().manual_seed(SEED + 1)
+    g = torch.Generator().manual_seed(seed)
     h, w = cfg.image_hw
-    calib = torch.rand((16, h, w, cfg.in_channels), generator=g).to(device)
-    sizes = [1 + (i * 5) % 8 for i in range(66)]
-    reqs = [torch.rand((n, h, w, cfg.in_channels), generator=g).numpy()
-            for n in sizes]
-    budgets = (1.0, 0.5, 0.1)                     # -> w8, w4, w2
-    phase_of = [min(i * 3 // len(reqs), 2) for i in range(len(reqs))]
+    calib = torch.rand((16, h, w, cfg.in_channels), generator=g)
+    sizes = [1 + (i * 5) % 8 for i in range(n)]
+    reqs = [torch.rand((k, h, w, cfg.in_channels), generator=g).numpy()
+            for k in sizes]
+    return calib, reqs
 
-    qgemm.launches = 0
-    qconv_dw.launches = 0
-    t0 = time.perf_counter()
-    res = DesignFlow(to_ir(cfg, params), device=device).run(
-        ("qtorch",), DatatypeConfig(8, 8), calib_inputs=(calib,))
-    srv = res.serve_adaptive(
-        DEFAULT_POINTS,
-        policy=RuntimePolicy(list(DEFAULT_POINTS), thresholds=[0.66, 0.33]),
-        max_batch=8, max_wait=0.002)
+
+def _check(name: str, got, want, exact: bool) -> float:
+    """``got`` against the CPU plain path's ``want``: equal, or within the
+    reference's float-path contract ``max|want|*2^-7 + 1e-6``.  Returns the
+    max abs difference."""
+    import numpy as np
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: shape {got.shape} != {want.shape}")
+    if not np.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite outputs")
+    d = float(np.abs(got - want).max()) if got.size else 0.0
+    if exact and not np.array_equal(got, want):
+        raise AssertionError(f"{name} differs from the CPU plain path "
+                             f"(max |diff| {d})")
+    tol = float(np.abs(want).max()) * 2.0 ** -7 + 1e-6
+    if not exact and d > tol:
+        raise AssertionError(f"{name}: max |diff| {d} from the CPU plain "
+                             f"path exceeds {tol}")
+    return d
+
+
+def _serve_all(srv, reqs, budgets=None):
+    """Submit every request with the pump running, one budget group at a
+    time in order of first appearance; results in request order."""
+    import numpy as np
+    budgets = budgets or [1.0] * len(reqs)
     srv.start()
     outs = [None] * len(reqs)
-    t_serve = time.perf_counter()
     try:
-        for ph in range(3):
-            idx = [i for i in range(len(reqs)) if phase_of[i] == ph]
-            tickets = [(i, srv.submit(reqs[i], budget=budgets[ph]))
-                       for i in idx]
+        for budget in dict.fromkeys(budgets):
+            tickets = [(i, srv.submit(r, budget=budget))
+                       for i, r in enumerate(reqs) if budgets[i] == budget]
             for i, tk in tickets:
                 outs[i] = np.asarray(tk.result(timeout=300))
     finally:
         srv.stop(drain=True, timeout=300)
+    return outs
+
+
+def qtorch_path(name: str, cfg, separable: bool, act_bits: int = 8,
+                device: str = "cuda") -> dict:
+    """DesignFlow(("qtorch",), D<act_bits>-W8) -> serve_adaptive on
+    ``device`` with budgets walking W8 -> W4 -> W2; every served result held
+    against the port's plain CPU path (bit for bit on the fully-integer
+    D8 path, within the float-path contract at D16)."""
+    import numpy as np
+    from repro_torch.core.adaptive import RuntimePolicy
+    from repro_torch.core.flow import DEFAULT_POINTS, DesignFlow
+    from repro_torch.core.reader import cnn_to_ir, separable_cnn_to_ir
+    from repro_torch.quant.qtypes import DatatypeConfig
+
+    to_ir = separable_cnn_to_ir if separable else cnn_to_ir
+    dt = DatatypeConfig(act_bits, 8)
+    exact = act_bits <= 8
+    params = _params(cfg, separable, device)
+    calib, reqs = _workload(cfg, 66, SEED + 1)
+    budgets = [(1.0, 0.5, 0.1)[min(i * 3 // len(reqs), 2)]
+               for i in range(len(reqs))]              # -> w8, w4, w2
+
+    _zero_counts()
+    t0 = time.perf_counter()
+    res = DesignFlow(to_ir(cfg, params), device=device).run(
+        ("qtorch",), dt, calib_inputs=(calib.to(device),))
+    srv = res.serve_adaptive(
+        DEFAULT_POINTS,
+        policy=RuntimePolicy(list(DEFAULT_POINTS), thresholds=[0.66, 0.33]),
+        max_batch=8, max_wait=0.002)
+    t_serve = time.perf_counter()
+    outs = _serve_all(srv, reqs, budgets)
     serve_s = time.perf_counter() - t_serve
-    launches = {"qgemm": qgemm.launches, "qconv_dw": qconv_dw.launches}
+    launches = _read_counts()
     stats = srv.stats()
     wall = time.perf_counter() - t0
 
     # the port's plain path on the CPU, same params and same act_ranges
     cpu = DesignFlow(to_ir(cfg, {k: v.cpu() for k, v in params.items()}),
-                     device="cpu").run(("qtorch",), DatatypeConfig(8, 8),
+                     device="cpu").run(("qtorch",), dt,
                                        act_ranges=res.act_ranges)
     writer = cpu.writers["qtorch"]
-    for ph, bits in enumerate((8, 4, 2)):
-        idx = [i for i in range(len(reqs)) if phase_of[i] == ph]
+    worst = 0.0
+    for budget, bits in ((1.0, 8), (0.5, 4), (0.1, 2)):
+        idx = [i for i in range(len(reqs)) if budgets[i] == budget]
         want = writer.build(bits=bits)(np.concatenate([reqs[i] for i in idx]))
         want = want.numpy()
         off = 0
         for i in idx:
-            got = outs[i]
-            exp = want[off:off + sizes[i]]
-            off += sizes[i]
-            if got.shape != exp.shape:
-                raise AssertionError(f"{name}: request {i} at W{bits}: shape "
-                                     f"{got.shape} != {exp.shape}")
-            if not np.array_equal(got, exp):
-                raise AssertionError(
-                    f"{name}: request {i} at W{bits} differs from the CPU "
-                    f"plain path (max |diff| {np.abs(got - exp).max()})")
-            if not np.isfinite(got).all():
-                raise AssertionError(f"{name}: non-finite logits")
+            n = reqs[i].shape[0]
+            worst = max(worst, _check(f"{name} D{act_bits} request {i} at "
+                                      f"W{bits}", outs[i], want[off:off + n],
+                                      exact))
+            off += n
     views = stats.get("bits_views", {})
     if sorted(views) != [2, 4, 8]:
         raise AssertionError(f"{name}: bits_views {views} lacks W8/W4/W2")
-    # on the card the path must have gone through the kernels (a CPU
-    # rehearsal runs their plain versions and launches nothing)
-    if device == "cuda" and launches["qgemm"] <= 0:
-        raise AssertionError(f"{name}: qgemm never launched on the main path")
-    if device == "cuda" and separable and launches["qconv_dw"] <= 0:
-        raise AssertionError(f"{name}: qconv_dw never launched")
+    suffix = "" if exact else "_f32"
+    kernels = [k + suffix for k in (["qgemm", "qconv_dw"] if separable
+                                    else ["qgemm"])]
+    _expect_launched(f"{name} qtorch D{act_bits}", launches, kernels, device)
     info = {
-        "model": name, "requests": len(reqs), "rows": sum(sizes),
+        "path": f"qtorch D{act_bits}-W8", "model": name,
+        "requests": len(reqs), "rows": sum(r.shape[0] for r in reqs),
         "launches": launches, "bits_views": views,
         "batches": stats.get("executed_batches"),
         "requests_per_s": len(reqs) / serve_s,
         "p50_latency_ms": 1e3 * stats.get("p50_latency_s", float("nan")),
         "p95_latency_ms": 1e3 * stats.get("p95_latency_s", float("nan")),
         "flow_and_serve_s": wall,
-        "equal_to_cpu_plain": True,
+        "vs_cpu_plain": "equal" if exact else f"max |diff| {worst}",
         "logits_max_abs": float(max(np.abs(o).max() for o in outs)),
     }
-    log(f"main path {name}: " + json.dumps(info))
+    log(f"main path {name} qtorch D{act_bits}: " + json.dumps(info))
+    return info
+
+
+def stream_path(name: str, cfg, separable: bool,
+                device: str = "cuda") -> dict:
+    """DesignFlow(("stream",), D16-W8) -> FlowResult.serve("stream") on
+    ``device`` with the pump running; every served result within the
+    float-path contract of the CPU plain path, and the same topology."""
+    import numpy as np
+    from repro_torch.core.flow import DesignFlow
+    from repro_torch.core.reader import cnn_to_ir, separable_cnn_to_ir
+    from repro_torch.quant.qtypes import DatatypeConfig
+
+    to_ir = separable_cnn_to_ir if separable else cnn_to_ir
+    dt = DatatypeConfig(16, 8)
+    params = _params(cfg, separable, device)
+    calib, reqs = _workload(cfg, 33, SEED + 2)
+
+    _zero_counts()
+    t0 = time.perf_counter()
+    res = DesignFlow(to_ir(cfg, params), device=device).run(
+        ("stream",), dt, calib_inputs=(calib.to(device),))
+    srv = res.serve("stream", max_batch=8, max_wait=0.002)
+    t_serve = time.perf_counter()
+    outs = _serve_all(srv, reqs)
+    serve_s = time.perf_counter() - t_serve
+    launches = _read_counts()
+    stats = srv.stats()
+    wall = time.perf_counter() - t0
+
+    cpu = DesignFlow(to_ir(cfg, {k: v.cpu() for k, v in params.items()}),
+                     device="cpu").run(("stream",), dt,
+                                       act_ranges=res.act_ranges)
+    want = cpu.executables["stream"](np.concatenate(reqs)).numpy()
+    worst, off = 0.0, 0
+    for i, r in enumerate(reqs):
+        n = r.shape[0]
+        worst = max(worst, _check(f"{name} stream request {i}", outs[i],
+                                  want[off:off + n], exact=False))
+        off += n
+    topo = res.writers["stream"].topology()
+    if topo != cpu.writers["stream"].topology():
+        raise AssertionError(f"{name}: stream topology differs on the card")
+    _expect_launched(f"{name} stream", launches, ["conv2d_stream"], device)
+    info = {
+        "path": "stream D16-W8", "model": name, "requests": len(reqs),
+        "rows": sum(r.shape[0] for r in reqs), "launches": launches,
+        "batches": stats.get("executed_batches"),
+        "requests_per_s": len(reqs) / serve_s,
+        "p50_latency_ms": 1e3 * stats.get("p50_latency_s", float("nan")),
+        "p95_latency_ms": 1e3 * stats.get("p95_latency_s", float("nan")),
+        "flow_and_serve_s": wall, "vs_cpu_plain": f"max |diff| {worst}",
+        "topology_equal": True, "total_fifo_bytes": topo["total_fifo_bytes"],
+        "logits_max_abs": float(max(np.abs(o).max() for o in outs)),
+    }
+    log(f"main path {name} stream: " + json.dumps(info))
+    return info
+
+
+def compose_path(name: str, cfg, separable: bool,
+                 device: str = "cuda") -> dict:
+    """DesignFlow.compose_adaptive(hi/mid/lo) on ``device``: static and
+    dynamic switching equal on the card, both within the bf16 tolerance
+    (``max|y|*2^-7 + 1e-6``) of the CPU plain path."""
+    import torch
+    from repro_torch.core.adaptive import WorkingPoint
+    from repro_torch.core.flow import DesignFlow
+    from repro_torch.core.reader import cnn_to_ir, separable_cnn_to_ir
+
+    to_ir = separable_cnn_to_ir if separable else cnn_to_ir
+    points = [WorkingPoint("hi", 8), WorkingPoint("mid", 4),
+              WorkingPoint("lo", 2)]
+    params = _params(cfg, separable, device)
+    x = _workload(cfg, 0, SEED + 3)[0][:8].numpy()
+
+    _zero_counts()
+    t0 = time.perf_counter()
+    acc = DesignFlow(to_ir(cfg, params), device=device).compose_adaptive(
+        points)
+    dyn = acc.build_dynamic()
+    static, dynamic = {}, {}
+    for i, pt in enumerate(points):
+        static[pt.name] = acc(pt.name, x).to(torch.float32).cpu()
+        dynamic[pt.name] = dyn(i, acc.qparams.tree(), x).cpu()
+    launches = _read_counts()
+    wall = time.perf_counter() - t0
+
+    cpu = DesignFlow(to_ir(cfg, {k: v.cpu() for k, v in params.items()}),
+                     device="cpu").compose_adaptive(points)
+    worst = 0.0
+    for pt in points:
+        if not torch.equal(static[pt.name], dynamic[pt.name]):
+            raise AssertionError(f"{name} compose {pt.name}: dynamic != "
+                                 "static")
+        want = cpu(pt.name, x).to(torch.float32).numpy()
+        worst = max(worst, _check(f"{name} compose {pt.name}",
+                                  static[pt.name].numpy(), want, exact=False))
+    if acc.sharing_report() != cpu.sharing_report():
+        raise AssertionError(f"{name}: sharing_report differs on the card")
+    _expect_launched(f"{name} compose", launches, ["conv2d_stream"], device)
+    info = {"path": "compose_adaptive hi/mid/lo", "model": name,
+            "rows": int(x.shape[0]), "launches": launches,
+            "static_equals_dynamic": True,
+            "vs_cpu_plain": f"max |diff| {worst}",
+            "sharing_report": acc.sharing_report(), "wall_s": wall}
+    log(f"main path {name} compose_adaptive: " + json.dumps(info))
     return info
 
 
@@ -248,8 +438,8 @@ def _measure(fn) -> dict:
     return {"event_ms": _event_ms(fn), "device_ms": _device_ms(fn)}
 
 
-def _bound(nbytes: int, ops: int) -> dict:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
+def _bound(nbytes: int, ops: int, ops_per_s: float = INT8_OPS_PER_S) -> dict:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return {"bytes": nbytes, "ops": ops, "bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_us": 1e6 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
@@ -328,9 +518,86 @@ def times() -> dict:
                    **_bound(B * H * W * C + 9 * C + 8 * C + B * oh * ow * C,
                             2 * 9 * B * oh * ow * C))
         rows["qconv_dw"].append(row)
+    rows.update(times_float(g, dev))
     for name, rs in rows.items():
         for r in rs:
             log(f"time {name} {json.dumps(r)}")
+    return rows
+
+
+def times_float(g, dev) -> dict:
+    """The float modes and the stream conv at the batch-8 calls of their
+    paths: ``qgemm_f32`` and ``qconv_dw_f32`` as the D16 qtorch path runs
+    them (W8 unpacked, bias, ReLU, 16-bit fake-quant), against ``x @ w`` and
+    ``F.conv2d(groups=C)`` in f32; ``conv2d_stream`` in f32 with bias, as the
+    stream target runs it, against ``F.conv2d`` on channels-last tensors.
+    TF32 is off for every library call."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import checks
+    from repro_torch.kernels.conv2d_stream.ops import conv2d_stream_cuda
+    from repro_torch.kernels.conv2d_stream.ref import conv2d_stream_plain
+    from repro_torch.kernels.qconv_dw.ops import (qconv_dw_f32,
+                                                  qconv_dw_float_plain)
+    from repro_torch.kernels.qmatmul.ops import qgemm_f32, qgemm_float_plain
+    rows = {"qgemm_f32": [], "qconv_dw_f32": [], "conv2d_stream": []}
+    aqt = (10, -(2 ** 15), 2 ** 15 - 1)
+    epi = dict(relu=True, act_qt=aqt)
+
+    for M, K, N in checks.QGEMM_PATH_SHAPES:
+        x = torch.randn((M, K), generator=g).to(dev)
+        w = torch.randint(-127, 128, (K, N), generator=g,
+                          dtype=torch.int8).to(dev)
+        s = (torch.rand((N,), generator=g) * 1e-2).to(dev)
+        b = (torch.randn((N,), generator=g) * 0.1).to(dev)
+        wf = w.float() * s
+        kern = _measure(lambda: qgemm_f32(x, w, s, b, bits=8, packed=False,
+                                          **epi))
+        plain = _measure(lambda: qgemm_float_plain(x, w, s, b, bits=8,
+                                                   packed=False, **epi))
+        lib = _measure(lambda: torch.matmul(x, wf))
+        rows["qgemm_f32"].append(dict(
+            shape=[M, K, N], kernel=kern, plain=plain, library=lib,
+            **_bound(4 * M * K + K * N + 8 * N + 4 * M * N, 2 * M * K * N,
+                     F32_FLOPS_PER_S)))
+    for (B, H, W, C), stride in (((8, 14, 14, 8), (1, 1)),
+                                 ((8, 14, 14, 16), (2, 2))):
+        x = torch.randn((B, H, W, C), generator=g).to(dev)
+        w = torch.randint(-127, 128, (9, C), generator=g,
+                          dtype=torch.int8).to(dev)
+        s = (torch.rand((C,), generator=g) * 1e-2).to(dev)
+        b = (torch.randn((C,), generator=g) * 0.1).to(dev)
+        common = dict(kh=3, kw=3, strides=stride, pads="SAME", bits=8,
+                      packed=False, **epi)
+        kern = _measure(lambda: qconv_dw_f32(x, w, s, b, **common))
+        plain = _measure(lambda: qconv_dw_float_plain(x, w, s, b, **common))
+        xf = x.permute(0, 3, 1, 2).contiguous()
+        wf = (w.float() * s).t().reshape(C, 1, 3, 3).contiguous()
+        lib = _measure(lambda: F.conv2d(xf, wf, stride=stride, padding=1,
+                                        groups=C))
+        oh, ow = -(-H // stride[0]), -(-W // stride[1])
+        rows["qconv_dw_f32"].append(dict(
+            shape=[B, H, W, C], strides=list(stride), kernel=kern,
+            plain=plain, library=lib,
+            **_bound(4 * B * H * W * C + 9 * C + 8 * C + 4 * B * oh * ow * C,
+                     2 * 9 * B * oh * ow * C, F32_FLOPS_PER_S)))
+    for B, H, W, cin, cout, k in checks.CONV_STREAM_PATH_SHAPES:
+        x = torch.randn((B, H, W, cin), generator=g).to(dev)
+        w = (torch.randn((k, k, cin, cout), generator=g) * 0.1).to(dev)
+        b = (torch.randn((cout,), generator=g) * 0.1).to(dev)
+        kern = _measure(lambda: conv2d_stream_cuda(x, w, b))
+        plain = _measure(lambda: conv2d_stream_plain(x, w, b))
+        # the same NHWC memory seen as channels-last NCHW: no copy
+        xl = x.permute(0, 3, 1, 2)
+        wl = w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        lib = _measure(lambda: F.conv2d(xl, wl, b, padding=k // 2))
+        rows["conv2d_stream"].append(dict(
+            shape=[B, H, W, cin, cout, k], kernel=kern, plain=plain,
+            library=lib,
+            **_bound(4 * (B * H * W * cin + k * k * cin * cout + cout
+                          + B * H * W * cout),
+                     2 * B * H * W * k * k * cin * cout, F32_FLOPS_PER_S)))
     return rows
 
 
@@ -356,45 +623,64 @@ def main() -> int:
     card = header()
     build_s = build()
     sweeps = kernels_vs_plain()
-    sep = main_path("separable-cnn", SeparableCNNConfig(), separable=True)
-    mnist = main_path("mnist-cnn", CNNConfig(), separable=False)
+    sep_cfg, mnist_cfg = SeparableCNNConfig(), CNNConfig()
+    paths = [qtorch_path("separable-cnn", sep_cfg, True, act_bits=8),
+             qtorch_path("mnist-cnn", mnist_cfg, False, act_bits=8),
+             stream_path("separable-cnn", sep_cfg, separable=True),
+             stream_path("mnist-cnn", mnist_cfg, separable=False),
+             compose_path("mnist-cnn", mnist_cfg, separable=False),
+             qtorch_path("separable-cnn", sep_cfg, True, act_bits=16),
+             qtorch_path("mnist-cnn", mnist_cfg, False, act_bits=16)]
     rows = times()
 
-    # the JSON row of each kernel: its separable-cnn call with a library
-    # counterpart (qgemm pw0, qconv_dw dw0)
-    pick = {"qgemm": rows["qgemm"][1], "qconv_dw": rows["qconv_dw"][0]}
-    meta = {
-        "qgemm": ("src/repro_torch/csrc/qgemm.cu",
-                  "src/repro/kernels/qmatmul/kernel.py:68"),
-        "qconv_dw": ("src/repro_torch/csrc/qconv_dw.cu",
-                     "src/repro/kernels/qconv_dw/kernel.py:51"),
+    # the JSON row of each kernel and mode: the path run whose launches it
+    # reports and the batch-8 call of that run it is timed at
+    table = {
+        "qgemm": ("qgemm.cu", "qmatmul/kernel.py:68",
+                  "qtorch D8-W8 separable-cnn", 1),            # pw0
+        "qgemm_f32": ("qgemm.cu", "qmatmul/kernel.py:68",
+                      "qtorch D16-W8 separable-cnn", 1),       # pw0
+        "qconv_dw": ("qconv_dw.cu", "qconv_dw/kernel.py:51",
+                     "qtorch D8-W8 separable-cnn", 0),         # dw0
+        "qconv_dw_f32": ("qconv_dw.cu", "qconv_dw/kernel.py:51",
+                         "qtorch D16-W8 separable-cnn", 0),    # dw0
+        "conv2d_stream": ("conv2d_stream.cu", "conv2d_stream/kernel.py:25",
+                          "stream D16-W8 mnist-cnn", 1),       # conv1
     }
     kernels = []
-    for name in ("qgemm", "qconv_dw"):
-        r = pick[name]
+    for name, (src, tpu, path, row) in table.items():
+        r = rows[name][row]
+        by_path = {f"{p['path']} {p['model']}": p["launches"][name]
+                   for p in paths}
         kernels.append({
-            "name": name, "route": "cuda", "source": meta[name][0],
-            "replaces": meta[name][1],
-            "launches": sep["launches"][name],
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{src}",
+            "replaces": f"src/repro/kernels/{tpu}",
+            "launches": by_path[path],
+            "launches_by_path": by_path,
             "max_abs_err": sweeps[name]["max_abs_err"],
             "ms": _ms(r["kernel"]), "plain_ms": _ms(r["plain"]),
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None if r["library"] is None else _ms(r["library"]),
+            "shape": r["shape"],
         })
+    kernels[0]["xscale_max_abs_err"] = sweeps["qgemm_xscale"]["max_abs_err"]
     detail = {"card": card, "build_s": build_s,
-              "sweeps": {k: {"cases": v["cases"],
-                             "max_abs_err": v["max_abs_err"]}
+              "sweeps": {k: {key: v[key] for key in
+                             ("cases", "max_abs_err", "max_tol_frac")
+                             if key in v}
                          for k, v in sweeps.items()},
-              "main_path": [sep, mnist], "times": rows,
+              "main_paths": paths, "times": rows,
               "total_s": time.perf_counter() - t_all}
     out_dir = ROOT / "build" / "chip_smoke"
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
-    log(f"serve separable-cnn: {sep['requests_per_s']:.1f} req/s, "
-        f"p50 {sep['p50_latency_ms']:.3f} ms, p95 {sep['p95_latency_ms']:.3f} ms"
-        f"; mnist-cnn: {mnist['requests_per_s']:.1f} req/s, "
-        f"p50 {mnist['p50_latency_ms']:.3f} ms, "
-        f"p95 {mnist['p95_latency_ms']:.3f} ms")
+    for p in paths:
+        if "requests_per_s" in p:
+            log(f"serve {p['model']} {p['path']}: "
+                f"{p['requests_per_s']:.1f} req/s, "
+                f"p50 {p['p50_latency_ms']:.3f} ms, "
+                f"p95 {p['p95_latency_ms']:.3f} ms")
     log(f"total {time.perf_counter() - t_all:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -1,14 +1,22 @@
-"""Runtime-adaptive multi-precision serving: working points over one shared
-weight buffer and the point selectors (counterpart of
-``repro.core.adaptive``).
+"""Multi-Dataflow Composer analogue: runtime-adaptive multi-precision
+accelerators, working points over one shared weight buffer, and the point
+selectors (counterpart of ``repro.core.adaptive``).
 
-The *shared substrate* is one int8 master weight buffer + per-channel scales
-(:class:`~repro_torch.quant.pack.PackedWeights`); W4/W2 working points are
-derived views of the master, so switching precision per batch moves no
-weights.  :func:`shared_point_executables` builds one batch-polymorphic
-executable per point over that buffer, and the :class:`PointSelector` family
-picks the point per batch.  Not ported yet: ``AdaptiveAccelerator`` (the
-LM-tree substrate) and the fleet's ``BrownoutSelector``.
+The *shared substrate* is one int8 master weight buffer + per-channel
+scales; W4/W2 working points are derived views of the master, so switching
+precision moves no weights:
+
+* :class:`AdaptiveAccelerator` — the MDC merge over a parameter tree
+  (:func:`~repro_torch.quant.ptq.quantize_tree_native`): one executable per
+  point (``static``), or one callable indexing the list of point branches
+  with a host int or a 0-d tensor (``build_dynamic``), and
+  ``sharing_report()`` for the merged-vs-separate bytes;
+* :func:`shared_point_executables` — one batch-polymorphic executable per
+  point over the ``qtorch`` writer's
+  :class:`~repro_torch.quant.pack.PackedWeights`, with the
+  :class:`PointSelector` family picking the point per batch.
+
+Not ported yet: the fleet's ``BrownoutSelector``.
 """
 from __future__ import annotations
 
@@ -16,6 +24,12 @@ from collections import deque
 from dataclasses import dataclass, field
 from typing import (Callable, Deque, Dict, List, Optional, Protocol, Sequence,
                     Tuple, runtime_checkable)
+
+import torch
+
+from repro_torch.device import as_tensor
+from repro_torch.quant.ptq import (QuantizedParams, dequantize_tree,
+                                   quant_memory_bytes, quantize_tree_native)
 
 
 @dataclass(frozen=True)
@@ -25,6 +39,92 @@ class WorkingPoint:
     weight_bits: int            # 8 / 4 / 2 (derived views of the master)
     act_dtype: str = "bfloat16"  # activation stream dtype
     act_bits: Optional[int] = None  # activation code bits (DSE-emitted points)
+
+
+def _dtype(name: str) -> torch.dtype:
+    dt = getattr(torch, name, None)
+    if not isinstance(dt, torch.dtype):
+        raise ValueError(f"unknown activation dtype {name!r}")
+    return dt
+
+
+class AdaptiveAccelerator:
+    """The merged multi-dataflow executable."""
+
+    def __init__(self, apply_fn: Callable,
+                 params: Dict[str, torch.Tensor],
+                 points: Sequence[WorkingPoint],
+                 quant_embeddings: bool = False):
+        """apply_fn(params, *inputs) -> outputs; params: the full-precision
+        tree, quantized here once to the shared int8 master codes."""
+        self.points = list(points)
+        self.apply_fn = apply_fn
+        self.qparams: QuantizedParams = quantize_tree_native(
+            params, quant_embeddings=quant_embeddings)
+        self._compiled: Dict[str, Callable] = {}
+
+    def _run_point(self, qtree, inputs, bits: int, dt: torch.dtype):
+        qp = QuantizedParams(qtree["codes"], qtree["scales"],
+                             qtree["passthrough"])
+        params = dequantize_tree(qp, bits, dt)
+        cast = tuple(x.to(dt) if torch.is_floating_point(x) else x
+                     for x in (as_tensor(i) for i in inputs))
+        return self.apply_fn(params, *cast)
+
+    # -- static switching: one executable per point -------------------------
+    def executable(self, point: WorkingPoint) -> Callable:
+        if point.name not in self._compiled:
+            bits, dt = point.weight_bits, _dtype(point.act_dtype)
+
+            def run(qtree, *inputs, _bits=bits, _dt=dt):
+                return self._run_point(qtree, inputs, _bits, _dt)
+
+            self._compiled[point.name] = run
+        return self._compiled[point.name]
+
+    def __call__(self, point_name: str, *inputs):
+        pt = next(p for p in self.points if p.name == point_name)
+        return self.executable(pt)(self.qparams.tree(), *inputs)
+
+    # -- dynamic switching: one callable, the point chosen by an index ------
+    def build_dynamic(self) -> Callable:
+        """``run(config_id, qtree, *inputs)``: the point's branch picked by
+        indexing the list of branches (the reference's ``lax.switch``) with a
+        host int or a 0-d integer tensor; outputs in f32."""
+        branches = []
+        for pt in self.points:
+            bits, dt = pt.weight_bits, _dtype(pt.act_dtype)
+
+            def branch(qtree, inputs, _bits=bits, _dt=dt):
+                out = self._run_point(qtree, inputs, _bits, _dt)
+                if isinstance(out, tuple):
+                    return tuple(o.to(torch.float32) for o in out)
+                return out.to(torch.float32)
+
+            branches.append(branch)
+
+        def run(config_id, qtree, *inputs):
+            idx = int(config_id)
+            if not 0 <= idx < len(branches):
+                raise IndexError(f"config_id {idx} outside the "
+                                 f"{len(branches)} working points")
+            return branches[idx](qtree, inputs)
+
+        return run
+
+    # -- resource sharing report (MDC merge accounting) ----------------------
+    def sharing_report(self) -> Dict[str, float]:
+        merged = quant_memory_bytes(self.qparams, 8, packed=True)
+        separate = sum(quant_memory_bytes(self.qparams, p.weight_bits,
+                                          packed=True)
+                       for p in self.points)
+        return {
+            "n_configs": len(self.points),
+            "merged_weight_bytes": merged,
+            "separate_weight_bytes": separate,
+            "sharing_ratio": separate / max(merged, 1),
+            "extra_bytes_per_config": 0.0,  # derived views: no extra storage
+        }
 
 
 def shared_point_executables(writer, points: Sequence[WorkingPoint], *,

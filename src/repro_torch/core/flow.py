@@ -7,11 +7,16 @@ reference -> per-target writer -> batch-polymorphic executables, and
 ``FlowResult.serve_adaptive`` -> an ``AccelServer`` that switches W8/W4/W2 per
 batch over ONE packed weight buffer.
 
-Targets: ``"torch"`` (float reference, :class:`TorchWriter`) and ``"qtorch"``
-(packed-weight fully-integer engine, :class:`QTorchWriter`).  Everything runs
-on the flow's device: ``DesignFlow(graph, device=None)`` means ``"cuda"`` and
-raises when CUDA is missing; pass ``device="cpu"`` for the plain path.  Not
-ported yet: ``explore``, ``explore_mixed_precision``, ``compose_adaptive``.
+Targets: ``"torch"`` (float reference, :class:`TorchWriter`), ``"stream"``
+(the streaming line-buffer accelerator with its XDF-style topology,
+:class:`StreamWriter`) and ``"qtorch"`` (packed-weight engine,
+:class:`QTorchWriter`: fully integer at activation precisions up to 8 bits,
+float activations above).  ``DesignFlow.compose_adaptive`` is the MDC step:
+working points over one int8 master tree (:class:`AdaptiveAccelerator`).
+Everything runs on the flow's device: ``DesignFlow(graph, device=None)``
+means ``"cuda"`` and raises when CUDA is missing; pass ``device="cpu"`` for
+the plain path.  Not ported yet: the ``"dist"`` target, ``explore`` and
+``explore_mixed_precision``.
 """
 from __future__ import annotations
 
@@ -21,18 +26,21 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
-from repro_torch.core.adaptive import (PointSelector, RuntimePolicy,
-                                       WorkingPoint, shared_point_executables)
+from repro_torch.core.adaptive import (AdaptiveAccelerator, PointSelector,
+                                       RuntimePolicy, WorkingPoint,
+                                       shared_point_executables)
 from repro_torch.core.ir import Graph
 from repro_torch.core.passes import (PassManager, default_pipeline,
                                      strip_precision)
 from repro_torch.core.writers.qtorch_writer import QTorchWriter
+from repro_torch.core.writers.stream_writer import StreamWriter
 from repro_torch.core.writers.torch_writer import BatchedExecutable, TorchWriter
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.quant.ptq import graph_weight_stats
 from repro_torch.quant.qtypes import DatatypeConfig, PrecisionMap
 
-WRITERS = {"torch": TorchWriter, "qtorch": QTorchWriter}
+WRITERS = {"torch": TorchWriter, "stream": StreamWriter,
+           "qtorch": QTorchWriter}
 
 # default adaptive ladder: the paper's W8/W4/W2 nested working points
 DEFAULT_POINTS = (WorkingPoint("w8", 8), WorkingPoint("w4", 4),
@@ -46,8 +54,15 @@ class WriterOptions:
     """Typed writer configuration: a set field is forwarded to each target
     writer that accepts it."""
 
+    fifo_slack: Optional[float] = None      # stream: FIFO depth headroom
     default_bits: Optional[int] = None      # qtorch: build(bits=None) point
+    int8_act: Optional[bool] = None         # qtorch: fully-integer dataflow
     packed_weights: Optional[bool] = None   # qtorch: sub-byte residency
+
+    def __post_init__(self):
+        if self.fifo_slack is not None and self.fifo_slack <= 0:
+            raise ValueError(f"fifo_slack must be positive, "
+                             f"got {self.fifo_slack}")
 
     def set_fields(self) -> Dict[str, Any]:
         return {f.name: getattr(self, f.name) for f in fields(self)
@@ -156,6 +171,7 @@ class DesignFlow:
             dtconfig: Optional[Precision] = None,
             calib_inputs: Optional[tuple] = None,
             passes: Optional[Sequence[Callable]] = None,
+            fifo_slack: float = 1.0,
             batch_cache: int = 8,
             writer_kwargs: Optional[Dict[str, Dict]] = None,
             options: Optional[WriterOptions] = None,
@@ -164,8 +180,11 @@ class DesignFlow:
 
         ``act_ranges`` skips calibration and uses the given per-FIFO ranges
         (e.g. the reference package's, for a bit-for-bit comparison).
-        ``options`` / ``writer_kwargs`` configure the writers; unknown keys
-        raise a ``ValueError`` naming the writer."""
+        ``fifo_slack`` scales every FIFO depth the stream writer derives
+        (sugar for ``{"stream": {"fifo_slack": ...}}``).  ``options`` /
+        ``writer_kwargs`` configure the writers (``writer_kwargs`` wins where
+        both set a key); unknown keys raise a ``ValueError`` naming the
+        writer."""
         for t in targets:
             if t not in WRITERS:
                 raise KeyError(f"unknown target {t!r}; have {tuple(WRITERS)}")
@@ -187,6 +206,8 @@ class DesignFlow:
             for k, v in opt_fields.items():
                 if k in accepted:
                     wkw[t].setdefault(k, v)
+            if t == "stream":
+                wkw[t].setdefault("fifo_slack", fifo_slack)
             unknown = sorted(set(wkw[t]) - accepted)
             if unknown:
                 raise ValueError(
@@ -203,3 +224,19 @@ class DesignFlow:
         if dtconfig is not None and min_wt < 32:
             stats = graph_weight_stats(g, default_dt)
         return FlowResult(g, writers, exes, ranges, stats, batched)
+
+    # -- adaptive / MDC -----------------------------------------------------
+    def compose_adaptive(self, points: Sequence[WorkingPoint],
+                         target: str = "stream") -> AdaptiveAccelerator:
+        """Merge working points over one shared-weight substrate (MDC step):
+        the graph as read (no passes), its parameters quantized once to int8
+        master codes, each point running ``target`` over a dequantized view
+        on the flow's device."""
+        base = WRITERS[target](self.graph, device=self.device)
+
+        def apply_fn(params, *inputs):
+            g = Graph(self.graph.name, self.graph.nodes, self.graph.inputs,
+                      self.graph.outputs, params)
+            return WRITERS[target](g, device=self.device).build()(*inputs)
+
+        return AdaptiveAccelerator(apply_fn, dict(base.weights), points)

@@ -1,2 +1,3 @@
-"""Writers: the float reference ``torch`` target and the packed-weight
-fully-integer ``qtorch`` target (counterpart of ``repro.core.writers``)."""
+"""Writers: the float reference ``torch`` target, the streaming ``stream``
+target and the packed-weight ``qtorch`` target (counterpart of
+``repro.core.writers``)."""

@@ -1,32 +1,36 @@
-"""Writer 4: IR -> packed-weight fully-integer executable, target ``"qtorch"``
+"""Writer 4: IR -> packed-weight quantized executable, target ``"qtorch"``
 (counterpart of ``repro.core.writers.qjax_writer``).
 
 Every >=2-D initializer is quantized ONCE to int8 master codes + per-channel
 scales (:class:`~repro_torch.quant.pack.PackedWeights`, on the writer's
-device) and the hot-path ops run the hand-written integer kernels over those
-codes:
+device) and the hot-path ops run the hand-written kernels over those codes:
 
-* ``Gemm`` / ``MatMul`` / ``FusedGemm`` call ``qmatmul_int8_act``
-  (``csrc/qgemm.cu`` on the GPU);
-* ``Conv`` / ``FusedConv`` lower to im2col on the int8 code tensor +
-  ``qmatmul_int8_act`` with the folded ReLU in the same epilogue;
+* ``Gemm`` / ``MatMul`` / ``FusedGemm`` call ``qmatmul_int8_act`` on int8
+  activation codes, or ``qgemm_float`` on float activations
+  (``csrc/qgemm.cu`` on the GPU, in its int8 or f32 mode);
+* ``Conv`` / ``FusedConv`` lower to im2col + the same matmul, with the
+  folded ReLU in its epilogue;
 * ``DepthwiseConv`` / ``FusedDepthwiseConv`` call the direct
-  ``qconv_dw_int8_act`` (``csrc/qconv_dw.cu``) — no patch tensor;
-* ``MaxPool`` / ``Relu`` / ``Flatten`` work on the int8 codes directly.
+  ``qconv_dw_int8_act`` / ``qconv_dw_float`` (``csrc/qconv_dw.cu``) — no
+  patch tensor;
+* ``MaxPool`` / ``Relu`` / ``Flatten`` work on int8 codes directly.
 
-Inter-layer tensors are :class:`ActCode` — the producer FIFO's int8 codes
-plus a static power-of-two scale from calibration; each hot op MACs the codes
-in int32, folds ``2^-frac`` into its channel scale and re-quantizes to the
-consumer's code in its epilogue, so codes, never floats, cross layers.
-Floats materialize only at graph outputs.  The working point ``bits`` is a
-parameter of ``build`` / ``build_batched``: every point executable reads the
-SAME packed buffer, and at W4/W2 the split-row sub-byte views
-(``PackedTensor.packed_view``) stream unpacked in registers.
+Fully-integer mode (``int8_act``, on by default when the activation
+precision fits int8, ``Dx <= 8``): inter-layer tensors are :class:`ActCode`
+— the producer FIFO's int8 codes plus a static power-of-two scale from
+calibration; each hot op MACs the codes in int32, folds ``2^-frac`` into its
+channel scale and re-quantizes to the consumer's code in its epilogue, so
+codes, never floats, cross layers.  Above 8 bits (the D16 points), or with
+``int8_act=False``, activations stay float and each hot op fuses the
+consumer's fixed-point fake-quant into its epilogue.  The working point
+``bits`` is a parameter of ``build`` / ``build_batched``: every point
+executable reads the SAME packed buffer, and at W4/W2 the split-row sub-byte
+views (``PackedTensor.packed_view``) stream unpacked in registers.
 
 On a CUDA device the ops launch the kernels; on the CPU they run the kernels'
 plain PyTorch versions — the choice follows the tensors' device, there is no
-``use_kernel``/``interpret`` knob.  Not ported yet: the float-activation
-modes (activation precision above 8 bits) and ``dw_mode="im2col"``.
+``use_kernel``/``interpret`` knob.  Not ported yet: ``dw_mode="im2col"`` (the
+reference's dense block-diagonal depthwise baseline).
 """
 from __future__ import annotations
 
@@ -41,9 +45,10 @@ from repro_torch.core.ir import Graph, Node
 from repro_torch.core.writers.registry import OP_REGISTRY, register_op, resolve
 from repro_torch.core.writers.torch_writer import BatchedExecutable, TorchWriter
 from repro_torch.device import DeviceLike
-from repro_torch.kernels.qconv_dw.ops import DW_PACK_ALIGN, qconv_dw_int8_act
+from repro_torch.kernels.qconv_dw.ops import (DW_PACK_ALIGN, qconv_dw_float,
+                                              qconv_dw_int8_act)
 from repro_torch.kernels.qconv_dw.ref import normalize_pads, out_spatial
-from repro_torch.kernels.qmatmul.ops import qmatmul_int8_act
+from repro_torch.kernels.qmatmul.ops import qgemm_float, qmatmul_int8_act
 from repro_torch.quant.fixedpoint import quantize
 from repro_torch.quant.pack import SUB_BYTE_BITS, PackedTensor, PackedWeights
 from repro_torch.quant.ptq import act_code_qtype
@@ -97,13 +102,6 @@ def _float_fallback(op: str, node: Node, env):
     return resolve(op, "torch")(node, _decoded(node, env))
 
 
-def _no_float_mode(node: Node):
-    raise NotImplementedError(
-        f"node {node.name} ({node.op}) gets a float activation: the qtorch "
-        "target ports the fully-integer path only (activation precision <= 8 "
-        "bits); the float-activation qgemm/qconv_dw modes are not ported yet")
-
-
 @dataclass
 class QTorchContext:
     """Per-build context the qtorch op impls read from the env: the active
@@ -131,7 +129,10 @@ class QTorchContext:
         return (qt.frac, qt.qmin, qt.qmax)
 
     def code_qt(self, name: str, node: Optional[Node]) -> Optional[QType]:
-        """The output FIFO's int8 code qtype when this node emits codes."""
+        """The output FIFO's int8 code qtype when this node emits codes
+        (fully-integer mode, activation precision fits int8)."""
+        if not self.writer.int8_act_on:
+            return None
         dt = self.writer.node_dt(node)
         if dt.act_bits > 8:
             return None
@@ -184,12 +185,10 @@ def im2col(x: torch.Tensor, kh: int, kw: int, strides, pads):
 # qtorch op implementations
 # ---------------------------------------------------------------------------
 
-def _int8_act_gemm(ctx: QTorchContext, node: Node, x, w: PackedTensor,
-                   bias, relu: bool):
+def _int8_act_gemm(ctx: QTorchContext, node: Node, x: ActCode,
+                   w: PackedTensor, bias, relu: bool):
     """Producer codes in, consumer codes out (float only when the output has
     no int8 code qtype)."""
-    if not isinstance(x, ActCode):
-        _no_float_mode(node)
     bits = ctx.weight_bits(node)
     oqt, aqt = ctx.out_spec(node)
     codes_arg, packed = ctx.weight_codes(w, bits)
@@ -200,6 +199,25 @@ def _int8_act_gemm(ctx: QTorchContext, node: Node, x, w: PackedTensor,
     return ActCode(y, oqt) if oqt is not None else y
 
 
+def _float_gemm(ctx: QTorchContext, node: Node, x: torch.Tensor,
+                w: PackedTensor, bias, relu: bool) -> torch.Tensor:
+    """Float activations in, the consumer's fixed-point fake-quant fused
+    into the epilogue."""
+    bits = ctx.weight_bits(node)
+    codes_arg, packed = ctx.weight_codes(w, bits)
+    y = qgemm_float(x, codes_arg, w.scale_1d(), bias, bits=bits, relu=relu,
+                    act_qt=ctx.act_qt(node.outputs[0], node), packed=packed)
+    ctx.mark_fused(node.outputs[0])
+    return y
+
+
+def _gemm(ctx: QTorchContext, node: Node, x, w: PackedTensor, bias,
+          relu: bool):
+    if isinstance(x, ActCode):
+        return _int8_act_gemm(ctx, node, x, w, bias, relu)
+    return _float_gemm(ctx, node, x, w, bias, relu)
+
+
 def _qgemm_node(node: Node, env, relu: bool = False):
     """Shared Gemm/MatMul/FusedGemm lowering; None when the weight is not
     packed (activation x activation matmul) so the caller falls back."""
@@ -208,7 +226,7 @@ def _qgemm_node(node: Node, env, relu: bool = False):
     if ctx is None or not isinstance(w, PackedTensor):
         return None
     bias = env[node.inputs[2]] if len(node.inputs) > 2 else None
-    return _int8_act_gemm(ctx, node, env[node.inputs[0]], w, bias, relu)
+    return _gemm(ctx, node, env[node.inputs[0]], w, bias, relu)
 
 
 @register_op("Gemm", target="qtorch")
@@ -230,23 +248,24 @@ def _op_fused_gemm_qtorch(node: Node, env):
 
 
 def _qconv_node(node: Node, env, relu: bool):
-    """Conv/FusedConv: im2col over the producer's codes + the integer matmul
-    with the fused requant epilogue."""
+    """Conv/FusedConv: im2col over the producer's codes (or float
+    activations) + the quantized matmul with the fused epilogue."""
     ctx = env.get(QCTX)
     w = env.get(node.inputs[1])
     if ctx is None or not isinstance(w, PackedTensor):
         return None
     x = env[node.inputs[0]]
-    if not isinstance(x, ActCode):
-        _no_float_mode(node)
     bias = env[node.inputs[2]] if len(node.inputs) > 2 else None
     kh, kw, _, cout = w.codes.shape
     strides = tuple(int(s) for s in node.attrs.get("strides", (1, 1)))
-    patches, oh, ow = im2col(x.codes, kh, kw, strides,
-                             node.attrs.get("pads", "SAME"))
-    flat = ActCode(patches.reshape(-1, patches.shape[-1]), x.qt)
-    y = _int8_act_gemm(ctx, node, flat, w, bias, relu)
-    B = x.codes.shape[0]
+    pads = node.attrs.get("pads", "SAME")
+    src = x.codes if isinstance(x, ActCode) else x
+    patches, oh, ow = im2col(src, kh, kw, strides, pads)
+    flat = patches.reshape(-1, patches.shape[-1])
+    if isinstance(x, ActCode):
+        flat = ActCode(flat, x.qt)
+    y = _gemm(ctx, node, flat, w, bias, relu)
+    B = src.shape[0]
     if isinstance(y, ActCode):
         return ActCode(y.codes.reshape(B, oh, ow, cout), y.qt)
     return y.reshape(B, oh, ow, cout)
@@ -254,26 +273,30 @@ def _qconv_node(node: Node, env, relu: bool):
 
 def _qdwconv_node(node: Node, env, relu: bool):
     """DepthwiseConv/FusedDepthwiseConv: the direct channel-parallel kernel
-    over the producer's codes, sub-byte W4/W2 streamed at the depthwise
-    packing alignment."""
+    over the producer's codes or float activations, sub-byte W4/W2 streamed
+    at the depthwise packing alignment."""
     ctx = env.get(QCTX)
     w = env.get(node.inputs[1])
     if ctx is None or not isinstance(w, PackedTensor):
         return None
     x = env[node.inputs[0]]
-    if not isinstance(x, ActCode):
-        _no_float_mode(node)
     bias = env[node.inputs[2]] if len(node.inputs) > 2 else None
     kh, kw, _, _ = w.codes.shape
     bits = ctx.weight_bits(node)
-    oqt, aqt = ctx.out_spec(node)
     codes_arg, packed = ctx.weight_codes(w, bits, align=DW_PACK_ALIGN)
-    y = qconv_dw_int8_act(
-        x.codes, x.qt.scale, codes_arg, w.scale_1d(), bias, kh=kh, kw=kw,
+    common = dict(
+        kh=kh, kw=kw,
         strides=tuple(int(s) for s in node.attrs.get("strides", (1, 1))),
         pads=normalize_pads(node.attrs.get("pads", "SAME")), bits=bits,
-        relu=relu, act_qt=aqt, out_code=oqt is not None, packed=packed)
+        relu=relu, packed=packed)
     ctx.mark_fused(node.outputs[0])
+    if not isinstance(x, ActCode):
+        return qconv_dw_float(x, codes_arg, w.scale_1d(), bias,
+                              act_qt=ctx.act_qt(node.outputs[0], node),
+                              **common)
+    oqt, aqt = ctx.out_spec(node)
+    y = qconv_dw_int8_act(x.codes, x.qt.scale, codes_arg, w.scale_1d(), bias,
+                          act_qt=aqt, out_code=oqt is not None, **common)
     return ActCode(y, oqt) if oqt is not None else y
 
 
@@ -347,11 +370,13 @@ def _op_flatten_qtorch(node: Node, env):
 # ---------------------------------------------------------------------------
 
 class QTorchWriter(TorchWriter):
-    """Packed-weight fully-integer execution engine (see module docstring).
+    """Packed-weight quantized execution engine (see module docstring).
 
     Writer options (``DesignFlow.run(writer_kwargs={"qtorch": {...}})``):
 
     * ``default_bits`` — working point used when ``build(bits=None)``;
+    * ``int8_act`` — None (auto: fully-integer inter-layer dataflow whenever
+      the default activation precision fits int8), True/False to force;
     * ``packed_weights`` — sub-byte packed W4/W2 buffers (default on; off
       streams the int8 master truncated in registers — bit-identical).
     """
@@ -363,15 +388,12 @@ class QTorchWriter(TorchWriter):
                  act_ranges: Optional[Dict[str, float]] = None, *,
                  device: DeviceLike = None,
                  default_bits: Optional[int] = None,
+                 int8_act: Optional[bool] = None,
                  packed_weights: Optional[bool] = None):
         self._default_bits = default_bits
+        self._int8_act = int8_act
         self._packed_weights = packed_weights
         super().__init__(graph, dtconfig, act_ranges, device=device)
-        if self.dt.act_bits > 8:
-            raise NotImplementedError(
-                f"the qtorch target ports the fully-integer path only "
-                f"(activation precision <= 8 bits, got {self.dt.name}); the "
-                "float-activation qgemm/qconv_dw modes are not ported yet")
 
     def _prepare_weights(self) -> Dict[str, Any]:
         """Quantize once to shared int8 master codes on the writer's device;
@@ -395,6 +417,14 @@ class QTorchWriter(TorchWriter):
         return self.packed.code_bytes()
 
     @property
+    def int8_act_on(self) -> bool:
+        """Fully-integer inter-layer dataflow: on by default when the default
+        working point's activation precision fits int8 codes."""
+        if self._int8_act is not None:
+            return bool(self._int8_act)
+        return self.dt.act_bits <= 8
+
+    @property
     def packed_storage(self) -> bool:
         if self._packed_weights is not None:
             return bool(self._packed_weights)
@@ -403,10 +433,12 @@ class QTorchWriter(TorchWriter):
     def _act_q(self, name: str, x, node: Optional[Node] = None):
         """In fully-integer mode the FIFO boundary *encodes* to int8 codes
         (graph inputs; outputs of ops without an integer impl); values
-        already on a code grid pass through untouched."""
+        already on a code grid pass through untouched.  Float activations
+        are fake-quantized as in the float target."""
         if isinstance(x, ActCode):
             return x
-        if name not in self._fused_act and torch.is_floating_point(x):
+        if (self.int8_act_on and name not in self._fused_act
+                and torch.is_floating_point(x)):
             dt = self.node_dt(node)
             if dt.act_bits <= 8:
                 qt = act_code_qtype(dt.act_bits, self.act_ranges.get(name, 8.0))

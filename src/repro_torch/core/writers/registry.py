@@ -59,7 +59,11 @@ def _full_f32(x: torch.Tensor) -> None:
 def conv_nhwc(x: torch.Tensor, w: torch.Tensor, strides, pads,
               groups: int = 1) -> torch.Tensor:
     """x (B, H, W, C) NHWC, w (kh, kw, Cin/groups, Cout) HWIO -> NHWC, with
-    XLA's SAME/VALID/explicit padding."""
+    XLA's SAME/VALID/explicit padding.  Like the reference's XLA conv it
+    takes one dtype for both operands and promotes nothing."""
+    if x.dtype != w.dtype:
+        raise TypeError(f"conv requires arguments to have the same dtypes, "
+                        f"got {x.dtype}, {w.dtype}")
     _full_f32(x)
     kh, kw = int(w.shape[0]), int(w.shape[1])
     _, _, (pt, pb), (pl, pr) = out_spatial(
@@ -131,11 +135,17 @@ def _op_relu(node: Node, env):
     return torch.relu(env[node.inputs[0]])
 
 
+def _matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` with the reference's dtype promotion (bf16 with f32 -> f32),
+    which torch's matmul does not do itself."""
+    _full_f32(x)
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt) @ w.to(dt)
+
+
 @register_op("Gemm")
 def _op_gemm(node: Node, env):
-    x, w = env[node.inputs[0]], env[node.inputs[1]]
-    _full_f32(x)
-    y = x @ w
+    y = _matmul(env[node.inputs[0]], env[node.inputs[1]])
     if len(node.inputs) > 2:
         y = y + env[node.inputs[2]]
     return y
@@ -152,9 +162,7 @@ def _op_fused_gemm(node: Node, env):
 
 @register_op("MatMul")
 def _op_matmul(node: Node, env):
-    x = env[node.inputs[0]]
-    _full_f32(x)
-    return x @ env[node.inputs[1]]
+    return _matmul(env[node.inputs[0]], env[node.inputs[1]])
 
 
 @register_op("Add")

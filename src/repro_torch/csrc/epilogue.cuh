@@ -1,4 +1,5 @@
-// Shared device helpers of the port's integer kernels (qgemm.cu, qconv_dw.cu).
+// Shared device helpers of the port's quantized kernels (qgemm.cu,
+// qconv_dw.cu), in their int8-activation and float-activation modes.
 //
 // The epilogue is the bit-exactness contract with the plain PyTorch versions
 // (repro_torch/kernels/qmatmul/ref.py): int32 accumulator -> f32 with
@@ -26,12 +27,15 @@ struct Epilogue {
   float inv;     // 2^-frac
 };
 
-__device__ __forceinline__ void store_epilogue(int acc, float s, float b,
-                                               const Epilogue& e,
-                                               int8_t* __restrict__ out_code,
-                                               float* __restrict__ out_f,
-                                               size_t idx) {
-  float y = __fmul_rn(__int2float_rn(acc), s);
+// `y` is the accumulator already as f32 (an int32 sum converted with
+// __int2float_rn, times the per-row activation scale where there is one, or
+// the float-mode sum); the rest is the shared epilogue.
+__device__ __forceinline__ void store_epilogue_f(float y, float s, float b,
+                                                 const Epilogue& e,
+                                                 int8_t* __restrict__ out_code,
+                                                 float* __restrict__ out_f,
+                                                 size_t idx) {
+  y = __fmul_rn(y, s);
   if (e.has_bias) y = __fadd_rn(y, b);
   if (e.relu) y = fmaxf(y, 0.0f);
   if (!e.has_aqt) {
@@ -45,6 +49,14 @@ __device__ __forceinline__ void store_epilogue(int acc, float s, float b,
   } else {
     out_f[idx] = __fmul_rn(c, e.inv);
   }
+}
+
+__device__ __forceinline__ void store_epilogue(int acc, float s, float b,
+                                               const Epilogue& e,
+                                               int8_t* __restrict__ out_code,
+                                               float* __restrict__ out_f,
+                                               size_t idx) {
+  store_epilogue_f(__int2float_rn(acc), s, b, e, out_code, out_f, idx);
 }
 
 // Nested truncation of an int8 master code to its `bits`-bit view, still in

@@ -24,7 +24,7 @@ from pathlib import Path
 from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("qgemm.cu", "qconv_dw.cu")
+SOURCES = ("qgemm.cu", "qconv_dw.cu", "conv2d_stream.cu")
 HEADERS = ("epilogue.cuh",)
 # -fmad=false on top of the explicit __fmul_rn/__fadd_rn in the epilogue:
 # the kernels' contract is two roundings, never a contracted fma
@@ -34,12 +34,22 @@ BUILD_DIR_ENV = "REPRO_TORCH_BUILD_DIR"
 LIB_NAME = "librepro_torch_kernels.so"
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# (x, w, s, bias, out, M, K, N, bits, packed, kp_rows, relu, has_aqt,
+# (x, w, xs, s, bias, out, M, K, N, bits, packed, kp_rows, relu, has_aqt,
 #  out_code, qmin, qmax, mul, inv, stream)
-_QGEMM_ARGS = [_P] * 5 + [_I] * 11 + [_F, _F, _P]
+_QGEMM_ARGS = [_P] * 6 + [_I] * 11 + [_F, _F, _P]
 # (x, w, s, bias, out, B, H, W, C, OH, OW, kh, kw, sh, sw, ph, pw, bits,
 #  packed, kp_rows, relu, has_aqt, out_code, qmin, qmax, mul, inv, stream)
 _QCONV_DW_ARGS = [_P] * 5 + [_I] * 20 + [_F, _F, _P]
+# (x, w, bias, out, B, H, W, Cin, Cout, kh, kw, x_bf16, w_bf16, stream)
+_CONV2D_STREAM_ARGS = [_P] * 4 + [_I] * 9 + [_P]
+# C entry point -> its argument types; every one returns a CUDA error code
+_ENTRY_POINTS = {
+    "repro_qgemm_i8": _QGEMM_ARGS,
+    "repro_qgemm_f32": _QGEMM_ARGS,
+    "repro_qconv_dw_i8": _QCONV_DW_ARGS,
+    "repro_qconv_dw_f32": _QCONV_DW_ARGS,
+    "repro_conv2d_stream": _CONV2D_STREAM_ARGS,
+}
 
 _lock = threading.Lock()
 _lib = None
@@ -133,10 +143,10 @@ def load_kernels() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            lib.repro_qgemm_i8.argtypes = _QGEMM_ARGS
-            lib.repro_qgemm_i8.restype = _I
-            lib.repro_qconv_dw_i8.argtypes = _QCONV_DW_ARGS
-            lib.repro_qconv_dw_i8.restype = _I
+            for name, args in _ENTRY_POINTS.items():
+                fn = getattr(lib, name)
+                fn.argtypes = args
+                fn.restype = _I
             _lib = lib
     return _lib
 

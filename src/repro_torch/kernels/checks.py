@@ -1,11 +1,15 @@
 """Kernel-against-plain-version sweeps (no counterpart in ``repro``).
 
 Each sweep feeds the same seeded inputs to a kernel's entry point and to its
-plain PyTorch version on the same device and requires exact equality — the
-integer paths leave no room for float drift.  On a CUDA device the entry
-point launches the hand-written kernel; on the CPU it runs the plain version
-itself (which only exercises the sweep).  ``chip_smoke.py`` and
-``tests/test_torch_kernels_cuda.py`` run these on the card.
+plain PyTorch version on the same device.  The integer modes, the per-row
+activation scale and the float depthwise conv must agree exactly (same
+operations in the same order, each rounded on its own).  The float ``qgemm``
+(the plain version dequantizes first) and ``conv2d_stream`` (the plain
+version's tap dots sum in cuBLAS's order) are held to stated tolerances.
+On a CUDA device the entry point launches the hand-written kernel; on the
+CPU it runs the plain version itself (which only exercises the sweep).
+``chip_smoke.py`` and ``tests/test_torch_kernels_cuda.py`` run these on the
+card.
 """
 from __future__ import annotations
 
@@ -15,10 +19,14 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.kernels.qconv_dw.ops import (DW_PACK_ALIGN,
+from repro_torch.kernels.conv2d_stream.ops import conv2d_stream
+from repro_torch.kernels.conv2d_stream.ref import conv2d_stream_plain
+from repro_torch.kernels.qconv_dw.ops import (DW_PACK_ALIGN, qconv_dw_float,
+                                              qconv_dw_float_plain,
                                               qconv_dw_int8_act,
                                               qconv_dw_int8_act_plain)
-from repro_torch.kernels.qmatmul.ops import (qmatmul_int8_act,
+from repro_torch.kernels.qmatmul.ops import (qgemm_float, qgemm_float_plain,
+                                             qmatmul_int8_act,
                                              qmatmul_int8_act_plain)
 from repro_torch.quant.pack import PACK_ALIGN, pack_rows
 
@@ -35,10 +43,54 @@ QCONV_DW_SHAPES = ((8, 14, 14, 8), (8, 14, 14, 16), (1, 11, 10, 130),
 DW_STRIDES = ((1, 1), (2, 2), (1, 2))
 DW_PADS = ("SAME", "VALID")
 
+# (B, H, W, Cin, Cout, k) of conv2d_stream: the stream target's convs at
+# batch 8 (mnist-cnn conv0, conv1; separable-cnn stem, pw0, pw1), the
+# reference's test shapes, then ragged ones (odd sizes, Cout tiled in
+# shared memory)
+CONV_STREAM_PATH_SHAPES = ((8, 28, 28, 1, 16, 3), (8, 14, 14, 16, 32, 3),
+                           (8, 28, 28, 1, 8, 3), (8, 14, 14, 8, 16, 1),
+                           (8, 7, 7, 16, 32, 1))
+CONV_STREAM_SHAPES = CONV_STREAM_PATH_SHAPES + (
+    (2, 28, 28, 1, 16, 3), (1, 14, 14, 16, 32, 3), (3, 8, 8, 4, 8, 5),
+    (2, 7, 7, 32, 16, 3), (1, 28, 28, 3, 8, 1),
+    (3, 9, 13, 5, 37, 3), (1, 5, 6, 33, 7, 3), (2, 11, 3, 3, 130, 1),
+    (1, 17, 40, 24, 70, 5))
+# (x dtype, w dtype): the stream target's f32, compose_adaptive's bf16 input
+# and bf16 weights, and the mixed pairs behind its BatchNormalization
+CONV_STREAM_DTYPES = ((torch.float32, torch.float32),
+                      (torch.bfloat16, torch.bfloat16),
+                      (torch.float32, torch.bfloat16),
+                      (torch.bfloat16, torch.float32))
+
 # weight working points: (bits, packed)
 WEIGHT_VARIANTS = ((8, False), (4, False), (2, False), (4, True), (2, True))
 # epilogues: int8 codes, decoded 16-bit fake-quant, plain float
 EPILOGUES = ("code", "fq", "float")
+
+
+# float-mode epilogues: 8-bit and 16-bit fake-quant, plain float
+FLOAT_EPILOGUES = ("fq8", "fq", "float")
+
+
+def float_qgemm_tol(want: torch.Tensor,
+                    act_qt: Optional[Tuple[int, int, int]] = None) -> float:
+    """The float ``qgemm`` contract: the reference's ``max|y|*2^-7 + 1e-6``,
+    or one quantum ``2^-frac`` of the output's fixed-point type where that is
+    larger (a saturating 8-bit requant): an f32 summation-order difference
+    can flip one requant to the next code."""
+    tol = (float(want.abs().max()) if want.numel() else 0.0) * 2.0 ** -7 \
+        + 1e-6
+    return max(tol, 2.0 ** -act_qt[0]) if act_qt is not None else tol
+
+
+def conv_stream_tol(want: torch.Tensor) -> torch.Tensor:
+    """Elementwise bound for ``conv2d_stream`` against its plain version:
+    ``1e-4 + 1e-4*|y|`` in f32 (the reference's tolerance), and one bf16 ulp
+    (``2^-7*|y|``) plus 1e-4 when the output is bf16, where an f32
+    summation-order difference can flip the final rounding."""
+    w = want.to(torch.float32).abs()
+    rtol = 2.0 ** -7 if want.dtype == torch.bfloat16 else 1e-4
+    return 1e-4 + rtol * w
 
 
 def _gen(seed: int) -> torch.Generator:
@@ -46,7 +98,7 @@ def _gen(seed: int) -> torch.Generator:
 
 
 def _act_qt(kind: str, frac: int) -> Optional[Tuple[int, int, int]]:
-    if kind == "code":
+    if kind in ("code", "fq8"):
         return (frac, -128, 127)
     if kind == "fq":
         return (frac, -(2 ** 15), 2 ** 15 - 1)
@@ -67,9 +119,10 @@ def _weights(g: torch.Generator, k: int, n: int):
     return codes, s.to(torch.float32)
 
 
-def _variants() -> Iterator[Tuple[int, bool, str, bool, bool]]:
+def _variants(epilogues: Sequence[str] = EPILOGUES
+              ) -> Iterator[Tuple[int, bool, str, bool, bool]]:
     for (bits, packed), epi, relu, bias in itertools.product(
-            WEIGHT_VARIANTS, EPILOGUES, (False, True), (False, True)):
+            WEIGHT_VARIANTS, epilogues, (False, True), (False, True)):
         yield bits, packed, epi, relu, bias
 
 
@@ -80,11 +133,13 @@ def _compare(got: torch.Tensor, want: torch.Tensor) -> float:
         if got.numel() else 0.0
 
 
-def qgemm_sweep(device, shapes: Optional[Sequence[Tuple[int, int, int]]] = None
-                ) -> Dict[str, object]:
+def qgemm_sweep(device, shapes: Optional[Sequence[Tuple[int, int, int]]] = None,
+                per_row: bool = False) -> Dict[str, object]:
     """``qmatmul_int8_act`` against its plain version over bits {8,4,2} x
     packed x epilogue x ReLU x bias at ``shapes`` (default: the path's shapes
-    plus the ragged product)."""
+    plus the ragged product).  ``per_row`` gives every row its own
+    activation scale (the reference's dynamic-range mode) instead of the
+    writer path's scalar power of two."""
     shapes = list(shapes or (QGEMM_PATH_SHAPES + QGEMM_RAGGED))
     dev = torch.device(device)
     cases, worst, failures = 0, 0.0, []
@@ -95,7 +150,8 @@ def qgemm_sweep(device, shapes: Optional[Sequence[Tuple[int, int, int]]] = None
         codes, s = _weights(g, K, N)
         b = (torch.randn((N,), generator=g) * 0.1).to(dev)
         codes, s = codes.to(dev), s.to(dev)
-        xs = 2.0 ** -4
+        xs = (torch.rand((M,), generator=g) * 0.05 + 1e-3).to(dev) \
+            if per_row else 2.0 ** -4
         packs = {bits: pack_rows(codes, bits, PACK_ALIGN) for bits in (4, 2)}
         for bits, packed, epi, relu, bias in _variants():
             w = packs[bits] if packed else codes
@@ -159,6 +215,120 @@ def qconv_dw_sweep(device,
                                          epilogue=epi, relu=relu, bias=bias,
                                          err=err))
     return {"cases": cases, "max_abs_err": worst, "failures": failures}
+
+
+def qgemm_float_sweep(device,
+                      shapes: Optional[Sequence[Tuple[int, int, int]]] = None
+                      ) -> Dict[str, object]:
+    """``qgemm_float`` against its plain version (dequantize, then the dot)
+    over bits {8,4,2} x packed x epilogue x ReLU x bias, each case within
+    :func:`float_qgemm_tol`; ``max_tol_frac`` is the worst error over its
+    tolerance."""
+    shapes = list(shapes or (QGEMM_PATH_SHAPES + QGEMM_RAGGED))
+    dev = torch.device(device)
+    cases, worst, worst_frac, failures = 0, 0.0, 0.0, []
+    for si, (M, K, N) in enumerate(shapes):
+        g = _gen(3000 + si)
+        x = (torch.randn((M, K), generator=g) * 0.5).to(dev)
+        codes, s = _weights(g, K, N)
+        b = (torch.randn((N,), generator=g) * 0.1).to(dev)
+        codes, s = codes.to(dev), s.to(dev)
+        packs = {bits: pack_rows(codes, bits, PACK_ALIGN) for bits in (4, 2)}
+        for bits, packed, epi, relu, bias in _variants(FLOAT_EPILOGUES):
+            w = packs[bits] if packed else codes
+            common = dict(bits=bits, relu=relu, packed=packed)
+            y0 = qgemm_float_plain(x, w, s, b, act_qt=None, **common)
+            aqt = _act_qt(epi, _frac_for(y0))
+            args = (x, w, s, b if bias else None)
+            got = qgemm_float(*args, act_qt=aqt, **common)
+            want = qgemm_float_plain(*args, act_qt=aqt, **common)
+            err, tol = _compare(got, want), float_qgemm_tol(want, aqt)
+            cases += 1
+            worst = max(worst, err)
+            worst_frac = max(worst_frac, err / tol)
+            if err > tol:
+                failures.append(dict(M=M, K=K, N=N, bits=bits, packed=packed,
+                                     epilogue=epi, relu=relu, bias=bias,
+                                     err=err, tol=tol))
+    return {"cases": cases, "max_abs_err": worst, "failures": failures,
+            "max_tol_frac": worst_frac}
+
+
+def qconv_dw_float_sweep(device,
+                         shapes: Optional[Sequence[Tuple[int, int, int, int]]]
+                         = None,
+                         strides: Sequence[Tuple[int, int]] = DW_STRIDES,
+                         pads: Sequence[str] = DW_PADS) -> Dict[str, object]:
+    """``qconv_dw_float`` against its plain version over bits {8,4,2} x
+    packed x strides x SAME/VALID x epilogue x ReLU x bias: exact equality
+    (the same f32 operations in the same order)."""
+    shapes = list(shapes or QCONV_DW_SHAPES)
+    dev = torch.device(device)
+    cases, worst, failures = 0, 0.0, []
+    for si, (B, H, W, C) in enumerate(shapes):
+        g = _gen(4000 + si)
+        x = (torch.randn((B, H, W, C), generator=g) * 0.5).to(dev)
+        codes, s = _weights(g, 9, C)
+        b = (torch.randn((C,), generator=g) * 0.1).to(dev)
+        codes, s = codes.to(dev), s.to(dev)
+        packs = {bits: pack_rows(codes, bits, DW_PACK_ALIGN) for bits in (4, 2)}
+        for st, pd in itertools.product(strides, pads):
+            for bits, packed, epi, relu, bias in _variants(FLOAT_EPILOGUES):
+                w = packs[bits] if packed else codes
+                common = dict(kh=3, kw=3, strides=st, pads=pd, bits=bits,
+                              relu=relu, packed=packed)
+                y0 = qconv_dw_float_plain(x, w, s, b, act_qt=None, **common)
+                aqt = _act_qt(epi, _frac_for(y0))
+                args = (x, w, s, b if bias else None)
+                got = qconv_dw_float(*args, act_qt=aqt, **common)
+                want = qconv_dw_float_plain(*args, act_qt=aqt, **common)
+                err = _compare(got, want)
+                cases += 1
+                worst = max(worst, err)
+                if err != 0.0 or not torch.equal(got, want):
+                    failures.append(dict(B=B, H=H, W=W, C=C, strides=st,
+                                         pads=pd, bits=bits, packed=packed,
+                                         epilogue=epi, relu=relu, bias=bias,
+                                         err=err))
+    return {"cases": cases, "max_abs_err": worst, "failures": failures}
+
+
+def conv2d_stream_sweep(device,
+                        shapes: Optional[Sequence[Tuple[int, ...]]] = None,
+                        dtypes: Sequence[Tuple[torch.dtype, torch.dtype]]
+                        = CONV_STREAM_DTYPES) -> Dict[str, object]:
+    """``conv2d_stream`` against its plain version over ``shapes`` x
+    (x, w) dtypes x bias on/off, each element within
+    :func:`conv_stream_tol`; ``max_tol_frac`` is the worst error over its
+    bound."""
+    shapes = list(shapes or CONV_STREAM_SHAPES)
+    dev = torch.device(device)
+    cases, worst, worst_frac, failures = 0, 0.0, 0.0, []
+    for si, (B, H, W, cin, cout, k) in enumerate(shapes):
+        g = _gen(5000 + si)
+        x = torch.randn((B, H, W, cin), generator=g)
+        w = torch.randn((k, k, cin, cout), generator=g) / math.sqrt(k * k * cin)
+        b = torch.randn((cout,), generator=g) * 0.1
+        for (xdt, wdt), bias in itertools.product(dtypes, (False, True)):
+            xd, wd = x.to(dev, xdt), w.to(dev, wdt)
+            bd = b.to(dev) if bias else None
+            got = conv2d_stream(xd, wd, bd)
+            want = conv2d_stream_plain(xd, wd, bd)
+            if got.dtype != want.dtype or got.shape != want.shape:
+                err, frac = math.inf, math.inf
+            else:
+                d = (got.to(torch.float32) - want.to(torch.float32)).abs()
+                err = float(d.max())
+                frac = float((d / conv_stream_tol(want)).max())
+            cases += 1
+            worst = max(worst, err)
+            worst_frac = max(worst_frac, frac)
+            if frac > 1.0:
+                failures.append(dict(B=B, H=H, W=W, Cin=cin, Cout=cout, k=k,
+                                     x=str(xdt), w=str(wdt), bias=bias,
+                                     err=err))
+    return {"cases": cases, "max_abs_err": worst, "failures": failures,
+            "max_tol_frac": worst_frac}
 
 
 def summarize(result: Dict[str, object], limit: int = 5) -> List[str]:

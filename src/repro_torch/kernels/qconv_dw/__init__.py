@@ -1,2 +1,2 @@
-"""Fully-integer direct depthwise conv: plain version (ref) and the CUDA
-kernel's entry point (ops)."""
+"""Direct depthwise conv, int8- and float-activation modes: plain versions
+(ref) and the CUDA kernel's entry points (ops)."""

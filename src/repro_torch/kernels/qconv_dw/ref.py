@@ -1,10 +1,13 @@
-"""Plain PyTorch version of the fully-integer direct depthwise conv
-(counterpart of ``repro.kernels.qconv_dw.ref``).
+"""Plain PyTorch versions of the direct depthwise conv (counterpart of
+``repro.kernels.qconv_dw.ref``).
 
 The specification the CUDA kernel ``csrc/qconv_dw.cu`` is held to, bit for
-bit: the ``kh*kw`` shifted-window products summed in the code domain (exact
-in f32 for any real window), the per-channel scale applied once after the
-window sum, then the shared epilogue of :mod:`repro_torch.kernels.qmatmul.ref`.
+bit, in both modes: the ``kh*kw`` shifted-window products summed in tap
+order (dy-major, then dx) — in the code domain over int8 activation codes
+(exact in f32 for any real window), or in f32 over float activations, each
+product and sum rounded on its own — the per-channel scale applied once
+after the window sum, then the shared epilogue of
+:mod:`repro_torch.kernels.qmatmul.ref`.
 Also home to the canonical spatial padding math (XLA's SAME/VALID), shared
 with the writers' im2col and the float reference conv.
 """
@@ -19,7 +22,7 @@ from repro_torch.kernels.qmatmul.ref import (ActQt, epilogue_code_ref,
                                              epilogue_ref, exact_in_f32)
 from repro_torch.quant.ptq import derive_view
 
-__all__ = ["pad_amounts", "normalize_pads", "out_spatial",
+__all__ = ["pad_amounts", "normalize_pads", "out_spatial", "qconv_dw_ref",
            "qconv_dw_int8_act_ref", "ActQt"]
 
 
@@ -67,6 +70,42 @@ def _pad_nhwc(x: torch.Tensor, hpad, wpad) -> torch.Tensor:
     return F.pad(x, (0, 0, wpad[0], wpad[1], hpad[0], hpad[1]))
 
 
+def _accumulate(xp: torch.Tensor, wmat: torch.Tensor, oh: int, ow: int,
+                kh: int, kw: int, strides) -> torch.Tensor:
+    """The kernel-ordered window sum: xp (B, Hp, Wp, C) padded input, wmat
+    (kh*kw, C) per-tap weights, both of one dtype -> (B, oh, ow, C)."""
+    sh, sw = strides
+    acc = torch.zeros((xp.shape[0], oh, ow, xp.shape[3]), dtype=xp.dtype,
+                      device=xp.device)
+    for dy in range(kh):
+        for dx in range(kw):
+            seg = xp[:, dy:dy + sh * (oh - 1) + 1:sh,
+                     dx:dx + sw * (ow - 1) + 1:sw, :]
+            acc = acc + seg * wmat[dy * kw + dx].reshape(1, 1, 1, -1)
+    return acc
+
+
+def qconv_dw_ref(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
+                 bias: Optional[torch.Tensor] = None, *, kh: int, kw: int,
+                 strides=(1, 1), pads="SAME", bits: int = 8,
+                 relu: bool = False, act_qt: Optional[ActQt] = None,
+                 out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Float-activation depthwise conv over the ``bits``-bit code view:
+    x (B, H, W, C) float, codes (kh*kw, C) int8 master tap rows, scale (C,)
+    f32.  The x * code products are summed in f32 and the scale applied once
+    after the window sum (the kernel's order, not dequant-first), then the
+    shared epilogue."""
+    B, H, W, C = x.shape
+    oh, ow, hpad, wpad = out_spatial(H, W, kh, kw, strides, pads)
+    xp = _pad_nhwc(x.to(torch.float32), hpad, wpad)
+    wmat = derive_view(codes, bits).to(torch.float32)
+    acc = _accumulate(xp, wmat, oh, ow, kh, kw, strides)
+    y = acc * scale.reshape(1, 1, 1, -1).to(torch.float32)
+    if bias is not None:
+        y = y + bias.reshape(1, 1, 1, -1).to(torch.float32)
+    return epilogue_ref(y, relu, act_qt).to(out_dtype)
+
+
 def qconv_dw_int8_act_ref(x_codes: torch.Tensor, x_scale: float,
                           codes: torch.Tensor, scale: torch.Tensor,
                           bias: Optional[torch.Tensor] = None, *,
@@ -80,19 +119,12 @@ def qconv_dw_int8_act_ref(x_codes: torch.Tensor, x_scale: float,
     folded into the per-channel weight scale, integer window accumulation
     and the shared requant epilogue.  ``out_code=True`` returns int8 codes."""
     B, H, W, C = x_codes.shape
-    sh, sw = strides
     oh, ow, hpad, wpad = out_spatial(H, W, kh, kw, strides, pads)
     wmat = derive_view(codes, bits)
     dt = torch.float32 if exact_in_f32(kh * kw) else torch.float64
     xp = _pad_nhwc(x_codes.to(dt), hpad, wpad)
-    wf = wmat.to(dt)
-    acc = torch.zeros((B, oh, ow, C), dtype=dt, device=x_codes.device)
-    for dy in range(kh):
-        for dx in range(kw):
-            seg = xp[:, dy:dy + sh * (oh - 1) + 1:sh,
-                     dx:dx + sw * (ow - 1) + 1:sw, :]
-            acc = acc + seg * wf[dy * kw + dx].reshape(1, 1, 1, -1)
-    acc = acc.to(torch.float32)
+    acc = _accumulate(xp, wmat.to(dt), oh, ow, kh, kw,
+                      strides).to(torch.float32)
     y = acc * (scale.reshape(1, 1, 1, -1).to(torch.float32) * float(x_scale))
     if bias is not None:
         y = y + bias.reshape(1, 1, 1, -1).to(torch.float32)

@@ -1,2 +1,2 @@
-"""Fully-integer quantized matmul: plain version (ref) and the CUDA
-kernel's entry point (ops)."""
+"""Quantized matmul, int8- and float-activation modes: plain versions (ref)
+and the CUDA kernel's entry points (ops)."""

@@ -1,16 +1,22 @@
-"""Public entry points of the fully-integer quantized matmul (counterpart of
-``repro.kernels.qmatmul.ops``, int8-activation mode).
+"""Public entry points of the quantized matmul (counterpart of
+``repro.kernels.qmatmul.ops``).
 
-``qmatmul_int8_act`` dispatches on the activation tensor's device: a CUDA
-tensor launches the hand-written kernel ``csrc/qgemm.cu`` through
-:func:`qgemm`; a CPU tensor runs the plain version
-(:func:`repro_torch.kernels.qmatmul.ref.qmatmul_int8_act_ref`).  There is no
-fallback between the two and no shape rule: any M >= 1 runs the kernel, which
-masks ragged M/N/K edges itself, so no padded copies are made.
+Two entry points dispatch on the activation tensor's device:
 
-Not ported yet: the float-activation mode (the reference's ``qgemm`` /
-``qmatmul``, bf16 activations) and the per-row activation-scale mode.  In
-this package :func:`qgemm` names the CUDA kernel's launch wrapper.
+* ``qmatmul_int8_act`` — the fully-integer mode (int8 activation codes, a
+  scalar or per-row activation scale): a CUDA tensor launches
+  ``csrc/qgemm.cu`` through :func:`qgemm`, a CPU tensor runs the plain
+  version (:func:`~repro_torch.kernels.qmatmul.ref.qmatmul_int8_act_ref`);
+* ``qgemm_float`` — the float-activation mode (the reference's ``qgemm``):
+  a CUDA tensor launches the same kernel's f32 mode through
+  :func:`qgemm_f32`, a CPU tensor runs
+  :func:`~repro_torch.kernels.qmatmul.ref.qgemm_ref`.
+
+There is no fallback between kernel and plain version and no shape rule: any
+M >= 1 runs the kernel, which masks ragged M/N/K edges itself, so no padded
+copies are made.  Not ported: the reference's ``qmatmul`` (bf16 out, no
+epilogue), which no path of this package calls.  In this package
+:func:`qgemm` names the int8-mode launch wrapper.
 """
 from __future__ import annotations
 
@@ -19,22 +25,21 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels._build import check, load_kernels
-from repro_torch.kernels.qmatmul.ref import (ActQt, fold_scale,
+from repro_torch.kernels.qmatmul.ref import (ActQt, fold_scale, qgemm_ref,
                                              qmatmul_int8_act_ref)
 from repro_torch.quant.pack import unpack_rows
 
-__all__ = ["qgemm", "qmatmul_int8_act", "qmatmul_int8_act_plain",
-           "scalar_scale", "ActQt"]
+__all__ = ["qgemm", "qgemm_f32", "qgemm_float", "qgemm_float_plain",
+           "qmatmul_int8_act", "qmatmul_int8_act_plain", "scalar_scale",
+           "ActQt"]
 
 
-def scalar_scale(x_scale) -> float:
+def scalar_scale(x_scale) -> Optional[float]:
     """The per-tensor activation scale as a Python float (the writer hot
-    path's power of two); per-row scales are not ported."""
+    path's power of two), or None when ``x_scale`` is a per-row tensor."""
     if isinstance(x_scale, torch.Tensor):
         if x_scale.numel() != 1:
-            raise NotImplementedError(
-                "per-row activation scales are not ported; the integer path "
-                "takes one per-tensor (power-of-two) scale")
+            return None
         return float(x_scale.reshape(()).item())
     return float(x_scale)
 
@@ -59,26 +64,11 @@ def _expect(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
         raise ValueError(f"{name} must be contiguous")
 
 
-def qgemm(x_codes: torch.Tensor, w: torch.Tensor, s_eff: torch.Tensor,
-          bias: Optional[torch.Tensor] = None, *, bits: int, packed: bool,
-          relu: bool, act_qt: Optional[ActQt],
-          out_code: bool) -> torch.Tensor:
-    """Launch ``csrc/qgemm.cu`` on the current CUDA stream.
-
-    x_codes (M, K) int8; w (K, N) int8 master codes, or with ``packed`` the
-    split-row (kp_rows, N) uint8 buffer with kp_rows * 8/bits >= K; s_eff (N,)
-    f32 — the channel scale with the activation scale and, when packed, the
-    sub-byte step folded in; bias (N,) f32 or None.  Returns (M, N) int8
-    codes when ``out_code``, else f32.  Counts launches in
-    ``qgemm.launches``."""
-    dev = x_codes.device
-    if dev.type != "cuda":
-        raise ValueError(f"qgemm launches the CUDA kernel; got a {dev} tensor")
+def _check_weight(w: torch.Tensor, K: int, bits: int, packed: bool,
+                  dev: torch.device) -> int:
+    """Validate the (K, N) int8 codes or the packed buffer; returns N."""
     if bits not in (8, 4, 2) or (packed and bits == 8):
         raise ValueError(f"unsupported bits={bits} (packed={packed})")
-    check_epilogue(act_qt, out_code)
-    _expect(x_codes, "x_codes", torch.int8, 2, dev)
-    M, K = x_codes.shape
     _expect(w, "w", torch.uint8 if packed else torch.int8, 2, dev)
     rows, N = w.shape
     if packed and rows * (8 // bits) < K:
@@ -86,28 +76,66 @@ def qgemm(x_codes: torch.Tensor, w: torch.Tensor, s_eff: torch.Tensor,
                          f"cover the reduction dim {K}")
     if not packed and rows != K:
         raise ValueError(f"weight rows {rows} != reduction dim {K}")
-    _expect(s_eff, "s_eff", torch.float32, 1, dev)
-    if s_eff.shape[0] != N:
-        raise ValueError(f"s_eff has {s_eff.shape[0]} channels, expected {N}")
-    if bias is not None:
-        _expect(bias, "bias", torch.float32, 1, dev)
-        if bias.shape[0] != N:
-            raise ValueError(f"bias has {bias.shape[0]} channels, expected {N}")
+    return N
+
+
+def _check_channels(t: Optional[torch.Tensor], name: str, N: int,
+                    dev: torch.device) -> None:
+    if t is None:
+        return
+    _expect(t, name, torch.float32, 1, dev)
+    if t.shape[0] != N:
+        raise ValueError(f"{name} has {t.shape[0]} entries, expected {N}")
+
+
+def _launch(entry: str, x: torch.Tensor, w: torch.Tensor,
+            xs: Optional[torch.Tensor], s_eff: torch.Tensor,
+            bias: Optional[torch.Tensor], out: torch.Tensor, *, bits: int,
+            packed: bool, relu: bool, act_qt: Optional[ActQt],
+            out_code: bool) -> None:
+    M, K = x.shape
+    frac, qmin, qmax = act_qt if act_qt is not None else (0, 0, 0)
+    lib = load_kernels()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = getattr(lib, entry)(
+            x.data_ptr(), w.data_ptr(), None if xs is None else xs.data_ptr(),
+            s_eff.data_ptr(), None if bias is None else bias.data_ptr(),
+            out.data_ptr(), M, K, out.shape[1], bits, int(packed),
+            w.shape[0] if packed else K, int(relu), int(act_qt is not None),
+            int(out_code), qmin, qmax, 2.0 ** frac, 2.0 ** -frac, stream)
+    check(rc, entry)
+
+
+def qgemm(x_codes: torch.Tensor, w: torch.Tensor, s_eff: torch.Tensor,
+          bias: Optional[torch.Tensor] = None, *, bits: int, packed: bool,
+          relu: bool, act_qt: Optional[ActQt], out_code: bool,
+          xs: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch ``csrc/qgemm.cu`` in its int8-activation mode on the current
+    CUDA stream.
+
+    x_codes (M, K) int8; w (K, N) int8 master codes, or with ``packed`` the
+    split-row (kp_rows, N) uint8 buffer with kp_rows * 8/bits >= K; s_eff (N,)
+    f32 — the channel scale with the sub-byte step and, when ``xs`` is None,
+    the scalar activation scale folded in; xs (M,) f32 per-row activation
+    scale or None; bias (N,) f32 or None.  Returns (M, N) int8 codes when
+    ``out_code``, else f32.  Counts launches in ``qgemm.launches``."""
+    dev = x_codes.device
+    if dev.type != "cuda":
+        raise ValueError(f"qgemm launches the CUDA kernel; got a {dev} tensor")
+    check_epilogue(act_qt, out_code)
+    _expect(x_codes, "x_codes", torch.int8, 2, dev)
+    M, K = x_codes.shape
+    N = _check_weight(w, K, bits, packed, dev)
+    _check_channels(s_eff, "s_eff", N, dev)
+    _check_channels(bias, "bias", N, dev)
+    _check_channels(xs, "xs", M, dev)
     out = torch.empty((M, N), dtype=torch.int8 if out_code else torch.float32,
                       device=dev)
     if M == 0 or N == 0:
         return out
-    frac, qmin, qmax = act_qt if act_qt is not None else (0, 0, 0)
-    lib = load_kernels()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.repro_qgemm_i8(
-            x_codes.data_ptr(), w.data_ptr(), s_eff.data_ptr(),
-            None if bias is None else bias.data_ptr(), out.data_ptr(),
-            M, K, N, bits, int(packed), rows if packed else K, int(relu),
-            int(act_qt is not None), int(out_code), qmin, qmax,
-            2.0 ** frac, 2.0 ** -frac, stream)
-    check(rc, "qgemm")
+    _launch("repro_qgemm_i8", x_codes, w, xs, s_eff, bias, out, bits=bits,
+            packed=packed, relu=relu, act_qt=act_qt, out_code=out_code)
     qgemm.launches += 1
     return out
 
@@ -115,7 +143,40 @@ def qgemm(x_codes: torch.Tensor, w: torch.Tensor, s_eff: torch.Tensor,
 qgemm.launches = 0
 
 
-def qmatmul_int8_act_plain(x_codes: torch.Tensor, x_scale: float,
+def qgemm_f32(x: torch.Tensor, w: torch.Tensor, s_eff: torch.Tensor,
+              bias: Optional[torch.Tensor] = None, *, bits: int, packed: bool,
+              relu: bool, act_qt: Optional[ActQt]) -> torch.Tensor:
+    """Launch ``csrc/qgemm.cu`` in its float-activation mode on the current
+    CUDA stream: x (M, K) f32, the weight operands as for :func:`qgemm`,
+    s_eff (N,) the channel scale with the sub-byte step folded in.  Returns
+    (M, N) f32.  Counts launches in ``qgemm_f32.launches``."""
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"qgemm_f32 launches the CUDA kernel; got a {dev} "
+                         "tensor")
+    _expect(x, "x", torch.float32, 2, dev)
+    M, K = x.shape
+    N = _check_weight(w, K, bits, packed, dev)
+    _check_channels(s_eff, "s_eff", N, dev)
+    _check_channels(bias, "bias", N, dev)
+    out = torch.empty((M, N), dtype=torch.float32, device=dev)
+    if M == 0 or N == 0:
+        return out
+    _launch("repro_qgemm_f32", x, w, None, s_eff, bias, out, bits=bits,
+            packed=packed, relu=relu, act_qt=act_qt, out_code=False)
+    qgemm_f32.launches += 1
+    return out
+
+
+qgemm_f32.launches = 0
+
+
+def _bias_f32(bias: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    return None if bias is None else \
+        bias.reshape(-1).to(torch.float32).contiguous()
+
+
+def qmatmul_int8_act_plain(x_codes: torch.Tensor, x_scale,
                            codes: torch.Tensor, scale: torch.Tensor,
                            bias: Optional[torch.Tensor] = None, *, bits: int,
                            relu: bool, act_qt: Optional[ActQt], out_code: bool,
@@ -140,33 +201,84 @@ def qmatmul_int8_act(x_codes: torch.Tensor, x_scale, codes: torch.Tensor,
     """Fully-integer Gemm: x_codes (..., K) int8 activation codes, int32 MACs,
     the fused epilogue re-quantizing straight to the consumer's code.
 
-    ``x_scale`` is the producer FIFO's per-tensor activation scale (a power
-    of two), folded into the per-channel weight scale.  ``codes`` is (K, N)
-    int8 or, with ``packed=True``, the split-row (K'/r, N) uint8 buffer.
-    ``out_code=True`` returns int8 codes (``act_qt`` required), else the
-    decoded float in ``out_dtype``."""
+    ``x_scale`` is the producer FIFO's activation scale: a scalar (the writer
+    path's power of two, folded into the per-channel weight scale) or a
+    per-row tensor with one entry per row of ``x_codes`` (the reference's
+    dynamic-range path, applied to the accumulator first).  ``codes`` is
+    (K, N) int8 or, with ``packed=True``, the split-row (K'/r, N) uint8
+    buffer.  ``out_code=True`` returns int8 codes (``act_qt`` required), else
+    the decoded float in ``out_dtype``."""
     lead = x_codes.shape[:-1]
     K = x_codes.shape[-1]
     N = codes.shape[-1]
     x2 = x_codes.reshape(-1, K)
     xs = scalar_scale(x_scale)
+    if xs is None and x_scale.numel() != x2.shape[0]:
+        raise ValueError(f"per-row x_scale has {x_scale.numel()} entries for "
+                         f"{x2.shape[0]} rows")
     check_epilogue(act_qt, out_code)
     if packed and codes.shape[0] * (8 // bits) < K:
         raise ValueError(f"packed weight rows {codes.shape[0]} do not cover "
                          f"the reduction dim {K}")
     if x2.device.type == "cuda":
-        s_eff = fold_scale(scale, xs, bits, packed).contiguous()
-        b = None if bias is None else \
-            bias.reshape(-1).to(torch.float32).contiguous()
-        y = qgemm(x2.contiguous(), codes.contiguous(), s_eff, b, bits=bits,
-                  packed=packed, relu=relu, act_qt=act_qt, out_code=out_code)
+        rows = None
+        if xs is None:
+            rows = x_scale.reshape(-1).to(x2.device, torch.float32).contiguous()
+        s_eff = fold_scale(scale, 1.0 if xs is None else xs, bits,
+                           packed).contiguous()
+        y = qgemm(x2.contiguous(), codes.contiguous(), s_eff, _bias_f32(bias),
+                  bits=bits, packed=packed, relu=relu, act_qt=act_qt,
+                  out_code=out_code, xs=rows)
         if not out_code:
             y = y.to(out_dtype)
     elif x2.device.type == "cpu":
-        y = qmatmul_int8_act_plain(x2, xs, codes, scale, bias, bits=bits,
-                                   relu=relu, act_qt=act_qt,
-                                   out_code=out_code, packed=packed,
-                                   out_dtype=out_dtype)
+        y = qmatmul_int8_act_plain(x2, x_scale if xs is None else xs, codes,
+                                   scale, bias, bits=bits, relu=relu,
+                                   act_qt=act_qt, out_code=out_code,
+                                   packed=packed, out_dtype=out_dtype)
     else:
         raise ValueError(f"no qmatmul_int8_act path for device {x2.device}")
+    return y.reshape(*lead, N)
+
+
+def qgemm_float_plain(x: torch.Tensor, codes: torch.Tensor,
+                      scale: torch.Tensor,
+                      bias: Optional[torch.Tensor] = None, *, bits: int,
+                      relu: bool, act_qt: Optional[ActQt], packed: bool,
+                      out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The float mode's plain version on any device (the reference's
+    ``qgemm_ref``: dequantize, then the dot); a packed weight is unpacked to
+    its view first."""
+    K = x.shape[-1]
+    c = unpack_rows(codes, bits)[:K] if packed else codes
+    return qgemm_ref(x, c, scale, bias, bits=bits, relu=relu, act_qt=act_qt,
+                     out_dtype=out_dtype)
+
+
+def qgemm_float(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
+                bias: Optional[torch.Tensor] = None, *, bits: int = 8,
+                relu: bool = False, act_qt: Optional[ActQt] = None,
+                packed: bool = False) -> torch.Tensor:
+    """Float-activation Gemm with the fused epilogue (the reference's
+    ``qgemm``): x (..., K) float; ``codes`` (K, N) int8 master or, with
+    ``packed=True``, the split-row (K'/r, N) uint8 buffer; scale (N,) f32;
+    bias (N,) or None; ``act_qt`` the consumer's fixed-point activation
+    quant.  Returns (..., N) in x's dtype."""
+    lead = x.shape[:-1]
+    K = x.shape[-1]
+    N = codes.shape[-1]
+    x2 = x.reshape(-1, K)
+    if packed and codes.shape[0] * (8 // bits) < K:
+        raise ValueError(f"packed weight rows {codes.shape[0]} do not cover "
+                         f"the reduction dim {K}")
+    if x2.device.type == "cuda":
+        s_eff = fold_scale(scale, 1.0, bits, packed).contiguous()
+        y = qgemm_f32(x2.to(torch.float32).contiguous(), codes.contiguous(),
+                      s_eff, _bias_f32(bias), bits=bits, packed=packed,
+                      relu=relu, act_qt=act_qt).to(x.dtype)
+    elif x2.device.type == "cpu":
+        y = qgemm_float_plain(x2, codes, scale, bias, bits=bits, relu=relu,
+                              act_qt=act_qt, packed=packed, out_dtype=x.dtype)
+    else:
+        raise ValueError(f"no qgemm_float path for device {x2.device}")
     return y.reshape(*lead, N)

@@ -1,12 +1,16 @@
-"""Plain PyTorch versions of the fully-integer quantized matmul (counterpart
-of ``repro.kernels.qmatmul.ref``).
+"""Plain PyTorch versions of the quantized matmul (counterpart of
+``repro.kernels.qmatmul.ref``).
 
-These are the specification the CUDA kernel ``csrc/qgemm.cu`` is held to, bit
-for bit: integer accumulation, then ``acc * s_eff``, then ``+ bias``, each
-rounded on its own (never fused into one fma), then ReLU and the fixed-point
-requant with round-half-even.  They run on any device: torch has no int32
-matmul on CUDA, so :func:`int_dot` computes in f32 where that is provably
-exact and in f64 otherwise — exact either way.
+The fully-integer oracle :func:`qmatmul_int8_act_ref` is the specification
+the CUDA kernel ``csrc/qgemm.cu`` is held to, bit for bit: integer
+accumulation, then ``acc * s_eff`` (or ``acc * xs[m] * s[n]`` with a per-row
+activation scale), then ``+ bias``, each rounded on its own (never fused into
+one fma), then ReLU and the fixed-point requant with round-half-even.  They
+run on any device: torch has no int32 matmul on CUDA, so :func:`int_dot`
+computes in f32 where that is provably exact and in f64 otherwise — exact
+either way.  The float-activation oracle :func:`qgemm_ref` dequantizes
+first and then takes the f32 dot (the kernel sums x * code and scales
+after, so the two agree to f32 rounding, not bit for bit).
 """
 from __future__ import annotations
 
@@ -59,25 +63,47 @@ def fold_scale(scale: torch.Tensor, x_scale: float, bits: int,
                packed: bool) -> torch.Tensor:
     """The per-channel scale the kernels apply: the weight scale times the
     power-of-two sub-byte step (packed fields hold ``view / step``) times the
-    scalar power-of-two activation scale — every factor a power of two but
-    the first, so the fold is exact."""
+    scalar power-of-two activation scale (1.0 where there is none, or where
+    it is per row) — every factor a power of two but the first, so the fold
+    is exact."""
     step = float(1 << (8 - bits)) if packed else 1.0
     return scale.reshape(-1).to(torch.float32) * (step * float(x_scale))
 
 
-def qmatmul_int8_act_ref(x_codes: torch.Tensor, x_scale: float,
+def qgemm_ref(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
+              bias: Optional[torch.Tensor] = None, *, bits: int = 8,
+              relu: bool = False, act_qt: Optional[ActQt] = None,
+              out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Float-activation oracle: x (M, K) float times the dequantized
+    ``bits``-bit view of the (K, N) int8 master codes, in f32 (TF32 stays
+    off: PyTorch's default for matmuls), then bias and the fused epilogue."""
+    w = derive_view(codes, bits).to(torch.float32) * \
+        scale.reshape(1, -1).to(torch.float32)
+    y = x.to(torch.float32) @ w
+    if bias is not None:
+        y = y + bias.reshape(1, -1).to(torch.float32)
+    return epilogue_ref(y, relu, act_qt).to(out_dtype)
+
+
+def qmatmul_int8_act_ref(x_codes: torch.Tensor, x_scale,
                          codes: torch.Tensor, scale: torch.Tensor,
                          bits: int = 8, bias: Optional[torch.Tensor] = None,
                          relu: bool = False, act_qt: Optional[ActQt] = None,
                          out_code: bool = False,
                          out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Fully-integer oracle: x_codes (M, K) int8, a scalar power-of-two
-    ``x_scale`` folded into the per-channel weight scale before the
-    accumulator multiply, then the fused epilogue.  ``out_code=True`` returns
-    the int8 code of the quantized output (``act_qt`` required)."""
+    """Fully-integer oracle: x_codes (M, K) int8.  A scalar power-of-two
+    ``x_scale`` (a float or a one-element tensor) is folded into the
+    per-channel weight scale before the accumulator multiply; a per-row
+    ``(M,)`` tensor is applied to the accumulator first,
+    ``acc * xs[m] * s[n]``.  Then the fused epilogue; ``out_code=True``
+    returns the int8 code of the quantized output (``act_qt`` required)."""
     w = derive_view(codes, bits)
     acc = int_dot(x_codes, w)
-    y = acc * (scale.reshape(1, -1).to(torch.float32) * float(x_scale))
+    s = scale.reshape(1, -1).to(torch.float32)
+    if isinstance(x_scale, torch.Tensor) and x_scale.numel() > 1:
+        y = acc * x_scale.reshape(-1, 1).to(torch.float32) * s
+    else:
+        y = acc * (s * float(x_scale))
     if bias is not None:
         y = y + bias.reshape(1, -1).to(torch.float32)
     if out_code:

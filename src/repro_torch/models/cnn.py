@@ -1,6 +1,7 @@
-"""The flow's CNN models as parameter dictionaries (counterpart of
-``repro.models.cnn``): the paper's 2-block MNIST CNN and the
-depthwise-separable classifier.
+"""The flow's CNN models (counterpart of ``repro.models.cnn``): the paper's
+2-block MNIST CNN and the depthwise-separable classifier, as parameter
+dictionaries and as plain forward functions — the oracles the stream target
+and the quickstart are held to.
 
 Weights are HWIO (conv) / (K, N) (Gemm) float32 tensors keyed exactly as the
 reference keys them, so the readers build the same IR from either package.
@@ -16,9 +17,11 @@ from typing import Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.mnist_cnn import CNNConfig
 from repro_torch.configs.separable_cnn import SeparableCNNConfig
+from repro_torch.core.writers.registry import conv_nhwc
 from repro_torch.device import DeviceLike
 
 Config = Union[CNNConfig, SeparableCNNConfig]
@@ -116,3 +119,75 @@ def params_from_jax(params: Mapping[str, np.ndarray], device: DeviceLike,
             raise ValueError(f"{name}: dtype {arr.dtype}, expected float32")
         out[name] = torch.from_numpy(np.array(arr)).to(device)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Forward functions (NHWC activations, HWIO weights, XLA's SAME padding)
+# ---------------------------------------------------------------------------
+
+def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """x: (B, H, W, Cin); w: (kh, kw, Cin, Cout) — SAME padding, stride 1."""
+    return conv_nhwc(x, w, (1, 1), "SAME") + b
+
+
+def maxpool(x: torch.Tensor, k: int) -> torch.Tensor:
+    """k x k window, stride k, VALID (NHWC)."""
+    y = F.max_pool2d(x.permute(0, 3, 1, 2), kernel_size=k, stride=k)
+    return y.permute(0, 2, 3, 1)
+
+
+def batchnorm(x: torch.Tensor, scale, bias, mean, var,
+              eps: float = 1e-5) -> torch.Tensor:
+    inv = scale * torch.rsqrt(var + eps)
+    return x * inv + (bias - mean * inv)
+
+
+def forward(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg: CNNConfig,
+            train_stats: bool = False):
+    """x: (B, H, W, C) -> (logits (B, n_classes), aux).
+
+    ``train_stats`` uses the batch statistics (returned in ``aux``), else the
+    stored running statistics."""
+    aux = {}
+    for i in range(len(cfg.conv_channels)):
+        x = conv2d(x, params[f"conv{i}/w"], params[f"conv{i}/b"])
+        x = maxpool(x, cfg.pool)
+        if train_stats:
+            mean = x.mean(dim=(0, 1, 2))
+            var = x.var(dim=(0, 1, 2), unbiased=False)
+            aux[f"bn{i}/mean"], aux[f"bn{i}/var"] = mean, var
+        else:
+            mean, var = params[f"bn{i}/mean"], params[f"bn{i}/var"]
+        x = batchnorm(x, params[f"bn{i}/scale"], params[f"bn{i}/bias"], mean,
+                      var)
+        x = torch.relu(x)
+    x = x.reshape(x.shape[0], -1)
+    return x @ params["fc/w"] + params["fc/b"], aux
+
+
+def depthwise_conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                     stride: int = 1) -> torch.Tensor:
+    """x: (B, H, W, C); w: (kh, kw, 1, C) HWIO — SAME padding, one filter
+    per channel."""
+    return conv_nhwc(x, w, (stride, stride), "SAME",
+                     groups=int(x.shape[-1])) + b
+
+
+def separable_forward(params: Dict[str, torch.Tensor], x: torch.Tensor,
+                      cfg: SeparableCNNConfig) -> torch.Tensor:
+    """x: (B, H, W, C) -> logits (B, n_classes), with the stored statistics —
+    the oracle of the separable IR graph."""
+    x = conv2d(x, params["stem/w"], params["stem/b"])
+    x = torch.relu(x)
+    x = maxpool(x, cfg.pool)
+    for i, (_, stride) in enumerate(cfg.blocks):
+        x = depthwise_conv2d(x, params[f"dw{i}/w"], params[f"dw{i}/b"], stride)
+        x = batchnorm(x, params[f"dw{i}_bn/scale"], params[f"dw{i}_bn/bias"],
+                      params[f"dw{i}_bn/mean"], params[f"dw{i}_bn/var"])
+        x = torch.relu(x)
+        x = conv2d(x, params[f"pw{i}/w"], params[f"pw{i}/b"])
+        x = batchnorm(x, params[f"pw{i}_bn/scale"], params[f"pw{i}_bn/bias"],
+                      params[f"pw{i}_bn/mean"], params[f"pw{i}_bn/var"])
+        x = torch.relu(x)
+    x = x.reshape(x.shape[0], -1)
+    return x @ params["fc/w"] + params["fc/b"]

@@ -1,12 +1,15 @@
-"""Post-training quantization, graph subset (counterpart of ``repro.quant.ptq``).
+"""Post-training quantization (counterpart of ``repro.quant.ptq``).
 
 The int8 master-code rule (:func:`quantize_channelwise`), the nested W4/W2
-views (:func:`derive_view`), the per-FIFO activation-code qtypes and the
-graph weight statistics.  The LM tree path (``QuantizedParams``,
-``quantize_tree_native``, ``dequantize_tree``) is not ported yet.
+views (:func:`derive_view`), the per-FIFO activation-code qtypes, the graph
+weight statistics, and the MDC substrate — a parameter tree quantized once
+to int8 master codes (:class:`QuantizedParams`,
+:func:`quantize_tree_native`) whose working points are dequantized views
+(:func:`dequantize_tree`).
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -104,3 +107,61 @@ def derive_view(code_i8: torch.Tensor, bits: int) -> torch.Tensor:
 def dequant(code_i8: torch.Tensor, scale: torch.Tensor, bits: int = 8,
             dtype: torch.dtype = torch.float32) -> torch.Tensor:
     return (derive_view(code_i8, bits).to(torch.float32) * scale).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# The MDC substrate: one int8 master tree, working points derived on read
+# ---------------------------------------------------------------------------
+
+@dataclass
+class QuantizedParams:
+    """int8 master codes + per-channel scales; low-bit views derived on read."""
+    codes: Dict[str, torch.Tensor]        # int8, same shape as the weight
+    scales: Dict[str, torch.Tensor]       # f32, broadcastable (per out-channel)
+    passthrough: Dict[str, torch.Tensor]  # unquantized params (norms, biases)
+    bits: int = 8                         # active working point (8 / 4 / 2)
+
+    def tree(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        return {"codes": self.codes, "scales": self.scales,
+                "passthrough": self.passthrough}
+
+
+def quantize_tree_native(params: Dict[str, torch.Tensor],
+                         quant_embeddings: bool = False) -> QuantizedParams:
+    """Quantize every quantizable parameter once to int8 master codes with
+    the per-channel rule; the rest (1-D params, norms, and unless
+    ``quant_embeddings`` the ``embed/`` and ``lm_head/`` tables) passes
+    through."""
+    codes, scales, passthrough = {}, {}, {}
+    for path, w in params.items():
+        w = as_tensor(w)
+        quantize = is_quantizable(path, w)
+        if not quant_embeddings and path.startswith(("embed/", "lm_head/")):
+            quantize = False
+        if quantize:
+            codes[path], scales[path] = quantize_channelwise(w)
+        else:
+            passthrough[path] = w
+    return QuantizedParams(codes, scales, passthrough)
+
+
+def dequantize_tree(qp: QuantizedParams, bits: Optional[int] = None,
+                    dtype: torch.dtype = torch.bfloat16
+                    ) -> Dict[str, torch.Tensor]:
+    """The working point's parameter tree: every master code dequantized at
+    its ``bits``-bit view in ``dtype``; passthrough params as they are."""
+    b = qp.bits if bits is None else bits
+    out = dict(qp.passthrough)
+    for path, c in qp.codes.items():
+        out[path] = dequant(c, qp.scales[path], b, dtype)
+    return out
+
+
+def quant_memory_bytes(qp: QuantizedParams, bits: int,
+                       packed: bool = True) -> int:
+    """Weight-storage footprint at a working point (packed sub-byte storage)."""
+    per_val = bits / 8.0 if packed else 1.0
+    n_q = sum(c.numel() for c in qp.codes.values())
+    n_s = sum(s.numel() * 4 for s in qp.scales.values())
+    n_p = sum(p.numel() * p.element_size() for p in qp.passthrough.values())
+    return int(n_q * per_val) + n_s + n_p

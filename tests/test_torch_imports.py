@@ -17,6 +17,7 @@ from repro_torch.configs.mnist_cnn import CNNConfig
 from repro_torch.core.flow import DesignFlow
 from repro_torch.core.reader import cnn_to_ir
 from repro_torch.core.writers.qtorch_writer import QTorchWriter
+from repro_torch.core.writers.stream_writer import StreamWriter
 from repro_torch.core.writers.torch_writer import TorchWriter
 from repro_torch.kernels import _build
 from repro_torch.models import cnn
@@ -66,7 +67,8 @@ def _graph():
     lambda g: DesignFlow(g),
     lambda g: TorchWriter(g),
     lambda g: QTorchWriter(g),
-], ids=["DesignFlow", "TorchWriter", "QTorchWriter"])
+    lambda g: StreamWriter(g),
+], ids=["DesignFlow", "TorchWriter", "QTorchWriter", "StreamWriter"])
 def test_entry_points_default_to_cuda_and_refuse_without_it(make,
                                                              monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -94,5 +96,14 @@ def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
 
 
 def test_qtorch_refuses_the_unported_float_activation_mode():
-    with pytest.raises(NotImplementedError, match="fully-integer"):
-        QTorchWriter(_graph(), DatatypeConfig(16, 8), device="cpu")
+    """The float-activation mode is ported now: a D16 qtorch writer builds
+    and runs its hot ops on float activations (no int8 codes anywhere)
+    instead of refusing."""
+    w = QTorchWriter(_graph(), DatatypeConfig(16, 8), device="cpu")
+    assert not w.int8_act_on
+    x = np.random.default_rng(0).random((1, 28, 28, 1), np.float32)
+    y, env = w.build(capture=True)(x)
+    assert y.shape == (1, 10) and torch.isfinite(y).all()
+    assert all(torch.is_floating_point(v) for k, v in env.items()
+               if isinstance(v, torch.Tensor) and k in w._fused_act)
+    assert w._fused_act, "no hot op ran the fused float epilogue"

@@ -128,8 +128,8 @@ def test_entry_point_checks_operands():
         _port(xc, xs, wc, s, b, 8, False, out_code=True, act_qt=None)
     with pytest.raises(ValueError, match="does not fit int8"):
         _port(xc, xs, wc, s, b, 8, False, out_code=True, act_qt=(4, -129, 127))
-    with pytest.raises(NotImplementedError, match="per-row"):
-        qmatmul_int8_act(torch.from_numpy(xc), torch.ones(4), torch.from_numpy(
+    with pytest.raises(ValueError, match="per-row x_scale has 3"):
+        qmatmul_int8_act(torch.from_numpy(xc), torch.ones(3), torch.from_numpy(
             wc), torch.from_numpy(s), bits=8)
     with pytest.raises(ValueError, match="do not cover"):
         qmatmul_int8_act(torch.from_numpy(xc), xs, torch.zeros(
