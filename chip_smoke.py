@@ -16,6 +16,11 @@ Phases, each of which raises (and exits non-zero) on failure:
    requant quantum); ``conv2d_stream`` over the stream target's shapes, the
    reference's test shapes and ragged ones in f32, bf16 and mixed dtypes
    with and without bias, within 1e-4 (f32 out) or one bf16 ulp (bf16 out);
+   ``ssd_scan`` over the reference's test shapes, ragged lengths, G > 1 and
+   mamba2-1.3b's full-width prefill call, f32 and bf16, contiguous and
+   strided, from a zero and from a given initial state, y within ``1e-5*max|y|`` (plus one bf16 ulp in bf16) and the
+   state within ``1e-4*max(1, max|state|)``, with the plain version's and
+   the kernel's own errors against an f64 run at full width;
 4. main paths, each with the launch counters zeroed just before it and read
    just after, on separable-cnn and mnist-cnn at their published widths:
    a. the fully-integer ``qtorch`` target at D8-W8 through
@@ -33,12 +38,25 @@ Phases, each of which raises (and exits non-zero) on failure:
    d. the ``qtorch`` target at D16-W8 (float activations) through
       ``serve_adaptive`` walking W8 -> W4 -> W2, within
       ``max|y|*2^-7 + 1e-6`` of the CPU plain path;
+   e. the LM prefill of mamba2-1.3b at full width (48 layers, seeded random
+      weights from a CUDA generator): ``make_prefill_step`` on (4, 2048)
+      tokens in bf16, 48 ``ssd_scan`` launches per prefill, finite logits,
+      tokens/s; then in f32 ``forward``
+      through the kernel on a ragged length (2, 100) against
+      ``decode_step`` fed token by token, every logit within the
+      reference's ``5e-3*max|logit|``;
+   f. ``AdaptiveLMServer`` at full width in bf16, batch 4: 12 decode steps
+      with the budget walking 1.0 -> 0 (points w8, w4, w2 in order, weight
+      bytes falling, master codes unchanged, logits finite, tokens/s per
+      point), then ``greedy_generate`` of 8 tokens after a 16-token prompt;
 5. times — each kernel and mode, its plain version and the nearest PyTorch
    library call at the main paths' batch-8 shapes: device time per call
    from the profiler's CUDA activity (and the per-call time of back-to-back
    calls between CUDA events, host overhead included), beside the least
    time the card could take (bytes over 3.35 TB/s, or operations over
-   1,979 int8 TOP/s or 67 f32 TFLOP/s, whichever is larger).
+   1,979 int8 TOP/s or 67 f32 TFLOP/s, whichever is larger); ``ssd_scan``
+   at the (4, 2048) prefill call against its plain version with the bf16
+   intra flag off and on; ``qgemm``'s per-row x-scale mode at pw0.
 
 It prints one ``{"kernels": [...]}`` JSON line, and as its last line
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the repository's
@@ -103,7 +121,8 @@ def kernels_vs_plain() -> dict:
               ("qconv_dw", checks.qconv_dw_sweep, {}, True),
               ("qgemm_f32", checks.qgemm_float_sweep, {}, False),
               ("qconv_dw_f32", checks.qconv_dw_float_sweep, {}, True),
-              ("conv2d_stream", checks.conv2d_stream_sweep, {}, False))
+              ("conv2d_stream", checks.conv2d_stream_sweep, {}, False),
+              ("ssd_scan", checks.ssd_scan_sweep, {}, False))
     out = {}
     for name, sweep, kw, exact in sweeps:
         t0 = time.perf_counter()
@@ -114,6 +133,12 @@ def kernels_vs_plain() -> dict:
             + "\n  ".join(checks.summarize(res))
             + (f" max_tol_frac={res['max_tol_frac']}"
                if "max_tol_frac" in res else ""))
+        if name == "ssd_scan":
+            res["vs_f64"] = checks.ssd_scan_f64_gap("cuda")
+            log(f"ssd_scan at {list(checks.SSD_FULL_WIDTH)} against an f64 "
+                f"run of the plain version: {json.dumps(res['vs_f64'])}; "
+                f"worst fraction of the bound: "
+                f"{json.dumps(res['max_tol_frac_by'])}")
         if res["failures"] or (exact and res["max_abs_err"] != 0.0):
             raise AssertionError(f"{name} disagrees with its plain version")
         out[name] = res
@@ -143,8 +168,10 @@ def _counters() -> dict:
     from repro_torch.kernels.conv2d_stream.ops import conv2d_stream_cuda
     from repro_torch.kernels.qconv_dw.ops import qconv_dw, qconv_dw_f32
     from repro_torch.kernels.qmatmul.ops import qgemm, qgemm_f32
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan_cuda
     return {"qgemm": qgemm, "qgemm_f32": qgemm_f32, "qconv_dw": qconv_dw,
-            "qconv_dw_f32": qconv_dw_f32, "conv2d_stream": conv2d_stream_cuda}
+            "qconv_dw_f32": qconv_dw_f32, "conv2d_stream": conv2d_stream_cuda,
+            "ssd_scan": ssd_scan_cuda}
 
 
 def _zero_counts() -> None:
@@ -397,6 +424,189 @@ def compose_path(name: str, cfg, separable: bool,
     return info
 
 
+# -- LM path: mamba2-1.3b --------------------------------------------------------
+
+LM_ARCH = "mamba2-1.3b"
+LM_POINTS = (("w8", 8), ("w4", 4), ("w2", 2))
+
+
+def _sync(device) -> None:
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def lm_params(cfg, device: str = "cuda") -> dict:
+    """Seeded random weights of ``cfg``, drawn on ``device`` by a generator
+    seeded from SEED (the reference's distributions)."""
+    import torch
+    from repro_torch.models.params import init_params
+    g = torch.Generator(device=device).manual_seed(SEED)
+    return init_params(cfg, g, device=device)
+
+
+def _tokens(cfg, shape, seed: int, device: str):
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randint(0, cfg.vocab, shape, generator=g, device=device)
+
+
+def _expect_ssd_launches(name: str, launches: dict, n_layers: int,
+                         device: str) -> None:
+    """One ``ssd_scan`` launch per layer of a prefill on the card."""
+    if device == "cuda" and launches["ssd_scan"] != n_layers:
+        raise AssertionError(f"{name}: {launches['ssd_scan']} ssd_scan "
+                             f"launches, expected {n_layers}")
+
+
+def lm_prefill_path(cfg, params, batch: int = 4, seq: int = 2048,
+                    device: str = "cuda", reps: int = 3) -> dict:
+    """``make_prefill_step(cfg)`` on (batch, seq) tokens: one prefill with
+    the counters zeroed just before it and read just after (one
+    ``ssd_scan`` launch per layer), finite logits of the padded vocab, then
+    ``reps`` timed prefills for tokens/s."""
+    import statistics
+    import torch
+    from repro_torch.runtime.serve import make_prefill_step
+    toks = _tokens(cfg, (batch, seq), SEED + 5, device)
+    prefill = make_prefill_step(cfg)
+    _zero_counts()
+    t0 = time.perf_counter()
+    logits = prefill(params, {"tokens": toks})
+    _sync(device)
+    first_s = time.perf_counter() - t0
+    launches = _read_counts()
+    name = f"{cfg.name} prefill"
+    if tuple(logits.shape) != (batch, seq, cfg.vocab_padded):
+        raise AssertionError(f"{name}: logits {tuple(logits.shape)}")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{name}: non-finite logits")
+    _expect_ssd_launches(name, launches, cfg.n_layers, device)
+    secs = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        prefill(params, {"tokens": toks})
+        _sync(device)
+        secs.append(time.perf_counter() - t0)
+    med = statistics.median(secs)
+    info = {"path": f"prefill {cfg.dtype} ({batch}, {seq})",
+            "model": cfg.name, "launches": launches, "first_s": first_s,
+            "prefill_s": secs, "tokens_per_s": batch * seq / med,
+            "logits_max_abs": float(logits.float().abs().max())}
+    log(f"main path {cfg.name} prefill: " + json.dumps(info))
+    return info
+
+
+def lm_f32_decode_check(cfg, batch: int = 2, seq: int = 100,
+                        device: str = "cuda") -> dict:
+    """In an f32 copy of ``cfg``: ``forward`` through the kernel on a
+    ragged length against ``decode_step`` fed token by token, every logit
+    within the reference's ``5e-3*max|logit|`` (tests/test_serve.py)."""
+    import dataclasses
+    import torch
+    from repro_torch.runtime import model_api
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = lm_params(cfg32, device)
+    toks = _tokens(cfg32, (batch, seq), SEED + 6, device)
+    _zero_counts()
+    t0 = time.perf_counter()
+    fwd, _ = model_api.forward_logits(params, {"tokens": toks}, cfg32)
+    _sync(device)
+    fwd_s = time.perf_counter() - t0
+    launches = _read_counts()
+    name = f"{cfg.name} f32 forward"
+    _expect_ssd_launches(name, launches, cfg.n_layers, device)
+    st = model_api.init_decode_state(params, {"tokens": toks}, cfg32, batch,
+                                     seq, dtype=torch.float32)
+    err = torch.zeros((), device=device)
+    t0 = time.perf_counter()
+    for t in range(seq):
+        logits, st = model_api.decode_step(params, toks[:, t:t + 1], st, cfg32)
+        err = torch.maximum(err, (logits[:, 0] - fwd[:, t]).abs().max())
+    _sync(device)
+    decode_s = time.perf_counter() - t0
+    scale = float(fwd.abs().max())
+    rel = float(err) / scale
+    del params
+    if not rel <= 5e-3:
+        raise AssertionError(f"{name}: decode/forward mismatch {rel} of "
+                             "max|logit| (bound 5e-3)")
+    info = {"path": f"forward f32 vs decode ({batch}, {seq})",
+            "model": cfg.name, "launches": launches,
+            "max_err_over_max_logit": rel, "forward_s": fwd_s,
+            "decode_s": decode_s}
+    log(f"main path {cfg.name} f32 forward vs decode: " + json.dumps(info))
+    return info
+
+
+def lm_serve_path(cfg, params, batch: int = 4, steps: int = 12,
+                  prompt_len: int = 16, new: int = 8,
+                  device: str = "cuda") -> dict:
+    """``AdaptiveLMServer`` with the budget walking 1.0 -> 0 over ``steps``
+    decode steps at thresholds 0.66/0.33: the points seen are w8, w4, w2 in
+    order, weight bytes fall with the point, the master codes are unchanged
+    and every logit is finite; then ``greedy_generate`` of ``new`` tokens
+    after a ``prompt_len``-token prompt.  The decode path launches no
+    kernel of this slice (the scan kernel runs in the prefill)."""
+    import statistics
+    import torch
+    from repro_torch.core.adaptive import RuntimePolicy, WorkingPoint
+    from repro_torch.runtime import model_api
+    from repro_torch.runtime.serve import AdaptiveLMServer, greedy_generate
+    points = [WorkingPoint(n, b) for n, b in LM_POINTS]
+    name = f"{cfg.name} AdaptiveLMServer"
+    _zero_counts()
+    t0 = time.perf_counter()
+    srv = AdaptiveLMServer(params, cfg, points,
+                           RuntimePolicy(points, thresholds=[0.66, 0.33]))
+    _sync(device)
+    quantize_s = time.perf_counter() - t0
+    codes = {k: v.clone() for k, v in srv.qparams.codes.items()}
+    tok = _tokens(cfg, (batch, 1), SEED + 7, device)
+    state = model_api.init_decode_state(params, {"tokens": tok}, cfg, batch,
+                                        steps + 1)
+    seen, nbytes, step_s = [], {}, {}
+    for i in range(steps):
+        t1 = time.perf_counter()
+        logits, state, m = srv.decode(tok, state, 1.0 - i / steps)
+        _sync(device)
+        step_s.setdefault(m.point, []).append(time.perf_counter() - t1)
+        if not bool(torch.isfinite(logits.float()).all()):
+            raise AssertionError(f"{name}: non-finite logits at step {i}")
+        tok = torch.argmax(logits[:, -1:, : cfg.vocab], dim=-1)
+        seen.append(m.point)
+        nbytes[m.point] = m.weight_bytes_read
+    order = list(dict.fromkeys(seen))
+    if order != [n for n, _ in LM_POINTS]:
+        raise AssertionError(f"{name}: points seen {seen}")
+    if not nbytes["w8"] > nbytes["w4"] > nbytes["w2"]:
+        raise AssertionError(f"{name}: weight bytes {nbytes} do not fall")
+    if sorted(codes) != sorted(srv.qparams.codes) or not all(
+            torch.equal(codes[k], srv.qparams.codes[k]) for k in codes):
+        raise AssertionError(f"{name}: the master codes changed")
+    prompt = _tokens(cfg, (batch, prompt_len), SEED + 8, device)
+    t1 = time.perf_counter()
+    out = greedy_generate(params, cfg, prompt, max_new=new,
+                          seq_len=prompt_len + new)
+    _sync(device)
+    gen_s = time.perf_counter() - t1
+    if tuple(out.shape) != (batch, prompt_len + new) \
+            or not torch.equal(out[:, :prompt_len], prompt) \
+            or int(out.min()) < 0 or int(out.max()) >= cfg.vocab:
+        raise AssertionError(f"{name}: greedy_generate gave {out.shape}")
+    launches = _read_counts()
+    info = {"path": f"AdaptiveLMServer decode bf16 (batch {batch})",
+            "model": cfg.name, "launches": launches, "points": seen,
+            "weight_bytes_read": nbytes, "quantize_s": quantize_s,
+            "decode_step_s": step_s,
+            "decode_tokens_per_s": {p: batch / statistics.median(v)
+                                    for p, v in step_s.items()},
+            "greedy_generate_s": gen_s,
+            "greedy_tokens_per_s": batch * (prompt_len + new) / gen_s}
+    log(f"main path {name}: " + json.dumps(info))
+    return info
+
+
 # -- times ----------------------------------------------------------------------
 
 def _event_ms(fn, iters: int = 200, warmup: int = 20) -> float:
@@ -434,8 +644,9 @@ def _device_ms(fn, iters: int = 50):
     return total_us / 1e3 / iters if total_us > 0 else None
 
 
-def _measure(fn) -> dict:
-    return {"event_ms": _event_ms(fn), "device_ms": _device_ms(fn)}
+def _measure(fn, iters: int = 200) -> dict:
+    return {"event_ms": _event_ms(fn, iters, min(20, iters)),
+            "device_ms": _device_ms(fn, max(iters // 4, 3))}
 
 
 def _bound(nbytes: int, ops: int, ops_per_s: float = INT8_OPS_PER_S) -> dict:
@@ -495,6 +706,17 @@ def times() -> dict:
         row = dict(shape=[M, K, N], kernel=kern, plain=plain, library=lib,
                    **_bound(M * K + K * N + 8 * N + M * N, 2 * M * K * N))
         rows["qgemm"].append(row)
+        if (M, K, N) == checks.QGEMM_PATH_SHAPES[1]:
+            # the per-row x-scale mode at pw0: acc * xs[m] * s[n]
+            xs = (torch.rand((M,), generator=g) * 0.05 + 1e-3).to(dev)
+            rows["qgemm_xscale"] = [dict(
+                shape=[M, K, N], library=lib,
+                kernel=_measure(lambda: qgemm(x, w, s, b, bits=8,
+                                              packed=False, xs=xs, **epi)),
+                plain=_measure(lambda: qmatmul_int8_act_plain(
+                    x, xs, w, s, b, bits=8, packed=False, **epi)),
+                **_bound(M * K + K * N + 8 * N + 4 * M + M * N,
+                         2 * M * K * N))]
     for (B, H, W, C), stride in (((8, 14, 14, 8), (1, 1)),
                                  ((8, 14, 14, 16), (2, 2))):
         x = torch.randint(-128, 128, (B, H, W, C), generator=g,
@@ -519,6 +741,7 @@ def times() -> dict:
                             2 * 9 * B * oh * ow * C))
         rows["qconv_dw"].append(row)
     rows.update(times_float(g, dev))
+    rows.update(times_ssd(dev))
     for name, rs in rows.items():
         for r in rs:
             log(f"time {name} {json.dumps(r)}")
@@ -601,6 +824,45 @@ def times_float(g, dev) -> dict:
     return rows
 
 
+def ssd_scan_bound(B: int, S: int, H: int, P: int, G: int, N: int, Q: int,
+                   itemsize: int) -> dict:
+    """The least time for the scan: bytes are x and y (``itemsize`` each),
+    B and C, dt f32, A and D, the f32 final state, each once; operations are
+    the causal part of C B^T and att @ x (Q(Q+1)/2 pairs per chunk), C times
+    the state and (B w)^T x, as multiply-adds over 67 f32 TFLOP/s."""
+    nc = -(-S // Q)
+    pairs = Q * (Q + 1) // 2
+    ops = 2 * B * H * nc * (pairs * (N + P) + 2 * Q * N * P)
+    nbytes = (2 * B * S * H * P * itemsize + 2 * B * S * G * N * itemsize
+              + 4 * B * S * H + 8 * H + 4 * B * H * P * N)
+    return _bound(nbytes, ops, F32_FLOPS_PER_S)
+
+
+def times_ssd(dev) -> dict:
+    """``ssd_scan`` at the prefill call of mamba2-1.3b (batch 4 x 2048
+    tokens, bf16, x/B/C strided views of the fused conv output as the model
+    passes them) against its plain version (all f32) and the model oracle
+    with the bf16 intra-chunk flag on.  No single PyTorch call computes the
+    scan: no library time."""
+    import torch
+    from repro_torch.kernels import checks
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan_cuda
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked_plain
+    from repro_torch.models.ssm import ssd_chunked
+    shape = checks.SSD_FULL_WIDTH
+    Q = shape[-1]
+    x, dt, A, Bm, C, D = checks.ssd_inputs(shape, 7000, torch.bfloat16, dev,
+                                           fused=True)
+    row = dict(
+        shape=list(shape), dtype="bfloat16", library=None,
+        kernel=_measure(lambda: ssd_scan_cuda(x, dt, A, Bm, C, D, Q), 20),
+        plain=_measure(lambda: ssd_chunked_plain(x, dt, A, Bm, C, D, Q), 8),
+        plain_bf16_intra=_measure(
+            lambda: ssd_chunked(x, dt, A, Bm, C, D, Q), 8),
+        **ssd_scan_bound(*shape, itemsize=2))
+    return {"ssd_scan": [row]}
+
+
 def main() -> int:
     try:
         import torch
@@ -616,6 +878,7 @@ def main() -> int:
               "checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    from repro_torch.configs import get_config
     from repro_torch.configs.mnist_cnn import CNNConfig
     from repro_torch.configs.separable_cnn import SeparableCNNConfig
 
@@ -631,6 +894,13 @@ def main() -> int:
              compose_path("mnist-cnn", mnist_cfg, separable=False),
              qtorch_path("separable-cnn", sep_cfg, True, act_bits=16),
              qtorch_path("mnist-cnn", mnist_cfg, False, act_bits=16)]
+    lm_cfg = get_config(LM_ARCH)
+    lm_p = lm_params(lm_cfg)
+    paths.append(lm_prefill_path(lm_cfg, lm_p))
+    paths.append(lm_f32_decode_check(lm_cfg))
+    paths.append(lm_serve_path(lm_cfg, lm_p))
+    del lm_p
+    torch.cuda.empty_cache()
     rows = times()
 
     # the JSON row of each kernel and mode: the path run whose launches it
@@ -646,6 +916,8 @@ def main() -> int:
                          "qtorch D16-W8 separable-cnn", 0),    # dw0
         "conv2d_stream": ("conv2d_stream.cu", "conv2d_stream/kernel.py:25",
                           "stream D16-W8 mnist-cnn", 1),       # conv1
+        "ssd_scan": ("ssd_scan.cu", "ssd_scan/kernel.py:20",
+                     f"prefill bfloat16 (4, 2048) {LM_ARCH}", 0),
     }
     kernels = []
     for name, (src, tpu, path, row) in table.items():
@@ -664,10 +936,19 @@ def main() -> int:
             "library_ms": None if r["library"] is None else _ms(r["library"]),
             "shape": r["shape"],
         })
-    kernels[0]["xscale_max_abs_err"] = sweeps["qgemm_xscale"]["max_abs_err"]
+    xr = rows["qgemm_xscale"][0]
+    kernels[0].update(xscale_max_abs_err=sweeps["qgemm_xscale"]["max_abs_err"],
+                      xscale_ms=_ms(xr["kernel"]),
+                      xscale_plain_ms=_ms(xr["plain"]),
+                      xscale_bound_ms=xr["bound_ms"],
+                      xscale_bound_by=xr["bound_by"])
+    ssd = rows["ssd_scan"][0]
+    kernels[-1].update(plain_bf16_intra_ms=_ms(ssd["plain_bf16_intra"]),
+                       vs_f64=sweeps["ssd_scan"]["vs_f64"])
     detail = {"card": card, "build_s": build_s,
               "sweeps": {k: {key: v[key] for key in
-                             ("cases", "max_abs_err", "max_tol_frac")
+                             ("cases", "max_abs_err", "max_tol_frac",
+                              "max_tol_frac_by", "vs_f64")
                              if key in v}
                          for k, v in sweeps.items()},
               "main_paths": paths, "times": rows,
@@ -681,6 +962,12 @@ def main() -> int:
                 f"{p['requests_per_s']:.1f} req/s, "
                 f"p50 {p['p50_latency_ms']:.3f} ms, "
                 f"p95 {p['p95_latency_ms']:.3f} ms")
+        if "tokens_per_s" in p:
+            log(f"LM {p['model']} {p['path']}: {p['tokens_per_s']:.1f} "
+                "tokens/s")
+        if "decode_tokens_per_s" in p:
+            log(f"LM {p['model']} decode tokens/s per point: "
+                + json.dumps(p["decode_tokens_per_s"]))
     log(f"total {time.perf_counter() - t_all:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -24,7 +24,7 @@ from pathlib import Path
 from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("qgemm.cu", "qconv_dw.cu", "conv2d_stream.cu")
+SOURCES = ("qgemm.cu", "qconv_dw.cu", "conv2d_stream.cu", "ssd_scan.cu")
 HEADERS = ("epilogue.cuh",)
 # -fmad=false on top of the explicit __fmul_rn/__fadd_rn in the epilogue:
 # the kernels' contract is two roundings, never a contracted fma
@@ -34,6 +34,7 @@ BUILD_DIR_ENV = "REPRO_TORCH_BUILD_DIR"
 LIB_NAME = "librepro_torch_kernels.so"
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 # (x, w, xs, s, bias, out, M, K, N, bits, packed, kp_rows, relu, has_aqt,
 #  out_code, qmin, qmax, mul, inv, stream)
 _QGEMM_ARGS = [_P] * 6 + [_I] * 11 + [_F, _F, _P]
@@ -42,6 +43,9 @@ _QGEMM_ARGS = [_P] * 6 + [_I] * 11 + [_F, _F, _P]
 _QCONV_DW_ARGS = [_P] * 5 + [_I] * 20 + [_F, _F, _P]
 # (x, w, bias, out, B, H, W, Cin, Cout, kh, kw, x_bf16, w_bf16, stream)
 _CONV2D_STREAM_ARGS = [_P] * 4 + [_I] * 9 + [_P]
+# (x, dt, A, B, C, D, s0, y, fin, B, S, H, P, G, N, Q, 12 element strides,
+#  x_bf16, stream)
+_SSD_SCAN_ARGS = [_P] * 9 + [_I] * 7 + [_L] * 12 + [_I, _P]
 # C entry point -> its argument types; every one returns a CUDA error code
 _ENTRY_POINTS = {
     "repro_qgemm_i8": _QGEMM_ARGS,
@@ -49,6 +53,7 @@ _ENTRY_POINTS = {
     "repro_qconv_dw_i8": _QCONV_DW_ARGS,
     "repro_qconv_dw_f32": _QCONV_DW_ARGS,
     "repro_conv2d_stream": _CONV2D_STREAM_ARGS,
+    "repro_ssd_scan": _SSD_SCAN_ARGS,
 }
 
 _lock = threading.Lock()

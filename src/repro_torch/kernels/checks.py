@@ -5,7 +5,8 @@ plain PyTorch version on the same device.  The integer modes, the per-row
 activation scale and the float depthwise conv must agree exactly (same
 operations in the same order, each rounded on its own).  The float ``qgemm``
 (the plain version dequantizes first) and ``conv2d_stream`` (the plain
-version's tap dots sum in cuBLAS's order) are held to stated tolerances.
+version's tap dots sum in cuBLAS's order) and ``ssd_scan`` (f32 sums in
+another order) are held to stated tolerances.
 On a CUDA device the entry point launches the hand-written kernel; on the
 CPU it runs the plain version itself (which only exercises the sweep).
 ``chip_smoke.py`` and ``tests/test_torch_kernels_cuda.py`` run these on the
@@ -28,6 +29,8 @@ from repro_torch.kernels.qconv_dw.ops import (DW_PACK_ALIGN, qconv_dw_float,
 from repro_torch.kernels.qmatmul.ops import (qgemm_float, qgemm_float_plain,
                                              qmatmul_int8_act,
                                              qmatmul_int8_act_plain)
+from repro_torch.kernels.ssd_scan.ops import ssd_chunked_kernel
+from repro_torch.kernels.ssd_scan.ref import ssd_chunked_plain
 from repro_torch.quant.pack import PACK_ALIGN, pack_rows
 
 # (M, K, N) of every qgemm call of the slice's main path at batch 8:
@@ -61,6 +64,16 @@ CONV_STREAM_DTYPES = ((torch.float32, torch.float32),
                       (torch.bfloat16, torch.bfloat16),
                       (torch.float32, torch.bfloat16),
                       (torch.bfloat16, torch.float32))
+
+# (B, S, H, P, G, N, Q) of ssd_scan: the reference's test shapes
+# (tests/test_kernels.py), ragged lengths (S not a multiple of Q), G > 1,
+# then the prefill call of mamba2-1.3b at full width (batch 4 x 2048 tokens)
+SSD_FULL_WIDTH = (4, 2048, 64, 64, 1, 128, 64)
+SSD_SHAPES = ((2, 128, 4, 16, 2, 8, 32), (1, 64, 2, 8, 1, 16, 16),
+              (2, 96, 6, 32, 3, 4, 32), (1, 256, 8, 64, 1, 128, 64),
+              (1, 100, 4, 16, 1, 8, 32), (2, 100, 4, 16, 2, 8, 32),
+              (1, 2000, 4, 64, 1, 128, 64), (3, 37, 6, 32, 3, 4, 16),
+              SSD_FULL_WIDTH)
 
 # weight working points: (bits, packed)
 WEIGHT_VARIANTS = ((8, False), (4, False), (2, False), (4, True), (2, True))
@@ -329,6 +342,116 @@ def conv2d_stream_sweep(device,
                                      err=err))
     return {"cases": cases, "max_abs_err": worst, "failures": failures,
             "max_tol_frac": worst_frac}
+
+
+def ssd_scan_tol(y_want: torch.Tensor, s_want: torch.Tensor):
+    """Elementwise bounds for ``ssd_scan`` against its plain version: y
+    within ``1e-5*max|y|`` (the reference's test_kernels.py tolerance), plus
+    one bf16 ulp (``2^-7*|y|``) when y is bf16, where an f32 summation-order
+    difference can flip the final rounding; the f32 state within
+    ``1e-4*max(1, max|state|)`` (the reference's atol 1e-4, relative once
+    the state grows past 1 at full width)."""
+    yw = y_want.to(torch.float32).abs()
+    y_tol = 1e-5 * float(yw.max()) if yw.numel() else 1e-5
+    y_tol = torch.full_like(yw, max(y_tol, 1e-30))
+    if y_want.dtype == torch.bfloat16:
+        y_tol = y_tol + 2.0 ** -7 * yw
+    s_tol = 1e-4 * max(1.0, float(s_want.abs().max()) if s_want.numel()
+                       else 1.0)
+    return y_tol, s_tol
+
+
+def ssd_inputs(shape: Tuple[int, ...], seed: int, dtype: torch.dtype,
+               device, fused: bool = False):
+    """The reference test's input distributions for ``shape`` = (B, S, H, P,
+    G, N, Q): x ~ N(0,1), dt = softplus(N(0,1)), A = -exp(0.5 N(0,1)), B and
+    C ~ 0.3 N(0,1), D ~ N(0,1).  With ``fused`` x, B and C are strided views
+    into one (B, S, H*P + 2*G*N) tensor, the layout the model hands over."""
+    Bsz, S, H, P, G, N, _ = shape
+    g = _gen(seed)
+    dev = torch.device(device)
+    xbc = torch.randn((Bsz, S, H * P + 2 * G * N), generator=g)
+    xbc[..., H * P:] *= 0.3
+    dt = torch.nn.functional.softplus(torch.randn((Bsz, S, H), generator=g))
+    A = -torch.exp(torch.randn((H,), generator=g) * 0.5)
+    D = torch.randn((H,), generator=g)
+    xbc = xbc.to(dev, dtype)
+    if not fused:
+        xbc = xbc.clone()
+    x = xbc[..., :H * P].reshape(Bsz, S, H, P)
+    Bm = xbc[..., H * P:H * P + G * N].reshape(Bsz, S, G, N)
+    C = xbc[..., H * P + G * N:].reshape(Bsz, S, G, N)
+    if not fused:
+        x, Bm, C = x.contiguous(), Bm.contiguous(), C.contiguous()
+    return x, dt.to(dev), A.to(dev), Bm, C, D.to(dev)
+
+
+def ssd_scan_sweep(device, shapes: Optional[Sequence[Tuple[int, ...]]] = None,
+                   dtypes: Sequence[torch.dtype] = (torch.float32,
+                                                    torch.bfloat16),
+                   layouts: Sequence[bool] = (False, True),
+                   warm: Sequence[bool] = (False, True)
+                   ) -> Dict[str, object]:
+    """``ssd_chunked_kernel`` against ``ssd_chunked_plain`` over ``shapes``
+    x dtypes x (contiguous, fused strided views) x (zero, seeded initial
+    state), each element within :func:`ssd_scan_tol`; ``max_tol_frac`` is
+    the worst error over its bound and ``max_abs_err`` the worst |y|
+    difference."""
+    shapes = list(shapes or SSD_SHAPES)
+    cases, worst, worst_frac, failures = 0, 0.0, 0.0, []
+    by = {}             # worst fraction per (dtype, y or state)
+    for si, shape in enumerate(shapes):
+        Bsz, _, H, P, _, N, Q = shape
+        for dt_, fused, w in itertools.product(dtypes, layouts, warm):
+            x, dt, A, Bm, C, D = ssd_inputs(shape, 6000 + si, dt_, device,
+                                            fused)
+            s0 = torch.randn((Bsz, H, P, N), generator=_gen(7000 + si)).to(
+                device) if w else None
+            y, s = ssd_chunked_kernel(x, dt, A, Bm, C, D, Q, s0)
+            yw, sw = ssd_chunked_plain(x, dt, A, Bm, C, D, Q, s0)
+            if y.dtype != yw.dtype or y.shape != yw.shape \
+                    or s.shape != sw.shape:
+                err, frac = math.inf, math.inf
+            else:
+                y_tol, s_tol = ssd_scan_tol(yw, sw)
+                dy = (y.to(torch.float32) - yw.to(torch.float32)).abs()
+                ds = (s - sw).abs()
+                err = float(dy.max()) if dy.numel() else 0.0
+                fy = float((dy / y_tol).max()) if dy.numel() else 0.0
+                fs = float(ds.max()) / s_tol if ds.numel() else 0.0
+                frac = max(fy, fs)
+                for key, f in ((f"{dt_}".split(".")[-1] + " y", fy),
+                               (f"{dt_}".split(".")[-1] + " state", fs)):
+                    by[key] = max(by.get(key, 0.0), f)
+            cases += 1
+            worst = max(worst, err)
+            worst_frac = max(worst_frac, frac)
+            if not frac <= 1.0:
+                failures.append(dict(shape=list(shape), dtype=str(dt_),
+                                     fused=fused, warm=w, err=err,
+                                     tol_frac=frac))
+    return {"cases": cases, "max_abs_err": worst, "failures": failures,
+            "max_tol_frac": worst_frac, "max_tol_frac_by": by}
+
+
+def ssd_scan_f64_gap(device, shape: Tuple[int, ...] = SSD_FULL_WIDTH,
+                     seed: int = 6000) -> Dict[str, float]:
+    """The kernel's and the plain version's own errors against an f64 run of
+    the plain version on the same f32 inputs: the y error over max|y| and
+    the state error over max(1, max|state|)."""
+    Q = shape[-1]
+    x, dt, A, Bm, C, D = ssd_inputs(shape, seed, torch.float32, device)
+    y64, s64 = ssd_chunked_plain(x.double(), dt.double(), A.double(),
+                                 Bm.double(), C.double(), D.double(), Q)
+    ym = float(y64.abs().max())
+    sm = max(1.0, float(s64.abs().max()))
+    out = {}
+    for name, fn in (("kernel", ssd_chunked_kernel),
+                     ("plain", ssd_chunked_plain)):
+        y, s = fn(x, dt, A, Bm, C, D, Q)
+        out[f"{name}_y_rel"] = float((y.double() - y64).abs().max()) / ym
+        out[f"{name}_state_rel"] = float((s.double() - s64).abs().max()) / sm
+    return out
 
 
 def summarize(result: Dict[str, object], limit: int = 5) -> List[str]:

@@ -1,5 +1,11 @@
-"""Serving runtime, accelerator half: the batch-coalescing ``AccelServer``
-(counterpart of ``repro.runtime.serve``, lines from ``Ticket`` to the end).
+"""Serving runtime (counterpart of ``repro.runtime.serve``): the LM half —
+prefill/decode steps, ``greedy_generate`` and the adaptive mixed-precision
+``AdaptiveLMServer`` — and the batch-coalescing ``AccelServer``.
+
+The adaptive LM server is the paper's CPS story for an LM: one int8 master
+weight tree, a working point chosen per decode step by an energy policy, and
+switching precision moves no weights (each step dequantizes the master codes
+at the chosen point's view, as the reference's jitted step does).
 
 Asynchronously arriving requests of varying sizes are coalesced into padded
 bucket-sized batches executed through one batch-polymorphic artifact
@@ -10,7 +16,7 @@ columns on the host; the executables move them to the device and return
 device tensors, and the demux copies each batch's outputs back to the host
 once (``_finish``, the one synchronisation point) before the NaN/Inf guard.
 
-Not ported yet: the LM half (``greedy_generate``, ``AdaptiveLMServer``) and
+Not ported yet: ``decode_state_shardings`` (no mesh on one card) and
 ``attach_scrubber`` (it waits for ``runtime/integrity.py``).
 """
 from __future__ import annotations
@@ -25,15 +31,20 @@ from typing import (Any, Callable, Deque, Dict, List, Optional, Sequence,
 import numpy as np
 import torch
 
-from repro_torch.core.adaptive import (PointSelector, ServiceObjective,
-                                       SLOController)
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.adaptive import (PointSelector, RuntimePolicy,
+                                       ServiceObjective, SLOController,
+                                       WorkingPoint)
+from repro_torch.quant.ptq import dequantize_tree, quantize_tree_native
+from repro_torch.runtime import model_api
 from repro_torch.runtime.scheduler import (CoalescingScheduler, LatencyEWMA,
                                            QueueFull, RequestSignature,
                                            ScheduledBatch, percentile)
 
 __all__ = [
-    "AccelServer", "BatchReport", "NumericalFault", "QueueFull",
-    "ServerStopped", "ServiceObjective", "Ticket",
+    "AccelServer", "AdaptiveLMServer", "BatchReport", "NumericalFault",
+    "QueueFull", "ServeMetrics", "ServerStopped", "ServiceObjective",
+    "Ticket", "greedy_generate", "make_decode_step", "make_prefill_step",
 ]
 
 
@@ -51,6 +62,95 @@ class NumericalFault(RuntimeError):
     garbage, and the tenant's ``numerical_faults`` counter increments.
     Like :class:`ServerStopped` it survives :meth:`AccelServer.result`
     un-wrapped so the fleet router can retry the request elsewhere."""
+
+
+def make_prefill_step(cfg: ModelConfig):
+    def prefill(params, batch):
+        logits, _ = model_api.forward_logits(params, batch, cfg)
+        return logits
+
+    return prefill
+
+
+def make_decode_step(cfg: ModelConfig):
+    def step(params, tokens, state):
+        return model_api.decode_step(params, tokens, state, cfg)
+
+    return step
+
+
+def _next_token(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return torch.argmax(logits[:, -1:, : cfg.vocab], dim=-1)
+
+
+def greedy_generate(params, cfg: ModelConfig, prompt: torch.Tensor,
+                    max_new: int, seq_len: int,
+                    batch_extras: Optional[Dict] = None) -> torch.Tensor:
+    """Host-loop greedy decoding.
+
+    Always returns ``max_new`` generated tokens after the prompt.  A
+    zero-length prompt is legal: with nothing to condition on, generation is
+    seeded with token 0 (BOS convention) and that seed counts as the first
+    generated token."""
+    B, S0 = prompt.shape
+    batch = {"tokens": prompt, **(batch_extras or {})}
+    state = model_api.init_decode_state(params, batch, cfg, B, seq_len)
+    out = [prompt]
+    if S0:
+        # feed the prompt token by token (cache warmup), then generate
+        for i in range(S0):
+            logits, state = model_api.decode_step(params, prompt[:, i:i + 1],
+                                                  state, cfg)
+        tok = _next_token(logits, cfg).to(prompt.dtype)
+    else:
+        tok = torch.zeros((B, 1), dtype=prompt.dtype, device=prompt.device)
+    for _ in range(max_new):
+        out.append(tok)
+        logits, state = model_api.decode_step(params, tok, state, cfg)
+        tok = _next_token(logits, cfg).to(prompt.dtype)
+    return torch.cat(out, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Adaptive mixed-precision LM server
+# ---------------------------------------------------------------------------
+
+@dataclass
+class ServeMetrics:
+    point: str
+    weight_bytes_read: int
+    est_step_energy_uj: float
+
+
+class AdaptiveLMServer:
+    """Batched decode serving with runtime-switchable weight precision.
+
+    One int8 master + scales (the shared substrate, quantized once); each
+    decode step dequantizes the master codes at the chosen working point's
+    view and runs the step, so switching points never touches the codes."""
+
+    def __init__(self, params, cfg: ModelConfig,
+                 points: Sequence[WorkingPoint] = (
+                     WorkingPoint("w8", 8), WorkingPoint("w4", 4),
+                     WorkingPoint("w2", 2)),
+                 policy: Optional[RuntimePolicy] = None):
+        self.cfg = cfg
+        self.points = list(points)
+        self.policy = policy or RuntimePolicy(self.points)
+        self.qparams = quantize_tree_native(params)
+        self._code_elems = sum(c.numel() for c in self.qparams.codes.values())
+
+    def decode(self, tokens, state, energy_budget_frac: float = 1.0):
+        """One decode step at the point the policy picks for the budget ->
+        (logits, new state, ServeMetrics)."""
+        pt = self.policy.select(energy_budget_frac)
+        params = dequantize_tree(self.qparams, pt.weight_bits, torch.bfloat16)
+        logits, state = model_api.decode_step(params, tokens, state, self.cfg)
+        wbytes = self._code_elems * pt.weight_bits // 8
+        # energy model: pJ/byte of weights read
+        metrics = ServeMetrics(pt.name, wbytes, wbytes * 2.0e-6)
+        return logits, state, metrics
+
 
 
 # ---------------------------------------------------------------------------

@@ -51,6 +51,20 @@ def test_every_module_imports_with_jax_blocked():
     assert int(out.stdout.strip()) == len(_modules()) >= 20
 
 
+def test_lm_slice_modules_are_among_those_imported_with_jax_blocked():
+    """The LM serving path's modules are walked by the jax-blocked import
+    above (a module missing from the package would not be)."""
+    lm = {"repro_torch.configs.base", "repro_torch.configs.mamba2_1_3b",
+          "repro_torch.perf", "repro_torch.models.common",
+          "repro_torch.models.params", "repro_torch.models.ssm",
+          "repro_torch.models.transformer",
+          "repro_torch.kernels.ssd_scan.ref",
+          "repro_torch.kernels.ssd_scan.ops",
+          "repro_torch.runtime.model_api", "repro_torch.runtime.serve",
+          "repro_torch.launch.serve"}
+    assert lm <= set(_modules())
+
+
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")] + ["chip_smoke.py"]))
 def test_no_source_line_imports_jax_or_repro(path):

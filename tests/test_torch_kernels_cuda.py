@@ -42,3 +42,44 @@ def test_kernels_count_launches(cuda):
                           pads=["SAME"])
     assert qgemm.launches - before[0] == 5 * 3 * 2 * 2
     assert qconv_dw.launches - before[1] == 5 * 3 * 2 * 2
+
+
+@pytest.mark.cuda
+def test_ssd_scan_kernel_matches_plain_version(cuda):
+    """Every sweep shape but the full-width one (chip_smoke.py runs that),
+    f32 and bf16, contiguous and strided views, within ``ssd_scan_tol``."""
+    res = checks.ssd_scan_sweep(cuda, shapes=checks.SSD_SHAPES[:-1])
+    torch.cuda.synchronize()
+    assert res["failures"] == [], checks.summarize(res)
+    assert res["max_tol_frac"] <= 1.0
+
+
+@pytest.mark.cuda
+def test_ssd_scan_counts_launches(cuda):
+    """Every case of the sweep launches the kernel once, the warm starts
+    (a given initial state) included."""
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan_cuda
+    before = ssd_scan_cuda.launches
+    checks.ssd_scan_sweep(cuda, shapes=[(1, 100, 4, 16, 1, 8, 32)])
+    assert ssd_scan_cuda.launches - before == 2 * 2 * 2
+
+
+@pytest.mark.cuda
+def test_ssd_scan_warm_start_matches_the_oracle(cuda):
+    """The kernel from a given initial state against the model oracle
+    ``ssd_chunked(init_state=...)`` in f32: y within 1e-5 of max|y|, the
+    state within 1e-4 of max(1, max|state|), on a ragged length."""
+    from repro_torch.kernels.ssd_scan.ops import (ssd_chunked_kernel,
+                                                  ssd_scan_cuda)
+    from repro_torch.models.ssm import ssd_chunked
+    shape = (2, 100, 4, 16, 2, 8, 32)
+    x, dt, A, Bm, C, D = checks.ssd_inputs(shape, 3, torch.float32, cuda)
+    s0 = torch.randn((2, 4, 16, 8), generator=torch.Generator().manual_seed(
+        4)).to(cuda)
+    before = ssd_scan_cuda.launches
+    y, s = ssd_chunked_kernel(x, dt, A, Bm, C, D, 32, s0)
+    assert ssd_scan_cuda.launches == before + 1
+    y_o, s_o = ssd_chunked(x, dt, A, Bm, C, D, 32, s0)
+    assert float((y - y_o).abs().max()) <= 1e-5 * float(y_o.abs().max())
+    assert float((s - s_o).abs().max()) <= 1e-4 * max(
+        1.0, float(s_o.abs().max()))
