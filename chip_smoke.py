@@ -7,11 +7,14 @@ Phases, each of which raises (and exits non-zero) on failure:
 
 1. header — PyTorch/CUDA versions, the card's name and power limit;
 2. build — compiles the hand-written kernels (``src/repro_torch/csrc``) with
-   nvcc into ``build/repro_torch/`` and loads them;
+   nvcc into ``build/repro_torch/`` and loads them, printing each kernel's
+   registers, static shared memory, stack and spill bytes (``-Xptxas -v``);
 3. kernels — each kernel and mode against its plain PyTorch version on the
-   card: ``qgemm`` (int8 activations, scalar and per-row activation scale)
-   and ``qconv_dw`` (int8) over bits {8,4,2} x packed x epilogue x ReLU x
-   bias (x strides x pads), exactly; ``qconv_dw`` in f32, exactly;
+   card: ``qgemm`` (int8 activations, scalar and per-row activation scale;
+   shapes on both sides of its tiled/skinny switch) and ``qconv_dw`` (int8;
+   the 3x3 window and 1x3, 5x5, 2x2) over
+   bits {8,4,2} x packed x epilogue x ReLU x bias (x strides x pads),
+   exactly; ``qconv_dw`` in f32, exactly;
    ``qgemm`` in f32 within the reference's ``max|y|*2^-7 + 1e-6`` (or one
    requant quantum); ``conv2d_stream`` over the stream target's shapes, the
    reference's test shapes and ragged ones in f32, bf16 and mixed dtypes
@@ -54,7 +57,13 @@ Phases, each of which raises (and exits non-zero) on failure:
    from the profiler's CUDA activity (and the per-call time of back-to-back
    calls between CUDA events, host overhead included), beside the least
    time the card could take (bytes over 3.35 TB/s, or operations over
-   1,979 int8 TOP/s or 67 f32 TFLOP/s, whichever is larger); ``ssd_scan``
+   1,979 int8 TOP/s or 67 f32 TFLOP/s, whichever is larger); every
+   ``qgemm`` call of both CNNs in both modes (``torch._int_mm`` on
+   zero-padded operands as the int8 yardstick, the FC's 8 x 1568 x 10 as
+   32 x 1568 x 16; ``torch.matmul`` in f32), reported for pw0 and the FC in
+   the kernels line; ``qconv_dw`` at dw0 and dw1 in both modes -- each of
+   these also as ``graph_ms``, the per-call time of 100 calls replayed from
+   one CUDA graph, where no host work separates the calls; ``ssd_scan``
    at the (4, 2048) prefill call against its plain version with the bf16
    intra flag off and on; ``qgemm``'s per-row x-scale mode at pw0.
 
@@ -97,17 +106,63 @@ def header() -> str:
     return line
 
 
-def build() -> float:
+def ptxas_report(log_text: str) -> list:
+    """Each kernel's registers, shared memory, stack and spill bytes from the
+    build's ``nvcc -Xptxas -v`` output, with demangled names."""
+    import re
+    rows, cur, src = [], None, None
+    for ln in log_text.splitlines():
+        if ln.startswith("== nvcc "):
+            src = ln[len("== nvcc "):].strip()
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = {"source": src, "mangled": m.group(1), "registers": None,
+                   "smem_bytes": 0, "stack_bytes": None,
+                   "spill_store_bytes": None, "spill_load_bytes": None}
+            rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            cur.update(stack_bytes=int(m.group(1)),
+                       spill_store_bytes=int(m.group(2)),
+                       spill_load_bytes=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", ln)
+            cur["smem_bytes"] = int(sm.group(1)) if sm else 0
+    names = [r["mangled"] for r in rows]
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True, timeout=60)
+        demangled = out.stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        demangled = []
+    for i, r in enumerate(rows):
+        name = demangled[i] if len(demangled) == len(rows) else r["mangled"]
+        name = name.replace("(anonymous namespace)::", "")
+        # "void kernel<args>(params)" -> "kernel<args>"
+        r["kernel"] = name.split("(")[0].removeprefix("void ").strip()
+    return rows
+
+
+def build() -> dict:
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     _build.load_kernels()
     secs = time.perf_counter() - t0
     log(f"build: {secs:.2f} s (cached={_build.build_info.get('cached')}) "
         f"-> {_build.build_info.get('path')}")
-    for ln in str(_build.build_info.get("log", "")).splitlines():
-        if "registers" in ln or "spill" in ln or ln.startswith("=="):
-            log("  " + ln.strip())
-    return secs
+    report = ptxas_report(str(_build.build_info.get("log", "")))
+    for r in report:
+        log(f"  ptxas {r['source']} {r['kernel']}: {r['registers']} "
+            f"registers, {r['smem_bytes']} B static smem, "
+            f"{r['stack_bytes']} B stack, spill {r['spill_store_bytes']} B "
+            f"stores / {r['spill_load_bytes']} B loads")
+    return {"seconds": secs, "ptxas": report}
 
 
 def kernels_vs_plain() -> dict:
@@ -118,9 +173,11 @@ def kernels_vs_plain() -> dict:
     from repro_torch.kernels import checks
     sweeps = (("qgemm", checks.qgemm_sweep, {}, True),
               ("qgemm_xscale", checks.qgemm_sweep, {"per_row": True}, True),
-              ("qconv_dw", checks.qconv_dw_sweep, {}, True),
+              ("qconv_dw", checks.qconv_dw_sweep,
+               {"windows": checks.DW_WINDOWS}, True),
               ("qgemm_f32", checks.qgemm_float_sweep, {}, False),
-              ("qconv_dw_f32", checks.qconv_dw_float_sweep, {}, True),
+              ("qconv_dw_f32", checks.qconv_dw_float_sweep,
+               {"windows": checks.DW_WINDOWS}, True),
               ("conv2d_stream", checks.conv2d_stream_sweep, {}, False),
               ("ssd_scan", checks.ssd_scan_sweep, {}, False))
     out = {}
@@ -644,9 +701,41 @@ def _device_ms(fn, iters: int = 50):
     return total_us / 1e3 / iters if total_us > 0 else None
 
 
-def _measure(fn, iters: int = 200) -> dict:
-    return {"event_ms": _event_ms(fn, iters, min(20, iters)),
-            "device_ms": _device_ms(fn, max(iters // 4, 3))}
+def _graph_ms(fn, iters: int = 100, reps: int = 5):
+    """Per-call time of ``iters`` calls captured in one CUDA graph and
+    replayed back to back between CUDA events: no host work between the
+    calls, so the card stays busy and at its working clock.  None (logged)
+    where the calls cannot be captured."""
+    import torch
+    try:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(iters):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / (iters * reps)
+    except RuntimeError as e:
+        log(f"CUDA graph capture failed: {str(e)[:200]}")
+        return None
+
+
+def _measure(fn, iters: int = 200, graph: bool = False) -> dict:
+    out = {"event_ms": _event_ms(fn, iters, min(20, iters)),
+           "device_ms": _device_ms(fn, max(iters // 4, 3))}
+    if graph:
+        out["graph_ms"] = _graph_ms(fn)
+    return out
 
 
 def _bound(nbytes: int, ops: int, ops_per_s: float = INT8_OPS_PER_S) -> dict:
@@ -662,18 +751,42 @@ def _ms(m: dict) -> float:
     return m["device_ms"] if m["device_ms"] is not None else m["event_ms"]
 
 
+def _int_mm_measure(x, w):
+    """``torch._int_mm`` on zero-padded copies of the (M, K) and (K, N) int8
+    operands, made before the timing: its shape rules want M > 16 and K, N
+    multiples of 8 (the FC's 8 x 1568 x 10 runs as 32 x 1568 x 16).  None
+    where cuBLASLt refuses the shape."""
+    import torch
+    M, K = x.shape
+    N = w.shape[1]
+    Mp, Kp, Np = max(32, -(-M // 8) * 8), -(-K // 8) * 8, -(-N // 8) * 8
+    xp = torch.zeros((Mp, Kp), dtype=torch.int8, device=x.device)
+    wp = torch.zeros((Kp, Np), dtype=torch.int8, device=x.device)
+    xp[:M, :K] = x
+    wp[:K, :N] = w
+    try:
+        torch._int_mm(xp, wp)
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        log(f"torch._int_mm refused {Mp}x{Kp}x{Np}: {str(e)[:120]}")
+        return None
+    res = _measure(lambda: torch._int_mm(xp, wp), graph=True)
+    res["padded_shape"] = [Mp, Kp, Np]
+    return res
+
+
 def times() -> dict:
     """Each kernel's launch wrapper at every batch-8 call of the main path
     (W8 unpacked, int8 codes out with bias and ReLU, as the path runs them),
     its plain version on the same inputs, and the nearest library call:
-    ``torch._int_mm`` where its shape rules allow, ``F.conv2d(groups=C)`` in
+    ``torch._int_mm`` on zero-padded operands, ``F.conv2d(groups=C)`` in
     f32 with TF32 off."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import checks
     from repro_torch.kernels.qconv_dw.ops import (qconv_dw,
                                                   qconv_dw_int8_act_plain)
-    from repro_torch.kernels.qmatmul.ops import (qgemm,
+    from repro_torch.kernels.qmatmul.ops import (pick_tiles, qgemm,
                                                  qmatmul_int8_act_plain)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -690,20 +803,13 @@ def times() -> dict:
         s = (torch.rand((N,), generator=g) * 1e-2).to(dev)
         b = (torch.randn((N,), generator=g) * 0.1).to(dev)
         epi = dict(relu=True, act_qt=aqt, out_code=True)
-        kern = _measure(lambda: qgemm(x, w, s, b, bits=8, packed=False, **epi))
+        kern = _measure(lambda: qgemm(x, w, s, b, bits=8, packed=False,
+                                      **epi), graph=True)
         plain = _measure(lambda: qmatmul_int8_act_plain(
-            x, 1.0, w, s, b, bits=8, packed=False, **epi))
-        lib = None
-        if hasattr(torch, "_int_mm") and M > 16 and K % 8 == 0 \
-                and N % 8 == 0:
-            try:
-                torch._int_mm(x, w)
-                torch.cuda.synchronize()
-            except RuntimeError as e:   # cuBLASLt refuses some int8 shapes
-                log(f"torch._int_mm refused {M}x{K}x{N}: {str(e)[:120]}")
-            else:
-                lib = _measure(lambda: torch._int_mm(x, w))
-        row = dict(shape=[M, K, N], kernel=kern, plain=plain, library=lib,
+            x, 1.0, w, s, b, bits=8, packed=False, **epi), graph=True)
+        lib = _int_mm_measure(x, w)
+        row = dict(shape=[M, K, N], tiles=str(pick_tiles(M, K, N)),
+                   kernel=kern, plain=plain, library=lib,
                    **_bound(M * K + K * N + 8 * N + M * N, 2 * M * K * N))
         rows["qgemm"].append(row)
         if (M, K, N) == checks.QGEMM_PATH_SHAPES[1]:
@@ -727,13 +833,13 @@ def times() -> dict:
         b = (torch.randn((C,), generator=g) * 0.1).to(dev)
         epi = dict(kh=3, kw=3, strides=stride, pads="SAME", bits=8,
                    packed=False, relu=True, act_qt=aqt, out_code=True)
-        kern = _measure(lambda: qconv_dw(x, w, s, b, **epi))
+        kern = _measure(lambda: qconv_dw(x, w, s, b, **epi), graph=True)
         plain = _measure(lambda: qconv_dw_int8_act_plain(x, 1.0, w, s, b,
-                                                         **epi))
+                                                         **epi), graph=True)
         xf = x.permute(0, 3, 1, 2).float().contiguous()
         wf = w.t().reshape(C, 1, 3, 3).float().contiguous()
         lib = _measure(lambda: F.conv2d(xf, wf, stride=stride, padding=1,
-                                        groups=C))
+                                        groups=C), graph=True)
         oh, ow = -(-H // stride[0]), -(-W // stride[1])
         row = dict(shape=[B, H, W, C], strides=list(stride), kernel=kern,
                    plain=plain, library=lib,
@@ -762,7 +868,8 @@ def times_float(g, dev) -> dict:
     from repro_torch.kernels.conv2d_stream.ref import conv2d_stream_plain
     from repro_torch.kernels.qconv_dw.ops import (qconv_dw_f32,
                                                   qconv_dw_float_plain)
-    from repro_torch.kernels.qmatmul.ops import qgemm_f32, qgemm_float_plain
+    from repro_torch.kernels.qmatmul.ops import (pick_tiles, qgemm_f32,
+                                                 qgemm_float_plain)
     rows = {"qgemm_f32": [], "qconv_dw_f32": [], "conv2d_stream": []}
     aqt = (10, -(2 ** 15), 2 ** 15 - 1)
     epi = dict(relu=True, act_qt=aqt)
@@ -775,12 +882,14 @@ def times_float(g, dev) -> dict:
         b = (torch.randn((N,), generator=g) * 0.1).to(dev)
         wf = w.float() * s
         kern = _measure(lambda: qgemm_f32(x, w, s, b, bits=8, packed=False,
-                                          **epi))
+                                          **epi), graph=True)
         plain = _measure(lambda: qgemm_float_plain(x, w, s, b, bits=8,
-                                                   packed=False, **epi))
-        lib = _measure(lambda: torch.matmul(x, wf))
+                                                   packed=False, **epi),
+                         graph=True)
+        lib = _measure(lambda: torch.matmul(x, wf), graph=True)
         rows["qgemm_f32"].append(dict(
-            shape=[M, K, N], kernel=kern, plain=plain, library=lib,
+            shape=[M, K, N], tiles=str(pick_tiles(M, K, N, float_mode=True)),
+            kernel=kern, plain=plain, library=lib,
             **_bound(4 * M * K + K * N + 8 * N + 4 * M * N, 2 * M * K * N,
                      F32_FLOPS_PER_S)))
     for (B, H, W, C), stride in (((8, 14, 14, 8), (1, 1)),
@@ -792,12 +901,14 @@ def times_float(g, dev) -> dict:
         b = (torch.randn((C,), generator=g) * 0.1).to(dev)
         common = dict(kh=3, kw=3, strides=stride, pads="SAME", bits=8,
                       packed=False, **epi)
-        kern = _measure(lambda: qconv_dw_f32(x, w, s, b, **common))
-        plain = _measure(lambda: qconv_dw_float_plain(x, w, s, b, **common))
+        kern = _measure(lambda: qconv_dw_f32(x, w, s, b, **common),
+                        graph=True)
+        plain = _measure(lambda: qconv_dw_float_plain(x, w, s, b, **common),
+                         graph=True)
         xf = x.permute(0, 3, 1, 2).contiguous()
         wf = (w.float() * s).t().reshape(C, 1, 3, 3).contiguous()
         lib = _measure(lambda: F.conv2d(xf, wf, stride=stride, padding=1,
-                                        groups=C))
+                                        groups=C), graph=True)
         oh, ow = -(-H // stride[0]), -(-W // stride[1])
         rows["qconv_dw_f32"].append(dict(
             shape=[B, H, W, C], strides=list(stride), kernel=kern,
@@ -879,12 +990,13 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(SRC))
     from repro_torch.configs import get_config
+    from repro_torch.kernels import checks
     from repro_torch.configs.mnist_cnn import CNNConfig
     from repro_torch.configs.separable_cnn import SeparableCNNConfig
 
     t_all = time.perf_counter()
     card = header()
-    build_s = build()
+    built = build()
     sweeps = kernels_vs_plain()
     sep_cfg, mnist_cfg = SeparableCNNConfig(), CNNConfig()
     paths = [qtorch_path("separable-cnn", sep_cfg, True, act_bits=8),
@@ -936,6 +1048,23 @@ def main() -> int:
             "library_ms": None if r["library"] is None else _ms(r["library"]),
             "shape": r["shape"],
         })
+        if "graph_ms" in r["kernel"]:
+            kernels[-1].update(
+                graph_ms=r["kernel"]["graph_ms"],
+                plain_graph_ms=r["plain"]["graph_ms"],
+                library_graph_ms=None if r["library"] is None
+                else r["library"]["graph_ms"])
+    # the classifier FC (the skinny mapping) beside the pw0 row of each mode
+    fc = checks.QGEMM_PATH_SHAPES.index((8, 1568, 10))
+    for k in kernels[:2]:
+        r = rows[k["name"]][fc]
+        k.update(fc_ms=_ms(r["kernel"]), fc_plain_ms=_ms(r["plain"]),
+                 fc_library_ms=None if r["library"] is None
+                 else _ms(r["library"]),
+                 fc_bound_ms=r["bound_ms"], fc_bound_by=r["bound_by"],
+                 fc_graph_ms=r["kernel"]["graph_ms"],
+                 fc_library_graph_ms=None if r["library"] is None
+                 else r["library"]["graph_ms"])
     xr = rows["qgemm_xscale"][0]
     kernels[0].update(xscale_max_abs_err=sweeps["qgemm_xscale"]["max_abs_err"],
                       xscale_ms=_ms(xr["kernel"]),
@@ -945,7 +1074,8 @@ def main() -> int:
     ssd = rows["ssd_scan"][0]
     kernels[-1].update(plain_bf16_intra_ms=_ms(ssd["plain_bf16_intra"]),
                        vs_f64=sweeps["ssd_scan"]["vs_f64"])
-    detail = {"card": card, "build_s": build_s,
+    detail = {"card": card, "build_s": built["seconds"],
+              "ptxas": built["ptxas"],
               "sweeps": {k: {key: v[key] for key in
                              ("cases", "max_abs_err", "max_tol_frac",
                               "max_tol_frac_by", "vs_f64")

@@ -1,0 +1,59 @@
+#!/usr/bin/env python3
+"""Side-by-side kernel times from ``chip_smoke.py`` runs.
+
+    python3 scripts/compare_chip_smoke.py A.json [B.json ...]
+
+Each argument is the ``build/chip_smoke/chip_smoke.json`` of one run of
+``chip_smoke.py`` (for example a parent commit's and a change's, run in turn
+in one session on one card).  Prints, for every timed call of ``qgemm``,
+``qgemm_f32``, ``qconv_dw`` and ``qconv_dw_f32``, the kernel's device time
+per call in each run (the profiler's CUDA activity), its CUDA-graph time
+where the run has one, and the plain version's and the library call's device
+times and the bound from the first run, in ms.  Put a run that has the
+library times first (runs before the padded ``torch._int_mm`` yardstick
+have none for most int8 shapes).
+"""
+from __future__ import annotations
+
+import json
+import sys
+
+KERNELS = ("qgemm", "qgemm_f32", "qconv_dw", "qconv_dw_f32")
+
+
+def _ms(m):
+    if m is None:
+        return None
+    return m["device_ms"] if m.get("device_ms") is not None else m["event_ms"]
+
+
+def _fmt(v) -> str:
+    return "-" if v is None else f"{v:.5f}"
+
+
+def main(paths) -> int:
+    runs = [json.load(open(p)) for p in paths]
+    head = ["kernel", "shape"] + [f"ms[{i}]" for i in range(len(runs))] + [
+        f"graph_ms[{i}]" for i in range(len(runs))] + [
+        "plain_ms", "library_ms", "library_graph_ms", "bound_ms"]
+    print(" | ".join(head))
+    for name in KERNELS:
+        for i, row in enumerate(runs[0]["times"][name]):
+            shape = row["shape"] + row.get("strides", [])
+            rows = [r["times"][name][i] for r in runs]
+            lib = row["library"]
+            cells = [name, "x".join(map(str, shape))]
+            cells += [_fmt(_ms(r["kernel"])) for r in rows]
+            cells += [_fmt(r["kernel"].get("graph_ms")) for r in rows]
+            cells += [_fmt(_ms(row["plain"])), _fmt(_ms(lib)),
+                      _fmt(None if lib is None else lib.get("graph_ms")),
+                      f"{row['bound_ms']:.7f} ({row['bound_by']})"]
+            print(" | ".join(cells))
+    for i, r in enumerate(runs):
+        print(f"[{i}] {paths[i]}: card {r.get('card')}, "
+              f"total {r['total_s']:.1f} s")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -36,8 +36,8 @@ LIB_NAME = "librepro_torch_kernels.so"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
 # (x, w, xs, s, bias, out, M, K, N, bits, packed, kp_rows, relu, has_aqt,
-#  out_code, qmin, qmax, mul, inv, stream)
-_QGEMM_ARGS = [_P] * 6 + [_I] * 11 + [_F, _F, _P]
+#  out_code, qmin, qmax, mapping, bm, bn, bk, splits, mul, inv, stream)
+_QGEMM_ARGS = [_P] * 6 + [_I] * 16 + [_F, _F, _P]
 # (x, w, s, bias, out, B, H, W, C, OH, OW, kh, kw, sh, sw, ph, pw, bits,
 #  packed, kp_rows, relu, has_aqt, out_code, qmin, qmax, mul, inv, stream)
 _QCONV_DW_ARGS = [_P] * 5 + [_I] * 20 + [_F, _F, _P]
@@ -50,6 +50,7 @@ _SSD_SCAN_ARGS = [_P] * 9 + [_I] * 7 + [_L] * 12 + [_I, _P]
 _ENTRY_POINTS = {
     "repro_qgemm_i8": _QGEMM_ARGS,
     "repro_qgemm_f32": _QGEMM_ARGS,
+    "repro_truncate_view": [_P, _P, _I, _I, _P],   # (codes, out, n, bits, stream)
     "repro_qconv_dw_i8": _QCONV_DW_ARGS,
     "repro_qconv_dw_f32": _QCONV_DW_ARGS,
     "repro_conv2d_stream": _CONV2D_STREAM_ARGS,

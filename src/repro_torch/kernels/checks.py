@@ -39,12 +39,21 @@ QGEMM_PATH_SHAPES = ((6272, 9, 8), (1568, 8, 16), (392, 16, 32), (8, 1568, 10),
                      (6272, 9, 16), (1568, 144, 32))
 QGEMM_RAGGED = tuple(itertools.product((1, 7, 6272), (8, 9, 1568, 1100),
                                        (8, 10, 32, 130)))
+# both sides of the switch between the tiled and the skinny mapping
+# (M <= 64 and K >= 256), at the FC's K and at a long ragged one
+QGEMM_SWITCH = tuple(itertools.product((1, 8, 16, 63, 64, 65),
+                                       (8, 1568, 4100), (10, 32)))
+QGEMM_SHAPES = QGEMM_PATH_SHAPES + QGEMM_RAGGED + QGEMM_SWITCH
 # (B, H, W, C) of the depthwise inputs: separable-cnn dw0/dw1 at batch 8,
 # then ragged ones (odd spatial sizes, C not a multiple of 8 or of 32)
 QCONV_DW_SHAPES = ((8, 14, 14, 8), (8, 14, 14, 16), (1, 11, 10, 130),
                    (7, 9, 9, 8), (2, 28, 28, 32), (3, 5, 7, 10))
 DW_STRIDES = ((1, 1), (2, 2), (1, 2))
 DW_PADS = ("SAME", "VALID")
+# (kh, kw, pads or None for every pad of the sweep): the 3x3 window of both
+# CNNs (the kernel's specialised instance, the sweeps' default), then
+# windows that run its generic instance
+DW_WINDOWS = ((3, 3, None), (1, 3, None), (5, 5, None), (2, 2, ("VALID",)))
 
 # (B, H, W, Cin, Cout, k) of conv2d_stream: the stream target's convs at
 # batch 8 (mnist-cnn conv0, conv1; separable-cnn stem, pw0, pw1), the
@@ -153,7 +162,7 @@ def qgemm_sweep(device, shapes: Optional[Sequence[Tuple[int, int, int]]] = None,
     plus the ragged product).  ``per_row`` gives every row its own
     activation scale (the reference's dynamic-range mode) instead of the
     writer path's scalar power of two."""
-    shapes = list(shapes or (QGEMM_PATH_SHAPES + QGEMM_RAGGED))
+    shapes = list(shapes or QGEMM_SHAPES)
     dev = torch.device(device)
     cases, worst, failures = 0, 0.0, []
     for si, (M, K, N) in enumerate(shapes):
@@ -187,46 +196,63 @@ def qgemm_sweep(device, shapes: Optional[Sequence[Tuple[int, int, int]]] = None,
     return {"cases": cases, "max_abs_err": worst, "failures": failures}
 
 
+def _dw_cases(shapes, strides, pads, windows, seed: int, make_x):
+    """Each (shape, window, stride, pad) of a depthwise sweep with its seeded
+    operands: x from ``make_x(g, shape)``, the window's (kh*kw, C) master
+    codes and scale, a bias, and the W4/W2 packs of the codes."""
+    for si, (B, H, W, C) in enumerate(shapes):
+        for wi, (kh, kw, wpads) in enumerate(windows):
+            g = _gen(seed + si + 100 * wi)
+            x = make_x(g, (B, H, W, C))
+            codes, s = _weights(g, kh * kw, C)
+            b = torch.randn((C,), generator=g) * 0.1
+            packs = {bits: pack_rows(codes, bits, DW_PACK_ALIGN)
+                     for bits in (4, 2)}
+            for st, pd in itertools.product(strides, pads):
+                if wpads is None or pd in wpads:
+                    yield (B, H, W, C), (kh, kw), st, pd, x, codes, s, b, packs
+
+
 def qconv_dw_sweep(device,
                    shapes: Optional[Sequence[Tuple[int, int, int, int]]] = None,
                    strides: Sequence[Tuple[int, int]] = DW_STRIDES,
-                   pads: Sequence[str] = DW_PADS) -> Dict[str, object]:
-    """``qconv_dw_int8_act`` against its plain version over bits {8,4,2} x
-    packed x strides x SAME/VALID x epilogue x ReLU x bias."""
+                   pads: Sequence[str] = DW_PADS,
+                   windows: Sequence[Tuple] = DW_WINDOWS[:1]
+                   ) -> Dict[str, object]:
+    """``qconv_dw_int8_act`` against its plain version over windows x bits
+    {8,4,2} x packed x strides x SAME/VALID x epilogue x ReLU x bias."""
     shapes = list(shapes or QCONV_DW_SHAPES)
     dev = torch.device(device)
     cases, worst, failures = 0, 0.0, []
-    for si, (B, H, W, C) in enumerate(shapes):
-        g = _gen(2000 + si)
-        x = torch.randint(-128, 128, (B, H, W, C), generator=g,
-                          dtype=torch.int8).to(dev)
-        codes, s = _weights(g, 9, C)
-        b = (torch.randn((C,), generator=g) * 0.1).to(dev)
-        codes, s = codes.to(dev), s.to(dev)
+
+    def make_x(g, shape):
+        return torch.randint(-128, 128, shape, generator=g, dtype=torch.int8)
+
+    for shape, (kh, kw), st, pd, x, codes, s, b, packs in _dw_cases(
+            shapes, strides, pads, windows, 2000, make_x):
+        x, codes, s, b = x.to(dev), codes.to(dev), s.to(dev), b.to(dev)
+        packs = {k: v.to(dev) for k, v in packs.items()}
         xs = 2.0 ** -6
-        packs = {bits: pack_rows(codes, bits, DW_PACK_ALIGN) for bits in (4, 2)}
-        for st, pd in itertools.product(strides, pads):
-            for bits, packed, epi, relu, bias in _variants():
-                w = packs[bits] if packed else codes
-                common = dict(kh=3, kw=3, strides=st, pads=pd, bits=bits,
-                              relu=relu, packed=packed)
-                y0 = qconv_dw_int8_act_plain(x, xs, w, s, b, act_qt=None,
-                                             out_code=False, **common)
-                aqt = _act_qt(epi, _frac_for(y0))
-                args = (x, xs, w, s, b if bias else None)
-                got = qconv_dw_int8_act(*args, act_qt=aqt,
-                                        out_code=epi == "code", **common)
-                want = qconv_dw_int8_act_plain(*args, act_qt=aqt,
-                                               out_code=epi == "code",
-                                               **common)
-                err = _compare(got, want)
-                cases += 1
-                worst = max(worst, err)
-                if err != 0.0 or not torch.equal(got, want):
-                    failures.append(dict(B=B, H=H, W=W, C=C, strides=st,
-                                         pads=pd, bits=bits, packed=packed,
-                                         epilogue=epi, relu=relu, bias=bias,
-                                         err=err))
+        for bits, packed, epi, relu, bias in _variants():
+            w = packs[bits] if packed else codes
+            common = dict(kh=kh, kw=kw, strides=st, pads=pd, bits=bits,
+                          relu=relu, packed=packed)
+            y0 = qconv_dw_int8_act_plain(x, xs, w, s, b, act_qt=None,
+                                         out_code=False, **common)
+            aqt = _act_qt(epi, _frac_for(y0))
+            args = (x, xs, w, s, b if bias else None)
+            got = qconv_dw_int8_act(*args, act_qt=aqt,
+                                    out_code=epi == "code", **common)
+            want = qconv_dw_int8_act_plain(*args, act_qt=aqt,
+                                           out_code=epi == "code", **common)
+            err = _compare(got, want)
+            cases += 1
+            worst = max(worst, err)
+            if err != 0.0 or not torch.equal(got, want):
+                failures.append(dict(shape=list(shape), window=[kh, kw],
+                                     strides=st, pads=pd, bits=bits,
+                                     packed=packed, epilogue=epi, relu=relu,
+                                     bias=bias, err=err))
     return {"cases": cases, "max_abs_err": worst, "failures": failures}
 
 
@@ -237,7 +263,7 @@ def qgemm_float_sweep(device,
     over bits {8,4,2} x packed x epilogue x ReLU x bias, each case within
     :func:`float_qgemm_tol`; ``max_tol_frac`` is the worst error over its
     tolerance."""
-    shapes = list(shapes or (QGEMM_PATH_SHAPES + QGEMM_RAGGED))
+    shapes = list(shapes or QGEMM_SHAPES)
     dev = torch.device(device)
     cases, worst, worst_frac, failures = 0, 0.0, 0.0, []
     for si, (M, K, N) in enumerate(shapes):
@@ -271,38 +297,40 @@ def qconv_dw_float_sweep(device,
                          shapes: Optional[Sequence[Tuple[int, int, int, int]]]
                          = None,
                          strides: Sequence[Tuple[int, int]] = DW_STRIDES,
-                         pads: Sequence[str] = DW_PADS) -> Dict[str, object]:
-    """``qconv_dw_float`` against its plain version over bits {8,4,2} x
-    packed x strides x SAME/VALID x epilogue x ReLU x bias: exact equality
-    (the same f32 operations in the same order)."""
+                         pads: Sequence[str] = DW_PADS,
+                         windows: Sequence[Tuple] = DW_WINDOWS[:1]
+                         ) -> Dict[str, object]:
+    """``qconv_dw_float`` against its plain version over windows x bits
+    {8,4,2} x packed x strides x SAME/VALID x epilogue x ReLU x bias: exact
+    equality (the same f32 operations in the same order)."""
     shapes = list(shapes or QCONV_DW_SHAPES)
     dev = torch.device(device)
     cases, worst, failures = 0, 0.0, []
-    for si, (B, H, W, C) in enumerate(shapes):
-        g = _gen(4000 + si)
-        x = (torch.randn((B, H, W, C), generator=g) * 0.5).to(dev)
-        codes, s = _weights(g, 9, C)
-        b = (torch.randn((C,), generator=g) * 0.1).to(dev)
-        codes, s = codes.to(dev), s.to(dev)
-        packs = {bits: pack_rows(codes, bits, DW_PACK_ALIGN) for bits in (4, 2)}
-        for st, pd in itertools.product(strides, pads):
-            for bits, packed, epi, relu, bias in _variants(FLOAT_EPILOGUES):
-                w = packs[bits] if packed else codes
-                common = dict(kh=3, kw=3, strides=st, pads=pd, bits=bits,
-                              relu=relu, packed=packed)
-                y0 = qconv_dw_float_plain(x, w, s, b, act_qt=None, **common)
-                aqt = _act_qt(epi, _frac_for(y0))
-                args = (x, w, s, b if bias else None)
-                got = qconv_dw_float(*args, act_qt=aqt, **common)
-                want = qconv_dw_float_plain(*args, act_qt=aqt, **common)
-                err = _compare(got, want)
-                cases += 1
-                worst = max(worst, err)
-                if err != 0.0 or not torch.equal(got, want):
-                    failures.append(dict(B=B, H=H, W=W, C=C, strides=st,
-                                         pads=pd, bits=bits, packed=packed,
-                                         epilogue=epi, relu=relu, bias=bias,
-                                         err=err))
+
+    def make_x(g, shape):
+        return torch.randn(shape, generator=g) * 0.5
+
+    for shape, (kh, kw), st, pd, x, codes, s, b, packs in _dw_cases(
+            shapes, strides, pads, windows, 4000, make_x):
+        x, codes, s, b = x.to(dev), codes.to(dev), s.to(dev), b.to(dev)
+        packs = {k: v.to(dev) for k, v in packs.items()}
+        for bits, packed, epi, relu, bias in _variants(FLOAT_EPILOGUES):
+            w = packs[bits] if packed else codes
+            common = dict(kh=kh, kw=kw, strides=st, pads=pd, bits=bits,
+                          relu=relu, packed=packed)
+            y0 = qconv_dw_float_plain(x, w, s, b, act_qt=None, **common)
+            aqt = _act_qt(epi, _frac_for(y0))
+            args = (x, w, s, b if bias else None)
+            got = qconv_dw_float(*args, act_qt=aqt, **common)
+            want = qconv_dw_float_plain(*args, act_qt=aqt, **common)
+            err = _compare(got, want)
+            cases += 1
+            worst = max(worst, err)
+            if err != 0.0 or not torch.equal(got, want):
+                failures.append(dict(shape=list(shape), window=[kh, kw],
+                                     strides=st, pads=pd, bits=bits,
+                                     packed=packed, epilogue=epi, relu=relu,
+                                     bias=bias, err=err))
     return {"cases": cases, "max_abs_err": worst, "failures": failures}
 
 

@@ -11,9 +11,10 @@ Two entry points dispatch on the activation tensor's device:
   :func:`qconv_dw_f32`, a CPU tensor runs
   :func:`~repro_torch.kernels.qconv_dw.ref.qconv_dw_ref`.
 
-The kernel reads the unpadded (B, H, W, C) input with bounds checks, so the
-host makes none of the reference's padding and reshape copies.  In this
-package :func:`qconv_dw` names the int8-mode launch wrapper.
+The kernel stages the unpadded (B, H, W, C) input in shared memory with the
+SAME halo zero-filled, so the host makes none of the reference's padding and
+reshape copies.  In this package :func:`qconv_dw` names the int8-mode launch
+wrapper.
 """
 from __future__ import annotations
 
@@ -35,7 +36,8 @@ from repro_torch.quant.pack import unpack_rows
 # 9 tap rows into 16, not the matmul path's 128
 DW_PACK_ALIGN = 8
 
-# the kernel keeps a channel's taps in registers (MAX_TAPS in qconv_dw.cu)
+# the kernel stages a channel tile's taps in shared memory (MAX_TAPS in
+# qconv_dw.cu)
 MAX_TAPS = 64
 
 __all__ = ["qconv_dw", "qconv_dw_f32", "qconv_dw_float",

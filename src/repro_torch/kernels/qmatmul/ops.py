@@ -14,13 +14,16 @@ Two entry points dispatch on the activation tensor's device:
 
 There is no fallback between kernel and plain version and no shape rule: any
 M >= 1 runs the kernel, which masks ragged M/N/K edges itself, so no padded
-copies are made.  Not ported: the reference's ``qmatmul`` (bf16 out, no
-epilogue), which no path of this package calls.  In this package
-:func:`qgemm` names the int8-mode launch wrapper.
+copies are made.  :func:`pick_tiles` (the counterpart of the reference's
+``pick_blocks``, without its timing sweep) chooses the kernel's mapping on
+the host and passes it to the C entry point.  Not ported: the reference's
+``qmatmul`` (bf16 out, no epilogue), which no path of this package calls.
+In this package :func:`qgemm` names the int8-mode launch wrapper.
 """
 from __future__ import annotations
 
-from typing import Optional
+from dataclasses import dataclass
+from typing import Optional, Tuple
 
 import torch
 
@@ -31,7 +34,65 @@ from repro_torch.quant.pack import unpack_rows
 
 __all__ = ["qgemm", "qgemm_f32", "qgemm_float", "qgemm_float_plain",
            "qmatmul_int8_act", "qmatmul_int8_act_plain", "scalar_scale",
-           "ActQt"]
+           "pick_tiles", "Tiles", "truncate_view_cuda", "ActQt"]
+
+# the card the tile choice fills: an H100 SXM's streaming multiprocessors
+NUM_SMS = 132
+# the skinny mapping (qgemm.cu's SK_MAX_M, SK_WARPS, SK_CLUSTER): at most one
+# 64-row tile of M, and a K long enough to give each of a CTA's 8 warps a
+# 32-wide step; K is split across a cluster of 8 CTAs
+SKINNY_MAX_M = 64
+SKINNY_MIN_K = 8 * 32
+SKINNY_CLUSTER = 8
+
+
+@dataclass(frozen=True)
+class Tiles:
+    """The kernel's mapping of one call.  ``skinny``: one cluster of
+    ``splits`` CTAs per ``bn`` output columns, K split across the cluster's
+    CTAs and their warps, M (``bm`` = M padded to 16) held whole.
+    ``tiled``: ``bm`` x ``bn`` output tiles, k steps of ``bk``."""
+
+    mapping: str
+    bm: int
+    bn: int
+    bk: int
+    splits: int = 1
+
+
+def _fit(n: int, sizes: Tuple[int, ...]) -> int:
+    """The smallest size that holds ``n``, else the largest."""
+    return next((v for v in sizes if v >= n), sizes[-1])
+
+
+def pick_tiles(M: int, K: int, N: int, float_mode: bool = False) -> Tiles:
+    """The mapping ``csrc/qgemm.cu`` runs an (M, K, N) call with.
+
+    * skinny when M fits one 64-row tile and K is long: the classifier FC
+      (8 x 1568 x 10) and decode-like calls, where a tiled grid would leave
+      one CTA to walk all of K.  BN is fitted to N (8, 16 or 32); K is split
+      across a cluster of 8 CTAs.
+    * tiled otherwise.  BN is fitted to N (8, 16, 32 or 64).  The int8 mode
+      (a CTA of 4 warps over BM/16 bands of 16 rows) takes the largest BM of
+      64 or 32 that still gives two or one CTAs per SM, else 16; its k step
+      is the MMA's 32.
+      The float mode's CTA is 128 threads of one row and 4 columns each, so
+      BM = 512 / BN, and its k step is fitted to K (8, 16 or 32)."""
+    if M <= 0 or K < 0 or N <= 0:
+        raise ValueError(f"no qgemm tiles for M={M} K={K} N={N}")
+    if M <= SKINNY_MAX_M and K >= SKINNY_MIN_K:
+        return Tiles("skinny", bm=16 * -(-M // 16), bn=_fit(N, (8, 16, 32)),
+                     bk=32, splits=SKINNY_CLUSTER)
+    bn = _fit(N, (8, 16, 32, 64))
+    if float_mode:
+        return Tiles("tiled", bm=512 // bn, bn=bn, bk=_fit(K, (8, 16, 32)))
+    gn = -(-N // bn)
+    bm = 16
+    for cand, per_sm in ((64, 2), (32, 1)):
+        if -(-M // cand) * gn >= per_sm * NUM_SMS:
+            bm = cand
+            break
+    return Tiles("tiled", bm=bm, bn=bn, bk=32)
 
 
 def scalar_scale(x_scale) -> Optional[float]:
@@ -94,16 +155,20 @@ def _launch(entry: str, x: torch.Tensor, w: torch.Tensor,
             packed: bool, relu: bool, act_qt: Optional[ActQt],
             out_code: bool) -> None:
     M, K = x.shape
+    N = out.shape[1]
     frac, qmin, qmax = act_qt if act_qt is not None else (0, 0, 0)
+    tiles = pick_tiles(M, K, N, float_mode=x.dtype == torch.float32)
     lib = load_kernels()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = getattr(lib, entry)(
             x.data_ptr(), w.data_ptr(), None if xs is None else xs.data_ptr(),
             s_eff.data_ptr(), None if bias is None else bias.data_ptr(),
-            out.data_ptr(), M, K, out.shape[1], bits, int(packed),
+            out.data_ptr(), M, K, N, bits, int(packed),
             w.shape[0] if packed else K, int(relu), int(act_qt is not None),
-            int(out_code), qmin, qmax, 2.0 ** frac, 2.0 ** -frac, stream)
+            int(out_code), qmin, qmax,
+            int(tiles.mapping == "skinny"), tiles.bm, tiles.bn, tiles.bk,
+            tiles.splits, 2.0 ** frac, 2.0 ** -frac, stream)
     check(rc, entry)
 
 
@@ -169,6 +234,26 @@ def qgemm_f32(x: torch.Tensor, w: torch.Tensor, s_eff: torch.Tensor,
 
 
 qgemm_f32.launches = 0
+
+
+def truncate_view_cuda(codes: torch.Tensor, bits: int) -> torch.Tensor:
+    """The kernels' integer truncation of int8 master codes to their
+    ``bits``-bit view, run on the card (``repro_truncate_view``), for holding
+    it against ``quant.ptq.derive_view``."""
+    if codes.device.type != "cuda":
+        raise ValueError(f"truncate_view_cuda runs on the card; got a "
+                         f"{codes.device} tensor")
+    if bits not in (8, 4, 2):
+        raise ValueError(f"unsupported bits={bits}")
+    _expect(codes, "codes", torch.int8, codes.ndim, codes.device)
+    out = torch.empty_like(codes)
+    lib = load_kernels()
+    with torch.cuda.device(codes.device):
+        stream = torch.cuda.current_stream(codes.device).cuda_stream
+        rc = lib.repro_truncate_view(codes.data_ptr(), out.data_ptr(),
+                                     codes.numel(), bits, stream)
+    check(rc, "repro_truncate_view")
+    return out
 
 
 def _bias_f32(bias: Optional[torch.Tensor]) -> Optional[torch.Tensor]:

@@ -26,7 +26,7 @@ def test_qgemm_kernel_equals_plain_version(cuda):
 
 @pytest.mark.cuda
 def test_qconv_dw_kernel_equals_plain_version(cuda):
-    res = checks.qconv_dw_sweep(cuda)
+    res = checks.qconv_dw_sweep(cuda, windows=checks.DW_WINDOWS)
     torch.cuda.synchronize()
     assert res["failures"] == [], checks.summarize(res)
     assert res["max_abs_err"] == 0.0
@@ -42,6 +42,58 @@ def test_kernels_count_launches(cuda):
                           pads=["SAME"])
     assert qgemm.launches - before[0] == 5 * 3 * 2 * 2
     assert qconv_dw.launches - before[1] == 5 * 3 * 2 * 2
+
+
+@pytest.mark.cuda
+def test_qgemm_counts_one_launch_per_call_in_each_mapping(cuda):
+    """The tiled mapping and the skinny one (at a short and a long K) each
+    count one launch per call, in both modes, and agree with the plain
+    version."""
+    from repro_torch.kernels.qmatmul.ops import pick_tiles, qgemm, qgemm_f32
+    shapes = [(1568, 8, 16), (8, 1568, 10), (8, 4100, 10)]
+    assert [pick_tiles(*sh).mapping for sh in shapes] == [
+        "tiled", "skinny", "skinny"]
+    before = (qgemm.launches, qgemm_f32.launches)
+    res = checks.qgemm_sweep(cuda, shapes=shapes)
+    res_f = checks.qgemm_float_sweep(cuda, shapes=shapes)
+    torch.cuda.synchronize()
+    assert res["failures"] == [] and res["max_abs_err"] == 0.0
+    assert res_f["failures"] == [] and res_f["max_tol_frac"] <= 1.0
+    # a case's requant probe and reference run the plain version: one
+    # kernel launch per case
+    assert qgemm.launches - before[0] == res["cases"]
+    assert qgemm_f32.launches - before[1] == res_f["cases"]
+
+
+@pytest.mark.cuda
+def test_qgemm_float_kernel_within_tolerance(cuda):
+    """The float mode over every sweep shape, the mapping switch included,
+    within ``float_qgemm_tol``."""
+    res = checks.qgemm_float_sweep(cuda)
+    torch.cuda.synchronize()
+    assert res["failures"] == [], checks.summarize(res)
+    assert res["max_tol_frac"] <= 1.0
+
+
+@pytest.mark.cuda
+def test_qconv_dw_float_kernel_equals_plain_version(cuda):
+    """The float depthwise mode, every window: exact."""
+    res = checks.qconv_dw_float_sweep(cuda, windows=checks.DW_WINDOWS)
+    torch.cuda.synchronize()
+    assert res["failures"] == [], checks.summarize(res)
+    assert res["max_abs_err"] == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4, 2])
+def test_integer_truncation_equals_derive_view(cuda, bits):
+    """The kernels' integer truncation (a shift and a half-to-even tie
+    test) against ``derive_view`` on all 256 int8 codes."""
+    from repro_torch.kernels.qmatmul.ops import truncate_view_cuda
+    from repro_torch.quant.ptq import derive_view
+    codes = torch.arange(-128, 128, dtype=torch.int16).to(torch.int8)
+    got = truncate_view_cuda(codes.to(cuda), bits).cpu()
+    assert torch.equal(got, derive_view(codes, bits))
 
 
 @pytest.mark.cuda

@@ -103,3 +103,41 @@ def test_sweep_runs_its_cases_on_the_cpu():
                                 strides=[(2, 2)], pads=["SAME"])
     assert res["cases"] == 5 * 3 * 2 * 2
     assert res["failures"] == [] and res["max_abs_err"] == 0.0
+
+
+@pytest.mark.parametrize("window", checks.DW_WINDOWS)
+def test_sweep_covers_every_window(window):
+    """Each window the card's sweep runs, its 2x2 under VALID only."""
+    res = checks.qconv_dw_float_sweep("cpu", shapes=[(1, 6, 7, 4)],
+                                      strides=[(1, 2)], windows=[window])
+    assert res["cases"] == len(window[2] or checks.DW_PADS) * 5 * 3 * 2 * 2
+    assert res["failures"] == [] and res["max_abs_err"] == 0.0
+
+
+@pytest.mark.parametrize("kh,kw,pads", [(1, 3, "SAME"), (1, 3, "VALID"),
+                                        (5, 5, "SAME"), (5, 5, "VALID"),
+                                        (2, 2, "VALID")])
+@pytest.mark.parametrize("bits,packed", [(8, False), (4, False), (2, False),
+                                         (4, True), (2, True)])
+def test_plain_equals_reference_oracle_other_windows(kh, kw, pads, bits,
+                                                     packed):
+    """The windows that run the kernel's generic instance on the card, in
+    the plain version it is held to there, against the reference oracle."""
+    x, xs, _, scale, bias = _problem(bits + kh + packed, H=11, W=10, C=8)
+    codes = np.random.default_rng(kh * kw + bits).integers(
+        -127, 128, (kh * kw, 8)).astype(np.int8)
+    w = torch.from_numpy(codes)
+    if packed:
+        w = pack_rows(w, bits, align=DW_PACK_ALIGN)
+    for out_code, relu, with_bias, aqt in EPILOGUES:
+        b = bias if with_bias else None
+        kw_ = dict(kh=kh, kw=kw, strides=(1, 2), pads=pads, bits=bits,
+                   relu=relu, act_qt=aqt, out_code=out_code)
+        got = qconv_dw_int8_act(torch.from_numpy(x), xs, w,
+                                torch.from_numpy(scale),
+                                None if b is None else torch.from_numpy(b),
+                                packed=packed, **kw_)
+        want = j_ref(jnp.asarray(x), xs, jnp.asarray(codes),
+                     jnp.asarray(scale), None if b is None else jnp.asarray(b),
+                     **kw_)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))

@@ -15,7 +15,9 @@ from repro.quant.pack import pack_rows as j_pack_rows
 
 from repro_torch.core.writers.qtorch_writer import im2col as t_im2col
 from repro_torch.kernels import checks
-from repro_torch.kernels.qmatmul.ops import qmatmul_int8_act
+from repro_torch.kernels.qmatmul.ops import (SKINNY_CLUSTER, SKINNY_MAX_M,
+                                             SKINNY_MIN_K, pick_tiles,
+                                             qmatmul_int8_act)
 from repro_torch.kernels.qmatmul.ref import exact_in_f32, int_dot
 from repro_torch.quant.pack import pack_rows
 
@@ -65,6 +67,72 @@ def test_plain_equals_reference_oracle(M, K, N, bits, packed):
                      out_dtype=jnp.float32)
         assert got.dtype == (torch.int8 if out_code else torch.float32)
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("M", [1, 16, 63, 64, 65])
+@pytest.mark.parametrize("K", [8, 1568, 4100])
+@pytest.mark.parametrize("bits,packed", WEIGHTS)
+def test_plain_equals_reference_oracle_across_the_mapping_switch(M, K, bits,
+                                                                 packed):
+    """The shapes on both sides of the kernel's switch between its tiled and
+    skinny mappings, where the card holds the kernel to this plain
+    version."""
+    xc, xs, wc, s, b = _inputs(M, K, 10, seed=M + K + bits + packed)
+    aqt = (9, -128, 127)
+    got = _port(xc, xs, wc, s, b, bits, packed, relu=True, act_qt=aqt,
+                out_code=True)
+    want = j_ref(jnp.asarray(xc), xs, jnp.asarray(wc), jnp.asarray(s), bits,
+                 bias=jnp.asarray(b), relu=True, act_qt=aqt, out_code=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("float_mode", [False, True])
+@pytest.mark.parametrize("shape", checks.QGEMM_PATH_SHAPES)
+def test_pick_tiles_maps_each_path_shape(shape, float_mode):
+    """The classifier FC (M=8, K=1568) takes the skinny mapping, every other
+    call of the two CNNs the tiled one, with BN fitted to N."""
+    M, K, N = shape
+    t = pick_tiles(M, K, N, float_mode=float_mode)
+    if shape == (8, 1568, 10):
+        assert (t.mapping, t.bm, t.bn, t.splits) == ("skinny", 16, 16,
+                                                     SKINNY_CLUSTER)
+    else:
+        assert t.mapping == "tiled"
+        assert t.bn == {8: 8, 16: 16, 32: 32}[N]
+        assert t.bk == (min(32, max(8, 1 << (K - 1).bit_length()))
+                        if float_mode else 32)
+
+
+@pytest.mark.parametrize("float_mode", [False, True])
+@pytest.mark.parametrize("shape", checks.QGEMM_SHAPES)
+def test_pick_tiles_covers_the_call(shape, float_mode):
+    """Every choice is one the kernels take and its grid covers M, K and
+    N: the skinny mapping holds M in one padded tile, N in clusters of bn
+    columns and splits K over each cluster's CTAs, every one of which has
+    a step when K >= SKINNY_MIN_K; the tiled one's grid of bm x bn tiles
+    covers M x N."""
+    M, K, N = shape
+    t = pick_tiles(M, K, N, float_mode=float_mode)
+    skinny = M <= SKINNY_MAX_M and K >= SKINNY_MIN_K
+    assert t.mapping == ("skinny" if skinny else "tiled")
+    if skinny:
+        assert t.bn in (8, 16, 32) and t.bk == 32
+        assert M <= t.bm <= SKINNY_MAX_M and t.bm % 16 == 0
+        # the launch grid: (the cluster's CTAs, clusters of bn columns)
+        assert t.splits == SKINNY_CLUSTER and K >= 32 * t.splits
+        gn = -(-N // t.bn)
+        assert gn * t.bn >= N > (gn - 1) * t.bn
+    else:
+        # the launch grid: (tiles along M, tiles along N)
+        assert t.bn in (8, 16, 32, 64) and t.splits == 1
+        gm, gn = -(-M // t.bm), -(-N // t.bn)
+        assert gm * t.bm >= M > (gm - 1) * t.bm
+        assert gn * t.bn >= N > (gn - 1) * t.bn
+        if float_mode:
+            assert t.bm * t.bn == 512 and t.bk in (8, 16, 32)
+            assert t.bk >= min(K, 32)
+        else:
+            assert t.bm in (16, 32, 64) and t.bk == 32
 
 
 @pytest.mark.parametrize("M,K,N", [(128, 256, 128), (64, 200, 48),
