@@ -8,7 +8,9 @@ Phases, each of which raises (and exits non-zero) on failure:
 1. header — PyTorch/CUDA versions, the card's name and power limit;
 2. build — compiles the hand-written kernels (``src/repro_torch/csrc``) with
    nvcc into ``build/repro_torch/`` and loads them, printing each kernel's
-   registers, static shared memory, stack and spill bytes (``-Xptxas -v``);
+   registers, static shared memory, stack and spill bytes (``-Xptxas -v``),
+   and for each of ``ssd_scan``'s three phases its dynamic shared memory a
+   block and blocks per SM at the full-width prefill call;
 3. kernels — each kernel and mode against its plain PyTorch version on the
    card: ``qgemm`` (int8 activations, scalar and per-row activation scale;
    shapes on both sides of its tiled/skinny switch) and ``qconv_dw`` (int8;
@@ -23,7 +25,11 @@ Phases, each of which raises (and exits non-zero) on failure:
    mamba2-1.3b's full-width prefill call, f32 and bf16, contiguous and
    strided, from a zero and from a given initial state, y within ``1e-5*max|y|`` (plus one bf16 ulp in bf16) and the
    state within ``1e-4*max(1, max|state|)``, with the plain version's and
-   the kernel's own errors against an f64 run at full width;
+   the kernel's own errors against an f64 run at full width; then each of
+   its three phases (chunk_state, state_pass, chunk_scan) fed the plain
+   version of the phase before it, at the full-width call and a ragged
+   length, f32 and bf16, from a given initial state: the chunk states and
+   y within the same bounds, state_pass exactly;
 4. main paths, each with the launch counters zeroed just before it and read
    just after, on separable-cnn and mnist-cnn at their published widths:
    a. the fully-integer ``qtorch`` target at D8-W8 through
@@ -43,7 +49,8 @@ Phases, each of which raises (and exits non-zero) on failure:
       ``max|y|*2^-7 + 1e-6`` of the CPU plain path;
    e. the LM prefill of mamba2-1.3b at full width (48 layers, seeded random
       weights from a CUDA generator): ``make_prefill_step`` on (4, 2048)
-      tokens in bf16, 48 ``ssd_scan`` launches per prefill, finite logits,
+      tokens in bf16, 48 ``ssd_scan`` launches per prefill (and 48 of
+      each of its three phases), finite logits,
       tokens/s; then in f32 ``forward``
       through the kernel on a ragged length (2, 100) against
       ``decode_step`` fed token by token, every logit within the
@@ -65,7 +72,8 @@ Phases, each of which raises (and exits non-zero) on failure:
    these also as ``graph_ms``, the per-call time of 100 calls replayed from
    one CUDA graph, where no host work separates the calls; ``ssd_scan``
    at the (4, 2048) prefill call against its plain version with the bf16
-   intra flag off and on; ``qgemm``'s per-row x-scale mode at pw0.
+   intra flag off and on, and each of its phases alone beside the bound of
+   its own work; ``qgemm``'s per-row x-scale mode at pw0.
 
 It prints one ``{"kernels": [...]}`` JSON line, and as its last line
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the repository's
@@ -162,7 +170,29 @@ def build() -> dict:
             f"registers, {r['smem_bytes']} B static smem, "
             f"{r['stack_bytes']} B stack, spill {r['spill_store_bytes']} B "
             f"stores / {r['spill_load_bytes']} B loads")
-    return {"seconds": secs, "ptxas": report}
+    return {"seconds": secs, "ptxas": report,
+            "ssd_phases": ssd_phase_info(report)}
+
+
+def ssd_phase_info(report: list) -> dict:
+    """Each ``ssd_scan`` phase's registers (from the ptxas report), dynamic
+    shared memory per block and blocks per SM at the full-width prefill
+    call, in f32 and bf16."""
+    from repro_torch.kernels import checks
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan_phase_info
+    _, _, _, P, _, N, Q = checks.SSD_FULL_WIDTH
+    regs = {r["kernel"]: r["registers"] for r in report}
+    out = {}
+    for dtype, t in (("float32", "float"), ("bfloat16", "__nv_bfloat16")):
+        out[dtype] = ssd_scan_phase_info(Q, P, N, dtype == "bfloat16")
+        for phase, v in out[dtype].items():
+            kernel = (f"{phase}_kernel" if phase == "state_pass"
+                      else f"{phase}_kernel<{t}>")
+            v["registers"] = regs.get(kernel)
+            log(f"  ssd_scan {phase} {dtype} at Q={Q}, P={P}, N={N}: "
+                f"{v['registers']} registers, {v['dynamic_smem_bytes']} B "
+                f"dynamic smem a block, {v['blocks_per_sm']} blocks per SM")
+    return out
 
 
 def kernels_vs_plain() -> dict:
@@ -196,6 +226,18 @@ def kernels_vs_plain() -> dict:
                 f"run of the plain version: {json.dumps(res['vs_f64'])}; "
                 f"worst fraction of the bound: "
                 f"{json.dumps(res['max_tol_frac_by'])}")
+            t0 = time.perf_counter()
+            res["phases"] = checks.ssd_scan_phase_check("cuda")
+            torch.cuda.synchronize()
+            log(f"ssd_scan phases vs plain at "
+                f"{[list(s) for s in checks.SSD_PHASE_SHAPES]} "
+                f"({time.perf_counter() - t0:.1f} s): "
+                + "\n  ".join(checks.summarize(res["phases"]))
+                + f" worst fraction of the bound: "
+                f"{json.dumps(res['phases']['max_tol_frac_by'])}")
+            if res["phases"]["failures"]:
+                raise AssertionError("an ssd_scan phase disagrees with its "
+                                     "plain version")
         if res["failures"] or (exact and res["max_abs_err"] != 0.0):
             raise AssertionError(f"{name} disagrees with its plain version")
         out[name] = res
@@ -228,7 +270,18 @@ def _counters() -> dict:
     from repro_torch.kernels.ssd_scan.ops import ssd_scan_cuda
     return {"qgemm": qgemm, "qgemm_f32": qgemm_f32, "qconv_dw": qconv_dw,
             "qconv_dw_f32": qconv_dw_f32, "conv2d_stream": conv2d_stream_cuda,
-            "ssd_scan": ssd_scan_cuda}
+            "ssd_scan": ssd_scan_cuda, **_ssd_phase_counters()}
+
+
+SSD_PHASES = ("chunk_state", "state_pass", "chunk_scan")
+
+
+def _ssd_phase_counters() -> dict:
+    """``ssd_scan``'s three phase wrappers, each counting its own kernel's
+    launches (``ssd_scan_cuda`` counts one a call)."""
+    from repro_torch.kernels.ssd_scan import ops
+    return {f"ssd_scan.{p}": getattr(ops, f"ssd_{p}_cuda")
+            for p in SSD_PHASES}
 
 
 def _zero_counts() -> None:
@@ -510,10 +563,14 @@ def _tokens(cfg, shape, seed: int, device: str):
 
 def _expect_ssd_launches(name: str, launches: dict, n_layers: int,
                          device: str) -> None:
-    """One ``ssd_scan`` launch per layer of a prefill on the card."""
-    if device == "cuda" and launches["ssd_scan"] != n_layers:
-        raise AssertionError(f"{name}: {launches['ssd_scan']} ssd_scan "
-                             f"launches, expected {n_layers}")
+    """One ``ssd_scan`` launch per layer of a prefill on the card, and one
+    of each of its three phases."""
+    if device != "cuda":
+        return
+    for k in ("ssd_scan",) + tuple(f"ssd_scan.{p}" for p in SSD_PHASES):
+        if launches[k] != n_layers:
+            raise AssertionError(f"{name}: {launches[k]} {k} launches, "
+                                 f"expected {n_layers}")
 
 
 def lm_prefill_path(cfg, params, batch: int = 4, seq: int = 2048,
@@ -949,15 +1006,43 @@ def ssd_scan_bound(B: int, S: int, H: int, P: int, G: int, N: int, Q: int,
     return _bound(nbytes, ops, F32_FLOPS_PER_S)
 
 
+def ssd_phase_bounds(B: int, S: int, H: int, P: int, G: int, N: int,
+                     Q: int, itemsize: int) -> dict:
+    """The least time for each phase's own work, counted as for
+    :func:`ssd_scan_bound`: chunk_state reads x, B and dt and writes the
+    (B,H,nc,N,P) f32 chunk states and decays, for (B w)^T x; state_pass
+    reads and writes the chunk states and writes the final state, one
+    multiply-add an element a chunk; chunk_scan reads x, B, C, dt and the
+    entering states and writes y, for the causal part of C B^T and att @ x
+    and C times the state."""
+    nc = -(-S // Q)
+    bh, pairs = B * H, Q * (Q + 1) // 2
+    scratch = 4 * bh * nc * N * P
+    xb, bcb, dtb = B * S * H * P * itemsize, B * S * G * N * itemsize, 4 * B * S * H
+    return {
+        "chunk_state": _bound(xb + bcb + dtb + 4 * H + scratch + 4 * bh * nc,
+                              2 * bh * nc * Q * N * P, F32_FLOPS_PER_S),
+        "state_pass": _bound(2 * scratch + 4 * bh * nc + 4 * bh * P * N,
+                             2 * bh * nc * N * P, F32_FLOPS_PER_S),
+        "chunk_scan": _bound(2 * xb + 2 * bcb + dtb + 8 * H + scratch,
+                             2 * bh * nc * (pairs * (N + P) + Q * N * P),
+                             F32_FLOPS_PER_S),
+    }
+
+
 def times_ssd(dev) -> dict:
     """``ssd_scan`` at the prefill call of mamba2-1.3b (batch 4 x 2048
     tokens, bf16, x/B/C strided views of the fused conv output as the model
     passes them) against its plain version (all f32) and the model oracle
-    with the bf16 intra-chunk flag on.  No single PyTorch call computes the
-    scan: no library time."""
+    with the bf16 intra-chunk flag on, and each of its three phases on its
+    own beside the bound of its own work.  No single PyTorch call computes
+    the scan: no library time."""
     import torch
     from repro_torch.kernels import checks
-    from repro_torch.kernels.ssd_scan.ops import ssd_scan_cuda
+    from repro_torch.kernels.ssd_scan.ops import (ssd_chunk_scan_cuda,
+                                                  ssd_chunk_state_cuda,
+                                                  ssd_scan_cuda,
+                                                  ssd_state_pass_cuda)
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked_plain
     from repro_torch.models.ssm import ssd_chunked
     shape = checks.SSD_FULL_WIDTH
@@ -971,6 +1056,23 @@ def times_ssd(dev) -> dict:
         plain_bf16_intra=_measure(
             lambda: ssd_chunked(x, dt, A, Bm, C, D, Q), 8),
         **ssd_scan_bound(*shape, itemsize=2))
+    # each phase alone; state_pass rewrites a copy of the chunk states in
+    # place at every call, which changes its values but not its work
+    states, decay = ssd_chunk_state_cuda(x, dt, A, Bm, Q)
+    scratch = states.clone()
+    ssd_state_pass_cuda(states, decay)
+    bounds = ssd_phase_bounds(*shape, itemsize=2)
+    calls = {
+        "chunk_state": lambda: ssd_chunk_state_cuda(x, dt, A, Bm, Q),
+        "state_pass": lambda: ssd_state_pass_cuda(scratch, decay),
+        "chunk_scan": lambda: ssd_chunk_scan_cuda(x, dt, A, Bm, C, D, states,
+                                                  Q),
+    }
+    row["phases"] = {name: dict(kernel=_measure(fn, 20), **bounds[name])
+                     for name, fn in calls.items()}
+    for name, r in row["phases"].items():
+        log(f"time ssd_scan phase {name}: {_ms(r['kernel'])} ms "
+            f"(bound {r['bound_ms']} ms, {r['bound_by']})")
     return {"ssd_scan": [row]}
 
 
@@ -1072,13 +1174,22 @@ def main() -> int:
                       xscale_bound_ms=xr["bound_ms"],
                       xscale_bound_by=xr["bound_by"])
     ssd = rows["ssd_scan"][0]
-    kernels[-1].update(plain_bf16_intra_ms=_ms(ssd["plain_bf16_intra"]),
-                       vs_f64=sweeps["ssd_scan"]["vs_f64"])
+    prefill = next(p["launches"] for p in paths
+                   if f"{p['path']} {p['model']}" == table["ssd_scan"][2])
+    kernels[-1].update(
+        plain_bf16_intra_ms=_ms(ssd["plain_bf16_intra"]),
+        vs_f64=sweeps["ssd_scan"]["vs_f64"],
+        phases={name: {"ms": _ms(r["kernel"]), "bound_ms": r["bound_ms"],
+                       "bound_by": r["bound_by"],
+                       "launches": prefill[f"ssd_scan.{name}"],
+                       **built["ssd_phases"]["bfloat16"][name]}
+                for name, r in ssd["phases"].items()},
+        phases_max_tol_frac=sweeps["ssd_scan"]["phases"]["max_tol_frac"])
     detail = {"card": card, "build_s": built["seconds"],
               "ptxas": built["ptxas"],
               "sweeps": {k: {key: v[key] for key in
                              ("cases", "max_abs_err", "max_tol_frac",
-                              "max_tol_frac_by", "vs_f64")
+                              "max_tol_frac_by", "vs_f64", "phases")
                              if key in v}
                          for k, v in sweeps.items()},
               "main_paths": paths, "times": rows,

@@ -6,19 +6,21 @@
 Each argument is the ``build/chip_smoke/chip_smoke.json`` of one run of
 ``chip_smoke.py`` (for example a parent commit's and a change's, run in turn
 in one session on one card).  Prints, for every timed call of ``qgemm``,
-``qgemm_f32``, ``qconv_dw`` and ``qconv_dw_f32``, the kernel's device time
-per call in each run (the profiler's CUDA activity), its CUDA-graph time
-where the run has one, and the plain version's and the library call's device
-times and the bound from the first run, in ms.  Put a run that has the
-library times first (runs before the padded ``torch._int_mm`` yardstick
-have none for most int8 shapes).
+``qgemm_f32``, ``qconv_dw``, ``qconv_dw_f32`` and ``ssd_scan``, the
+kernel's device time per call in each run (the profiler's CUDA activity),
+its CUDA-graph time where the run has one, and the plain version's and the
+library call's device times and the bound from the first run, in ms; then
+each ``ssd_scan`` phase's time in the runs that time its phases, and each
+run's LM prefill tokens/s.  Put a run that has the library times first
+(runs before the padded ``torch._int_mm`` yardstick have none for most
+int8 shapes).
 """
 from __future__ import annotations
 
 import json
 import sys
 
-KERNELS = ("qgemm", "qgemm_f32", "qconv_dw", "qconv_dw_f32")
+KERNELS = ("qgemm", "qgemm_f32", "qconv_dw", "qconv_dw_f32", "ssd_scan")
 
 
 def _ms(m):
@@ -49,9 +51,19 @@ def main(paths) -> int:
                       _fmt(None if lib is None else lib.get("graph_ms")),
                       f"{row['bound_ms']:.7f} ({row['bound_by']})"]
             print(" | ".join(cells))
+    phases = next((r["times"]["ssd_scan"][0]["phases"] for r in runs
+                   if "phases" in r["times"]["ssd_scan"][0]), {})
+    for name, first in phases.items():
+        cells = [f"ssd_scan.{name}", "-"] + [
+            _fmt(_ms(r["times"]["ssd_scan"][0].get("phases", {})
+                     .get(name, {}).get("kernel"))) for r in runs]
+        print(" | ".join(cells + [f"{first['bound_ms']:.7f} "
+                                  f"({first['bound_by']})"]))
     for i, r in enumerate(runs):
+        tps = [f"{p['tokens_per_s']:.1f}" for p in r["main_paths"]
+               if "tokens_per_s" in p]
         print(f"[{i}] {paths[i]}: card {r.get('card')}, "
-              f"total {r['total_s']:.1f} s")
+              f"total {r['total_s']:.1f} s, prefill tokens/s {tps}")
     return 0
 
 

@@ -36,7 +36,15 @@ def as_tensor(x, device: Optional[torch.device] = None) -> torch.Tensor:
 
 
 def to_numpy(x):
-    """Tensor (any device) or array -> numpy array on the host."""
+    """Tensor (any device) or array -> numpy array on the host (a device
+    tensor is copied back, which waits for the work that produced it).
+    numpy has no bfloat16, so a bf16 tensor comes back as float32: exact,
+    so a caller that takes bf16 casts it back to the same values.  (The
+    reference's ``np.asarray`` gives an ``ml_dtypes`` bfloat16 array; the
+    port cannot count on having ``ml_dtypes``.)"""
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        x = x.detach()
+        if x.dtype == torch.bfloat16:
+            x = x.to(torch.float32)
+        return x.cpu().numpy()
     return np.asarray(x)

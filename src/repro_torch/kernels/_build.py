@@ -43,9 +43,16 @@ _QGEMM_ARGS = [_P] * 6 + [_I] * 16 + [_F, _F, _P]
 _QCONV_DW_ARGS = [_P] * 5 + [_I] * 20 + [_F, _F, _P]
 # (x, w, bias, out, B, H, W, Cin, Cout, kh, kw, x_bf16, w_bf16, stream)
 _CONV2D_STREAM_ARGS = [_P] * 4 + [_I] * 9 + [_P]
-# (x, dt, A, B, C, D, s0, y, fin, B, S, H, P, G, N, Q, 12 element strides,
+# the SSD scan's three phases:
+# (x, dt, A, B, states, decay, B, S, H, P, G, N, Q, 9 element strides,
 #  x_bf16, stream)
-_SSD_SCAN_ARGS = [_P] * 9 + [_I] * 7 + [_L] * 12 + [_I, _P]
+_SSD_CHUNK_STATE_ARGS = [_P] * 6 + [_I] * 7 + [_L] * 9 + [_I, _P]
+# (states, decay, s0, fin, B*H, nc, P, N, stream)
+_SSD_STATE_PASS_ARGS = [_P] * 4 + [_I] * 4 + [_P]
+# (x, dt, A, B, C, D, states, y, B, S, H, P, G, N, Q, 12 element strides,
+#  x_bf16, stream)
+_SSD_CHUNK_SCAN_ARGS = [_P] * 8 + [_I] * 7 + [_L] * 12 + [_I, _P]
+_IP = ctypes.POINTER(_I)
 # C entry point -> its argument types; every one returns a CUDA error code
 _ENTRY_POINTS = {
     "repro_qgemm_i8": _QGEMM_ARGS,
@@ -54,7 +61,11 @@ _ENTRY_POINTS = {
     "repro_qconv_dw_i8": _QCONV_DW_ARGS,
     "repro_qconv_dw_f32": _QCONV_DW_ARGS,
     "repro_conv2d_stream": _CONV2D_STREAM_ARGS,
-    "repro_ssd_scan": _SSD_SCAN_ARGS,
+    "repro_ssd_chunk_state": _SSD_CHUNK_STATE_ARGS,
+    "repro_ssd_state_pass": _SSD_STATE_PASS_ARGS,
+    "repro_ssd_chunk_scan": _SSD_CHUNK_SCAN_ARGS,
+    # (phase, Q, P, N, x_bf16, *smem_bytes, *blocks_per_sm)
+    "repro_ssd_scan_info": [_I] * 5 + [_IP, _IP],
 }
 
 _lock = threading.Lock()

@@ -29,8 +29,14 @@ from repro_torch.kernels.qconv_dw.ops import (DW_PACK_ALIGN, qconv_dw_float,
 from repro_torch.kernels.qmatmul.ops import (qgemm_float, qgemm_float_plain,
                                              qmatmul_int8_act,
                                              qmatmul_int8_act_plain)
-from repro_torch.kernels.ssd_scan.ops import ssd_chunked_kernel
-from repro_torch.kernels.ssd_scan.ref import ssd_chunked_plain
+from repro_torch.kernels.ssd_scan.ops import (ssd_chunk_scan,
+                                              ssd_chunk_states,
+                                              ssd_chunked_kernel,
+                                              ssd_state_pass)
+from repro_torch.kernels.ssd_scan.ref import (ssd_chunk_scan_plain,
+                                              ssd_chunk_states_plain,
+                                              ssd_chunked_plain,
+                                              ssd_state_pass_plain)
 from repro_torch.quant.pack import PACK_ALIGN, pack_rows
 
 # (M, K, N) of every qgemm call of the slice's main path at batch 8:
@@ -83,6 +89,9 @@ SSD_SHAPES = ((2, 128, 4, 16, 2, 8, 32), (1, 64, 2, 8, 1, 16, 16),
               (1, 100, 4, 16, 1, 8, 32), (2, 100, 4, 16, 2, 8, 32),
               (1, 2000, 4, 64, 1, 128, 64), (3, 37, 6, 32, 3, 4, 16),
               SSD_FULL_WIDTH)
+# the per-phase check: the full-width prefill call and a ragged length at
+# the same widths
+SSD_PHASE_SHAPES = (SSD_FULL_WIDTH, (1, 2000, 4, 64, 1, 128, 64))
 
 # weight working points: (bits, packed)
 WEIGHT_VARIANTS = ((8, False), (4, False), (2, False), (4, True), (2, True))
@@ -480,6 +489,62 @@ def ssd_scan_f64_gap(device, shape: Tuple[int, ...] = SSD_FULL_WIDTH,
         out[f"{name}_y_rel"] = float((y.double() - y64).abs().max()) / ym
         out[f"{name}_state_rel"] = float((s.double() - s64).abs().max()) / sm
     return out
+
+
+def ssd_scan_phase_check(device, shapes: Sequence[Tuple[int, ...]]
+                         = SSD_PHASE_SHAPES,
+                         dtypes: Sequence[torch.dtype] = (torch.float32,
+                                                          torch.bfloat16)
+                         ) -> Dict[str, object]:
+    """Each phase of the scan on ``device`` against its plain version, fed
+    the plain version's output of the phase before it, on x/B/C views of a
+    fused tensor from a given initial state: phase 1's chunk states and
+    decays, and phase 3's y, within :func:`ssd_scan_tol` (the states and
+    decays under the state's rule); phase 2's entering states and final
+    state exactly (the same two roundings, a multiply then an add, in the
+    same order).  ``max_tol_frac_by`` is the worst error over its bound per
+    phase and output, ``max_abs_err`` the worst |y| difference."""
+    dev = torch.device(device)
+    cases, worst, worst_frac, failures, by = 0, 0.0, 0.0, [], {}
+    for si, shape in enumerate(shapes):
+        Bsz, _, H, P, _, N, Q = shape
+        for dt_ in dtypes:
+            x, dt, A, Bm, C, D = ssd_inputs(shape, 8000 + si, dt_, dev,
+                                            fused=True)
+            s0 = torch.randn((Bsz, H, P, N), generator=_gen(9000 + si)).to(dev)
+            st_k, dc_k = ssd_chunk_states(x, dt, A, Bm, Q)
+            st_p, dc_p = ssd_chunk_states_plain(x, dt, A, Bm, Q)
+            ent_k, fin_k = ssd_state_pass(st_p.clone(), dc_p, s0)
+            ent_p, fin_p = ssd_state_pass_plain(st_p, dc_p, s0)
+            y_k = ssd_chunk_scan(x, dt, A, Bm, C, D, ent_p, Q)
+            y_p = ssd_chunk_scan_plain(x, dt, A, Bm, C, D, ent_p, Q)
+            y_tol, _ = ssd_scan_tol(y_p, fin_p)
+            dy = (y_k.to(torch.float32) - y_p.to(torch.float32)).abs()
+            fracs = {
+                "chunk_state states": float((st_k - st_p).abs().max())
+                / ssd_scan_tol(y_p, st_p)[1],
+                "chunk_state decay": float((dc_k - dc_p).abs().max())
+                / ssd_scan_tol(y_p, dc_p)[1],
+                # exact: any difference fails
+                "state_pass entering": 0.0 if torch.equal(ent_k, ent_p)
+                else math.inf,
+                "state_pass final": 0.0 if torch.equal(fin_k, fin_p)
+                else math.inf,
+                "chunk_scan y": float((dy / y_tol).max()),
+            }
+            err = float(dy.max())
+            frac = max(fracs.values())
+            for k, f in fracs.items():
+                key = f"{dt_}".split(".")[-1] + " " + k
+                by[key] = max(by.get(key, 0.0), f)
+            cases += 1
+            worst = max(worst, err)
+            worst_frac = max(worst_frac, frac)
+            if not frac <= 1.0:
+                failures.append(dict(shape=list(shape), dtype=str(dt_),
+                                     err=err, tol_frac=fracs))
+    return {"cases": cases, "max_abs_err": worst, "failures": failures,
+            "max_tol_frac": worst_frac, "max_tol_frac_by": by}
 
 
 def summarize(result: Dict[str, object], limit: int = 5) -> List[str]:

@@ -3,17 +3,25 @@
 
 ``ssd_chunked_kernel`` keeps the reference's contract (the model oracle's
 signature and layouts) and dispatches on x's device: a CUDA tensor launches
-the hand-written kernel ``csrc/ssd_scan.cu`` through :func:`ssd_scan_cuda`,
+the hand-written kernels ``csrc/ssd_scan.cu`` through :func:`ssd_scan_cuda`,
 with no fallback; a CPU tensor runs the plain version
 (:func:`~repro_torch.kernels.ssd_scan.ref.ssd_chunked_plain`).  A warm
-start (``init_state`` given) takes the same routes: the kernel loads the
-initial state into shared memory where it would zero it, so the reference
-wrapper's detour through the model oracle has no counterpart.
+start (``init_state`` given) takes the same routes: the state-passing phase
+starts from the initial state where it would start from zero, so the
+reference wrapper's detour through the model oracle has no counterpart.
+
+:func:`ssd_scan_cuda` runs the scan as three chunk-parallel phases on the
+current stream: :func:`ssd_chunk_state_cuda` (each chunk's summary state
+and decay, into a (B,H,nc,N,P) f32 scratch), :func:`ssd_state_pass_cuda`
+(the recurrence over the chunks, in place) and :func:`ssd_chunk_scan_cuda`
+(y from each chunk and the state entering it).  :func:`ssd_chunk_states`,
+:func:`ssd_state_pass` and :func:`ssd_chunk_scan` dispatch each phase on the
+device as ``ssd_chunked_kernel`` does.
 
 Unlike the reference's wrapper, no ``repeat``/``transpose`` copy is made:
-the kernel reads the (B,S,H,P) and (B,S,G,N) layouts in place through their
-strides (the model passes views into the fused conv output), and it masks a
-ragged last chunk itself, where the reference's wrapper asserts
+the kernels read the (B,S,H,P) and (B,S,G,N) layouts in place through their
+strides (the model passes views into the fused conv output), and they mask
+a ragged last chunk themselves, where the reference's wrapper asserts
 ``S % chunk == 0``.
 """
 from __future__ import annotations
@@ -21,11 +29,17 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels._build import check, load_kernels
-from repro_torch.kernels.ssd_scan.ref import ssd_chunked_plain
+from repro_torch.kernels.ssd_scan.ref import (ssd_chunk_scan_plain,
+                                              ssd_chunk_states_plain,
+                                              ssd_chunked_plain,
+                                              ssd_state_pass_plain)
 
-__all__ = ["ssd_chunked_kernel", "ssd_scan_cuda"]
+__all__ = ["ssd_chunk_scan", "ssd_chunk_scan_cuda", "ssd_chunk_state_cuda",
+           "ssd_chunk_states", "ssd_chunked_kernel", "ssd_scan_cuda",
+           "ssd_state_pass", "ssd_state_pass_cuda"]
 
 _FLOAT = (torch.float32, torch.bfloat16)
+_F32 = (torch.float32,)
 
 
 def _check_operand(t: torch.Tensor, name: str, shape, dtypes, dev) -> None:
@@ -35,21 +49,17 @@ def _check_operand(t: torch.Tensor, name: str, shape, dtypes, dev) -> None:
                          f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-                  Bm: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
-                  chunk: int, init_state: torch.Tensor = None):
-    """Launch ``csrc/ssd_scan.cu`` on the current CUDA stream: x (B,S,H,P)
-    f32 or bf16, dt (B,S,H) f32, A and D (H,) f32, Bm and C (B,S,G,N) in
-    x's dtype — any strides, as long as the last dim of x, Bm and C is
-    contiguous — and ``init_state`` (B,H,P,N) f32 or None for a zero start.
-    Returns (y (B,S,H,P) in x's dtype, final state (B,H,P,N) f32).  Shapes
-    the kernel does not take (chunk, P or N not a multiple of 4, tiles over
-    the shared memory a block can have) come back from it as a CUDA error.
-    Counts launches in ``ssd_scan_cuda.launches``."""
+def _on_cuda(t: torch.Tensor, what: str) -> torch.device:
+    if t.device.type != "cuda":
+        raise ValueError(f"{what} launches the CUDA kernel; got a "
+                         f"{t.device} tensor")
+    return t.device
+
+
+def _inputs(x, dt, A, Bm, C=None, D=None):
+    """Check the scan's inputs on x's CUDA device; returns them with the
+    last dim of x, Bm and C contiguous, and (B, S, H, P, G, N)."""
     dev = x.device
-    if dev.type != "cuda":
-        raise ValueError(f"ssd_scan_cuda launches the CUDA kernel; got a "
-                         f"{dev} tensor")
     if x.ndim != 4 or x.dtype not in _FLOAT:
         raise ValueError(f"x must be a 4-D f32 or bf16 tensor; got {x.dtype} "
                          f"{tuple(x.shape)}")
@@ -57,47 +67,134 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if Bm.ndim != 4:
         raise ValueError(f"Bm must be (B, S, G, N); got {tuple(Bm.shape)}")
     G, N = Bm.shape[2], Bm.shape[3]
-    _check_operand(dt, "dt", (Bsz, S, H), (torch.float32,), dev)
-    _check_operand(A, "A", (H,), (torch.float32,), dev)
-    _check_operand(D, "D", (H,), (torch.float32,), dev)
+    _check_operand(dt, "dt", (Bsz, S, H), _F32, dev)
+    _check_operand(A, "A", (H,), _F32, dev)
     _check_operand(Bm, "Bm", (Bsz, S, G, N), (x.dtype,), dev)
-    _check_operand(C, "C", (Bsz, S, G, N), (x.dtype,), dev)
-    if init_state is not None:
-        _check_operand(init_state, "init_state", (Bsz, H, P, N),
-                       (torch.float32,), dev)
-        init_state = init_state.contiguous()
-    if x.stride(3) != 1:
-        x = x.contiguous()
-    if Bm.stride(3) != 1:
-        Bm = Bm.contiguous()
-    if C.stride(3) != 1:
-        C = C.contiguous()
-    A, D = A.contiguous(), D.contiguous()
-    y = torch.empty((Bsz, S, H, P), dtype=x.dtype, device=dev)
-    fin = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=dev)
-    if Bsz * H == 0:
-        return y, fin
+    if C is not None:
+        _check_operand(C, "C", (Bsz, S, G, N), (x.dtype,), dev)
+        C = C if C.stride(3) == 1 else C.contiguous()
+    if D is not None:
+        _check_operand(D, "D", (H,), _F32, dev)
+        D = D.contiguous()
+    x = x if x.stride(3) == 1 else x.contiguous()
+    Bm = Bm if Bm.stride(3) == 1 else Bm.contiguous()
+    return x, dt, A.contiguous(), Bm, C, D, (Bsz, S, H, P, G, N)
+
+
+def _strides(*ts):
+    return [s for t in ts for s in (t.stride(0), t.stride(1), t.stride(2))]
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def ssd_chunk_state_cuda(x, dt, A, Bm, chunk: int):
+    """Phase 1 on the card: each chunk's summary state
+    ``S_c = (B*w)^T x`` and decay ``exp(l_last)`` -> (states (B,H,nc,N,P)
+    f32, decay (B,H,nc) f32), nc = ceil(S/chunk).  Operands as for
+    :func:`ssd_scan_cuda`.  Counts launches in ``.launches``."""
+    dev = _on_cuda(x, "ssd_chunk_state_cuda")
+    x, dt, A, Bm, _, _, (Bsz, S, H, P, G, N) = _inputs(x, dt, A, Bm)
+    nc = -(-S // chunk) if chunk > 0 else 0     # the kernel refuses chunk <= 0
+    states = torch.empty((Bsz, H, nc, N, P), dtype=torch.float32, device=dev)
+    decay = torch.empty((Bsz, H, nc), dtype=torch.float32, device=dev)
     lib = load_kernels()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.repro_ssd_scan(
+        rc = lib.repro_ssd_chunk_state(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-            C.data_ptr(), D.data_ptr(),
+            states.data_ptr(), decay.data_ptr(), Bsz, S, H, P, G, N, chunk,
+            *_strides(x, dt, Bm), int(x.dtype == torch.bfloat16),
+            _stream(dev))
+    check(rc, f"ssd chunk_state (B={Bsz}, S={S}, H={H}, P={P}, G={G}, "
+              f"N={N}, chunk={chunk})")
+    ssd_chunk_state_cuda.launches += 1
+    return states, decay
+
+
+def ssd_state_pass_cuda(states, decay, init_state=None):
+    """Phase 2 on the card: ``states`` (B,H,nc,N,P) f32 is overwritten IN
+    PLACE, each chunk's summary by the state entering that chunk, starting
+    from ``init_state`` (B,H,P,N) f32 or zero; returns the final state
+    (B,H,P,N) f32.  ``decay`` is (B,H,nc) f32.  Counts launches in
+    ``.launches``."""
+    dev = _on_cuda(states, "ssd_state_pass_cuda")
+    if states.ndim != 5 or not states.is_contiguous():
+        raise ValueError("states must be a contiguous (B, H, nc, N, P) "
+                         f"tensor; got {tuple(states.shape)}")
+    Bsz, H, nc, N, P = states.shape
+    _check_operand(states, "states", (Bsz, H, nc, N, P), _F32, dev)
+    _check_operand(decay, "decay", (Bsz, H, nc), _F32, dev)
+    decay = decay.contiguous()
+    if init_state is not None:
+        _check_operand(init_state, "init_state", (Bsz, H, P, N), _F32, dev)
+        init_state = init_state.contiguous()
+    fin = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=dev)
+    lib = load_kernels()
+    with torch.cuda.device(dev):
+        rc = lib.repro_ssd_state_pass(
+            states.data_ptr(), decay.data_ptr(),
             None if init_state is None else init_state.data_ptr(),
-            y.data_ptr(), fin.data_ptr(),
-            Bsz, S, H, P, G, N, chunk,
-            x.stride(0), x.stride(1), x.stride(2),
-            dt.stride(0), dt.stride(1), dt.stride(2),
-            Bm.stride(0), Bm.stride(1), Bm.stride(2),
-            C.stride(0), C.stride(1), C.stride(2),
-            int(x.dtype == torch.bfloat16), stream)
-    check(rc, f"ssd_scan (B={Bsz}, S={S}, H={H}, P={P}, G={G}, N={N}, "
-              f"chunk={chunk})")
+            fin.data_ptr(), Bsz * H, nc, P, N, _stream(dev))
+    check(rc, f"ssd state_pass (B*H={Bsz * H}, nc={nc}, P={P}, N={N})")
+    ssd_state_pass_cuda.launches += 1
+    return fin
+
+
+def ssd_chunk_scan_cuda(x, dt, A, Bm, C, D, states, chunk: int):
+    """Phase 3 on the card: y (B,S,H,P) in x's dtype from each chunk's
+    inputs and ``states`` (B,H,nc,N,P) f32, the state entering each chunk
+    (what :func:`ssd_state_pass_cuda` leaves).  Counts launches in
+    ``.launches``."""
+    dev = _on_cuda(x, "ssd_chunk_scan_cuda")
+    x, dt, A, Bm, C, D, (Bsz, S, H, P, G, N) = _inputs(x, dt, A, Bm, C, D)
+    nc = -(-S // chunk) if chunk > 0 else 0
+    _check_operand(states, "states", (Bsz, H, nc, N, P), _F32, dev)
+    states = states.contiguous()
+    y = torch.empty((Bsz, S, H, P), dtype=x.dtype, device=dev)
+    lib = load_kernels()
+    with torch.cuda.device(dev):
+        rc = lib.repro_ssd_chunk_scan(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+            C.data_ptr(), D.data_ptr(), states.data_ptr(), y.data_ptr(),
+            Bsz, S, H, P, G, N, chunk, *_strides(x, dt, Bm, C),
+            int(x.dtype == torch.bfloat16), _stream(dev))
+    check(rc, f"ssd chunk_scan (B={Bsz}, S={S}, H={H}, P={P}, G={G}, "
+              f"N={N}, chunk={chunk})")
+    ssd_chunk_scan_cuda.launches += 1
+    return y
+
+
+def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                  Bm: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+                  chunk: int, init_state: torch.Tensor = None):
+    """Launch ``csrc/ssd_scan.cu``'s three phases on the current CUDA
+    stream: x (B,S,H,P) f32 or bf16, dt (B,S,H) f32, A and D (H,) f32, Bm
+    and C (B,S,G,N) in x's dtype — any strides, as long as the last dim of
+    x, Bm and C is contiguous — and ``init_state`` (B,H,P,N) f32 or None
+    for a zero start.  Returns (y (B,S,H,P) in x's dtype, final state
+    (B,H,P,N) f32).  The (B,H,nc,N,P) f32 scratch between the phases comes
+    from the caching allocator.  Shapes the kernels do not take (chunk, P or
+    N not a multiple of 4, a phase's tiles over the shared memory a block
+    can have) come back from them as a CUDA error.  Counts one launch per
+    call in ``ssd_scan_cuda.launches`` (each phase counts its own)."""
+    _on_cuda(x, "ssd_scan_cuda")
+    Bsz, S, H, P = x.shape
+    if Bsz * H == 0:
+        N = Bm.shape[3]
+        return (torch.empty((Bsz, S, H, P), dtype=x.dtype, device=x.device),
+                torch.empty((Bsz, H, P, N), dtype=torch.float32,
+                            device=x.device))
+    states, decay = ssd_chunk_state_cuda(x, dt, A, Bm, chunk)
+    fin = ssd_state_pass_cuda(states, decay, init_state)
+    y = ssd_chunk_scan_cuda(x, dt, A, Bm, C, D, states, chunk)
     ssd_scan_cuda.launches += 1
     return y, fin
 
 
-ssd_scan_cuda.launches = 0
+for _fn in (ssd_chunk_state_cuda, ssd_state_pass_cuda, ssd_chunk_scan_cuda,
+            ssd_scan_cuda):
+    _fn.launches = 0
 
 
 def ssd_chunked_kernel(x, dt, A, Bm, C, D, chunk: int, init_state=None):
@@ -112,3 +209,54 @@ def ssd_chunked_kernel(x, dt, A, Bm, C, D, chunk: int, init_state=None):
     if x.device.type == "cpu":
         return ssd_chunked_plain(x, dt, A, Bm, C, D, chunk, init_state)
     raise ValueError(f"no ssd_scan path for device {x.device}")
+
+
+def _route(t: torch.Tensor, cuda_fn, plain_fn):
+    if t.device.type == "cuda":
+        return cuda_fn
+    if t.device.type == "cpu":
+        return plain_fn
+    raise ValueError(f"no ssd_scan path for device {t.device}")
+
+
+def ssd_chunk_states(x, dt, A, Bm, chunk: int):
+    """Phase 1 on x's device (the kernel on CUDA, the plain version on the
+    CPU) -> (states (B,H,nc,N,P) f32, decay (B,H,nc) f32)."""
+    fn = _route(x, ssd_chunk_state_cuda, ssd_chunk_states_plain)
+    return fn(x, dt, A, Bm, chunk)
+
+
+def ssd_state_pass(states, decay, init_state=None):
+    """Phase 2 on the states' device -> (entering states (B,H,nc,N,P),
+    final state (B,H,P,N)).  On the card the kernel overwrites ``states``
+    with the entering states and the same tensor is returned."""
+    if states.device.type == "cuda":
+        return states, ssd_state_pass_cuda(states, decay, init_state)
+    if states.device.type == "cpu":
+        return ssd_state_pass_plain(states, decay, init_state)
+    raise ValueError(f"no ssd_scan path for device {states.device}")
+
+
+def ssd_chunk_scan(x, dt, A, Bm, C, D, states, chunk: int):
+    """Phase 3 on x's device -> y (B,S,H,P) in x's dtype."""
+    fn = _route(x, ssd_chunk_scan_cuda, ssd_chunk_scan_plain)
+    return fn(x, dt, A, Bm, C, D, states, chunk)
+
+
+def ssd_scan_phase_info(chunk: int, P: int, N: int, bf16: bool) -> dict:
+    """Per phase of the kernel (``chunk_state``, ``state_pass``,
+    ``chunk_scan``) at this shape and x dtype: the dynamic shared memory a
+    block takes and how many blocks of it one SM holds at once (the CUDA
+    occupancy calculator).  Needs the card."""
+    import ctypes
+    lib = load_kernels()
+    out = {}
+    for phase, name in ((1, "chunk_state"), (2, "state_pass"),
+                        (3, "chunk_scan")):
+        smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+        rc = lib.repro_ssd_scan_info(phase, chunk, P, N, int(bf16),
+                                     ctypes.byref(smem), ctypes.byref(blocks))
+        check(rc, f"ssd_scan_info phase {phase}")
+        out[name] = {"dynamic_smem_bytes": smem.value,
+                     "blocks_per_sm": blocks.value}
+    return out

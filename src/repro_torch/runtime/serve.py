@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import to_numpy
 from repro_torch.core.adaptive import (PointSelector, RuntimePolicy,
                                        ServiceObjective, SLOController,
                                        WorkingPoint)
@@ -156,14 +157,6 @@ class AdaptiveLMServer:
 # ---------------------------------------------------------------------------
 # Batch-coalescing accelerator server (async, multi-tenant)
 # ---------------------------------------------------------------------------
-
-def _host(x) -> np.ndarray:
-    """A request input or a batch output as a host numpy array (a device
-    tensor is copied back, which waits for the work that produced it)."""
-    if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
-    return np.asarray(x)
-
 
 @dataclass
 class _BatchFailure:
@@ -556,7 +549,7 @@ class AccelServer:
         # padded numpy columns and moves each to the device in one copy
         cols = []
         for j in range(len(batch.requests[0].inputs)):
-            parts = [_host(r.inputs[j]) for r in batch.requests]
+            parts = [to_numpy(r.inputs[j]) for r in batch.requests]
             col = np.zeros((batch.bucket, *parts[0].shape[1:]),
                            parts[0].dtype)
             off = 0
@@ -573,14 +566,17 @@ class AccelServer:
     @staticmethod
     def _finite(sliced: Tuple[np.ndarray, ...]) -> bool:
         """True when every float output slice is NaN/Inf-free (integer
-        outputs — token ids — vacuously pass)."""
+        outputs — token ids — vacuously pass).  bf16 outputs reach here as
+        f32 (``to_numpy``), so they are guarded too: a deliberate departure
+        from the reference, whose ``ml_dtypes`` bfloat16 arrays are not
+        ``np.floating`` and pass unchecked."""
         return all(np.isfinite(o).all()
                    for o in sliced if np.issubdtype(o.dtype, np.floating))
 
     def _finish(self, pending: _Pending) -> None:
         # the one force point: copying the outputs to the host waits for the
         # device; everything after is host work
-        outs = tuple(_host(o) for o in pending.outs)
+        outs = tuple(to_numpy(o) for o in pending.outs)
         done = self.clock()
         ten, batch = pending.tenant, pending.batch
         exec_s = done - pending.t0

@@ -109,11 +109,27 @@ def test_ssd_scan_kernel_matches_plain_version(cuda):
 @pytest.mark.cuda
 def test_ssd_scan_counts_launches(cuda):
     """Every case of the sweep launches the kernel once, the warm starts
-    (a given initial state) included."""
-    from repro_torch.kernels.ssd_scan.ops import ssd_scan_cuda
-    before = ssd_scan_cuda.launches
+    (a given initial state) included, and each of its three phases once."""
+    from repro_torch.kernels.ssd_scan import ops
+    phases = (ops.ssd_chunk_state_cuda, ops.ssd_state_pass_cuda,
+              ops.ssd_chunk_scan_cuda)
+    before = [f.launches for f in (ops.ssd_scan_cuda,) + phases]
     checks.ssd_scan_sweep(cuda, shapes=[(1, 100, 4, 16, 1, 8, 32)])
-    assert ssd_scan_cuda.launches - before == 2 * 2 * 2
+    after = [f.launches for f in (ops.ssd_scan_cuda,) + phases]
+    assert [a - b for a, b in zip(after, before)] == [2 * 2 * 2] * 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", checks.SSD_PHASE_SHAPES)
+def test_ssd_scan_phases_match_their_plain_versions(cuda, shape):
+    """Each phase fed the plain version of the phase before it, f32 and
+    bf16, from a given initial state: the chunk states and y within
+    ``ssd_scan_tol``, the state-passing phase exactly (the full-width
+    prefill call and a ragged length)."""
+    res = checks.ssd_scan_phase_check(cuda, shapes=[shape])
+    torch.cuda.synchronize()
+    assert res["failures"] == [], checks.summarize(res)
+    assert res["max_tol_frac"] <= 1.0
 
 
 @pytest.mark.cuda

@@ -17,8 +17,17 @@ from repro.models.ssm import ssd_decode_step as j_decode
 
 from repro_torch import perf
 from repro_torch.kernels import _build, checks
-from repro_torch.kernels.ssd_scan.ops import ssd_chunked_kernel, ssd_scan_cuda
-from repro_torch.kernels.ssd_scan.ref import ssd_chunked_plain, ssd_ref
+from repro_torch.kernels.ssd_scan.ops import (ssd_chunk_scan,
+                                              ssd_chunk_scan_cuda,
+                                              ssd_chunk_state_cuda,
+                                              ssd_chunk_states,
+                                              ssd_chunked_kernel,
+                                              ssd_scan_cuda, ssd_state_pass,
+                                              ssd_state_pass_cuda)
+from repro_torch.kernels.ssd_scan.ref import (ssd_chunk_scan_plain,
+                                              ssd_chunk_states_plain,
+                                              ssd_chunked_plain, ssd_ref,
+                                              ssd_state_pass_plain)
 from repro_torch.models.ssm import ssd_chunked, ssd_decode_step
 
 # the reference's test shapes (tests/test_kernels.py:91-94): B,S,H,P,G,N,Q
@@ -181,6 +190,124 @@ def test_decode_steps_reproduce_the_chunked_scan():
     assert float((s - s_c).abs().max()) < 1e-4
 
 
+def _phases(x, dt, A, Bm, C, D, Q, s0=None):
+    """The three plain phases composed, as the kernel's wrapper runs them."""
+    states, decay = ssd_chunk_states_plain(x, dt, A, Bm, Q)
+    entering, fin = ssd_state_pass_plain(states, decay, s0)
+    return ssd_chunk_scan_plain(x, dt, A, Bm, C, D, entering, Q), fin
+
+
+@pytest.mark.parametrize("warm", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", checks.SSD_SHAPES[:-1] + tuple(RAGGED))
+def test_phases_compose_to_the_plain_version_bit_for_bit(shape, dtype, warm):
+    """Each phase is the same math as the matching lines of ``_ssd_scan``
+    (same ops on the same values in the same order), so the composition of
+    the three equals ``ssd_chunked_plain`` bit for bit, on strided views of
+    a fused tensor, ragged lengths and G > 1 included."""
+    Bsz, _, H, P, _, N, Q = shape
+    x, dt, A, Bm, C, D = checks.ssd_inputs(shape, 11, dtype, "cpu",
+                                           fused=True)
+    s0 = (torch.randn((Bsz, H, P, N), generator=torch.Generator()
+                      .manual_seed(12)) if warm else None)
+    y, s = _phases(x, dt, A, Bm, C, D, Q, s0)
+    y_p, s_p = ssd_chunked_plain(x, dt, A, Bm, C, D, Q, s0)
+    assert y.dtype == y_p.dtype and torch.equal(y, y_p)
+    assert torch.equal(s, s_p)
+
+
+@pytest.mark.parametrize("warm", [False, True])
+@pytest.mark.parametrize("B,S,H,P,G,N,Q", SHAPES)
+def test_phases_match_the_reference_kernel(B, S, H, P, G, N, Q, warm):
+    """The composition against the reference's Pallas kernel in interpret
+    mode (the oracle where a warm start routes the reference's wrapper
+    there) and its oracle, within the reference's tolerances."""
+    arrs = _inputs(B, S, H, P, G, N, Q)
+    s0 = np.random.default_rng(7).standard_normal(
+        (B, H, P, N)).astype(np.float32) if warm else None
+    y, s = _phases(*_t(arrs), Q, None if s0 is None else torch.from_numpy(s0))
+    _close(y, s, *j_kernel(*arrs, Q, s0, interpret=True))
+    _close(y, s, *j_oracle(*arrs, Q, s0))
+
+
+@pytest.mark.parametrize("warm", [False, True])
+@pytest.mark.parametrize("B,S,H,P,G,N,Q", RAGGED)
+def test_phases_match_the_reference_oracle_on_ragged_lengths(
+        B, S, H, P, G, N, Q, warm):
+    arrs = _inputs(B, S, H, P, G, N, Q)
+    s0 = np.random.default_rng(8).standard_normal(
+        (B, H, P, N)).astype(np.float32) if warm else None
+    y, s = _phases(*_t(arrs), Q, None if s0 is None else torch.from_numpy(s0))
+    _close(y, s, *j_oracle(*arrs, Q, s0))
+
+
+def test_phase_layouts_and_the_state_pass():
+    """Phase 1's states are (B,H,nc,N,P) with the (B,H,nc) decays in
+    (0, 1]; phase 2's first entering state is the initial one, each next is
+    the last times the decay plus the chunk's summary, and the final state
+    comes back (B,H,P,N); no chunks leave the initial state as it is."""
+    B, S, H, P, G, N, Q = 2, 100, 4, 16, 2, 8, 32
+    x, dt, A, Bm, C, D = _t(_inputs(B, S, H, P, G, N, Q))
+    states, decay = ssd_chunk_states_plain(x, dt, A, Bm, Q)
+    assert states.shape == (B, H, 4, N, P) and decay.shape == (B, H, 4)
+    assert states.dtype == decay.dtype == torch.float32
+    assert bool(((decay > 0) & (decay <= 1)).all())
+    s0 = torch.randn((B, H, P, N), generator=torch.Generator().manual_seed(3))
+    entering, fin = ssd_state_pass_plain(states, decay, s0)
+    assert entering.shape == states.shape and fin.shape == (B, H, P, N)
+    assert torch.equal(entering[:, :, 0], s0.transpose(2, 3))
+    for c in range(1, 4):
+        assert torch.equal(entering[:, :, c],
+                           entering[:, :, c - 1] * decay[:, :, c - 1, None,
+                                                         None]
+                           + states[:, :, c - 1])
+    assert torch.equal(fin.transpose(2, 3),
+                       entering[:, :, 3] * decay[:, :, 3, None, None]
+                       + states[:, :, 3])
+    empty = torch.zeros((B, H, 0, N, P))
+    e0, f0 = ssd_state_pass_plain(empty, torch.zeros((B, H, 0)), s0)
+    assert e0.shape == empty.shape and torch.equal(f0, s0)
+
+
+def test_phase_entry_points_run_the_plain_versions_on_the_cpu():
+    """On a CPU tensor each phase's entry point is its plain version and
+    launches nothing; each phase's launch wrapper refuses a CPU tensor."""
+    B, S, H, P, G, N, Q = 2, 100, 4, 16, 2, 8, 32
+    x, dt, A, Bm, C, D = _t(_inputs(B, S, H, P, G, N, Q))
+    counts = [f.launches for f in (ssd_chunk_state_cuda, ssd_state_pass_cuda,
+                                   ssd_chunk_scan_cuda, ssd_scan_cuda)]
+    states, decay = ssd_chunk_states(x, dt, A, Bm, Q)
+    want = ssd_chunk_states_plain(x, dt, A, Bm, Q)
+    assert torch.equal(states, want[0]) and torch.equal(decay, want[1])
+    entering, fin = ssd_state_pass(states, decay)
+    want = ssd_state_pass_plain(states, decay)
+    assert torch.equal(entering, want[0]) and torch.equal(fin, want[1])
+    y = ssd_chunk_scan(x, dt, A, Bm, C, D, entering, Q)
+    assert torch.equal(y, ssd_chunk_scan_plain(x, dt, A, Bm, C, D, entering,
+                                               Q))
+    assert counts == [f.launches for f in (ssd_chunk_state_cuda,
+                                           ssd_state_pass_cuda,
+                                           ssd_chunk_scan_cuda,
+                                           ssd_scan_cuda)]
+    for call in (lambda: ssd_chunk_state_cuda(x, dt, A, Bm, Q),
+                 lambda: ssd_state_pass_cuda(states, decay),
+                 lambda: ssd_chunk_scan_cuda(x, dt, A, Bm, C, D, entering,
+                                             Q)):
+        with pytest.raises(ValueError, match="launches the CUDA kernel"):
+            call()
+
+
+def test_phase_check_runs_on_the_cpu():
+    """The chip's per-phase check's code path (on the CPU each phase's
+    entry point is its plain version, so every difference is 0)."""
+    res = checks.ssd_scan_phase_check("cpu", shapes=[RAGGED[1], SHAPES[0]])
+    assert res["cases"] == 2 * 2 and res["failures"] == []
+    assert res["max_tol_frac"] == 0.0
+    assert len(res["max_tol_frac_by"]) == 2 * 5
+    assert checks.SSD_PHASE_SHAPES[0] == checks.SSD_FULL_WIDTH
+    assert checks.SSD_PHASE_SHAPES[1][1] % checks.SSD_PHASE_SHAPES[1][-1]
+
+
 def test_sweep_runs_on_the_cpu():
     """The chip sweep's code path (on the CPU both sides are the plain
     version): shapes, strided views of a fused tensor, both dtypes, zero
@@ -214,10 +341,27 @@ def test_launch_wrapper_refuses_what_the_kernel_does_not_take():
 
 
 def test_kernel_source_is_registered_with_the_build():
+    """The three phases' entry points, with the argument counts of their C
+    signatures; the source keeps to expf and two roundings, and names no
+    tensor-core, cp.async or TMA instruction."""
     assert "ssd_scan.cu" in _build.SOURCES
     assert (_build.CSRC / "ssd_scan.cu").exists()
-    args = _build._ENTRY_POINTS["repro_ssd_scan"]
-    assert len(args) == 9 + 7 + 12 + 2
+    ep = _build._ENTRY_POINTS
+    assert "repro_ssd_scan" not in ep
+    assert len(ep["repro_ssd_chunk_state"]) == 6 + 7 + 9 + 2
+    assert len(ep["repro_ssd_state_pass"]) == 4 + 4 + 1
+    assert len(ep["repro_ssd_chunk_scan"]) == 8 + 7 + 12 + 2
+    assert len(ep["repro_ssd_scan_info"]) == 5 + 2
     src = (_build.CSRC / "ssd_scan.cu").read_text()
+    for name in ("repro_ssd_chunk_state", "repro_ssd_state_pass",
+                 "repro_ssd_chunk_scan", "repro_ssd_scan_info"):
+        assert f'extern "C" int {name}(' in src
+    for kernel in ("chunk_state_kernel", "state_pass_kernel",
+                   "chunk_scan_kernel"):
+        assert f"{kernel}(" in src
     assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in src
     assert "__expf" not in src and "-fmad=false" in _build.NVCC_FLAGS
+    code = "\n".join(ln.split("//")[0] for ln in src.splitlines()).lower()
+    for banned in ("wgmma", "mma.sync", "cp.async", "cp_async", "tma",
+                   "wmma"):
+        assert banned not in code
