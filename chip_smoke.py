@@ -9,8 +9,11 @@ Phases, each of which raises (and exits non-zero) on failure:
 2. build — compiles the hand-written kernels (``src/repro_torch/csrc``) with
    nvcc into ``build/repro_torch/`` and loads them, printing each kernel's
    registers, static shared memory, stack and spill bytes (``-Xptxas -v``),
-   and for each of ``ssd_scan``'s three phases its dynamic shared memory a
-   block and blocks per SM at the full-width prefill call;
+   for each of ``ssd_scan``'s three phases its dynamic shared memory a
+   block and blocks per SM at the full-width prefill call, and for each
+   timed ``conv2d_stream`` call and wide row the mapping ``stream_tiles``
+   gives it, its instance's registers, dynamic shared memory and blocks per
+   SM;
 3. kernels — each kernel and mode against its plain PyTorch version on the
    card: ``qgemm`` (int8 activations, scalar and per-row activation scale;
    shapes on both sides of its tiled/skinny switch) and ``qconv_dw`` (int8;
@@ -18,9 +21,10 @@ Phases, each of which raises (and exits non-zero) on failure:
    bits {8,4,2} x packed x epilogue x ReLU x bias (x strides x pads),
    exactly; ``qconv_dw`` in f32, exactly;
    ``qgemm`` in f32 within the reference's ``max|y|*2^-7 + 1e-6`` (or one
-   requant quantum); ``conv2d_stream`` over the stream target's shapes, the
-   reference's test shapes and ragged ones in f32, bf16 and mixed dtypes
-   with and without bias, within 1e-4 (f32 out) or one bf16 ulp (bf16 out);
+   requant quantum); ``conv2d_stream`` over the stream target's shapes at
+   batch 8 and 32, the reference's test shapes, ragged ones and rows wider
+   than 48 KB of line buffer in f32, bf16 and mixed dtypes with and without
+   bias, within 1e-4 (f32 out) or one bf16 ulp (bf16 out);
    ``ssd_scan`` over the reference's test shapes, ragged lengths, G > 1 and
    mamba2-1.3b's full-width prefill call, f32 and bf16, contiguous and
    strided, from a zero and from a given initial state, y within ``1e-5*max|y|`` (plus one bf16 ulp in bf16) and the
@@ -70,7 +74,9 @@ Phases, each of which raises (and exits non-zero) on failure:
    32 x 1568 x 16; ``torch.matmul`` in f32), reported for pw0 and the FC in
    the kernels line; ``qconv_dw`` at dw0 and dw1 in both modes -- each of
    these also as ``graph_ms``, the per-call time of 100 calls replayed from
-   one CUDA graph, where no host work separates the calls; ``ssd_scan``
+   one CUDA graph, where no host work separates the calls;
+   ``conv2d_stream`` at the stream target's five calls at batch 8 and 32
+   against ``F.conv2d`` on channels-last views, graphs included; ``ssd_scan``
    at the (4, 2048) prefill call against its plain version with the bf16
    intra flag off and on, and each of its phases alone beside the bound of
    its own work; ``qgemm``'s per-row x-scale mode at pw0.
@@ -79,6 +85,14 @@ It prints one ``{"kernels": [...]}`` JSON line, and as its last line
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the repository's
 ``src/`` beside it, it exits non-zero and prints no result.  Details go to
 ``build/chip_smoke/chip_smoke.json``.
+
+    python3 chip_smoke.py --conv2d-stream [--src DIR]
+
+runs only the header, the build and ``conv2d_stream``'s times
+(:func:`times_conv2d_stream`, without the mapping, which a parent's package
+may not have) on the ``repro_torch`` under ``--src``: a parent commit's,
+unpacked with ``git archive``, is timed so beside the change in one call.
+Its details go to ``build/chip_smoke/conv2d_stream.json``.
 """
 from __future__ import annotations
 
@@ -172,6 +186,27 @@ def build() -> dict:
             f"stores / {r['spill_load_bytes']} B loads")
     return {"seconds": secs, "ptxas": report,
             "ssd_phases": ssd_phase_info(report)}
+
+
+def conv2d_stream_instances() -> list:
+    """For each timed ``conv2d_stream`` call and the wide rows, the mapping
+    ``stream_tiles`` gives it, and its kernel instance's registers, dynamic
+    shared memory and blocks per SM (the occupancy calculator)."""
+    from repro_torch.kernels import checks
+    from repro_torch.kernels.conv2d_stream import ops
+    out = []
+    for shape in (conv2d_stream_timed_shapes()
+                  + list(checks.CONV_STREAM_WIDE_SHAPES)):
+        B, H, W, cin, cout, k = shape
+        t = ops.stream_tiles(B, H, W, cin, cout, k, k)
+        info = ops.conv2d_stream_info(t)
+        out.append({"shape": list(shape), "tiles": t._asdict(), **info})
+        log(f"  conv2d_stream {list(shape)}: rows {t.rows}, tw {t.tw}, ct "
+            f"{t.ct}, {t.px}x{t.co} tile, ks {t.ks}, window {t.window}, ci_vec "
+            f"{t.ci_vec}, {t.threads} threads, grid {list(t.grid)}: "
+            f"{info['registers']} registers, {info['dynamic_smem_bytes']} B "
+            f"dynamic smem a block, {info['blocks_per_sm']} blocks per SM")
+    return out
 
 
 def ssd_phase_info(report: list) -> dict:
@@ -912,22 +947,19 @@ def times() -> dict:
 
 
 def times_float(g, dev) -> dict:
-    """The float modes and the stream conv at the batch-8 calls of their
-    paths: ``qgemm_f32`` and ``qconv_dw_f32`` as the D16 qtorch path runs
-    them (W8 unpacked, bias, ReLU, 16-bit fake-quant), against ``x @ w`` and
-    ``F.conv2d(groups=C)`` in f32; ``conv2d_stream`` in f32 with bias, as the
-    stream target runs it, against ``F.conv2d`` on channels-last tensors.
-    TF32 is off for every library call."""
+    """The float modes at the batch-8 calls of their paths: ``qgemm_f32``
+    and ``qconv_dw_f32`` as the D16 qtorch path runs them (W8 unpacked,
+    bias, ReLU, 16-bit fake-quant), against ``x @ w`` and
+    ``F.conv2d(groups=C)`` in f32 (TF32 off); then the stream conv
+    (:func:`times_conv2d_stream`)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import checks
-    from repro_torch.kernels.conv2d_stream.ops import conv2d_stream_cuda
-    from repro_torch.kernels.conv2d_stream.ref import conv2d_stream_plain
     from repro_torch.kernels.qconv_dw.ops import (qconv_dw_f32,
                                                   qconv_dw_float_plain)
     from repro_torch.kernels.qmatmul.ops import (pick_tiles, qgemm_f32,
                                                  qgemm_float_plain)
-    rows = {"qgemm_f32": [], "qconv_dw_f32": [], "conv2d_stream": []}
+    rows = {"qgemm_f32": [], "qconv_dw_f32": []}
     aqt = (10, -(2 ** 15), 2 ** 15 - 1)
     epi = dict(relu=True, act_qt=aqt)
 
@@ -972,24 +1004,57 @@ def times_float(g, dev) -> dict:
             plain=plain, library=lib,
             **_bound(4 * B * H * W * C + 9 * C + 8 * C + 4 * B * oh * ow * C,
                      2 * 9 * B * oh * ow * C, F32_FLOPS_PER_S)))
-    for B, H, W, cin, cout, k in checks.CONV_STREAM_PATH_SHAPES:
+    rows.update(times_conv2d_stream(g, dev, mapping=True))
+    return rows
+
+
+def conv2d_stream_timed_shapes() -> list:
+    """The stream target's five convs at batch 8 (mnist-cnn conv1 and conv2;
+    separable-cnn stem, pw0 and pw1), then the same five at batch 32, the
+    largest batch the reference's ``benchmarks/qpath_latency.py`` times."""
+    from repro_torch.kernels import checks
+    b8 = [tuple(s) for s in checks.CONV_STREAM_PATH_SHAPES]
+    return b8 + [(32,) + s[1:] for s in b8]
+
+
+def times_conv2d_stream(g, dev, mapping: bool) -> dict:
+    """``conv2d_stream`` in f32 with bias, as the stream target runs it, at
+    :func:`conv2d_stream_timed_shapes`: the kernel, its plain version and
+    ``F.conv2d`` on channels-last views of the same memory (TF32 off), each
+    also replayed from one CUDA graph, beside the bound: every input and
+    output byte once over 3.35 TB/s, or 2*kh*kw*Cin operations an output
+    over 67 f32 TFLOP/s.  With ``mapping``, each row also gives the call's
+    ``stream_tiles`` mapping and its instance's registers and occupancy."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.conv2d_stream import ops
+    from repro_torch.kernels.conv2d_stream.ref import conv2d_stream_plain
+    torch.backends.cudnn.allow_tf32 = False
+    rows = []
+    for B, H, W, cin, cout, k in conv2d_stream_timed_shapes():
         x = torch.randn((B, H, W, cin), generator=g).to(dev)
         w = (torch.randn((k, k, cin, cout), generator=g) * 0.1).to(dev)
         b = (torch.randn((cout,), generator=g) * 0.1).to(dev)
-        kern = _measure(lambda: conv2d_stream_cuda(x, w, b))
-        plain = _measure(lambda: conv2d_stream_plain(x, w, b))
+        kern = _measure(lambda: ops.conv2d_stream_cuda(x, w, b), graph=True)
+        plain = _measure(lambda: conv2d_stream_plain(x, w, b), graph=True)
         # the same NHWC memory seen as channels-last NCHW: no copy
         xl = x.permute(0, 3, 1, 2)
         wl = w.permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last)
-        lib = _measure(lambda: F.conv2d(xl, wl, b, padding=k // 2))
-        rows["conv2d_stream"].append(dict(
-            shape=[B, H, W, cin, cout, k], kernel=kern, plain=plain,
-            library=lib,
-            **_bound(4 * (B * H * W * cin + k * k * cin * cout + cout
-                          + B * H * W * cout),
-                     2 * B * H * W * k * k * cin * cout, F32_FLOPS_PER_S)))
-    return rows
+        lib = _measure(lambda: F.conv2d(xl, wl, b, padding=k // 2),
+                       graph=True)
+        row = dict(shape=[B, H, W, cin, cout, k], kernel=kern, plain=plain,
+                   library=lib,
+                   **_bound(4 * (B * H * W * cin + k * k * cin * cout + cout
+                                 + B * H * W * cout),
+                            2 * B * H * W * k * k * cin * cout,
+                            F32_FLOPS_PER_S))
+        if mapping:
+            t = ops.stream_tiles(B, H, W, cin, cout, k, k)
+            row["tiles"] = t._asdict()
+            row["instance"] = ops.conv2d_stream_info(t)
+        rows.append(row)
+    return {"conv2d_stream": rows}
 
 
 def ssd_scan_bound(B: int, S: int, H: int, P: int, G: int, N: int, Q: int,
@@ -1076,7 +1141,45 @@ def times_ssd(dev) -> dict:
     return {"ssd_scan": [row]}
 
 
-def main() -> int:
+def conv2d_stream_main() -> int:
+    """``--conv2d-stream``: the header, the build and
+    :func:`times_conv2d_stream`, written to
+    ``build/chip_smoke/conv2d_stream.json`` and printed as one
+    ``{"conv2d_stream": ...}`` line."""
+    import torch
+    card = header()
+    built = build()
+    rows = times_conv2d_stream(torch.Generator().manual_seed(7),
+                               torch.device("cuda"), mapping=False)
+    for r in rows["conv2d_stream"]:
+        log(f"time conv2d_stream {r['shape']}: {_ms(r['kernel'])} ms, graph "
+            f"{r['kernel']['graph_ms']} ms (plain {_ms(r['plain'])}, "
+            f"F.conv2d {_ms(r['library'])}, bound {r['bound_ms']} "
+            f"{r['bound_by']})")
+    detail = {"card": card, "src": str(SRC), "build_s": built["seconds"],
+              "ptxas": built["ptxas"], "times": rows}
+    out_path = ROOT / "build" / "chip_smoke" / "conv2d_stream.json"
+    out_path.parent.mkdir(parents=True, exist_ok=True)
+    out_path.write_text(json.dumps(detail, indent=1))
+    log(card)
+    log(json.dumps({"conv2d_stream": [
+        {"shape": r["shape"], "ms": _ms(r["kernel"]),
+         "graph_ms": r["kernel"]["graph_ms"]} for r in rows["conv2d_stream"]]}))
+    return 0
+
+
+def main(argv=None) -> int:
+    global SRC
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--conv2d-stream", action="store_true",
+                    help="only build and time conv2d_stream")
+    ap.add_argument("--src", type=Path, default=SRC,
+                    help="the src/ directory whose repro_torch to run (for "
+                         "example a parent commit's, unpacked with git "
+                         "archive)")
+    args = ap.parse_args(argv)
+    SRC = args.src.resolve()
     try:
         import torch
     except ImportError:
@@ -1091,6 +1194,8 @@ def main() -> int:
               "checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    if args.conv2d_stream:
+        return conv2d_stream_main()
     from repro_torch.configs import get_config
     from repro_torch.kernels import checks
     from repro_torch.configs.mnist_cnn import CNNConfig
@@ -1099,6 +1204,7 @@ def main() -> int:
     t_all = time.perf_counter()
     card = header()
     built = build()
+    built["conv2d_stream"] = conv2d_stream_instances()
     sweeps = kernels_vs_plain()
     sep_cfg, mnist_cfg = SeparableCNNConfig(), CNNConfig()
     paths = [qtorch_path("separable-cnn", sep_cfg, True, act_bits=8),
@@ -1129,7 +1235,7 @@ def main() -> int:
         "qconv_dw_f32": ("qconv_dw.cu", "qconv_dw/kernel.py:51",
                          "qtorch D16-W8 separable-cnn", 0),    # dw0
         "conv2d_stream": ("conv2d_stream.cu", "conv2d_stream/kernel.py:25",
-                          "stream D16-W8 mnist-cnn", 1),       # conv1
+                          "stream D16-W8 mnist-cnn", 1),       # mnist conv2
         "ssd_scan": ("ssd_scan.cu", "ssd_scan/kernel.py:20",
                      f"prefill bfloat16 (4, 2048) {LM_ARCH}", 0),
     }
@@ -1167,6 +1273,15 @@ def main() -> int:
                  fc_graph_ms=r["kernel"]["graph_ms"],
                  fc_library_graph_ms=None if r["library"] is None
                  else r["library"]["graph_ms"])
+    # every timed stream conv call (batch 8 and 32) beside the conv2 row
+    conv = next(k for k in kernels if k["name"] == "conv2d_stream")
+    conv["rows"] = [dict(shape=r["shape"], ms=_ms(r["kernel"]),
+                         graph_ms=r["kernel"]["graph_ms"],
+                         plain_ms=_ms(r["plain"]),
+                         library_ms=_ms(r["library"]),
+                         bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                         tiles=r.get("tiles"))
+                    for r in rows["conv2d_stream"]]
     xr = rows["qgemm_xscale"][0]
     kernels[0].update(xscale_max_abs_err=sweeps["qgemm_xscale"]["max_abs_err"],
                       xscale_ms=_ms(xr["kernel"]),
@@ -1187,6 +1302,7 @@ def main() -> int:
         phases_max_tol_frac=sweeps["ssd_scan"]["phases"]["max_tol_frac"])
     detail = {"card": card, "build_s": built["seconds"],
               "ptxas": built["ptxas"],
+              "conv2d_stream_instances": built["conv2d_stream"],
               "sweeps": {k: {key: v[key] for key in
                              ("cases", "max_abs_err", "max_tol_frac",
                               "max_tol_frac_by", "vs_f64", "phases")

@@ -4,23 +4,30 @@
     python3 scripts/compare_chip_smoke.py A.json [B.json ...]
 
 Each argument is the ``build/chip_smoke/chip_smoke.json`` of one run of
-``chip_smoke.py`` (for example a parent commit's and a change's, run in turn
-in one session on one card).  Prints, for every timed call of ``qgemm``,
-``qgemm_f32``, ``qconv_dw``, ``qconv_dw_f32`` and ``ssd_scan``, the
-kernel's device time per call in each run (the profiler's CUDA activity),
-its CUDA-graph time where the run has one, and the plain version's and the
-library call's device times and the bound from the first run, in ms; then
-each ``ssd_scan`` phase's time in the runs that time its phases, and each
-run's LM prefill tokens/s.  Put a run that has the library times first
-(runs before the padded ``torch._int_mm`` yardstick have none for most
-int8 shapes).
+``chip_smoke.py``, or the file a ``chip_smoke.py --conv2d-stream`` run
+writes (for example a parent commit's and a change's, run in turn on one
+card).  Prints, for every timed call of ``qgemm``,
+``qgemm_f32``, ``qconv_dw``, ``qconv_dw_f32``, ``conv2d_stream`` and
+``ssd_scan`` in the first run, the kernel's device time per call in each
+run that timed the same call (the profiler's CUDA activity; "-" where a run
+did not), its CUDA-graph time where the run has one, and the plain
+version's and the library call's device times and the bound from the first
+run, in ms; then each ``ssd_scan`` phase's time in the runs that time its
+phases, and each run's LM prefill tokens/s.  Put a run that has the library
+times first (runs before the padded ``torch._int_mm`` yardstick have none
+for most int8 shapes).
 """
 from __future__ import annotations
 
 import json
 import sys
 
-KERNELS = ("qgemm", "qgemm_f32", "qconv_dw", "qconv_dw_f32", "ssd_scan")
+KERNELS = ("qgemm", "qgemm_f32", "qconv_dw", "qconv_dw_f32", "conv2d_stream",
+           "ssd_scan")
+
+
+def _key(row) -> tuple:
+    return tuple(row["shape"]) + tuple(row.get("strides", []))
 
 
 def _ms(m):
@@ -40,30 +47,33 @@ def main(paths) -> int:
         "plain_ms", "library_ms", "library_graph_ms", "bound_ms"]
     print(" | ".join(head))
     for name in KERNELS:
-        for i, row in enumerate(runs[0]["times"][name]):
-            shape = row["shape"] + row.get("strides", [])
-            rows = [r["times"][name][i] for r in runs]
+        by_run = [{_key(row): row for row in r["times"].get(name, [])}
+                  for r in runs]
+        for row in runs[0]["times"].get(name, []):
+            rows = [m.get(_key(row)) for m in by_run]
             lib = row["library"]
-            cells = [name, "x".join(map(str, shape))]
-            cells += [_fmt(_ms(r["kernel"])) for r in rows]
-            cells += [_fmt(r["kernel"].get("graph_ms")) for r in rows]
+            cells = [name, "x".join(map(str, _key(row)))]
+            cells += [_fmt(r and _ms(r["kernel"])) for r in rows]
+            cells += [_fmt(r and r["kernel"].get("graph_ms")) for r in rows]
             cells += [_fmt(_ms(row["plain"])), _fmt(_ms(lib)),
                       _fmt(None if lib is None else lib.get("graph_ms")),
                       f"{row['bound_ms']:.7f} ({row['bound_by']})"]
             print(" | ".join(cells))
-    phases = next((r["times"]["ssd_scan"][0]["phases"] for r in runs
-                   if "phases" in r["times"]["ssd_scan"][0]), {})
+    ssd = [r["times"].get("ssd_scan", [{}])[0] for r in runs]
+    phases = next((s["phases"] for s in ssd if "phases" in s), {})
     for name, first in phases.items():
         cells = [f"ssd_scan.{name}", "-"] + [
-            _fmt(_ms(r["times"]["ssd_scan"][0].get("phases", {})
-                     .get(name, {}).get("kernel"))) for r in runs]
+            _fmt(_ms(s.get("phases", {}).get(name, {}).get("kernel")))
+            for s in ssd]
         print(" | ".join(cells + [f"{first['bound_ms']:.7f} "
                                   f"({first['bound_by']})"]))
     for i, r in enumerate(runs):
-        tps = [f"{p['tokens_per_s']:.1f}" for p in r["main_paths"]
+        tps = [f"{p['tokens_per_s']:.1f}" for p in r.get("main_paths", [])
                if "tokens_per_s" in p]
-        print(f"[{i}] {paths[i]}: card {r.get('card')}, "
-              f"total {r['total_s']:.1f} s, prefill tokens/s {tps}")
+        total = r.get("total_s")
+        print(f"[{i}] {paths[i]}: card {r.get('card')}, total "
+              f"{'-' if total is None else f'{total:.1f}'} s, prefill "
+              f"tokens/s {tps}")
     return 0
 
 

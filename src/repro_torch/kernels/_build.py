@@ -41,8 +41,10 @@ _QGEMM_ARGS = [_P] * 6 + [_I] * 16 + [_F, _F, _P]
 # (x, w, s, bias, out, B, H, W, C, OH, OW, kh, kw, sh, sw, ph, pw, bits,
 #  packed, kp_rows, relu, has_aqt, out_code, qmin, qmax, mul, inv, stream)
 _QCONV_DW_ARGS = [_P] * 5 + [_I] * 20 + [_F, _F, _P]
-# (x, w, bias, out, B, H, W, Cin, Cout, kh, kw, x_bf16, w_bf16, stream)
-_CONV2D_STREAM_ARGS = [_P] * 4 + [_I] * 9 + [_P]
+# (x, w, bias, out, B, H, W, Cin, Cout, kh, kw, x_bf16, w_bf16, rows, tw,
+#  ct, px, co, ks, window, ci_vec, x_unit, w_unit, threads, smem_bytes,
+#  stream)
+_CONV2D_STREAM_ARGS = [_P] * 4 + [_I] * 21 + [_P]
 # the SSD scan's three phases:
 # (x, dt, A, B, states, decay, B, S, H, P, G, N, Q, 9 element strides,
 #  x_bf16, stream)
@@ -61,6 +63,9 @@ _ENTRY_POINTS = {
     "repro_qconv_dw_i8": _QCONV_DW_ARGS,
     "repro_qconv_dw_f32": _QCONV_DW_ARGS,
     "repro_conv2d_stream": _CONV2D_STREAM_ARGS,
+    # (window, px, co, ci_vec, ks, threads, smem_bytes, *registers,
+    #  *blocks_per_sm)
+    "repro_conv2d_stream_info": [_I] * 7 + [_IP, _IP],
     "repro_ssd_chunk_state": _SSD_CHUNK_STATE_ARGS,
     "repro_ssd_state_pass": _SSD_STATE_PASS_ARGS,
     "repro_ssd_chunk_scan": _SSD_CHUNK_SCAN_ARGS,

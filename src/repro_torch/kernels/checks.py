@@ -62,17 +62,22 @@ DW_PADS = ("SAME", "VALID")
 DW_WINDOWS = ((3, 3, None), (1, 3, None), (5, 5, None), (2, 2, ("VALID",)))
 
 # (B, H, W, Cin, Cout, k) of conv2d_stream: the stream target's convs at
-# batch 8 (mnist-cnn conv0, conv1; separable-cnn stem, pw0, pw1), the
-# reference's test shapes, then ragged ones (odd sizes, Cout tiled in
-# shared memory)
+# batch 8 (mnist-cnn conv1, conv2; separable-cnn stem, pw0, pw1) and the
+# same five at batch 32, the reference's test shapes, ragged ones (odd
+# sizes, several Cout tiles), then rows wider than a block's first 48 KB
+# holds (W-tiled, dynamic shared memory): 52,992 B, 175,680 B and
+# 175,872 B of line buffer plus one channel's filter
 CONV_STREAM_PATH_SHAPES = ((8, 28, 28, 1, 16, 3), (8, 14, 14, 16, 32, 3),
                            (8, 28, 28, 1, 8, 3), (8, 14, 14, 8, 16, 1),
                            (8, 7, 7, 16, 32, 1))
-CONV_STREAM_SHAPES = CONV_STREAM_PATH_SHAPES + (
+CONV_STREAM_B32_SHAPES = tuple((32,) + s[1:] for s in CONV_STREAM_PATH_SHAPES)
+CONV_STREAM_WIDE_SHAPES = ((1, 64, 64, 64, 64, 3), (1, 4, 300, 48, 8, 3),
+                           (2, 16, 224, 64, 32, 3))
+CONV_STREAM_SHAPES = CONV_STREAM_PATH_SHAPES + CONV_STREAM_B32_SHAPES + (
     (2, 28, 28, 1, 16, 3), (1, 14, 14, 16, 32, 3), (3, 8, 8, 4, 8, 5),
     (2, 7, 7, 32, 16, 3), (1, 28, 28, 3, 8, 1),
     (3, 9, 13, 5, 37, 3), (1, 5, 6, 33, 7, 3), (2, 11, 3, 3, 130, 1),
-    (1, 17, 40, 24, 70, 5))
+    (1, 17, 40, 24, 70, 5)) + CONV_STREAM_WIDE_SHAPES
 # (x dtype, w dtype): the stream target's f32, compose_adaptive's bf16 input
 # and bf16 weights, and the mixed pairs behind its BatchNormalization
 CONV_STREAM_DTYPES = ((torch.float32, torch.float32),

@@ -151,3 +151,23 @@ def test_ssd_scan_warm_start_matches_the_oracle(cuda):
     assert float((y - y_o).abs().max()) <= 1e-5 * float(y_o.abs().max())
     assert float((s - s_o).abs().max()) <= 1e-4 * max(
         1.0, float(s_o.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", checks.CONV_STREAM_WIDE_SHAPES
+                         + checks.CONV_STREAM_B32_SHAPES)
+def test_conv2d_stream_wide_rows_and_batch32(cuda, shape):
+    """Rows wider than the first port's 48 KB line buffer (W-tiled, dynamic
+    shared memory) and the path calls at batch 32 launch, agree with the
+    plain version in every dtype pair with and without bias, and count one
+    launch per call whatever the tiling."""
+    from repro_torch.kernels.conv2d_stream.ops import (conv2d_stream_cuda,
+                                                       stream_tiles)
+    B, H, W, cin, cout, k = shape
+    assert stream_tiles(B, H, W, cin, cout, k, k).smem_bytes <= 232448
+    before = conv2d_stream_cuda.launches
+    res = checks.conv2d_stream_sweep(cuda, shapes=[shape])
+    torch.cuda.synchronize()
+    assert res["failures"] == [], checks.summarize(res)
+    assert res["max_tol_frac"] <= 1.0
+    assert conv2d_stream_cuda.launches - before == res["cases"] == 8
