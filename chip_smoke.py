@@ -63,6 +63,24 @@ Phases, each of which raises (and exits non-zero) on failure:
       with the budget walking 1.0 -> 0 (points w8, w4, w2 in order, weight
       bytes falling, master codes unchanged, logits finite, tokens/s per
       point), then ``greedy_generate`` of 8 tokens after a 16-token prompt;
+   g. the design-space explorer on separable-cnn and mnist-cnn
+      (:func:`dse_path`): ``DesignFlow.explore`` on 32 seeded images, its
+      front equal to the CPU's in every field of ``to_json()``, with
+      ``qgemm`` (and on separable-cnn ``qconv_dw``) launched by its
+      agreement runs; a weight-byte ceiling one byte under the top point
+      drops it; ``ResourceBudget(weight_bytes=1)`` raises
+      ``BudgetInfeasibleError``; ``run(("qtorch",), **front.run_kwargs())``
+      -> ``serve_adaptive(points=front, selector=front.selector(slo))`` with
+      the pump running, every result equal bit for bit to the CPU plain
+      path; a second ``explore`` fed that tenant's ``LatencyEWMA`` carries
+      the latency measured on the card (printed with the card's name and
+      power limit);
+   h. the im2col depthwise baseline on separable-cnn at D8 and D16
+      (:func:`im2col_path`): ``WriterOptions(dw_mode="im2col")`` served
+      walking W8 -> W4 -> W2 beside direct mode on one calibration, equal to
+      it and to the CPU plain path bit for bit at D8 (within the float-path
+      contract at D16), with no ``qconv_dw`` launch and two more ``qgemm``
+      launches a batch;
 5. times — each kernel and mode, its plain version and the nearest PyTorch
    library call at the main paths' batch-8 shapes: device time per call
    from the profiler's CUDA activity (and the per-call time of back-to-back
@@ -79,7 +97,10 @@ Phases, each of which raises (and exits non-zero) on failure:
    against ``F.conv2d`` on channels-last views, graphs included; ``ssd_scan``
    at the (4, 2048) prefill call against its plain version with the bf16
    intra flag off and on, and each of its phases alone beside the bound of
-   its own work; ``qgemm``'s per-row x-scale mode at pw0.
+   its own work; ``qgemm``'s per-row x-scale mode at pw0; the im2col
+   baseline's two ``qgemm`` calls (dw0 1568 x 72 x 8, dw1 392 x 144 x 16)
+   in both modes, beside ``torch._int_mm`` / ``torch.matmul`` on the same
+   patches, reported with the direct ``qconv_dw`` calls in the kernels line.
 
 It prints one ``{"kernels": [...]}`` JSON line, and as its last line
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the repository's
@@ -281,15 +302,16 @@ def kernels_vs_plain() -> dict:
 
 # -- main path ----------------------------------------------------------------
 
-def _params(cfg, separable: bool, device: str):
-    """Seeded random weights; BN statistics drawn too, so the folded biases
-    are non-zero and the epilogue's bias path is exercised."""
+def _params(cfg, separable: bool, device: str, bn_stats: bool = True):
+    """Seeded random weights; BN statistics drawn too (unless ``bn_stats``
+    is off), so the folded biases are non-zero and the epilogue's bias path
+    is exercised."""
     import torch
     from repro_torch.models import cnn
     g = torch.Generator().manual_seed(SEED)
     init = cnn.init_separable_params if separable else cnn.init_params
     p = init(cfg, g)
-    for k in list(p):
+    for k in list(p) if bn_stats else []:
         if k.endswith("/scale") or k.endswith("/var"):
             p[k] = 0.5 + torch.rand(p[k].shape, generator=g)
         elif k.endswith("/bias") or k.endswith("/mean"):
@@ -394,15 +416,26 @@ def qtorch_path(name: str, cfg, separable: bool, act_bits: int = 8,
     ``device`` with budgets walking W8 -> W4 -> W2; every served result held
     against the port's plain CPU path (bit for bit on the fully-integer
     D8 path, within the float-path contract at D16)."""
+    return _qtorch_serve(name, cfg, separable, act_bits, device, "direct",
+                         None)[0]
+
+
+def _qtorch_serve(name: str, cfg, separable: bool, act_bits: int,
+                  device: str, dw_mode: str, act_ranges):
+    """:func:`qtorch_path`'s run: (info, served outputs in request order,
+    the card's act_ranges).  ``dw_mode`` lowers the depthwise convs direct
+    or through the im2col baseline; ``act_ranges`` (default: calibrate on
+    the card) lets two runs share one calibration."""
     import numpy as np
     from repro_torch.core.adaptive import RuntimePolicy
-    from repro_torch.core.flow import DEFAULT_POINTS, DesignFlow
+    from repro_torch.core.flow import DEFAULT_POINTS, DesignFlow, WriterOptions
     from repro_torch.core.reader import cnn_to_ir, separable_cnn_to_ir
     from repro_torch.quant.qtypes import DatatypeConfig
 
     to_ir = separable_cnn_to_ir if separable else cnn_to_ir
     dt = DatatypeConfig(act_bits, 8)
     exact = act_bits <= 8
+    opts = WriterOptions(dw_mode=dw_mode)
     params = _params(cfg, separable, device)
     calib, reqs = _workload(cfg, 66, SEED + 1)
     budgets = [(1.0, 0.5, 0.1)[min(i * 3 // len(reqs), 2)]
@@ -411,7 +444,8 @@ def qtorch_path(name: str, cfg, separable: bool, act_bits: int = 8,
     _zero_counts()
     t0 = time.perf_counter()
     res = DesignFlow(to_ir(cfg, params), device=device).run(
-        ("qtorch",), dt, calib_inputs=(calib.to(device),))
+        ("qtorch",), dt, calib_inputs=(calib.to(device),), options=opts,
+        act_ranges=act_ranges)
     srv = res.serve_adaptive(
         DEFAULT_POINTS,
         policy=RuntimePolicy(list(DEFAULT_POINTS), thresholds=[0.66, 0.33]),
@@ -425,7 +459,7 @@ def qtorch_path(name: str, cfg, separable: bool, act_bits: int = 8,
 
     # the port's plain path on the CPU, same params and same act_ranges
     cpu = DesignFlow(to_ir(cfg, {k: v.cpu() for k, v in params.items()}),
-                     device="cpu").run(("qtorch",), dt,
+                     device="cpu").run(("qtorch",), dt, options=opts,
                                        act_ranges=res.act_ranges)
     writer = cpu.writers["qtorch"]
     worst = 0.0
@@ -444,11 +478,16 @@ def qtorch_path(name: str, cfg, separable: bool, act_bits: int = 8,
     if sorted(views) != [2, 4, 8]:
         raise AssertionError(f"{name}: bits_views {views} lacks W8/W4/W2")
     suffix = "" if exact else "_f32"
-    kernels = [k + suffix for k in (["qgemm", "qconv_dw"] if separable
+    direct_dw = separable and dw_mode == "direct"
+    kernels = [k + suffix for k in (["qgemm", "qconv_dw"] if direct_dw
                                     else ["qgemm"])]
     _expect_launched(f"{name} qtorch D{act_bits}", launches, kernels, device)
+    if dw_mode == "im2col" and launches["qconv_dw" + suffix]:
+        raise AssertionError(f"{name}: qconv_dw launched in im2col mode")
     info = {
-        "path": f"qtorch D{act_bits}-W8", "model": name,
+        "path": f"qtorch D{act_bits}-W8"
+                + ("" if dw_mode == "direct" else f" dw_mode={dw_mode}"),
+        "model": name,
         "requests": len(reqs), "rows": sum(r.shape[0] for r in reqs),
         "launches": launches, "bits_views": views,
         "batches": stats.get("executed_batches"),
@@ -459,8 +498,8 @@ def qtorch_path(name: str, cfg, separable: bool, act_bits: int = 8,
         "vs_cpu_plain": "equal" if exact else f"max |diff| {worst}",
         "logits_max_abs": float(max(np.abs(o).max() for o in outs)),
     }
-    log(f"main path {name} qtorch D{act_bits}: " + json.dumps(info))
-    return info
+    log(f"main path {name} {info['path']}: " + json.dumps(info))
+    return info, outs, res.act_ranges
 
 
 def stream_path(name: str, cfg, separable: bool,
@@ -566,6 +605,153 @@ def compose_path(name: str, cfg, separable: bool,
             "vs_cpu_plain": f"max |diff| {worst}",
             "sharing_report": acc.sharing_report(), "wall_s": wall}
     log(f"main path {name} compose_adaptive: " + json.dumps(info))
+    return info
+
+
+def _explore_calib(cfg):
+    """The explorer's calibration batch: 32 seeded images (numpy)."""
+    import torch
+    h, w = cfg.image_hw
+    g = torch.Generator().manual_seed(SEED + 9)
+    return torch.rand((32, h, w, cfg.in_channels), generator=g).numpy()
+
+
+def dse_path(name: str, cfg, separable: bool, card: str = "",
+             device: str = "cuda") -> dict:
+    """The design-space explorer end to end on ``device``:
+    ``DesignFlow.explore`` on 32 seeded images (its front equal, field for
+    field, to the CPU plain path's, with the agreement runs launching the
+    kernels), a weight-byte ceiling one byte under the top point dropping
+    it, an infeasible budget raising, then ``run(**front.run_kwargs())`` and
+    ``serve_adaptive(points=front, selector=front.selector(slo))`` with the
+    pump running, every result equal bit for bit to the CPU plain path; last
+    a second ``explore`` fed that tenant's ``LatencyEWMA``, whose points
+    carry the latency measured on ``device``."""
+    import numpy as np
+    from repro_torch.core.adaptive import ServiceObjective
+    from repro_torch.core.flow import DesignFlow
+    from repro_torch.core.reader import cnn_to_ir, separable_cnn_to_ir
+    from repro_torch.dse import BudgetInfeasibleError, ResourceBudget
+
+    to_ir = separable_cnn_to_ir if separable else cnn_to_ir
+    # the models' own initialization: with drawn BN statistics separable-cnn
+    # predicts one class for every image and its front is the one point w2
+    params = _params(cfg, separable, device, bn_stats=False)
+    calib = _explore_calib(cfg)
+    reqs = _workload(cfg, 24, SEED + 10)[1]
+    flow = DesignFlow(to_ir(cfg, params), device=device)
+
+    _zero_counts()
+    t0 = time.perf_counter()
+    front = flow.explore((calib,))
+    explore_s = time.perf_counter() - t0
+    launches = _read_counts()
+    cpu_flow = DesignFlow(to_ir(cfg, {k: v.cpu() for k, v in params.items()}),
+                          device="cpu")
+    t0 = time.perf_counter()
+    cpu_front = cpu_flow.explore((calib,))
+    cpu_explore_s = time.perf_counter() - t0
+    if front.to_json() != cpu_front.to_json():
+        raise AssertionError(f"{name}: the card's front differs from the "
+                             f"CPU's:\n{front.to_json()}\n"
+                             f"{cpu_front.to_json()}")
+    _expect_launched(f"{name} explore", launches,
+                     ["qgemm", "qconv_dw"] if separable else ["qgemm"],
+                     device)
+
+    top = front.points[0]
+    ceiling = max(p.weight_bytes for p in front.points) - 1
+    tight = flow.explore((calib,), budget=ResourceBudget(weight_bytes=ceiling))
+    if top.point.name in [p.point.name for p in tight.points] or \
+            max(p.weight_bytes for p in tight.points) > ceiling:
+        raise AssertionError(f"{name}: a ceiling of {ceiling} B kept "
+                             f"{tight.to_json()}")
+    try:
+        flow.explore((calib,), budget=ResourceBudget(weight_bytes=1))
+        raise AssertionError(f"{name}: weight_bytes=1 did not raise")
+    except BudgetInfeasibleError as e:
+        if "weight_bytes" not in e.violations:
+            raise AssertionError(f"{name}: violations {e.violations}")
+
+    res = flow.run(("qtorch",), calib_inputs=(calib,), **front.run_kwargs())
+    srv = res.serve_adaptive(points=front, max_batch=8, max_wait=0.002,
+                             selector=front.selector(
+                                 ServiceObjective(p95_latency_s=60.0)))
+    _zero_counts()
+    outs = _serve_all(srv, reqs)
+    serve_launches = _read_counts()
+    stats = srv.stats()
+    bits = sorted({r.bits for r in srv.reports})
+    if bits != [top.point.weight_bits] or stats["slo"]["point"] != \
+            top.point.name:
+        raise AssertionError(f"{name}: served at {bits}, SLO point "
+                             f"{stats['slo']['point']}, front top {top}")
+    cpu = cpu_flow.run(("qtorch",), act_ranges=res.act_ranges,
+                       **front.run_kwargs())
+    want = cpu.writers["qtorch"].build(bits=top.point.weight_bits)(
+        np.concatenate(reqs)).numpy()
+    off = 0
+    for i, r in enumerate(reqs):
+        _check(f"{name} front request {i}", outs[i],
+               want[off:off + r.shape[0]], exact=True)
+        off += r.shape[0]
+    _expect_launched(f"{name} serve front", serve_launches,
+                     ["qgemm", "qconv_dw"] if separable else ["qgemm"],
+                     device)
+
+    lat = srv._default.latency
+    measured = flow.explore((calib,), latency=lat)
+    want_lat = lat.estimate(max(front.buckets))
+    got = {p.measured_latency_s for p in measured.points}
+    if want_lat is None or got != {want_lat}:
+        raise AssertionError(f"{name}: measured_latency_s {got}, the "
+                             f"tenant's EWMA at bucket "
+                             f"{max(front.buckets)} {want_lat}")
+    log(f"{name} front measured_latency_s {want_lat} s at bucket "
+        f"{max(front.buckets)} ({card})")
+    info = {"path": "explore -> serve_adaptive(front)", "model": name,
+            "launches": launches, "serve_launches": serve_launches,
+            "explore_s": explore_s, "cpu_explore_s": cpu_explore_s,
+            "front": json.loads(front.to_json()),
+            "front_equals_cpu": True, "tight_ceiling": ceiling,
+            "tight_points": [p.point.name for p in tight.points],
+            "served_requests": len(reqs), "served_bits": bits,
+            "vs_cpu_plain": "equal",
+            "bucket_latency_s": lat.snapshot(),
+            "measured_latency_s": want_lat, "card": card}
+    log(f"main path {name} explore: " + json.dumps(info))
+    return info
+
+
+def im2col_path(name: str, cfg, act_bits: int, device: str = "cuda") -> dict:
+    """The im2col depthwise baseline on separable-cnn: the ``qtorch``
+    target with ``WriterOptions(dw_mode="im2col")`` served walking W8 -> W4
+    -> W2 (:func:`qtorch_path`) beside direct mode on the same calibration:
+    no ``qconv_dw`` launch, two more ``qgemm`` launches a batch, and the
+    results equal direct mode's bit for bit at D8 (within the float-path
+    contract at D16), as both equal the CPU plain path."""
+    suffix = "" if act_bits <= 8 else "_f32"
+    direct, d_outs, ranges = _qtorch_serve(name, cfg, True, act_bits, device,
+                                           "direct", None)
+    im2col, i_outs, _ = _qtorch_serve(name, cfg, True, act_bits, device,
+                                      "im2col", ranges)
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(i_outs, d_outs)):
+        worst = max(worst, _check(f"{name} D{act_bits} im2col request {i}",
+                                  a, b, exact=act_bits <= 8))
+    per_batch = {m: info["launches"]["qgemm" + suffix] / info["batches"]
+                 for m, info in (("direct", direct), ("im2col", im2col))}
+    if device == "cuda" and per_batch["im2col"] != per_batch["direct"] + 2:
+        raise AssertionError(f"{name}: qgemm{suffix} launches a batch "
+                             f"{per_batch}, expected direct + 2")
+    info = {"path": f"qtorch D{act_bits}-W8 dw_mode=im2col vs direct",
+            "model": name, "launches": im2col["launches"],
+            "direct_launches": direct["launches"],
+            "qgemm_launches_per_batch": per_batch,
+            "vs_direct": "equal" if act_bits <= 8 else f"max |diff| {worst}",
+            "im2col": im2col, "direct": direct}
+    log(f"main path {name} im2col D{act_bits}: " + json.dumps(
+        {k: v for k, v in info.items() if k not in ("im2col", "direct")}))
     return info
 
 
@@ -938,11 +1124,59 @@ def times() -> dict:
                    **_bound(B * H * W * C + 9 * C + 8 * C + B * oh * ow * C,
                             2 * 9 * B * oh * ow * C))
         rows["qconv_dw"].append(row)
+    rows.update(times_im2col(g, dev))
     rows.update(times_float(g, dev))
     rows.update(times_ssd(dev))
     for name, rs in rows.items():
         for r in rs:
             log(f"time {name} {json.dumps(r)}")
+    return rows
+
+
+def times_im2col(g, dev) -> dict:
+    """The im2col depthwise baseline's two ``qgemm`` calls at batch 8 (dw0
+    as 1568 x 72 x 8, dw1 as 392 x 144 x 16 over the dense block-diagonal
+    codes), in both modes as the D8 and D16 paths run them (W8 unpacked,
+    bias, ReLU; int8 codes out, or the 16-bit fake-quant), each beside its
+    plain version, the library call on the same patches (``torch._int_mm``;
+    ``torch.matmul`` in f32, TF32 off) and its bound."""
+    import torch
+    from repro_torch.kernels import checks
+    from repro_torch.kernels.qconv_dw.ref import expand_dw_codes
+    from repro_torch.kernels.qmatmul.ops import (pick_tiles, qgemm, qgemm_f32,
+                                                 qgemm_float_plain,
+                                                 qmatmul_int8_act_plain)
+    rows = {"qgemm_im2col": [], "qgemm_f32_im2col": []}
+    for M, K, N in checks.QGEMM_DW_IM2COL_SHAPES[:2]:
+        taps = torch.randint(-127, 128, (3, 3, 1, N), generator=g,
+                             dtype=torch.int8)
+        w = expand_dw_codes(taps).to(dev)
+        s = (torch.rand((N,), generator=g) * 1e-2).to(dev)
+        b = (torch.randn((N,), generator=g) * 0.1).to(dev)
+        x = torch.randint(-128, 128, (M, K), generator=g,
+                          dtype=torch.int8).to(dev)
+        epi = dict(relu=True, act_qt=(4, -128, 127), out_code=True)
+        rows["qgemm_im2col"].append(dict(
+            shape=[M, K, N], tiles=str(pick_tiles(M, K, N)),
+            kernel=_measure(lambda: qgemm(x, w, s, b, bits=8, packed=False,
+                                          **epi), graph=True),
+            plain=_measure(lambda: qmatmul_int8_act_plain(
+                x, 1.0, w, s, b, bits=8, packed=False, **epi), graph=True),
+            library=_int_mm_measure(x, w),
+            **_bound(M * K + K * N + 8 * N + M * N, 2 * M * K * N)))
+        xf = torch.randn((M, K), generator=g).to(dev)
+        wf = w.float() * s
+        fepi = dict(relu=True, act_qt=(10, -(2 ** 15), 2 ** 15 - 1))
+        rows["qgemm_f32_im2col"].append(dict(
+            shape=[M, K, N], tiles=str(pick_tiles(M, K, N, float_mode=True)),
+            kernel=_measure(lambda: qgemm_f32(xf, w, s, b, bits=8,
+                                              packed=False, **fepi),
+                            graph=True),
+            plain=_measure(lambda: qgemm_float_plain(
+                xf, w, s, b, bits=8, packed=False, **fepi), graph=True),
+            library=_measure(lambda: torch.matmul(xf, wf), graph=True),
+            **_bound(4 * M * K + K * N + 8 * N + 4 * M * N, 2 * M * K * N,
+                     F32_FLOPS_PER_S)))
     return rows
 
 
@@ -1213,7 +1447,11 @@ def main(argv=None) -> int:
              stream_path("mnist-cnn", mnist_cfg, separable=False),
              compose_path("mnist-cnn", mnist_cfg, separable=False),
              qtorch_path("separable-cnn", sep_cfg, True, act_bits=16),
-             qtorch_path("mnist-cnn", mnist_cfg, False, act_bits=16)]
+             qtorch_path("mnist-cnn", mnist_cfg, False, act_bits=16),
+             dse_path("separable-cnn", sep_cfg, True, card),
+             dse_path("mnist-cnn", mnist_cfg, False, card),
+             im2col_path("separable-cnn", sep_cfg, act_bits=8),
+             im2col_path("separable-cnn", sep_cfg, act_bits=16)]
     lm_cfg = get_config(LM_ARCH)
     lm_p = lm_params(lm_cfg)
     paths.append(lm_prefill_path(lm_cfg, lm_p))
@@ -1273,6 +1511,24 @@ def main(argv=None) -> int:
                  fc_graph_ms=r["kernel"]["graph_ms"],
                  fc_library_graph_ms=None if r["library"] is None
                  else r["library"]["graph_ms"])
+    # the im2col depthwise baseline's two qgemm calls beside each mode's row,
+    # with the direct qconv_dw call each replaces and the launches a batch
+    # the im2col path adds (its runs in ``paths``)
+    for k, suffix in zip(kernels[:2], ("", "_f32")):
+        run = next(p for p in paths if p["path"] ==
+                   f"qtorch D{8 if not suffix else 16}-W8 dw_mode=im2col "
+                   "vs direct")
+        per_batch = run["qgemm_launches_per_batch"]
+        k["im2col_dw"] = [dict(
+            shape=r["shape"], ms=_ms(r["kernel"]), plain_ms=_ms(r["plain"]),
+            library_ms=None if r["library"] is None else _ms(r["library"]),
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            graph_ms=r["kernel"]["graph_ms"],
+            launches_per_batch=per_batch["im2col"] - per_batch["direct"],
+            direct_qconv_dw_ms=_ms(d["kernel"]),
+            direct_qconv_dw_bound_ms=d["bound_ms"])
+            for r, d in zip(rows[f"qgemm{suffix}_im2col"],
+                            rows[f"qconv_dw{suffix}"])]
     # every timed stream conv call (batch 8 and 32) beside the conv2 row
     conv = next(k for k in kernels if k["name"] == "conv2d_stream")
     conv["rows"] = [dict(shape=r["shape"], ms=_ms(r["kernel"]),

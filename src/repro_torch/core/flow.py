@@ -13,28 +13,33 @@ Targets: ``"torch"`` (float reference, :class:`TorchWriter`), ``"stream"``
 :class:`QTorchWriter`: fully integer at activation precisions up to 8 bits,
 float activations above).  ``DesignFlow.compose_adaptive`` is the MDC step:
 working points over one int8 master tree (:class:`AdaptiveAccelerator`).
-Everything runs on the flow's device: ``DesignFlow(graph, device=None)``
-means ``"cuda"`` and raises when CUDA is missing; pass ``device="cpu"`` for
-the plain path.  Not ported yet: the ``"dist"`` target, ``explore`` and
-``explore_mixed_precision``.
+``DesignFlow.explore`` is the resource-constrained design-space explorer
+(:mod:`repro_torch.dse`): its :class:`~repro_torch.dse.ParetoFront` feeds
+``run(**front.run_kwargs())`` and ``serve_adaptive(points=front)``;
+``explore_mixed_precision`` is the greedy per-layer search.  Everything runs
+on the flow's device: ``DesignFlow(graph, device=None)`` means ``"cuda"``
+and raises when CUDA is missing; pass ``device="cpu"`` for the plain path.
+Not ported yet: the ``"dist"`` target.
 """
 from __future__ import annotations
 
 import inspect
 from dataclasses import dataclass, field, fields
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
-
-import torch
+from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
+                    Union)
 
 from repro_torch.core.adaptive import (AdaptiveAccelerator, PointSelector,
                                        RuntimePolicy, WorkingPoint,
                                        shared_point_executables)
 from repro_torch.core.ir import Graph
 from repro_torch.core.passes import (PassManager, default_pipeline,
-                                     strip_precision)
+                                     explore_mixed_precision, strip_precision,
+                                     structural_pipeline)
 from repro_torch.core.writers.qtorch_writer import QTorchWriter
 from repro_torch.core.writers.stream_writer import StreamWriter
-from repro_torch.core.writers.torch_writer import BatchedExecutable, TorchWriter
+from repro_torch.core.writers.torch_writer import (BatchedExecutable,
+                                                   TorchWriter,
+                                                   float_reference)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.quant.ptq import graph_weight_stats
 from repro_torch.quant.qtypes import DatatypeConfig, PrecisionMap
@@ -58,8 +63,13 @@ class WriterOptions:
     default_bits: Optional[int] = None      # qtorch: build(bits=None) point
     int8_act: Optional[bool] = None         # qtorch: fully-integer dataflow
     packed_weights: Optional[bool] = None   # qtorch: sub-byte residency
+    dw_mode: Optional[str] = None           # qtorch: "direct" | "im2col"
 
     def __post_init__(self):
+        if self.dw_mode is not None and self.dw_mode not in ("direct",
+                                                             "im2col"):
+            raise ValueError(f"dw_mode must be 'direct' or 'im2col', "
+                             f"got {self.dw_mode!r}")
         if self.fifo_slack is not None and self.fifo_slack <= 0:
             raise ValueError(f"fifo_slack must be positive, "
                              f"got {self.fifo_slack}")
@@ -106,9 +116,15 @@ class FlowResult:
                        selector: Optional[PointSelector] = None, **kwargs):
         """An ``AccelServer`` whose per-batch working points ALL read one
         shared :class:`~repro_torch.quant.pack.PackedWeights` buffer (needs
-        the ``"qtorch"`` target).  The point per batch comes from
-        ``selector`` or the legacy ``policy``; with neither, an open-loop
+        the ``"qtorch"`` target).  ``points`` is a sequence of
+        :class:`~repro_torch.core.adaptive.WorkingPoint` or a
+        :class:`~repro_torch.dse.ParetoFront` (the explorer's output).  The
+        point per batch comes from ``selector`` or the legacy ``policy``; with
+        neither, an open-loop
         :class:`~repro_torch.core.adaptive.RuntimePolicy` over ``points``."""
+        from repro_torch.dse.pareto import ParetoFront
+        if isinstance(points, ParetoFront):
+            points = points.working_points()
         writer = self.writers.get(target)
         if writer is None or not hasattr(writer, "packed"):
             raise KeyError(
@@ -160,12 +176,8 @@ class DesignFlow:
                   ) -> Dict[str, float]:
         """Run the float reference once and record per-FIFO max |x| — the
         ranges the fully-integer path turns into power-of-two code scales."""
-        w = TorchWriter(graph if graph is not None else self.graph,
-                        device=self.device)
-        _, env = w.build(capture=True)(*calib_inputs)
-        return {k: float(v.abs().max())
-                for k, v in env.items()
-                if isinstance(v, torch.Tensor) and torch.is_floating_point(v)}
+        return float_reference(graph if graph is not None else self.graph,
+                               calib_inputs, self.device)[1]
 
     def run(self, targets: Sequence[str] = ("torch",),
             dtconfig: Optional[Precision] = None,
@@ -224,6 +236,39 @@ class DesignFlow:
         if dtconfig is not None and min_wt < 32:
             stats = graph_weight_stats(g, default_dt)
         return FlowResult(g, writers, exes, ranges, stats, batched)
+
+    # -- design-space exploration -------------------------------------------
+    def explore(self, calib_inputs: tuple, *, budget=None, **kwargs):
+        """Resource-constrained design-space exploration on the flow's
+        device: screen candidate working points against ``budget`` (a
+        :class:`~repro_torch.dse.ResourceBudget`), score the survivors on the
+        calibration batch, and return the pruned
+        :class:`~repro_torch.dse.ParetoFront`::
+
+            front = flow.explore(calib, budget=budget)
+            result = flow.run(("qtorch",), calib_inputs=calib,
+                              **front.run_kwargs())
+            srv = result.serve_adaptive(points=front,
+                                        selector=front.selector(slo))
+
+        Extra keyword arguments reach
+        :class:`~repro_torch.dse.DesignSpaceExplorer` (``ladder``,
+        ``act_bits_choices``, ``fifo_slack_choices``, ``per_layer``,
+        ``latency``, ...).  Raises
+        :class:`~repro_torch.dse.BudgetInfeasibleError` when nothing fits."""
+        from repro_torch.dse import DesignSpaceExplorer
+        return DesignSpaceExplorer(self.graph, calib_inputs, budget=budget,
+                                   device=self.device, **kwargs).explore()
+
+    def explore_mixed_precision(self, calib_inputs: tuple, **kwargs
+                                ) -> Tuple[PrecisionMap, List[Dict]]:
+        """Greedy per-layer weight-precision search against the float
+        reference on the flow's device (see
+        :func:`repro_torch.core.passes.explore_mixed_precision`).  The
+        returned PrecisionMap feeds straight back into ``run``."""
+        g = PassManager(structural_pipeline()).run(self.graph)
+        return explore_mixed_precision(g, calib_inputs, device=self.device,
+                                       **kwargs)
 
     # -- adaptive / MDC -----------------------------------------------------
     def compose_adaptive(self, points: Sequence[WorkingPoint],

@@ -15,7 +15,8 @@ from repro_torch.core.ir import Graph
 from repro_torch.core.passes.cleanup import eliminate_dead_nodes, fold_constants
 from repro_torch.core.passes.fusion import (fuse_conv_bn_relu, fuse_gemm_relu,
                                             reorder_relu_maxpool)
-from repro_torch.core.passes.precision import (make_assign_precision,
+from repro_torch.core.passes.precision import (explore_mixed_precision,
+                                               make_assign_precision,
                                                quantizable_layers,
                                                strip_precision)
 from repro_torch.core.passes.shape_infer import infer_shapes
@@ -51,5 +52,6 @@ __all__ = [
     "GraphPass", "PassManager", "default_pipeline", "structural_pipeline",
     "infer_shapes", "fuse_conv_bn_relu", "fuse_gemm_relu",
     "reorder_relu_maxpool", "fold_constants", "eliminate_dead_nodes",
-    "make_assign_precision", "quantizable_layers", "strip_precision",
+    "make_assign_precision", "explore_mixed_precision", "quantizable_layers",
+    "strip_precision",
 ]

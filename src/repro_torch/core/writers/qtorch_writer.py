@@ -12,7 +12,9 @@ device) and the hot-path ops run the hand-written kernels over those codes:
   folded ReLU in its epilogue;
 * ``DepthwiseConv`` / ``FusedDepthwiseConv`` call the direct
   ``qconv_dw_int8_act`` / ``qconv_dw_float`` (``csrc/qconv_dw.cu``) — no
-  patch tensor;
+  patch tensor — or, with ``dw_mode="im2col"``, the reference's dense
+  block-diagonal baseline: im2col + the same matmul over
+  ``expand_dw_codes`` (bit-exact against direct at D8);
 * ``MaxPool`` / ``Relu`` / ``Flatten`` work on int8 codes directly.
 
 Fully-integer mode (``int8_act``, on by default when the activation
@@ -29,8 +31,7 @@ views (``PackedTensor.packed_view``) stream unpacked in registers.
 
 On a CUDA device the ops launch the kernels; on the CPU they run the kernels'
 plain PyTorch versions — the choice follows the tensors' device, there is no
-``use_kernel``/``interpret`` knob.  Not ported yet: ``dw_mode="im2col"`` (the
-reference's dense block-diagonal depthwise baseline).
+``use_kernel``/``interpret`` knob.
 """
 from __future__ import annotations
 
@@ -47,7 +48,8 @@ from repro_torch.core.writers.torch_writer import BatchedExecutable, TorchWriter
 from repro_torch.device import DeviceLike
 from repro_torch.kernels.qconv_dw.ops import (DW_PACK_ALIGN, qconv_dw_float,
                                               qconv_dw_int8_act)
-from repro_torch.kernels.qconv_dw.ref import normalize_pads, out_spatial
+from repro_torch.kernels.qconv_dw.ref import (expand_dw_codes, normalize_pads,
+                                              out_spatial)
 from repro_torch.kernels.qmatmul.ops import qgemm_float, qmatmul_int8_act
 from repro_torch.quant.fixedpoint import quantize
 from repro_torch.quant.pack import SUB_BYTE_BITS, PackedTensor, PackedWeights
@@ -272,24 +274,48 @@ def _qconv_node(node: Node, env, relu: bool):
 
 
 def _qdwconv_node(node: Node, env, relu: bool):
-    """DepthwiseConv/FusedDepthwiseConv: the direct channel-parallel kernel
-    over the producer's codes or float activations, sub-byte W4/W2 streamed
-    at the depthwise packing alignment."""
+    """DepthwiseConv/FusedDepthwiseConv lowering over the producer's codes or
+    float activations.
+
+    ``dw_mode="direct"`` (default) calls the direct channel-parallel kernel,
+    sub-byte W4/W2 streamed at the depthwise packing alignment.
+    ``dw_mode="im2col"`` runs the reference's baseline: the taps expanded to
+    a dense block-diagonal (kh*kw*C, C) matrix through im2col + qgemm, with
+    the unpacked int8 expansion truncated to ``bits`` in the kernel (never
+    packed, as in the reference) — bit-exact against direct in
+    fully-integer mode (same integer accumulators, same power-of-two
+    folds)."""
     ctx = env.get(QCTX)
     w = env.get(node.inputs[1])
     if ctx is None or not isinstance(w, PackedTensor):
         return None
     x = env[node.inputs[0]]
     bias = env[node.inputs[2]] if len(node.inputs) > 2 else None
-    kh, kw, _, _ = w.codes.shape
+    kh, kw, _, c = w.codes.shape
+    strides = tuple(int(s) for s in node.attrs.get("strides", (1, 1)))
+    pads = normalize_pads(node.attrs.get("pads", "SAME"))
     bits = ctx.weight_bits(node)
-    codes_arg, packed = ctx.weight_codes(w, bits, align=DW_PACK_ALIGN)
-    common = dict(
-        kh=kh, kw=kw,
-        strides=tuple(int(s) for s in node.attrs.get("strides", (1, 1))),
-        pads=normalize_pads(node.attrs.get("pads", "SAME")), bits=bits,
-        relu=relu, packed=packed)
     ctx.mark_fused(node.outputs[0])
+    if ctx.writer.dw_mode == "im2col":
+        dense = expand_dw_codes(w.codes)
+        src = x.codes if isinstance(x, ActCode) else x
+        patches, oh, ow = im2col(src, kh, kw, strides, pads)
+        flat = patches.reshape(-1, patches.shape[-1])
+        if isinstance(x, ActCode):
+            oqt, aqt = ctx.out_spec(node)
+            y = qmatmul_int8_act(flat, x.qt.scale, dense, w.scale_1d(), bias,
+                                 bits=bits, relu=relu, act_qt=aqt,
+                                 out_code=oqt is not None)
+        else:
+            oqt = None
+            y = qgemm_float(flat, dense, w.scale_1d(), bias, bits=bits,
+                            relu=relu,
+                            act_qt=ctx.act_qt(node.outputs[0], node))
+        y = y.reshape(src.shape[0], oh, ow, c)
+        return ActCode(y, oqt) if oqt is not None else y
+    codes_arg, packed = ctx.weight_codes(w, bits, align=DW_PACK_ALIGN)
+    common = dict(kh=kh, kw=kw, strides=strides, pads=pads, bits=bits,
+                  relu=relu, packed=packed)
     if not isinstance(x, ActCode):
         return qconv_dw_float(x, codes_arg, w.scale_1d(), bias,
                               act_qt=ctx.act_qt(node.outputs[0], node),
@@ -378,7 +404,10 @@ class QTorchWriter(TorchWriter):
     * ``int8_act`` — None (auto: fully-integer inter-layer dataflow whenever
       the default activation precision fits int8), True/False to force;
     * ``packed_weights`` — sub-byte packed W4/W2 buffers (default on; off
-      streams the int8 master truncated in registers — bit-identical).
+      streams the int8 master truncated in registers — bit-identical);
+    * ``dw_mode`` — ``"direct"`` (default: the ``qconv_dw`` kernel, no patch
+      tensor) or ``"im2col"`` (the dense block-diagonal baseline through
+      ``qgemm``).
     """
 
     target = "qtorch"
@@ -389,7 +418,12 @@ class QTorchWriter(TorchWriter):
                  device: DeviceLike = None,
                  default_bits: Optional[int] = None,
                  int8_act: Optional[bool] = None,
-                 packed_weights: Optional[bool] = None):
+                 packed_weights: Optional[bool] = None,
+                 dw_mode: str = "direct"):
+        if dw_mode not in ("direct", "im2col"):
+            raise ValueError(f"dw_mode must be 'direct' or 'im2col', "
+                             f"got {dw_mode!r}")
+        self.dw_mode = dw_mode
         self._default_bits = default_bits
         self._int8_act = int8_act
         self._packed_weights = packed_weights

@@ -200,3 +200,14 @@ class TorchWriter:
         """Batch-polymorphic executable (see :class:`BatchedExecutable`)."""
         return BatchedExecutable(self.build(bits=bits), max_entries=max_entries,
                                  on_compile=on_compile, bits=bits)
+
+
+def float_reference(graph: Graph, calib_inputs, device: DeviceLike = None
+                    ) -> Tuple[Any, Dict[str, float]]:
+    """One run of the float reference on the calibration inputs: (its
+    outputs, the max |x| of every floating tensor it saw) — the ranges the
+    quantizing writers turn into fixed-point and power-of-two code scales."""
+    out, env = TorchWriter(graph, device=device).build(capture=True)(
+        *calib_inputs)
+    return out, {k: float(v.abs().max()) for k, v in env.items()
+                 if isinstance(v, torch.Tensor) and torch.is_floating_point(v)}

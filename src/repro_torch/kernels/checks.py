@@ -49,11 +49,23 @@ QGEMM_RAGGED = tuple(itertools.product((1, 7, 6272), (8, 9, 1568, 1100),
 # (M <= 64 and K >= 256), at the FC's K and at a long ragged one
 QGEMM_SWITCH = tuple(itertools.product((1, 8, 16, 63, 64, 65),
                                        (8, 1568, 4100), (10, 32)))
-QGEMM_SHAPES = QGEMM_PATH_SHAPES + QGEMM_RAGGED + QGEMM_SWITCH
+# the im2col depthwise baseline (dw_mode="im2col") on separable-cnn: dw0 and
+# dw1 as (B*OH*OW, 9*C, C) matmuls over the dense block-diagonal codes, at
+# batch 8 and 32 (K = 72 rows are 8-byte, not 16-byte, aligned)
+QGEMM_DW_IM2COL_SHAPES = ((1568, 72, 8), (392, 144, 16), (6272, 72, 8),
+                          (1568, 144, 16))
+# every qgemm call of both CNNs at batch 32, the design-space explorer's
+# calibration batch: separable stem, pw0, pw1, fc; mnist conv0, conv1
+QGEMM_B32_SHAPES = ((25088, 9, 8), (6272, 8, 16), (1568, 16, 32),
+                    (32, 1568, 10), (25088, 9, 16), (6272, 144, 32))
+QGEMM_SHAPES = (QGEMM_PATH_SHAPES + QGEMM_RAGGED + QGEMM_SWITCH
+                + QGEMM_DW_IM2COL_SHAPES + QGEMM_B32_SHAPES)
 # (B, H, W, C) of the depthwise inputs: separable-cnn dw0/dw1 at batch 8,
-# then ragged ones (odd spatial sizes, C not a multiple of 8 or of 32)
+# then ragged ones (odd spatial sizes, C not a multiple of 8 or of 32), then
+# dw0/dw1 at batch 32
 QCONV_DW_SHAPES = ((8, 14, 14, 8), (8, 14, 14, 16), (1, 11, 10, 130),
-                   (7, 9, 9, 8), (2, 28, 28, 32), (3, 5, 7, 10))
+                   (7, 9, 9, 8), (2, 28, 28, 32), (3, 5, 7, 10),
+                   (32, 14, 14, 8), (32, 14, 14, 16))
 DW_STRIDES = ((1, 1), (2, 2), (1, 2))
 DW_PADS = ("SAME", "VALID")
 # (kh, kw, pads or None for every pad of the sweep): the 3x3 window of both

@@ -9,7 +9,9 @@ product and sum rounded on its own — the per-channel scale applied once
 after the window sum, then the shared epilogue of
 :mod:`repro_torch.kernels.qmatmul.ref`.
 Also home to the canonical spatial padding math (XLA's SAME/VALID), shared
-with the writers' im2col and the float reference conv.
+with the writers' im2col and the float reference conv, and to
+:func:`expand_dw_codes`, the dense block-diagonal weights of the im2col
+depthwise baseline.
 """
 from __future__ import annotations
 
@@ -22,8 +24,8 @@ from repro_torch.kernels.qmatmul.ref import (ActQt, epilogue_code_ref,
                                              epilogue_ref, exact_in_f32)
 from repro_torch.quant.ptq import derive_view
 
-__all__ = ["pad_amounts", "normalize_pads", "out_spatial", "qconv_dw_ref",
-           "qconv_dw_int8_act_ref", "ActQt"]
+__all__ = ["pad_amounts", "normalize_pads", "out_spatial", "expand_dw_codes",
+           "qconv_dw_ref", "qconv_dw_int8_act_ref", "ActQt"]
 
 
 def pad_amounts(size: int, k: int, s: int, pads) -> Tuple[int, Tuple[int, int]]:
@@ -64,6 +66,25 @@ def out_spatial(h: int, w: int, kh: int, kw: int, strides, pads
     oh, hpad = pad_amounts(h, kh, strides[0], ph)
     ow, wpad = pad_amounts(w, kw, strides[1], pw)
     return oh, ow, hpad, wpad
+
+
+def expand_dw_codes(codes: torch.Tensor) -> torch.Tensor:
+    """Depthwise HWIO codes (kh, kw, 1, C) -> the block-diagonal dense
+    (kh*kw*C, C) matrix the im2col + qgemm baseline consumes, on the codes'
+    device and in their dtype.
+
+    Row ``pos*C + cin`` holds the weight of patch position ``pos`` (dy-major,
+    then dx) and input channel ``cin`` for every output channel: zero except
+    at ``cin == cout``, matching the writer's im2col patch layout.  Nested
+    truncation maps zeros to zeros, so the ``bits``-bit view of the expansion
+    is the expansion of the ``bits``-bit view."""
+    kh, kw, one, c = codes.shape
+    if one != 1:
+        raise ValueError(f"depthwise codes must be (kh, kw, 1, C), got "
+                         f"{tuple(codes.shape)}")
+    eye = torch.eye(c, dtype=codes.dtype, device=codes.device)
+    k2 = codes.reshape(kh * kw, c)
+    return (k2[:, None, :] * eye[None, :, :]).reshape(kh * kw * c, c)
 
 
 def _pad_nhwc(x: torch.Tensor, hpad, wpad) -> torch.Tensor:

@@ -19,6 +19,7 @@ from repro_torch.core.reader import cnn_to_ir
 from repro_torch.core.writers.qtorch_writer import QTorchWriter
 from repro_torch.core.writers.stream_writer import StreamWriter
 from repro_torch.core.writers.torch_writer import TorchWriter
+from repro_torch.dse import DesignSpaceExplorer
 from repro_torch.kernels import _build
 from repro_torch.models import cnn
 from repro_torch.quant.qtypes import DatatypeConfig
@@ -65,6 +66,15 @@ def test_lm_slice_modules_are_among_those_imported_with_jax_blocked():
     assert lm <= set(_modules())
 
 
+def test_dse_slice_modules_are_among_those_imported_with_jax_blocked():
+    """The design-space explorer's modules (the explorer, its budget and
+    front, roofline's CNN terms) are walked by the jax-blocked import above."""
+    dse = {"repro_torch.dse", "repro_torch.dse.budget",
+           "repro_torch.dse.pareto", "repro_torch.dse.explorer",
+           "repro_torch.launch.roofline"}
+    assert dse <= set(_modules())
+
+
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")] + ["chip_smoke.py"]))
 def test_no_source_line_imports_jax_or_repro(path):
@@ -82,7 +92,9 @@ def _graph():
     lambda g: TorchWriter(g),
     lambda g: QTorchWriter(g),
     lambda g: StreamWriter(g),
-], ids=["DesignFlow", "TorchWriter", "QTorchWriter", "StreamWriter"])
+    lambda g: DesignSpaceExplorer(g, (np.zeros((1, 28, 28, 1), np.float32),)),
+], ids=["DesignFlow", "TorchWriter", "QTorchWriter", "StreamWriter",
+        "DesignSpaceExplorer"])
 def test_entry_points_default_to_cuda_and_refuse_without_it(make,
                                                              monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -171,3 +171,96 @@ def test_conv2d_stream_wide_rows_and_batch32(cuda, shape):
     assert res["failures"] == [], checks.summarize(res)
     assert res["max_tol_frac"] <= 1.0
     assert conv2d_stream_cuda.launches - before == res["cases"] == 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", checks.QGEMM_DW_IM2COL_SHAPES
+                         + checks.QGEMM_B32_SHAPES)
+def test_qgemm_im2col_depthwise_and_batch32_shapes(cuda, shape):
+    """The im2col depthwise baseline's calls (K = 72 and 144 over the dense
+    block-diagonal codes) and every path call at the explorer's batch 32:
+    int8 exact, f32 within ``float_qgemm_tol``, one launch a case."""
+    from repro_torch.kernels.qmatmul.ops import qgemm, qgemm_f32
+    before = (qgemm.launches, qgemm_f32.launches)
+    res = checks.qgemm_sweep(cuda, shapes=[shape])
+    res_f = checks.qgemm_float_sweep(cuda, shapes=[shape])
+    torch.cuda.synchronize()
+    assert res["failures"] == [] and res["max_abs_err"] == 0.0
+    assert res_f["failures"] == [] and res_f["max_tol_frac"] <= 1.0
+    assert qgemm.launches - before[0] == res["cases"]
+    assert qgemm_f32.launches - before[1] == res_f["cases"]
+
+
+@pytest.mark.cuda
+def test_qconv_dw_batch32_shapes(cuda):
+    """dw0 and dw1 at the explorer's batch 32, both modes, exact."""
+    shapes = [s for s in checks.QCONV_DW_SHAPES if s[0] == 32]
+    res = checks.qconv_dw_sweep(cuda, shapes=shapes)
+    res_f = checks.qconv_dw_float_sweep(cuda, shapes=shapes)
+    torch.cuda.synchronize()
+    assert res["failures"] == [] and res["max_abs_err"] == 0.0
+    assert res_f["failures"] == [] and res_f["max_abs_err"] == 0.0
+
+
+def _separable_graph(device):
+    from repro_torch.configs.separable_cnn import SeparableCNNConfig
+    from repro_torch.core.reader import separable_cnn_to_ir
+    from repro_torch.models import cnn
+    cfg = SeparableCNNConfig()
+    params = cnn.init_separable_params(cfg, torch.Generator().manual_seed(0),
+                                       device=device)
+    return separable_cnn_to_ir(cfg, params)
+
+
+@pytest.mark.cuda
+def test_explore_on_the_card_equals_the_cpu_front(cuda):
+    """``DesignFlow.explore`` on the card scores its candidates through the
+    kernels, and its front equals the CPU plain path's field for field."""
+    from repro_torch.core.flow import DesignFlow
+    from repro_torch.kernels.qconv_dw.ops import qconv_dw
+    from repro_torch.kernels.qmatmul.ops import qgemm
+    calib = torch.rand((32, 28, 28, 1),
+                       generator=torch.Generator().manual_seed(9)).numpy()
+    before = (qgemm.launches, qconv_dw.launches)
+    front = DesignFlow(_separable_graph(cuda), device=cuda).explore((calib,))
+    assert qgemm.launches > before[0] and qconv_dw.launches > before[1]
+    cpu = DesignFlow(_separable_graph("cpu"), device="cpu").explore((calib,))
+    assert front.to_json() == cpu.to_json()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [True, False])
+def test_im2col_dw_mode_on_the_card(cuda, packed):
+    """At D8 the im2col depthwise baseline equals direct mode and the CPU
+    plain path bit for bit at W8/W4/W2; a forward launches no ``qconv_dw``
+    and two more ``qgemm`` than direct mode."""
+    from repro_torch.core.flow import DesignFlow, WriterOptions
+    from repro_torch.kernels.qconv_dw.ops import qconv_dw
+    from repro_torch.kernels.qmatmul.ops import qgemm
+    from repro_torch.quant.qtypes import DatatypeConfig
+    g = torch.Generator().manual_seed(3)
+    calib = torch.rand((8, 28, 28, 1), generator=g).numpy()
+    x = torch.rand((5, 28, 28, 1), generator=g).numpy()
+    ranges = DesignFlow(_separable_graph("cpu"), device="cpu").run(
+        ("qtorch",), DatatypeConfig(8, 8), calib_inputs=(calib,)).act_ranges
+
+    def writer(device, mode):
+        return DesignFlow(_separable_graph(device), device=device).run(
+            ("qtorch",), DatatypeConfig(8, 8), act_ranges=ranges,
+            options=WriterOptions(dw_mode=mode, packed_weights=packed)
+        ).writers["qtorch"]
+
+    cpu = writer("cpu", "im2col")
+    for bits in (8, 4, 2):
+        counts = {}
+        outs = {}
+        for mode in ("direct", "im2col"):
+            w = writer(cuda, mode)
+            before = (qgemm.launches, qconv_dw.launches)
+            outs[mode] = w.build(bits=bits)(x).cpu()
+            torch.cuda.synchronize()
+            counts[mode] = (qgemm.launches - before[0],
+                            qconv_dw.launches - before[1])
+        assert counts["direct"] == (4, 2) and counts["im2col"] == (6, 0)
+        assert torch.equal(outs["direct"], outs["im2col"])
+        assert torch.equal(outs["im2col"], cpu.build(bits=bits)(x))
