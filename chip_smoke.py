@@ -81,6 +81,20 @@ Phases, each of which raises (and exits non-zero) on failure:
       it and to the CPU plain path bit for bit at D8 (within the float-path
       contract at D16), with no ``qconv_dw`` launch and two more ``qgemm``
       launches a batch;
+   i. fault-tolerant fleet serving on separable-cnn at D8-W8
+      (:func:`fleet_path`): W8/W4/W2 point executables over one packed
+      buffer, three ``AccelServer`` replicas behind a ``FleetRouter`` with
+      canaries captured on the card, one ``Scrubber`` over the buffer
+      attached to every replica; every result equal bit for bit to its CPU
+      golden; a W4 view bit flip repaired in place; a master-code bit flip
+      under paced sequential W8 requests, whose first detection kills every
+      replica (no batch finished after it, no corrupted result for a
+      request submitted after it, the corrupted results served before it
+      counted), each ejected ``quarantined``, healed and readmitted; a pump
+      crash ejected ``dead-pump`` with no ticket lost; a shared
+      ``BrownoutSelector`` walking the fleet to W4/W2 under a burst; then
+      requests/s with the scrubber off and on in alternating runs, the
+      bytes/s it re-hashed against its rate, and one region's hash time;
 5. times — each kernel and mode, its plain version and the nearest PyTorch
    library call at the main paths' batch-8 shapes: device time per call
    from the profiler's CUDA activity (and the per-call time of back-to-back
@@ -120,6 +134,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -752,6 +767,528 @@ def im2col_path(name: str, cfg, act_bits: int, device: str = "cuda") -> dict:
             "im2col": im2col, "direct": direct}
     log(f"main path {name} im2col D{act_bits}: " + json.dumps(
         {k: v for k, v in info.items() if k not in ("im2col", "direct")}))
+    return info
+
+
+# -- fleet path: fault-tolerant serving with weight-memory integrity ----------
+
+FLEET_BUDGETS = ((1.0, 8), (0.5, 4), (0.1, 2))   # request budget -> point bits
+FLEET_REPLICAS = ("a", "b", "c")                  # "c" carries the chaos
+FLEET_SCRUB_RATE = 4e6        # bytes/s the buffer's scrubber re-hashes
+FLEET_SCRUB_INTERVAL = 0.002  # the scrubber's tick, s
+FLEET_MASTER_FLIPS = 3        # master-code flips in step 3, each healed
+
+
+def _wait(cond, seconds: float, poll: float = 0.001) -> bool:
+    deadline = time.monotonic() + seconds
+    while time.monotonic() < deadline:
+        if cond():
+            return True
+        time.sleep(poll)
+    return cond()
+
+
+class _FleetRig:
+    """The fleet phase's fixture: separable-cnn's W8/W4/W2 point executables
+    over ONE packed weight buffer on ``device``, a pristine copy of its
+    master codes and scales, each request's golden output per point from the
+    CPU plain path, and the replicas' factories.
+
+    The buffer has ONE ``Scrubber``, attached to every replica's server:
+    every replica reads the same live buffer, so its first detection of a
+    master-code flip is fatal to all of them at once.  Each factory call
+    builds an ``AccelServer`` whose point is picked per batch from the
+    request budget, attaches the scrubber, and records when the scrubber
+    quarantined the weights and how many batches the server had finished
+    by then.  The first heal after a quarantine restores the pristine
+    master and starts a fresh scrubber.  Replica ``c`` serves through one
+    ``ChaosExecutable`` per point, sharing a call counter, so a crash can
+    be scheduled on it."""
+
+    def __init__(self, name: str, cfg, device: str, n_requests: int):
+        import numpy as np
+        from repro_torch.core.adaptive import shared_point_executables
+        from repro_torch.core.flow import DEFAULT_POINTS, DesignFlow
+        from repro_torch.core.reader import separable_cnn_to_ir
+        from repro_torch.device import to_numpy
+        from repro_torch.quant.qtypes import DatatypeConfig
+        from repro_torch.runtime.fleet import ChaosExecutable
+        from repro_torch.runtime.integrity import CanarySet
+
+        self.name, self.device = name, device
+        dt = DatatypeConfig(8, 8)
+        params = _params(cfg, True, device)
+        calib, self.reqs = _workload(cfg, n_requests, SEED + 5)
+        res = DesignFlow(separable_cnn_to_ir(cfg, params), device=device).run(
+            ("qtorch",), dt, calib_inputs=(calib.to(device),))
+        self.pts = shared_point_executables(res.writers["qtorch"],
+                                            DEFAULT_POINTS)
+        self.packed = self.pts["w8"].packed
+        for exe in self.pts.values():     # derive and seal every W4/W2 view
+            exe(self.reqs[0])
+        self.master = {n: (np.array(to_numpy(t.codes)),
+                           np.array(to_numpy(t.scale)))
+                       for n, t in self.packed.tensors.items()}
+        cpu = DesignFlow(separable_cnn_to_ir(
+            cfg, {k: v.cpu() for k, v in params.items()}), device="cpu").run(
+            ("qtorch",), dt, act_ranges=res.act_ranges).writers["qtorch"]
+        offs = np.cumsum([0] + [r.shape[0] for r in self.reqs])
+        self.golden = {}
+        for _, bits in FLEET_BUDGETS:
+            y = cpu.build(bits=bits)(np.concatenate(self.reqs)).numpy()
+            self.golden[bits] = [y[offs[i]:offs[i + 1]]
+                                 for i in range(len(self.reqs))]
+        # request i's budget walks W8/W4/W2
+        self.plan = [(i, *FLEET_BUDGETS[i % 3]) for i in range(len(self.reqs))]
+        self.canaries = CanarySet.capture(self.pts, [(self.reqs[0],)], k=1)
+        counter = [0]
+        self.chaos = {n: ChaosExecutable(exe, counter=counter)
+                      for n, exe in self.pts.items()}
+        self.scrubber = None         # the buffer's scrubber
+        self._scrubber_lock = threading.Lock()
+        self.built = []              # one record per server built
+
+    def exact(self, i: int, bits: int, out) -> bool:
+        import numpy as np
+        return np.array_equal(np.asarray(out), self.golden[bits][i])
+
+    def wave(self, router, label: str) -> int:
+        """Every request of the plan, one budget group at a time (a batch
+        takes its members' least budget).  Each result must equal its
+        golden; a ticket not resolved in time is a lost ticket."""
+        for budget, _ in FLEET_BUDGETS:
+            tickets = [(i, bits, router.submit(self.reqs[i], budget=budget))
+                       for i, b, bits in self.plan if b == budget]
+            for i, bits, tk in tickets:
+                if not self.exact(i, bits, tk.result(timeout=120)):
+                    raise AssertionError(
+                        f"{self.name} fleet {label}: request {i} at W{bits} "
+                        "differs from its golden")
+        return len(self.plan)
+
+    def restore_master(self) -> None:
+        """Pristine codes and scales, every view re-derived and resealed."""
+        import torch
+        for n, t in self.packed.tensors.items():
+            codes, scale = self.master[n]
+            t.codes = torch.from_numpy(codes.copy()).to(self.device)
+            t.scale = torch.from_numpy(scale.copy()).to(self.device)
+            t.seal()
+            for bits, align in list(t._packed):
+                t.repair_view(bits, align=align)
+
+    def live_scrubber(self):
+        """The buffer's scrubber, started on first use.  Once it has
+        quarantined the weights, the pristine master is restored and a
+        fresh scrubber takes over."""
+        from repro_torch.runtime.integrity import Scrubber
+        with self._scrubber_lock:
+            sc = self.scrubber
+            if sc is not None and not sc.quarantined:
+                return sc
+            if sc is not None:
+                sc.stop()
+                self.restore_master()
+            self.scrubber = Scrubber(
+                self.packed, rate_bytes_s=FLEET_SCRUB_RATE,
+                interval_s=FLEET_SCRUB_INTERVAL).start()
+            return self.scrubber
+
+    def factory(self, name: str):
+        from repro_torch.core.adaptive import BudgetSelector
+        from repro_torch.core.flow import DEFAULT_POINTS
+        from repro_torch.runtime.serve import AccelServer
+
+        def build():
+            sc = self.live_scrubber()
+            pts = self.chaos if name == "c" else self.pts
+            srv = AccelServer(
+                pts["w8"], max_batch=8, max_wait=0.002,
+                point_executables=dict(pts),
+                selector=BudgetSelector(list(DEFAULT_POINTS),
+                                        thresholds=[0.66, 0.33]))
+            srv.attach_scrubber(sc)          # quarantine -> fatal server
+            rec = {"replica": name, "server": srv, "detected_at": None,
+                   "batches_at_detection": None}
+
+            def detected(mismatch):
+                # runs after attach_scrubber's own hook has killed the server
+                if rec["detected_at"] is None:
+                    rec["detected_at"] = time.monotonic()
+                    rec["batches_at_detection"] = srv.executed_batches
+
+            sc.add_on_quarantine(detected)
+            self.built.append(rec)
+            return srv
+        return build
+
+    def router(self, **kw):
+        """A router over the three replicas."""
+        from repro_torch.runtime.fleet import FleetRouter
+        return FleetRouter({n: self.factory(n) for n in FLEET_REPLICAS},
+                           retries=3, backoff_s=0.002, probe_interval_s=0.005,
+                           heal_cooldown_s=0.2, default_deadline_s=60.0,
+                           straggler_factor=20.0, seed=SEED, **kw)
+
+    def stop(self) -> None:
+        if self.scrubber is not None:
+            self.scrubber.stop()
+
+
+def _healthy(router) -> bool:
+    from repro_torch.runtime.fleet import HealthState
+    return all(r.state == HealthState.HEALTHY and r.server is not None
+               and r.server.alive for r in router.replicas.values())
+
+
+def _fleet_view_flip(rig, router) -> dict:
+    """Step 2: one bit of the largest W4 view flipped; the scrubber repairs
+    it in place from the master codes, then every request again."""
+    from repro_torch.runtime.integrity import BitFlipInjector
+    v4 = max((r for r in rig.packed.regions()
+              if r.kind == "view" and r.bits == 4), key=lambda r: r.nbytes)
+    t0 = time.monotonic()
+    BitFlipInjector(rig.packed, seed=SEED).flip(region=v4)
+    if not _wait(lambda: rig.packed.verify() == [], 20.0):
+        raise AssertionError(f"{rig.name} fleet: the W4 view flip was not "
+                             "repaired")
+    repair_ms = 1e3 * (time.monotonic() - t0)
+    integ = router.stats()["integrity"]
+    if integ["repaired_views"] < 1 or integ["quarantines"]:
+        raise AssertionError(f"{rig.name} fleet: view repair telemetry "
+                             f"{integ}")
+    return {"region": v4.label(), "flip_to_repair_ms": repair_ms,
+            "served_after": rig.wave(router, "after the view repair")}
+
+
+def _fleet_master_flip(rig, router, seed: int) -> dict:
+    """Step 3: three clients, each sending sequential W8 requests (the
+    point that reads the master codes), so that a master-code bit flips
+    under steady traffic with no backlog; they go on until every replica
+    is healed and readmitted.  The
+    scrubber's first detection must kill every replica's server, and no
+    server may finish a batch after it; every replica is ejected
+    ``quarantined``, healed and readmitted.  The W8 results served between
+    the flip and detection that differ from their golden are counted; no
+    request submitted after detection may be served a corrupted result."""
+    from repro_torch.runtime.fleet import FleetError, HealthState
+    from repro_torch.runtime.integrity import BitFlipInjector, IntegrityError
+    if not _wait(lambda: _healthy(router), 20.0):
+        raise AssertionError(f"{rig.name} fleet: not healthy before the "
+                             "master-code flip")
+    poisoned = [r for r in rig.built
+                if r["server"] is router.replicas[r["replica"]].server]
+    before = {n: (r.ejections, r.readmissions, r.generation)
+              for n, r in router.replicas.items()}
+    window, ejected_at, readmit_at = [], {}, {}
+
+    def watch() -> bool:
+        """Record each replica's ejection and readmission; True once every
+        replica is back."""
+        now = time.monotonic()
+        for n, r in router.replicas.items():
+            if r.state == HealthState.EJECTED and n not in ejected_at:
+                ejected_at[n] = r.ejected_at
+            if n in ejected_at and n not in readmit_at \
+                    and r.readmissions > before[n][1]:
+                readmit_at[n] = now
+        return len(readmit_at) == len(FLEET_REPLICAS) and _healthy(router)
+
+    stop, errors = threading.Event(), []
+
+    def client(c: int) -> None:
+        """Sequential W8 requests, one in flight at a time."""
+        k = c
+        while not stop.is_set():
+            i = rig.plan[k % len(rig.plan)][0]
+            k += len(FLEET_REPLICAS)
+            t_sub = time.monotonic()
+            try:
+                out = router(rig.reqs[i], budget=1.0)
+                ok = rig.exact(i, 8, out)
+            except FleetError as e:           # typed shed or failure
+                ok = type(e).__name__
+                time.sleep(0.002)
+            except Exception as e:            # re-raised after the join
+                errors.append(e)
+                return
+            window.append((t_sub, time.monotonic(), ok))
+
+    # one paced client per replica, at most one request each in flight:
+    # the bit flips under steady traffic with no backlog
+    clients = [threading.Thread(target=client, args=(c,), daemon=True)
+               for c in range(len(FLEET_REPLICAS))]
+    for th in clients:
+        th.start()
+    time.sleep(0.05)
+    t_flip = time.monotonic()
+    flip = BitFlipInjector(rig.packed, seed=seed, kinds=("codes",)).flip(3)
+    healed = _wait(watch, 30.0)
+    stop.set()
+    for th in clients:
+        th.join(120.0)
+    if errors:
+        raise errors[0]
+    if not healed:
+        raise AssertionError(f"{rig.name} fleet: not healed after the "
+                             f"master-code flip: {router.stats()}")
+    for n, r in router.replicas.items():
+        if r.eject_cause != "quarantined" or r.ejections <= before[n][0] \
+                or r.generation <= before[n][2]:
+            raise AssertionError(f"{rig.name} fleet: replica {n} was not "
+                                 "ejected quarantined and rebuilt: "
+                                 f"{r.snapshot()}")
+    for rec in poisoned:
+        srv = rec["server"]
+        if not isinstance(srv.fatal, IntegrityError) \
+                or rec["detected_at"] is None:
+            raise AssertionError(f"{rig.name} fleet: replica "
+                                 f"{rec['replica']} did not die of the "
+                                 f"quarantine ({srv.fatal!r})")
+        if srv.executed_batches != rec["batches_at_detection"]:
+            raise AssertionError(
+                f"{rig.name} fleet: replica {rec['replica']} finished "
+                f"{srv.executed_batches - rec['batches_at_detection']} "
+                "batches after its detection")
+    detected = sorted(r["detected_at"] for r in poisoned)
+    # the window: requests submitted before detection that resolved after
+    # the flip (a dead server resolves none, so those served, were served
+    # before detection)
+    pre = [ok for t, done, ok in window if t < detected[0] and done > t_flip]
+    post = [ok for t, _, ok in window if t >= detected[0]]
+    if any(ok is False for ok in post):
+        raise AssertionError(f"{rig.name} fleet: a request submitted after "
+                             "detection was served a corrupted result")
+    served = sum(isinstance(ok, bool) for ok in pre)
+    return {
+        "region": flip.region.label(), "byte": flip.byte, "bit": flip.bit,
+        "requests_in_window": len(pre), "served_in_window": served,
+        # with nothing served in the window, the count was not measured
+        "corrupted_before_detection": (sum(ok is False for ok in pre)
+                                       if served else None),
+        "typed_failures_in_window": sum(isinstance(ok, str) for ok in pre),
+        "requests_after_detection": len(post),
+        "served_after_detection": sum(ok is True for ok in post),
+        "corrupted_after_detection": 0, "batches_after_detection": 0,
+        "flip_to_detection_ms": 1e3 * (detected[0] - t_flip),
+        "detection_spread_ms": 1e3 * (detected[-1] - detected[0]),
+        "eject_to_readmit_ms": {n: 1e3 * (readmit_at[n] - ejected_at[n])
+                                for n in sorted(readmit_at)},
+        "served_after": rig.wave(router, "after the heal")}
+
+
+def _master_flips_summary(flips: list) -> dict:
+    """Step 3's flips together: the corrupted results served between a
+    flip and its detection, out of those served there (None, not measured,
+    while nothing was served there), and each flip's times."""
+    served = sum(f["served_in_window"] for f in flips)
+    return {
+        "flips": flips, "served_in_window": served,
+        "corrupted_before_detection": (
+            sum(f["corrupted_before_detection"] or 0 for f in flips)
+            if served else None),
+        "served_after_detection": sum(f["served_after_detection"]
+                                      for f in flips),
+        "corrupted_after_detection": 0, "batches_after_detection": 0,
+        "flip_to_detection_ms": [f["flip_to_detection_ms"] for f in flips],
+        "detection_spread_ms": max(f["detection_spread_ms"] for f in flips),
+        "eject_to_readmit_ms": {n: [f["eject_to_readmit_ms"][n]
+                                    for f in flips]
+                                for n in FLEET_REPLICAS},
+        "served_after": sum(f["served_after"] for f in flips)}
+
+
+def _fleet_crash(rig, router) -> dict:
+    """Step 4: replica ``c`` crashes its pump; it is ejected ``dead-pump``,
+    healed and readmitted, and no ticket is lost or failed."""
+    c = router.replicas["c"]
+    before = (c.ejections, c.readmissions, router.stats()["failed"])
+    for exe in rig.chaos.values():
+        exe.crash_at = {exe.counter[0] + 2}
+    served = 0
+    for _ in range(5):
+        served += rig.wave(router, "around the pump crash")
+        if any(exe.crashed for exe in rig.chaos.values()):
+            break
+    else:
+        raise AssertionError(f"{rig.name} fleet: the crash never fired")
+    if not _wait(lambda: c.readmissions > before[1] and _healthy(router),
+                 30.0):
+        raise AssertionError(f"{rig.name} fleet: replica c not healed after "
+                             f"its crash: {c.snapshot()}")
+    if c.eject_cause != "dead-pump" or c.ejections <= before[0]:
+        raise AssertionError(f"{rig.name} fleet: the crash was not ejected "
+                             f"dead-pump: {c.snapshot()}")
+    if router.stats()["failed"] != before[2]:
+        raise AssertionError(f"{rig.name} fleet: tickets failed around the "
+                             "crash")
+    return {"served": served, "eject_cause": c.eject_cause,
+            "generation": c.generation}
+
+
+def _fleet_brownout(rig, n: int = 384) -> dict:
+    """Step 5: a fresh router whose replicas share one ``BrownoutSelector``
+    takes a burst of ``n`` requests; the backlog walks the fleet down the
+    ladder, every result equals one point's golden, and the replicas' stats
+    show W4 and W2 batches."""
+    from repro_torch.core.adaptive import BrownoutSelector, ServiceObjective
+    from repro_torch.core.flow import DEFAULT_POINTS
+    sel = BrownoutSelector(list(DEFAULT_POINTS),
+                           ServiceObjective(p95_latency_s=5.0, window=16,
+                                            min_samples=4, hold=48),
+                           max_queue_depth=8)
+    router = rig.router(brownout=sel).start()
+    try:
+        reqs = rig.reqs
+        burst = [(i % len(reqs), router.submit(reqs[i % len(reqs)]))
+                 for i in range(n)]
+        for i, tk in burst:
+            out = tk.result(timeout=120)
+            if not any(rig.exact(i, bits, out) for _, bits in FLEET_BUDGETS):
+                raise AssertionError(f"{rig.name} fleet brownout: request "
+                                     f"{i} matches no point's golden")
+        views = {}
+        for r in router.replicas.values():
+            for bits, k in r.server.stats().get("bits_views", {}).items():
+                views[bits] = views.get(bits, 0) + k
+    finally:
+        router.stop()
+    if not {4, 2} <= set(views):
+        raise AssertionError(f"{rig.name} fleet brownout: bits_views {views} "
+                             "lacks W4/W2 batches")
+    return {"requests": n, "shifts": sel.shifts, "bits_views": views}
+
+
+FLEET_RATE_MODES = ("off", "on")
+
+
+def _fleet_rates(rig, rounds: int) -> dict:
+    """Requests/s of a fresh router over every request of the plan with the
+    buffer's scrubber off and on, the order alternating each round; and the
+    bytes/s the scrubber re-hashed in the runs with it on."""
+    import numpy as np
+    rates = {m: [] for m in FLEET_RATE_MODES}
+    scrubbed = []
+    router = rig.router().start()
+    sc = rig.live_scrubber()
+    try:
+        rig.wave(router, "warm-up")
+        for rnd in range(rounds):
+            for mode in FLEET_RATE_MODES[::1 if rnd % 2 == 0 else -1]:
+                sc.stop()
+                if mode == "on":
+                    sc.start()
+                b0 = sc.scrubbed_bytes
+                t0 = time.perf_counter()
+                n = rig.wave(router, f"rate run (scrubber {mode})")
+                secs = time.perf_counter() - t0
+                rates[mode].append(n / secs)
+                if mode == "on":
+                    scrubbed.append((sc.scrubbed_bytes - b0) / secs)
+    finally:
+        router.stop()
+    return {"requests_per_s": rates,
+            "median": {m: float(np.median(v)) for m, v in rates.items()},
+            "spread": {m: [min(v), max(v)] for m, v in rates.items()},
+            "scrubbed_bytes_s": scrubbed, "rate_bytes_s": FLEET_SCRUB_RATE}
+
+
+def _region_hash_times(packed, device: str, reps: int = 20) -> dict:
+    """What one region's check costs with nothing else running: a copy to
+    the host and a CRC32 (medians of ``reps``), for the largest and the
+    smallest region, and one full pass over every region."""
+    import numpy as np
+    from repro_torch.runtime.integrity import Scrubber
+
+    def median_s(fn) -> float:
+        ts = []
+        for _ in range(reps):
+            _sync(device)
+            t0 = time.perf_counter()
+            fn()
+            ts.append(time.perf_counter() - t0)
+        return float(np.median(ts))
+
+    regions = packed.regions()
+    out = {}
+    for r in (max(regions, key=lambda r: r.nbytes),
+              min(regions, key=lambda r: r.nbytes)):
+        out[r.label()] = {"bytes": r.nbytes, "us": 1e6 * median_s(
+            lambda r=r: packed.verify_region(r))}
+    return {"region": out, "regions": len(regions),
+            "period_bytes": sum(r.nbytes for r in regions),
+            "pass_ms": 1e3 * median_s(Scrubber(packed).scrub_once)}
+
+
+def fleet_path(name: str, cfg, card: str = "", device: str = "cuda",
+               n_requests: int = 66, rate_rounds: int = 4) -> dict:
+    """Fault-tolerant fleet serving with weight-memory integrity on
+    ``device``: separable-cnn at D8-W8, its W8/W4/W2 point executables over
+    ONE packed buffer (``shared_point_executables``), three ``AccelServer``
+    replicas behind a ``FleetRouter`` with semantic canaries captured on
+    ``device``, and one ``Scrubber`` over the buffer attached to every
+    replica's server.
+    Every result is held bit for bit against the CPU plain path's golden
+    for its request and point.
+
+    1. ``n_requests`` requests of 1-8 rows, their budgets walking W8/W4/W2;
+    2. :func:`_fleet_view_flip`; 3. :func:`_fleet_master_flip`, once for
+    each of ``FLEET_MASTER_FLIPS`` seeds;
+    4. :func:`_fleet_crash`; 5. :func:`_fleet_brownout`.
+
+    The launch counters are zeroed before step 1 and read after step 5.
+    Then, outside that count, :func:`_fleet_rates` and
+    :func:`_region_hash_times`."""
+    t_phase = time.perf_counter()
+    rig = _FleetRig(name, cfg, device, n_requests)
+    info = {"path": "fleet qtorch D8-W8", "model": name, "card": card,
+            "replicas": len(FLEET_REPLICAS), "requests": len(rig.reqs)}
+    try:
+        _zero_counts()
+        t0 = time.perf_counter()
+        router = rig.router(canaries=rig.canaries).start()
+        try:
+            info["served_clean"] = rig.wave(router, "before any flip")
+            info["view_flip"] = _fleet_view_flip(rig, router)
+            info["master_flip"] = _master_flips_summary(
+                [_fleet_master_flip(rig, router, SEED + 1 + k)
+                 for k in range(FLEET_MASTER_FLIPS)])
+            info["crash"] = _fleet_crash(rig, router)
+            stats = router.stats()
+        finally:
+            router.stop()
+        info["brownout"] = _fleet_brownout(rig)
+        info["launches"] = _read_counts()
+        info["main_path_s"] = time.perf_counter() - t0
+        _expect_launched(f"{name} fleet", info["launches"],
+                         ["qgemm", "qconv_dw"], device)
+        info["integrity"] = stats["integrity"]
+        info["replicas_after"] = stats["replicas"]
+        info["scrub_on_off"] = _fleet_rates(rig, rate_rounds)
+    finally:
+        rig.stop()
+    info["hash"] = _region_hash_times(rig.packed, device)
+    info["phase_s"] = time.perf_counter() - t_phase
+    log(f"main path {name} fleet: " + json.dumps(
+        {k: v for k, v in info.items() if k != "replicas_after"}))
+    mf, rates, h = info["master_flip"], info["scrub_on_off"], info["hash"]
+    corrupted = ("not measured (nothing served between the flip and "
+                 "detection)" if mf["corrupted_before_detection"] is None
+                 else f"{mf['corrupted_before_detection']} of "
+                 f"{mf['served_in_window']} served")
+    log(f"fleet {name} ({card}): {FLEET_MASTER_FLIPS} master-code flips: "
+        f"corrupted results served between a flip and its detection "
+        f"{corrupted}, after it 0 of {mf['served_after_detection']} served; "
+        f"flip to detection "
+        f"{[round(t, 3) for t in mf['flip_to_detection_ms']]} ms, every "
+        f"replica dead within {mf['detection_spread_ms']:.3f} ms; eject to "
+        "readmission "
+        f"{mf['eject_to_readmit_ms']} ms; W4 view repaired in "
+        f"{info['view_flip']['flip_to_repair_ms']:.3f} ms; req/s median "
+        f"[min, max] with the scrubber off and on {rates['median']} "
+        f"{rates['spread']}; scrubbed B/s {rates['scrubbed_bytes_s']} "
+        f"against {FLEET_SCRUB_RATE:.0f}; region hash {h['region']}; pass "
+        f"{h['pass_ms']:.3f} ms")
     return info
 
 
@@ -1451,7 +1988,8 @@ def main(argv=None) -> int:
              dse_path("separable-cnn", sep_cfg, True, card),
              dse_path("mnist-cnn", mnist_cfg, False, card),
              im2col_path("separable-cnn", sep_cfg, act_bits=8),
-             im2col_path("separable-cnn", sep_cfg, act_bits=16)]
+             im2col_path("separable-cnn", sep_cfg, act_bits=16),
+             fleet_path("separable-cnn", sep_cfg, card)]
     lm_cfg = get_config(LM_ARCH)
     lm_p = lm_params(lm_cfg)
     paths.append(lm_prefill_path(lm_cfg, lm_p))

@@ -14,12 +14,14 @@ precision moves no weights:
 * :func:`shared_point_executables` — one batch-polymorphic executable per
   point over the ``qtorch`` writer's
   :class:`~repro_torch.quant.pack.PackedWeights`, with the
-  :class:`PointSelector` family picking the point per batch.
-
-Not ported yet: the fleet's ``BrownoutSelector``.
+  :class:`PointSelector` family picking the point per batch;
+* :class:`BrownoutSelector` — one selector shared by every replica of a
+  :class:`~repro_torch.runtime.fleet.FleetRouter`, walking the whole fleet
+  down the W8 -> W4 -> W2 ladder under latency or backlog pressure.
 """
 from __future__ import annotations
 
+import threading
 from collections import deque
 from dataclasses import dataclass, field
 from typing import (Callable, Deque, Dict, List, Optional, Protocol, Sequence,
@@ -333,3 +335,102 @@ class SLOController:
             "shifts": list(self.shifts),
         }
 
+
+# ---------------------------------------------------------------------------
+# Fleet-level graceful degradation (precision brownout)
+# ---------------------------------------------------------------------------
+
+class BrownoutSelector:
+    """Fleet-wide graceful degradation: ONE :class:`PointSelector` shared by
+    every replica of a :class:`~repro_torch.runtime.fleet.FleetRouter`.
+
+    Every replica's pump thread consults the same instance (``select``) and
+    feeds it every completed request's latency (``observe``), while the
+    router's sentinel feeds the aggregate queue depth (``observe_depth``).
+    The ladder walks down a rung (W8 -> W4 -> W2) when EITHER the windowed
+    p95 violates the :class:`ServiceObjective` OR the fleet backlog crosses
+    ``max_queue_depth`` — and walks back up when p95 shows
+    ``recover_margin`` headroom with the backlog clear.  ``hold`` /
+    ``min_samples`` hysteresis follows the objective, and shifting clears
+    the window, exactly like :class:`SLOController`.
+
+    All state is lock-guarded: N replica pump threads plus the sentinel and
+    request threads touch it concurrently.
+    """
+
+    def __init__(self, points: Sequence[WorkingPoint], slo: ServiceObjective,
+                 *, max_queue_depth: Optional[int] = None):
+        if not points:
+            raise ValueError("BrownoutSelector needs at least one point")
+        if max_queue_depth is not None and max_queue_depth < 1:
+            raise ValueError("max_queue_depth must be >= 1")
+        self.points = list(points)
+        self.slo = slo
+        self.max_queue_depth = max_queue_depth
+        self.idx = 0                               # highest precision first
+        self.shifts: List[Tuple[str, str]] = []
+        self._window: Deque[float] = deque(maxlen=slo.window)
+        self._since_shift = 0
+        self._depth = 0
+        self._lock = threading.Lock()
+
+    def select(self, budget: float = 1.0) -> WorkingPoint:
+        """The fleet's current rung; ``budget`` is ignored (closed loop)."""
+        with self._lock:
+            return self.points[self.idx]
+
+    @property
+    def p95(self) -> float:
+        from repro_torch.runtime.scheduler import percentile
+        return percentile(self._window, 0.95)
+
+    def _depth_over(self) -> bool:
+        return (self.max_queue_depth is not None
+                and self._depth > self.max_queue_depth)
+
+    def _maybe_shift(self) -> None:
+        """Caller holds the lock."""
+        if self._since_shift < self.slo.hold:
+            return
+        depth_over = self._depth_over()
+        p95 = self.p95 if len(self._window) >= self.slo.min_samples else None
+        if ((depth_over or (p95 is not None and p95 > self.slo.p95_latency_s))
+                and self.idx < len(self.points) - 1):
+            self._shift(self.idx + 1)
+        elif (p95 is not None and not depth_over
+                and p95 < self.slo.recover_margin * self.slo.p95_latency_s
+                and self.idx > 0):
+            self._shift(self.idx - 1)
+
+    def observe(self, latency_s: float) -> None:
+        """Feed one completed request's end-to-end latency (any replica)."""
+        with self._lock:
+            self._window.append(latency_s)
+            self._since_shift += 1
+            self._maybe_shift()
+
+    def observe_depth(self, depth: int) -> None:
+        """Feed the fleet's aggregate queue depth (the router's sentinel).
+        A backlog crossing can downshift before latency samples arrive."""
+        with self._lock:
+            self._depth = int(depth)
+            self._since_shift += 1
+            self._maybe_shift()
+
+    def _shift(self, new_idx: int) -> None:
+        self.shifts.append((self.points[self.idx].name,
+                            self.points[new_idx].name))
+        self.idx = new_idx
+        self._since_shift = 0
+        self._window.clear()
+
+    def telemetry(self) -> Dict:
+        with self._lock:
+            return {
+                "point": self.points[self.idx].name,
+                "p95_slo_s": self.slo.p95_latency_s,
+                "window_p95_s": (self.p95 if self._window else None),
+                "queue_depth": self._depth,
+                "max_queue_depth": self.max_queue_depth,
+                "shifts": list(self.shifts),
+            }

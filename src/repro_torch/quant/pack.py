@@ -9,7 +9,11 @@
   views packed into ``uint8`` with the *split-row* layout (:func:`pack_rows`),
   cached once on the same device; the kernels unpack each tile in registers.
 * CRC32 seals over every region (codes, scales, each cached view), hashed over
-  the buffers' host bytes, so a seal taken on the GPU equals the reference's.
+  the buffers' host bytes, so a seal taken on the GPU equals the reference's
+  (on the GPU each hash is one copy of the region to the host); a corrupted
+  view re-derives from the master codes (:meth:`PackedWeights.repair`).
+* generic bit-packing helpers (int4: 2/byte, int2: 4/byte) along the last
+  dim (:func:`pack_int4` / :func:`pack_int2`).
 
 Split-row layout: ``pack_rows(codes, bits)`` pads K (the reduction dim) up to
 ``align``, splits the rows into ``r = 8 // bits`` contiguous chunks of
@@ -242,6 +246,22 @@ class PackedTensor:
                             for r in self.regions(name, bits))
                 if m is not None]
 
+    def repair_view(self, bits: int, align: int = PACK_ALIGN) -> torch.Tensor:
+        """Re-derive one packed view bit-exactly from the master codes into a
+        NEW tensor and reseal its checksum (the old buffer is left untouched
+        for any kernel still reading it).  The caller must have verified the
+        master codes first: repairing from a corrupted master would launder
+        the corruption into a 'clean' checksum."""
+        if bits not in SUB_BYTE_BITS:
+            raise ValueError(f"only sub-byte views are repairable, got "
+                             f"bits={bits}")
+        key = (bits, int(align))
+        with self._lock:
+            fresh = pack_rows(self.codes_2d(), bits, align=align)
+            self._packed[key] = fresh
+            self._crc[("view", *key)] = _crc32(fresh)
+        return fresh
+
     @property
     def nbytes(self) -> int:
         """Master storage: 1 byte/code + 4 bytes/scale (shared by all points)."""
@@ -287,20 +307,51 @@ class PackedWeights:
                 passthrough[name] = w.to(dev)
         return cls(tensors, passthrough)
 
+    def dequantized(self, bits: int = 8,
+                    dtype: torch.dtype = torch.float32
+                    ) -> Dict[str, torch.Tensor]:
+        """Fake-quant float copies at a working point (the pre-packed-engine
+        baseline: what each per-point executable used to hold)."""
+        out = dict(self.passthrough)
+        for name, t in self.tensors.items():
+            out[name] = t.dequant(bits, dtype)
+        return out
+
     def code_bytes(self) -> int:
         """Bytes of the shared master buffer (codes + scales)."""
         return sum(t.nbytes for t in self.tensors.values())
 
     # -- integrity -----------------------------------------------------------
     def regions(self, bits: Optional[int] = None) -> List[Region]:
+        """Every checksummed region across all tensors, in the reference's
+        order (per tensor: codes, scale, then each view as it was first
+        derived) — the scrubber's round-robin walk list."""
         return [r for name, t in self.tensors.items()
                 for r in t.regions(name, bits)]
+
+    def verify_region(self, region: Region) -> Optional[RegionMismatch]:
+        t = self.tensors.get(region.tensor)
+        if t is None:
+            return None
+        return t.verify_region(region)
 
     def verify(self, bits: Optional[int] = None) -> List[RegionMismatch]:
         """Re-hash every region (or one working point's regions) against the
         checksums sealed at pack time; ``[]`` means the buffer is clean."""
         return [m for name, t in self.tensors.items()
                 for m in t.verify(name, bits)]
+
+    def repair(self, mismatch: RegionMismatch) -> torch.Tensor:
+        """Repair one *view* mismatch by re-deriving the packed buffer from
+        the (intact) master codes; raises ``ValueError`` for master-code or
+        scale corruption, which has no redundant source here — callers
+        escalate those (replica ejection / rebuild from the original
+        initializers)."""
+        r = mismatch.region
+        if not mismatch.repairable:
+            raise ValueError(f"cannot repair {r.label()}: only derived "
+                             "views re-derive from the master codes")
+        return self.tensors[r.tensor].repair_view(r.bits, align=r.align)
 
     def view_bytes(self, bits: int,
                    caps: Optional[Dict[str, int]] = None) -> int:
@@ -325,3 +376,38 @@ class PackedWeights:
             "sharing_ratio": f32_copies / max(shared, 1),
             "view_bytes": {b: self.view_bytes(b) for b in (8, *SUB_BYTE_BITS)},
         }
+
+
+def pack_int4(codes) -> torch.Tensor:
+    """int8 codes in [-8, 7], last dim even -> uint8 packed (..., n/2)."""
+    codes = as_tensor(codes)
+    if codes.shape[-1] % 2:
+        raise ValueError(f"pack_int4 needs an even last dim, got "
+                         f"{tuple(codes.shape)}")
+    u = (codes.to(torch.int32) & 0xF).to(torch.uint8)
+    return u[..., 0::2] | (u[..., 1::2] << 4)
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """uint8 (..., n/2) -> int8 (..., n) in [-8, 7]."""
+    fields = [((packed >> sh) & 0xF).to(torch.int8) for sh in (0, 4)]
+    out = torch.stack([torch.where(f >= 8, f - 16, f) for f in fields], -1)
+    return out.reshape(*packed.shape[:-1], packed.shape[-1] * 2)
+
+
+def pack_int2(codes) -> torch.Tensor:
+    """int8 codes in [-2, 1], last dim % 4 == 0 -> uint8 packed (..., n/4)."""
+    codes = as_tensor(codes)
+    if codes.shape[-1] % 4:
+        raise ValueError(f"pack_int2 needs a last dim divisible by 4, got "
+                         f"{tuple(codes.shape)}")
+    u = (codes.to(torch.int32) & 0x3).to(torch.uint8)
+    return (u[..., 0::4] | (u[..., 1::4] << 2) | (u[..., 2::4] << 4)
+            | (u[..., 3::4] << 6))
+
+
+def unpack_int2(packed: torch.Tensor) -> torch.Tensor:
+    """uint8 (..., n/4) -> int8 (..., n) in [-2, 1]."""
+    fields = [((packed >> sh) & 0x3).to(torch.int8) for sh in (0, 2, 4, 6)]
+    out = torch.stack([torch.where(f >= 2, f - 4, f) for f in fields], -1)
+    return out.reshape(*packed.shape[:-1], packed.shape[-1] * 4)

@@ -16,8 +16,12 @@ columns on the host; the executables move them to the device and return
 device tensors, and the demux copies each batch's outputs back to the host
 once (``_finish``, the one synchronisation point) before the NaN/Inf guard.
 
-Not ported yet: ``decode_state_shardings`` (no mesh on one card) and
-``attach_scrubber`` (it waits for ``runtime/integrity.py``).
+A :class:`~repro_torch.runtime.integrity.Scrubber` attached with
+:meth:`AccelServer.attach_scrubber` makes unrepairable weight corruption
+fatal: the port's executables read the live weight buffers, so from the
+moment the server dies no batch's result is resolved any more.
+
+Not ported yet: ``decode_state_shardings`` (no mesh on one card).
 """
 from __future__ import annotations
 
@@ -388,6 +392,7 @@ class AccelServer:
         self._stopping = False
         self._drain_on_stop = True
         self._fatal: Optional[BaseException] = None
+        self._scrubber = None   # attach_scrubber: weight-memory integrity
         # per-batch executable failures survive here in async mode, where no
         # caller frame exists for pump() to re-raise into
         self.pump_errors: Deque[BaseException] = deque(maxlen=64)
@@ -581,6 +586,12 @@ class AccelServer:
         ten, batch = pending.tenant, pending.batch
         exec_s = done - pending.t0
         with self._lock:
+            if self._fatal is not None:
+                # the server died while this batch ran (its scrubber may
+                # have quarantined the weights it read): every member ticket
+                # already holds the fatal error, and no result computed
+                # after that point is served
+                return
             off = 0
             for r in batch.requests:
                 sliced = tuple(o[off:off + r.size] for o in outs)
@@ -756,12 +767,37 @@ class AccelServer:
         with self._lock:
             return sum(len(t.scheduler) for t in self.tenants.values())
 
+    def attach_scrubber(self, scrubber) -> None:
+        """Wire a :class:`~repro_torch.runtime.integrity.Scrubber` over this
+        server's weight buffer: unrepairable corruption (master codes or
+        scales) becomes a fatal typed
+        :class:`~repro_torch.runtime.integrity.IntegrityError` — the pump
+        dies, every outstanding ticket resolves to the error, a batch still
+        running is withheld, new work is refused — and the fleet sentinel
+        sees ``fatal`` and ejects the replica with a ``quarantined`` cause.
+        The scrubber's telemetry surfaces under ``stats()["integrity"]``.
+        Lifecycle stays the caller's: attach does not start it.  One
+        scrubber over a buffer may be attached to every server that reads
+        it; its first detection then kills them all at once."""
+        from repro_torch.runtime.integrity import IntegrityError
+
+        def _quarantine(mismatch):
+            self._die(IntegrityError(
+                f"weight memory quarantined: {mismatch}", [mismatch]))
+
+        self._scrubber = scrubber
+        scrubber.add_on_quarantine(_quarantine)
+
+    @property
+    def scrubber(self):
+        return self._scrubber
+
     def set_selector(self, selector: Optional[PointSelector],
                      tenant: str = "default") -> None:
         """Swap a tenant's point selector at runtime.  The fleet router uses
-        this to wire ONE shared brownout selector
-        into every replica so the whole fleet walks the precision ladder
-        together."""
+        this to wire ONE shared
+        :class:`~repro_torch.core.adaptive.BrownoutSelector` into every
+        replica so the whole fleet walks the precision ladder together."""
         with self._lock:
             self._tenant(tenant).selector = selector
 
@@ -1041,25 +1077,37 @@ class AccelServer:
         SLO-controller state.  ``tenant=None`` keeps the single-tenant shape
         when only one tenant is registered; with several it returns
         aggregate counters plus a per-tenant breakdown under ``tenants``."""
-        with self._lock:
-            if tenant is not None:
+        if tenant is not None:
+            with self._lock:
                 return self._tenant_stats(self._tenant(tenant))
-            if len(self.tenants) == 1:
-                s = self._tenant_stats(next(iter(self.tenants.values())))
-                s["pump_errors"] = len(self.pump_errors)
-                return s
-            per = {n: self._tenant_stats(t) for n, t in self.tenants.items()}
-            agg: Dict[str, Any] = {"tenants": per}
-            for key in ("submitted", "split_requests", "split_chunks",
-                        "scheduled_batches", "scheduled_rows", "padded_rows",
-                        "pending", "executed_batches", "numerical_faults"):
-                agg[key] = sum(p.get(key, 0) for p in per.values())
-            rows = agg["scheduled_rows"] + agg["padded_rows"]
-            agg["padding_waste"] = agg["padded_rows"] / rows if rows else 0.0
-            all_lat = [lat for t in self.tenants.values()
-                       for lat in t.latencies]
-            if all_lat:
-                agg["p50_latency_s"] = percentile(all_lat, 0.50)
-                agg["p95_latency_s"] = percentile(all_lat, 0.95)
-            agg["pump_errors"] = len(self.pump_errors)
-            return agg
+        with self._lock:
+            s = self._server_stats()
+            scrubber = self._scrubber
+        # the scrubber's lock is taken with the server's released: its
+        # quarantine callback takes the server's lock (``_die``)
+        if scrubber is not None:
+            s["integrity"] = scrubber.telemetry()
+        return s
+
+    def _server_stats(self) -> Dict[str, Any]:
+        """:meth:`stats` with no tenant named, less the scrubber's
+        telemetry.  Caller holds the lock."""
+        if len(self.tenants) == 1:
+            s = self._tenant_stats(next(iter(self.tenants.values())))
+            s["pump_errors"] = len(self.pump_errors)
+            return s
+        per = {n: self._tenant_stats(t) for n, t in self.tenants.items()}
+        agg: Dict[str, Any] = {"tenants": per}
+        for key in ("submitted", "split_requests", "split_chunks",
+                    "scheduled_batches", "scheduled_rows", "padded_rows",
+                    "pending", "executed_batches", "numerical_faults"):
+            agg[key] = sum(p.get(key, 0) for p in per.values())
+        rows = agg["scheduled_rows"] + agg["padded_rows"]
+        agg["padding_waste"] = agg["padded_rows"] / rows if rows else 0.0
+        all_lat = [lat for t in self.tenants.values()
+                   for lat in t.latencies]
+        if all_lat:
+            agg["p50_latency_s"] = percentile(all_lat, 0.50)
+            agg["p95_latency_s"] = percentile(all_lat, 0.95)
+        agg["pump_errors"] = len(self.pump_errors)
+        return agg

@@ -75,6 +75,19 @@ def test_dse_slice_modules_are_among_those_imported_with_jax_blocked():
     assert dse <= set(_modules())
 
 
+def test_fleet_slice_modules_are_among_those_imported_with_jax_blocked():
+    """The robust serving stack (fault sources, weight-memory integrity, the
+    fleet router) is walked by the jax-blocked import above, and the names
+    its modules export resolve."""
+    fleet = {"repro_torch.runtime.ft", "repro_torch.runtime.integrity",
+             "repro_torch.runtime.fleet", "repro_torch.core.adaptive",
+             "repro_torch.quant.pack"}
+    assert fleet <= set(_modules())
+    from repro_torch.runtime import fleet as f, integrity
+    assert set(f.__all__) <= set(dir(f))
+    assert set(integrity.__all__) <= set(dir(integrity))
+
+
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")] + ["chip_smoke.py"]))
 def test_no_source_line_imports_jax_or_repro(path):

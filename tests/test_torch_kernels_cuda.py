@@ -264,3 +264,25 @@ def test_im2col_dw_mode_on_the_card(cuda, packed):
         assert counts["direct"] == (4, 2) and counts["im2col"] == (6, 0)
         assert torch.equal(outs["direct"], outs["im2col"])
         assert torch.equal(outs["im2col"], cpu.build(bits=bits)(x))
+
+
+@pytest.mark.cuda
+def test_fleet_heals_a_master_code_flip_on_the_card(cuda):
+    """``chip_smoke.fleet_path`` on the card: three replicas over one packed
+    buffer serve every request bit-exact to the CPU plain path, each
+    master-code flip quarantines and heals every replica, no batch finishes
+    after its detection, and the requests served after each heal are exact
+    again."""
+    import importlib.util
+    from pathlib import Path
+
+    from repro_torch.configs.separable_cnn import SeparableCNNConfig
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    info = chip_smoke.fleet_path("separable-cnn", SeparableCNNConfig(),
+                                 device="cuda", n_requests=24, rate_rounds=1)
+    assert info["master_flip"]["served_after"] \
+        == 24 * chip_smoke.FLEET_MASTER_FLIPS
+    assert info["launches"]["qgemm"] > 0 and info["launches"]["qconv_dw"] > 0

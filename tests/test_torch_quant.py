@@ -181,3 +181,51 @@ def test_weight_stats_and_top1_agreement():
 def test_storage_dtype_maps_sub_byte_widths_to_int8(bits, dtype):
     from repro_torch.quant.qtypes import storage_dtype
     assert storage_dtype(bits) is dtype
+
+
+def test_pack_int4_roundtrip():
+    codes = torch.arange(-8, 8, dtype=torch.int8).reshape(2, 8)
+    packed = t_pack.pack_int4(codes)
+    assert packed.shape == (2, 4) and packed.dtype == torch.uint8
+    np.testing.assert_array_equal(t_pack.unpack_int4(packed).numpy(),
+                                  codes.numpy())
+    assert packed.numpy().tobytes() == np.asarray(
+        j_pack.pack_int4(jnp.asarray(codes.numpy()))).tobytes()
+
+
+def test_pack_int2_roundtrip():
+    codes = torch.tensor([[-2, -1, 0, 1] * 2], dtype=torch.int8)
+    packed = t_pack.pack_int2(codes)
+    assert packed.shape == (1, 2) and packed.dtype == torch.uint8
+    np.testing.assert_array_equal(t_pack.unpack_int2(packed).numpy(),
+                                  codes.numpy())
+    assert packed.numpy().tobytes() == np.asarray(
+        j_pack.pack_int2(jnp.asarray(codes.numpy()))).tobytes()
+
+
+@pytest.mark.parametrize("bits,shape", [(4, (3, 5, 16)), (2, (7, 12)),
+                                        (4, (64,)), (2, (2, 2, 8))])
+def test_pack_int_bytes_equal_the_reference(bits, shape):
+    half = 1 << (bits - 1)
+    codes = np.random.default_rng(bits + len(shape)).integers(
+        -half, half, shape).astype(np.int8)
+    pack, unpack = ((t_pack.pack_int4, t_pack.unpack_int4) if bits == 4
+                    else (t_pack.pack_int2, t_pack.unpack_int2))
+    j_pack_fn = j_pack.pack_int4 if bits == 4 else j_pack.pack_int2
+    packed = pack(codes)
+    assert packed.numpy().tobytes() == np.asarray(
+        j_pack_fn(jnp.asarray(codes))).tobytes()
+    np.testing.assert_array_equal(unpack(packed).numpy(), codes)
+    with pytest.raises(ValueError):
+        pack(codes[..., :-1])
+
+
+@pytest.mark.parametrize("bits", [8, 4, 2])
+def test_packed_weights_dequantized_equals_the_reference(bits):
+    inits = _inits("separable-cnn")
+    t = t_pack.PackedWeights.from_initializers(inits, "cpu").dequantized(bits)
+    j = j_pack.PackedWeights.from_initializers(inits).dequantized(bits)
+    assert set(t) == set(j)
+    for name in j:
+        np.testing.assert_array_equal(t[name].numpy(), np.asarray(j[name]),
+                                      err_msg=name)
