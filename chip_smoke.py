@@ -10,7 +10,8 @@ Phases, each of which raises (and exits non-zero) on failure:
    nvcc into ``build/repro_torch/`` and loads them, printing each kernel's
    registers, static shared memory, stack and spill bytes (``-Xptxas -v``),
    for each of ``ssd_scan``'s three phases its dynamic shared memory a
-   block and blocks per SM at the full-width prefill call, and for each
+   block and blocks per SM at the full-width prefill calls of mamba2-1.3b
+   and hymba-1.5b, and for each
    timed ``conv2d_stream`` call and wide row the mapping ``stream_tiles``
    gives it, its instance's registers, dynamic shared memory and blocks per
    SM;
@@ -26,12 +27,13 @@ Phases, each of which raises (and exits non-zero) on failure:
    than 48 KB of line buffer in f32, bf16 and mixed dtypes with and without
    bias, within 1e-4 (f32 out) or one bf16 ulp (bf16 out);
    ``ssd_scan`` over the reference's test shapes, ragged lengths, G > 1 and
-   mamba2-1.3b's full-width prefill call, f32 and bf16, contiguous and
+   the full-width prefill calls of mamba2-1.3b and of hymba-1.5b's SSM half
+   (H = 50, N = 16), f32 and bf16, contiguous and
    strided, from a zero and from a given initial state, y within ``1e-5*max|y|`` (plus one bf16 ulp in bf16) and the
    state within ``1e-4*max(1, max|state|)``, with the plain version's and
    the kernel's own errors against an f64 run at full width; then each of
    its three phases (chunk_state, state_pass, chunk_scan) fed the plain
-   version of the phase before it, at the full-width call and a ragged
+   version of the phase before it, at both full-width calls and a ragged
    length, f32 and bf16, from a given initial state: the chunk states and
    y within the same bounds, state_pass exactly;
 4. main paths, each with the launch counters zeroed just before it and read
@@ -95,6 +97,18 @@ Phases, each of which raises (and exits non-zero) on failure:
       ``BrownoutSelector`` walking the fleet to W4/W2 under a burst; then
       requests/s with the scrubber off and on in alternating runs, the
       bytes/s it re-hashed against its rate, and one region's hash time;
+   j. hymba-1.5b at full width (32 layers, seeded random weights from a
+      CUDA generator; :func:`lm_paths`, as e and f): the bf16 prefill of (4, 2048)
+      tokens, banded attention beside the SSM half, exactly 32 ``ssd_scan``
+      launches (and 32 of each phase), finite logits, tokens/s; the f32
+      ``forward`` against token-by-token ``decode_step`` within
+      ``5e-3*max|logit|`` on a cut config, named in the output (4 layers,
+      window 64, ``attention.Q_CHUNK`` 64, tokens (2, 256)), whose prefill
+      takes the banded schedule and whose decode wraps the 64-slot ring
+      buffer; then ``AdaptiveLMServer`` and ``greedy_generate`` as in f;
+   k. qwen1.5-0.5b at full width (24 layers; :func:`lm_paths`): the same
+      prefill (chunked attention, no ``ssd_scan`` launch), the f32 check at
+      full width on (2, 100), the server and ``greedy_generate``;
 5. times — each kernel and mode, its plain version and the nearest PyTorch
    library call at the main paths' batch-8 shapes: device time per call
    from the profiler's CUDA activity (and the per-call time of back-to-back
@@ -109,9 +123,13 @@ Phases, each of which raises (and exits non-zero) on failure:
    one CUDA graph, where no host work separates the calls;
    ``conv2d_stream`` at the stream target's five calls at batch 8 and 32
    against ``F.conv2d`` on channels-last views, graphs included; ``ssd_scan``
-   at the (4, 2048) prefill call against its plain version with the bf16
-   intra flag off and on, and each of its phases alone beside the bound of
-   its own work; ``qgemm``'s per-row x-scale mode at pw0; the im2col
+   at the (4, 2048) prefill calls of mamba2-1.3b and hymba-1.5b against its
+   plain version with the bf16 intra flag off and on, and each of its
+   phases alone beside the bound of its own work; one layer's attention
+   prefill (``attention.attend``, q, k, v to output) at hymba's (banded)
+   and qwen's (chunked) call beside ``F.scaled_dot_product_attention`` on
+   the same q, k and v, a yardstick the port never calls;
+   ``qgemm``'s per-row x-scale mode at pw0; the im2col
    baseline's two ``qgemm`` calls (dw0 1568 x 72 x 8, dw1 392 x 144 x 16)
    in both modes, beside ``torch._int_mm`` / ``torch.matmul`` on the same
    patches, reported with the direct ``qconv_dw`` calls in the kernels line.
@@ -144,6 +162,7 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 INT8_OPS_PER_S = 1979e12         # H100 SXM dense int8 tensor-core peak
 F32_FLOPS_PER_S = 67e12          # H100 SXM f32 on CUDA cores (no tensor cores)
+BF16_FLOPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core peak
 SEED = 0
 
 
@@ -208,7 +227,7 @@ def ptxas_report(log_text: str) -> list:
 
 
 def build() -> dict:
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, checks
     t0 = time.perf_counter()
     _build.load_kernels()
     secs = time.perf_counter() - t0
@@ -221,7 +240,9 @@ def build() -> dict:
             f"{r['stack_bytes']} B stack, spill {r['spill_store_bytes']} B "
             f"stores / {r['spill_load_bytes']} B loads")
     return {"seconds": secs, "ptxas": report,
-            "ssd_phases": ssd_phase_info(report)}
+            "ssd_phases": ssd_phase_info(report),
+            "ssd_phases_hymba": ssd_phase_info(
+                report, checks.SSD_HYMBA_FULL_WIDTH)}
 
 
 def conv2d_stream_instances() -> list:
@@ -245,13 +266,13 @@ def conv2d_stream_instances() -> list:
     return out
 
 
-def ssd_phase_info(report: list) -> dict:
+def ssd_phase_info(report: list, shape=None) -> dict:
     """Each ``ssd_scan`` phase's registers (from the ptxas report), dynamic
-    shared memory per block and blocks per SM at the full-width prefill
-    call, in f32 and bf16."""
+    shared memory per block and blocks per SM at a full-width prefill call
+    (``shape``, mamba2-1.3b's by default), in f32 and bf16."""
     from repro_torch.kernels import checks
     from repro_torch.kernels.ssd_scan.ops import ssd_scan_phase_info
-    _, _, _, P, _, N, Q = checks.SSD_FULL_WIDTH
+    _, _, _, P, _, N, Q = shape or checks.SSD_FULL_WIDTH
     regs = {r["kernel"]: r["registers"] for r in report}
     out = {}
     for dtype, t in (("float32", "float"), ("bfloat16", "__nv_bfloat16")):
@@ -1292,9 +1313,11 @@ def fleet_path(name: str, cfg, card: str = "", device: str = "cuda",
     return info
 
 
-# -- LM path: mamba2-1.3b --------------------------------------------------------
+# -- LM paths: mamba2-1.3b, hymba-1.5b, qwen1.5-0.5b ---------------------------
 
 LM_ARCH = "mamba2-1.3b"
+HYBRID_ARCH = "hymba-1.5b"
+DENSE_ARCH = "qwen1.5-0.5b"
 LM_POINTS = (("w8", 8), ("w4", 4), ("w2", 2))
 
 
@@ -1319,26 +1342,30 @@ def _tokens(cfg, shape, seed: int, device: str):
     return torch.randint(0, cfg.vocab, shape, generator=g, device=device)
 
 
-def _expect_ssd_launches(name: str, launches: dict, n_layers: int,
+def _expect_ssd_launches(name: str, launches: dict, cfg,
                          device: str) -> None:
-    """One ``ssd_scan`` launch per layer of a prefill on the card, and one
-    of each of its three phases."""
+    """One ``ssd_scan`` launch per layer of a prefill on the card for a
+    model with an SSM block, and one of each of its three phases; none for
+    a dense model."""
     if device != "cuda":
         return
+    n = cfg.n_layers if cfg.ssm is not None else 0
     for k in ("ssd_scan",) + tuple(f"ssd_scan.{p}" for p in SSD_PHASES):
-        if launches[k] != n_layers:
+        if launches[k] != n:
             raise AssertionError(f"{name}: {launches[k]} {k} launches, "
-                                 f"expected {n_layers}")
+                                 f"expected {n}")
 
 
 def lm_prefill_path(cfg, params, batch: int = 4, seq: int = 2048,
                     device: str = "cuda", reps: int = 3) -> dict:
     """``make_prefill_step(cfg)`` on (batch, seq) tokens: one prefill with
     the counters zeroed just before it and read just after (one
-    ``ssd_scan`` launch per layer), finite logits of the padded vocab, then
-    ``reps`` timed prefills for tokens/s."""
+    ``ssd_scan`` launch per layer with an SSM block, none for a dense
+    model), finite logits of the padded vocab, then ``reps`` timed prefills
+    for tokens/s."""
     import statistics
     import torch
+    from repro_torch.models.attention import prefill_route
     from repro_torch.runtime.serve import make_prefill_step
     toks = _tokens(cfg, (batch, seq), SEED + 5, device)
     prefill = make_prefill_step(cfg)
@@ -1353,7 +1380,7 @@ def lm_prefill_path(cfg, params, batch: int = 4, seq: int = 2048,
         raise AssertionError(f"{name}: logits {tuple(logits.shape)}")
     if not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"{name}: non-finite logits")
-    _expect_ssd_launches(name, launches, cfg.n_layers, device)
+    _expect_ssd_launches(name, launches, cfg, device)
     secs = []
     for _ in range(reps):
         t0 = time.perf_counter()
@@ -1362,7 +1389,9 @@ def lm_prefill_path(cfg, params, batch: int = 4, seq: int = 2048,
         secs.append(time.perf_counter() - t0)
     med = statistics.median(secs)
     info = {"path": f"prefill {cfg.dtype} ({batch}, {seq})",
-            "model": cfg.name, "launches": launches, "first_s": first_s,
+            "model": cfg.name, "launches": launches,
+            "attention": None if cfg.attention_free
+            else prefill_route(cfg, seq), "first_s": first_s,
             "prefill_s": secs, "tokens_per_s": batch * seq / med,
             "logits_max_abs": float(logits.float().abs().max())}
     log(f"main path {cfg.name} prefill: " + json.dumps(info))
@@ -1370,26 +1399,49 @@ def lm_prefill_path(cfg, params, batch: int = 4, seq: int = 2048,
 
 
 def lm_f32_decode_check(cfg, batch: int = 2, seq: int = 100,
-                        device: str = "cuda") -> dict:
-    """In an f32 copy of ``cfg``: ``forward`` through the kernel on a
-    ragged length against ``decode_step`` fed token by token, every logit
-    within the reference's ``5e-3*max|logit|`` (tests/test_serve.py)."""
+                        device: str = "cuda", n_layers=None,
+                        sliding_window=None, q_chunk=None) -> dict:
+    """In an f32 copy of ``cfg``: ``forward`` (through the scan kernel where
+    the model has an SSM block) against ``decode_step`` fed token by token,
+    every logit within the reference's ``5e-3*max|logit|``
+    (tests/test_serve.py).  ``n_layers``, ``sliding_window`` and ``q_chunk``
+    (attention's ``Q_CHUNK`` for the run) cut the config so a short run
+    reaches the banded prefill and wraps the decode ring buffer, which a
+    ``sliding_window`` cut must then do; each cut is named in the output."""
     import dataclasses
     import torch
+    from repro_torch.models import attention
     from repro_torch.runtime import model_api
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
-    params = lm_params(cfg32, device)
-    toks = _tokens(cfg32, (batch, seq), SEED + 6, device)
-    _zero_counts()
-    t0 = time.perf_counter()
-    fwd, _ = model_api.forward_logits(params, {"tokens": toks}, cfg32)
-    _sync(device)
-    fwd_s = time.perf_counter() - t0
-    launches = _read_counts()
+    cuts, reduced = {}, {}
+    if n_layers is not None:
+        cuts["n_layers"] = n_layers
+    if sliding_window is not None:
+        cuts["sliding_window"] = sliding_window
+    for k, v in cuts.items():
+        reduced[k] = f"{getattr(cfg, k)} -> {v}"
+    cfg32 = dataclasses.replace(cfg, dtype="float32", **cuts)
+    q_chunk_was = attention.Q_CHUNK
+    if q_chunk is not None:
+        reduced["attention.Q_CHUNK"] = f"{q_chunk_was} -> {q_chunk}"
+        attention.Q_CHUNK = q_chunk
+    try:
+        params = lm_params(cfg32, device)
+        toks = _tokens(cfg32, (batch, seq), SEED + 6, device)
+        route = None if cfg32.attention_free else \
+            attention.prefill_route(cfg32, seq)
+        _zero_counts()
+        t0 = time.perf_counter()
+        fwd, _ = model_api.forward_logits(params, {"tokens": toks}, cfg32)
+        _sync(device)
+        fwd_s = time.perf_counter() - t0
+        launches = _read_counts()
+    finally:
+        attention.Q_CHUNK = q_chunk_was
     name = f"{cfg.name} f32 forward"
-    _expect_ssd_launches(name, launches, cfg.n_layers, device)
+    _expect_ssd_launches(name, launches, cfg32, device)
     st = model_api.init_decode_state(params, {"tokens": toks}, cfg32, batch,
                                      seq, dtype=torch.float32)
+    ring = None if st.cache_k is None else st.cache_k.shape[2]
     err = torch.zeros((), device=device)
     t0 = time.perf_counter()
     for t in range(seq):
@@ -1403,8 +1455,13 @@ def lm_f32_decode_check(cfg, batch: int = 2, seq: int = 100,
     if not rel <= 5e-3:
         raise AssertionError(f"{name}: decode/forward mismatch {rel} of "
                              "max|logit| (bound 5e-3)")
+    if sliding_window is not None and not (route == "banded" and ring < seq):
+        raise AssertionError(f"{name}: {route} prefill and {ring} cache "
+                             f"slots for {seq} tokens: the cut config missed "
+                             "the banded prefill or the ring wrap")
     info = {"path": f"forward f32 vs decode ({batch}, {seq})",
-            "model": cfg.name, "launches": launches,
+            "model": cfg.name, "reduced": reduced, "launches": launches,
+            "attention": route, "kv_cache_slots": ring,
             "max_err_over_max_logit": rel, "forward_s": fwd_s,
             "decode_s": decode_s}
     log(f"main path {cfg.name} f32 forward vs decode: " + json.dumps(info))
@@ -1477,6 +1534,19 @@ def lm_serve_path(cfg, params, batch: int = 4, steps: int = 12,
             "greedy_tokens_per_s": batch * (prompt_len + new) / gen_s}
     log(f"main path {name}: " + json.dumps(info))
     return info
+
+
+def lm_paths(cfg, **check) -> list:
+    """One LM at full width on the card: :func:`lm_prefill_path`,
+    :func:`lm_f32_decode_check` (``check`` cuts its config) and
+    :func:`lm_serve_path`, on seeded weights freed afterwards."""
+    import torch
+    params = lm_params(cfg)
+    out = [lm_prefill_path(cfg, params), lm_f32_decode_check(cfg, **check),
+           lm_serve_path(cfg, params)]
+    del params
+    torch.cuda.empty_cache()
+    return out
 
 
 # -- times ----------------------------------------------------------------------
@@ -1664,6 +1734,7 @@ def times() -> dict:
     rows.update(times_im2col(g, dev))
     rows.update(times_float(g, dev))
     rows.update(times_ssd(dev))
+    rows.update(times_attention(dev))
     for name, rs in rows.items():
         for r in rs:
             log(f"time {name} {json.dumps(r)}")
@@ -1867,12 +1938,20 @@ def ssd_phase_bounds(B: int, S: int, H: int, P: int, G: int, N: int,
 
 
 def times_ssd(dev) -> dict:
-    """``ssd_scan`` at the prefill call of mamba2-1.3b (batch 4 x 2048
-    tokens, bf16, x/B/C strided views of the fused conv output as the model
-    passes them) against its plain version (all f32) and the model oracle
-    with the bf16 intra-chunk flag on, and each of its three phases on its
-    own beside the bound of its own work.  No single PyTorch call computes
-    the scan: no library time."""
+    """``ssd_scan`` at the prefill calls of mamba2-1.3b and of hymba-1.5b's
+    SSM half (:func:`time_ssd_call`)."""
+    from repro_torch.kernels import checks
+    return {"ssd_scan": [time_ssd_call(dev, checks.SSD_FULL_WIDTH),
+                         time_ssd_call(dev, checks.SSD_HYMBA_FULL_WIDTH)]}
+
+
+def time_ssd_call(dev, shape) -> dict:
+    """``ssd_scan`` at one prefill call (batch 4 x 2048 tokens, bf16, x/B/C
+    strided views of the fused conv output as the model passes them)
+    against its plain version (all f32) and the model oracle with the bf16
+    intra-chunk flag on, and each of its three phases on its own beside the
+    bound of its own work.  No single PyTorch call computes the scan: no
+    library time."""
     import torch
     from repro_torch.kernels import checks
     from repro_torch.kernels.ssd_scan.ops import (ssd_chunk_scan_cuda,
@@ -1881,7 +1960,6 @@ def times_ssd(dev) -> dict:
                                                   ssd_state_pass_cuda)
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked_plain
     from repro_torch.models.ssm import ssd_chunked
-    shape = checks.SSD_FULL_WIDTH
     Q = shape[-1]
     x, dt, A, Bm, C, D = checks.ssd_inputs(shape, 7000, torch.bfloat16, dev,
                                            fused=True)
@@ -1907,9 +1985,70 @@ def times_ssd(dev) -> dict:
     row["phases"] = {name: dict(kernel=_measure(fn, 20), **bounds[name])
                      for name, fn in calls.items()}
     for name, r in row["phases"].items():
-        log(f"time ssd_scan phase {name}: {_ms(r['kernel'])} ms "
-            f"(bound {r['bound_ms']} ms, {r['bound_by']})")
-    return {"ssd_scan": [row]}
+        log(f"time ssd_scan {list(shape)} phase {name}: {_ms(r['kernel'])} "
+            f"ms (bound {r['bound_ms']} ms, {r['bound_by']})")
+    return row
+
+
+def attention_bound(B: int, S: int, H: int, Hkv: int, Dh: int, window,
+                    itemsize: int = 2) -> dict:
+    """The least time for one layer's prefill attention from q, k, v (after
+    RoPE) to its output: bytes are q, k, v and the output, each once;
+    operations are q.k and p.v over the (query, key) pairs the causal
+    (and window) mask keeps, as multiply-adds over 989 bf16 TFLOP/s."""
+    w = S if window is None else min(window, S)
+    pairs = sum(min(i + 1, w) for i in range(S))
+    nbytes = itemsize * B * S * Dh * (2 * H + 2 * Hkv)
+    return _bound(nbytes, 4 * B * H * pairs * Dh, BF16_FLOPS_PER_S)
+
+
+def times_attention(dev) -> dict:
+    """One layer's attention prefill (``attention.attend``, from q, k, v
+    after RoPE to the output before ``wo``) at the (4, 2048) bf16 prefill
+    calls of hymba-1.5b (GQA 25/5, window 2048: the banded schedule) and
+    qwen1.5-0.5b (16 heads: the chunked schedule), beside
+    ``F.scaled_dot_product_attention`` on the same q, k and v (a yardstick
+    only: the port never calls it) and the bound of the work."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.models.attention import attend, prefill_route
+    rows = []
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    for arch in (HYBRID_ARCH, DENSE_ARCH):
+        cfg = get_config(arch)
+        B, S, H, Hkv, Dh = 4, 2048, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        q, k, v = (torch.randn((B, S, h, Dh), generator=g, device=dev,
+                               dtype=torch.bfloat16)
+                   for h in (H, Hkv, Hkv))
+        pos = torch.arange(S, device=dev)
+        win = cfg.sliding_window
+        mask = None
+        if win is not None and win < S:
+            i = torch.arange(S, device=dev)
+            mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - win)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+        def lib():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+                enable_gqa=Hkv != H)
+
+        out = attend(q, k, v, pos, pos, cfg)
+        diff = float((out.float() - lib().transpose(1, 2).float()).abs()
+                     .max())
+        row = dict(model=arch, shape=[B, S, H, Hkv, Dh], window=win,
+                   route=prefill_route(cfg, S), dtype="bfloat16",
+                   kernel=_measure(lambda: attend(q, k, v, pos, pos, cfg), 10),
+                   library=_measure(lib, 20), sdpa_max_abs_diff=diff,
+                   **attention_bound(B, S, H, Hkv, Dh, win))
+        log(f"time attention {arch} {row['route']} {row['shape']}: "
+            f"{_ms(row['kernel'])} ms (SDPA {_ms(row['library'])} ms, bound "
+            f"{row['bound_ms']} ms {row['bound_by']}, max |port - SDPA| "
+            f"{diff})")
+        rows.append(row)
+        del q, k, v, qt, kt, vt, out
+    return {"attention": rows}
 
 
 def conv2d_stream_main() -> int:
@@ -1990,13 +2129,12 @@ def main(argv=None) -> int:
              im2col_path("separable-cnn", sep_cfg, act_bits=8),
              im2col_path("separable-cnn", sep_cfg, act_bits=16),
              fleet_path("separable-cnn", sep_cfg, card)]
-    lm_cfg = get_config(LM_ARCH)
-    lm_p = lm_params(lm_cfg)
-    paths.append(lm_prefill_path(lm_cfg, lm_p))
-    paths.append(lm_f32_decode_check(lm_cfg))
-    paths.append(lm_serve_path(lm_cfg, lm_p))
-    del lm_p
-    torch.cuda.empty_cache()
+    paths += lm_paths(get_config(LM_ARCH))
+    # hymba's f32 check on 4 layers, window 64 and Q_CHUNK 64: the banded
+    # prefill and a decode that wraps the ring buffer, at full width
+    paths += lm_paths(get_config(HYBRID_ARCH), seq=256, n_layers=4,
+                      sliding_window=64, q_chunk=64)
+    paths += lm_paths(get_config(DENSE_ARCH))
     rows = times()
 
     # the JSON row of each kernel and mode: the path run whose launches it
@@ -2085,6 +2223,20 @@ def main(argv=None) -> int:
     ssd = rows["ssd_scan"][0]
     prefill = next(p["launches"] for p in paths
                    if f"{p['path']} {p['model']}" == table["ssd_scan"][2])
+    hy = rows["ssd_scan"][1]
+    hy_prefill = next(p["launches"] for p in paths if p["model"] == HYBRID_ARCH
+                      and p["path"] == "prefill bfloat16 (4, 2048)")
+    kernels[-1]["hymba"] = dict(
+        shape=hy["shape"], path=f"prefill bfloat16 (4, 2048) {HYBRID_ARCH}",
+        launches=hy_prefill["ssd_scan"], ms=_ms(hy["kernel"]),
+        plain_ms=_ms(hy["plain"]),
+        plain_bf16_intra_ms=_ms(hy["plain_bf16_intra"]),
+        bound_ms=hy["bound_ms"], bound_by=hy["bound_by"], library_ms=None,
+        phases={name: {"ms": _ms(r["kernel"]), "bound_ms": r["bound_ms"],
+                       "bound_by": r["bound_by"],
+                       "launches": hy_prefill[f"ssd_scan.{name}"],
+                       **built["ssd_phases_hymba"]["bfloat16"][name]}
+                for name, r in hy["phases"].items()})
     kernels[-1].update(
         plain_bf16_intra_ms=_ms(ssd["plain_bf16_intra"]),
         vs_f64=sweeps["ssd_scan"]["vs_f64"],
@@ -2119,6 +2271,9 @@ def main(argv=None) -> int:
         if "decode_tokens_per_s" in p:
             log(f"LM {p['model']} decode tokens/s per point: "
                 + json.dumps(p["decode_tokens_per_s"]))
+    for r in rows["attention"]:
+        log(f"attention {r['model']} {r['route']}: {_ms(r['kernel'])} ms, "
+            f"SDPA {_ms(r['library'])} ms, bound {r['bound_ms']} ms")
     log(f"total {time.perf_counter() - t_all:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -150,3 +150,12 @@ DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
 LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
 
 ALL_SHAPES: Tuple[ShapeConfig, ...] = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+
+
+def shapes_for(cfg: ModelConfig) -> Tuple[ShapeConfig, ...]:
+    """The shape cells that apply to an architecture: long_500k only for a
+    sub-quadratic one."""
+    out = [TRAIN_4K, PREFILL_32K, DECODE_32K]
+    if cfg.subquadratic:
+        out.append(LONG_500K)
+    return tuple(out)

@@ -99,16 +99,19 @@ CONV_STREAM_DTYPES = ((torch.float32, torch.float32),
 
 # (B, S, H, P, G, N, Q) of ssd_scan: the reference's test shapes
 # (tests/test_kernels.py), ragged lengths (S not a multiple of Q), G > 1,
-# then the prefill call of mamba2-1.3b at full width (batch 4 x 2048 tokens)
+# then the prefill calls at full width (batch 4 x 2048 tokens) of
+# mamba2-1.3b and of hymba-1.5b's SSM half (50 heads, N = 16)
 SSD_FULL_WIDTH = (4, 2048, 64, 64, 1, 128, 64)
-SSD_SHAPES = ((2, 128, 4, 16, 2, 8, 32), (1, 64, 2, 8, 1, 16, 16),
-              (2, 96, 6, 32, 3, 4, 32), (1, 256, 8, 64, 1, 128, 64),
-              (1, 100, 4, 16, 1, 8, 32), (2, 100, 4, 16, 2, 8, 32),
-              (1, 2000, 4, 64, 1, 128, 64), (3, 37, 6, 32, 3, 4, 16),
-              SSD_FULL_WIDTH)
-# the per-phase check: the full-width prefill call and a ragged length at
-# the same widths
-SSD_PHASE_SHAPES = (SSD_FULL_WIDTH, (1, 2000, 4, 64, 1, 128, 64))
+SSD_HYMBA_FULL_WIDTH = (4, 2048, 50, 64, 1, 16, 64)
+SSD_TEST_SHAPES = ((2, 128, 4, 16, 2, 8, 32), (1, 64, 2, 8, 1, 16, 16),
+                   (2, 96, 6, 32, 3, 4, 32), (1, 256, 8, 64, 1, 128, 64),
+                   (1, 100, 4, 16, 1, 8, 32), (2, 100, 4, 16, 2, 8, 32),
+                   (1, 2000, 4, 64, 1, 128, 64), (3, 37, 6, 32, 3, 4, 16))
+SSD_SHAPES = SSD_TEST_SHAPES + (SSD_FULL_WIDTH, SSD_HYMBA_FULL_WIDTH)
+# the per-phase check: the full-width prefill calls and a ragged length at
+# mamba2's widths
+SSD_PHASE_SHAPES = (SSD_FULL_WIDTH, (1, 2000, 4, 64, 1, 128, 64),
+                    SSD_HYMBA_FULL_WIDTH)
 
 # weight working points: (bits, packed)
 WEIGHT_VARIANTS = ((8, False), (4, False), (2, False), (4, True), (2, True))

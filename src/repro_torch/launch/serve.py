@@ -1,13 +1,13 @@
 """Serving launcher: batched decode with the adaptive mixed-precision server
 (counterpart of ``repro.launch.serve``).
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
         --smoke --batch 4 --steps 32
 
 The energy budget drains over the run and the RuntimePolicy drops the
 working point (W8 -> W4 -> W2) without reloading weights.  The arguments are
-the reference's, with the default arch one the port runs, plus ``--device``
-(``cuda`` unless the caller asks for the CPU).  As in the reference,
+the reference's, default arch included, plus ``--device`` (``cuda`` unless
+the caller asks for the CPU).  As in the reference,
 ``--smoke`` is a ``store_true`` flag that defaults to on, so the CLI always
 runs the smoke config; full width is reached through the functions.
 """
@@ -28,7 +28,7 @@ from repro_torch.runtime.serve import AdaptiveLMServer
 
 def main(argv: Optional[List[str]] = None) -> list:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="mamba2-1.3b")
+    ap.add_argument("--arch", default="qwen1.5-0.5b")
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--steps", type=int, default=32)

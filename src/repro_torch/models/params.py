@@ -6,7 +6,8 @@ carry-over of the reference's arrays (counterpart of
 the reference's path names and layouts: decoder layers stacked on a leading
 L dim under ``layers/``, MoE experts in the expert-parallel layout
 ``(tp_total, E/ep, d, f/tp)``.  Shapes cover every family; the port
-initializes and runs the ``ssm`` family only.
+initializes and carries over the ``ssm``, ``hybrid`` and ``dense`` trees
+(MoE, encoder-decoder and vision trees wait in ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from typing import Dict, Mapping, Tuple
 import numpy as np
 import torch
 
+from repro_torch.configs import require_lm_family
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 
@@ -149,10 +151,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     reference's distributions (drawn from ``generator``, so the numbers
     differ from ``jax.random``'s).  Numbers are drawn on the generator's
     device and the tree lands on ``device``."""
-    if cfg.family != "ssm":
-        raise NotImplementedError(
-            f"{cfg.name}: the port initializes the ssm family only (the "
-            f"{cfg.family} family waits in ROADMAP Queue 1, the LM side)")
+    require_lm_family(cfg)
     dev = resolve_device(device)
     shapes = param_shapes(cfg, max_seq=max_seq, tp_total=tp_total)
     dt = _dtype(cfg.dtype)
@@ -203,6 +202,7 @@ def params_from_jax(params: Mapping[str, np.ndarray], cfg: ModelConfig,
     shape by shape and dtype by dtype against :func:`param_shapes` and
     :func:`param_dtype`.  bf16 arrays cross bit for bit, viewed as uint16.
     Any mismatch raises ``ValueError``."""
+    require_lm_family(cfg)
     dev = resolve_device(device)
     expected = param_shapes(cfg)
     missing = sorted(set(expected) - set(params))

@@ -451,7 +451,7 @@ def test_stale_attempt_never_touches_a_healed_servers_tickets():
 def test_fleet_drop_releases_only_its_own_generation():
     # drop() of a pre-heal ticket must not discard the rid-colliding request
     # on the healed server
-    gate = threading.Event()
+    gate, started = threading.Event(), threading.Event()
     calls = {"n": 0}
     lock = threading.Lock()
 
@@ -460,6 +460,7 @@ def test_fleet_drop_releases_only_its_own_generation():
             calls["n"] += 1
             first = calls["n"] == 1
         if first:
+            started.set()
             gate.wait(10.0)
         return np.asarray(x) * 2.0
 
@@ -470,6 +471,9 @@ def test_fleet_drop_releases_only_its_own_generation():
             old_srv = rep.server
             v0, v1 = vals(2)
             t1 = r.submit(v0)     # rid 0 on generation 1
+            # t1 holds the gated first call before generation 2 exists, so
+            # t2 cannot take it on a loaded machine
+            assert started.wait(10.0)
             with r._lock:
                 r._build_server(rep)
             t2 = r.submit(v1)     # rid 0 on generation 2

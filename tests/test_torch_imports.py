@@ -66,6 +66,17 @@ def test_lm_slice_modules_are_among_those_imported_with_jax_blocked():
     assert lm <= set(_modules())
 
 
+def test_attention_slice_modules_are_among_those_imported_with_jax_blocked():
+    """Attention and the hybrid and dense configs are walked by the
+    jax-blocked import above."""
+    mods = {"repro_torch.models.attention", "repro_torch.configs.hymba_1_5b",
+            "repro_torch.configs.qwen1_5_0_5b",
+            "repro_torch.configs.phi3_mini_3_8b",
+            "repro_torch.configs.h2o_danube3_4b",
+            "repro_torch.configs.codeqwen1_5_7b"}
+    assert mods <= set(_modules())
+
+
 def test_dse_slice_modules_are_among_those_imported_with_jax_blocked():
     """The design-space explorer's modules (the explorer, its budget and
     front, roofline's CNN terms) are walked by the jax-blocked import above."""

@@ -100,7 +100,7 @@ def test_integer_truncation_equals_derive_view(cuda, bits):
 def test_ssd_scan_kernel_matches_plain_version(cuda):
     """Every sweep shape but the full-width one (chip_smoke.py runs that),
     f32 and bf16, contiguous and strided views, within ``ssd_scan_tol``."""
-    res = checks.ssd_scan_sweep(cuda, shapes=checks.SSD_SHAPES[:-1])
+    res = checks.ssd_scan_sweep(cuda, shapes=checks.SSD_TEST_SHAPES)
     torch.cuda.synchronize()
     assert res["failures"] == [], checks.summarize(res)
     assert res["max_tol_frac"] <= 1.0
@@ -130,6 +130,20 @@ def test_ssd_scan_phases_match_their_plain_versions(cuda, shape):
     torch.cuda.synchronize()
     assert res["failures"] == [], checks.summarize(res)
     assert res["max_tol_frac"] <= 1.0
+
+
+@pytest.mark.cuda
+def test_ssd_scan_at_hymba_call_matches_plain_version(cuda):
+    """hymba-1.5b's prefill call (50 heads, N = 16), f32 and bf16, both
+    layouts, from zero and from a given initial state: y and the state
+    within ``ssd_scan_tol``; one launch a case."""
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan_cuda
+    before = ssd_scan_cuda.launches
+    res = checks.ssd_scan_sweep(cuda, shapes=[checks.SSD_HYMBA_FULL_WIDTH])
+    torch.cuda.synchronize()
+    assert res["failures"] == [], checks.summarize(res)
+    assert res["max_tol_frac"] <= 1.0
+    assert ssd_scan_cuda.launches - before == res["cases"] == 8
 
 
 @pytest.mark.cuda

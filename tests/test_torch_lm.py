@@ -27,6 +27,7 @@ from repro.runtime import model_api as j_api
 from repro.runtime import serve as j_serve
 
 from repro_torch.configs import get_config
+from repro_torch.configs.base import MoEConfig
 from repro_torch.core.adaptive import RuntimePolicy, WorkingPoint
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import ssm, transformer
@@ -82,7 +83,7 @@ def test_full_width_config_and_shapes_equal_the_reference():
     assert cfg.param_count() == 1_343_843_328
 
 
-@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "hymba-1.5b",
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "phi-3-vision-4.2b",
                                   "granite-moe-3b-a800m", "whisper-base"])
 def test_other_archs_wait_in_the_roadmap(arch):
     with pytest.raises(KeyError, match="ROADMAP Queue 1"):
@@ -362,16 +363,23 @@ def test_launch_serve_walks_the_points_on_the_cpu(capsys):
 
 
 def test_other_families_refuse_with_the_roadmap_queue():
-    _, tc = _cfgs()
-    hybrid = dataclasses.replace(tc, family="hybrid", hybrid=True)
+    """MoE, the vision stub and the encoder-decoder (audio) wait in the
+    ROADMAP; the reference's own smoke configs of those families."""
+    moe = dataclasses.replace(get_config(ARCH).smoke(), family="moe",
+                              moe=MoEConfig(4, 2, 32), ssm=None)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        transformer.init_decode_state(hybrid, 1, 8)
+        transformer.init_decode_state(moe, 1, 8)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+        init_params(moe, torch.Generator(), device="cpu")
+    _, tc = _cfgs()
+    vlm = dataclasses.replace(tc, family="vlm", n_patches=4, ssm=None)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+        transformer.forward({}, torch.zeros((1, 8), dtype=torch.long), vlm)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+        params_from_jax({}, vlm, "cpu")
     audio = dataclasses.replace(tc, family="audio")
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         model_api.forward_logits({}, {"tokens": None}, audio)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        init_params(dataclasses.replace(tc, family="dense"),
-                    torch.Generator(), device="cpu")
 
 
 @pytest.mark.parametrize("fn", ["rmsnorm", "layernorm", "rope", "swiglu",

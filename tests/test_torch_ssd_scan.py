@@ -199,7 +199,7 @@ def _phases(x, dt, A, Bm, C, D, Q, s0=None):
 
 @pytest.mark.parametrize("warm", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", checks.SSD_SHAPES[:-1] + tuple(RAGGED))
+@pytest.mark.parametrize("shape", checks.SSD_TEST_SHAPES + tuple(RAGGED))
 def test_phases_compose_to_the_plain_version_bit_for_bit(shape, dtype, warm):
     """Each phase is the same math as the matching lines of ``_ssd_scan``
     (same ops on the same values in the same order), so the composition of
