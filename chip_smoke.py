@@ -22,7 +22,10 @@ Phases, each of which raises (and exits non-zero) on failure:
    bits {8,4,2} x packed x epilogue x ReLU x bias (x strides x pads),
    exactly; ``qconv_dw`` in f32, exactly;
    ``qgemm`` in f32 within the reference's ``max|y|*2^-7 + 1e-6`` (or one
-   requant quantum); ``conv2d_stream`` over the stream target's shapes at
+   requant quantum); the dequant matmul ``qmatmul`` (``qgemm``'s f32 mode
+   on activations rounded to bf16, no epilogue) at the reference's test
+   shapes, the ragged 6-row call and the FC, bits {8,4,2}, bf16 and f32 in,
+   within ``max|y|*2^-7 + 1e-6``; ``conv2d_stream`` over the stream target's shapes at
    batch 8 and 32, the reference's test shapes, ragged ones and rows wider
    than 48 KB of line buffer in f32, bf16 and mixed dtypes with and without
    bias, within 1e-4 (f32 out) or one bf16 ulp (bf16 out);
@@ -109,6 +112,25 @@ Phases, each of which raises (and exits non-zero) on failure:
    k. qwen1.5-0.5b at full width (24 layers; :func:`lm_paths`): the same
       prefill (chunked attention, no ``ssd_scan`` launch), the f32 check at
       full width on (2, 100), the server and ``greedy_generate``;
+   l. the paper's Table II on mnist-cnn (:func:`table2_path`; f32
+      convolutions and matmuls, deterministic cuDNN): 1,024 procedural
+      MNIST images (seed 0) trained 6 epochs of batch 64 at lr 0.05 with
+      autograd and running BN statistics from the port's own seeded init
+      (seconds per step, images/s; test accuracy on 512 images, seed 99,
+      above 0.7), then ``DesignFlow.run(("stream",), ...)`` at the six
+      ``TABLE2_POINTS``, the reference benchmark's two per-layer points and
+      the ``PrecisionMap`` of ``explore_mixed_precision(tol=0.02)``: one row
+      each of zero weights, weight and FIFO bytes, accuracy and the best of
+      5 timed forwards per image, ``conv2d_stream`` launched on every
+      forward, logits within ``max|y|*2^-7 + 1e-6`` of the CPU plain path
+      on the card's weights with the same statistics and bytes; claims C1
+      (W16/W8/W4 within 0.1 of the float accuracy) and C3 (zero weights
+      rising W16 -> W4 -> W2, W2 above 0.3) gated, C2 (D16-W8 against
+      D4-W16) printed; then the trained network served at D8 through
+      ``qtorch`` and ``serve_adaptive``, the 512 test images as 115
+      requests of 1-8 rows walking W8 -> W4 -> W2, every result equal to
+      the CPU plain path, ``qgemm`` launched on every batch, accuracy per
+      point;
 5. times — each kernel and mode, its plain version and the nearest PyTorch
    library call at the main paths' batch-8 shapes: device time per call
    from the profiler's CUDA activity (and the per-call time of back-to-back
@@ -129,7 +151,9 @@ Phases, each of which raises (and exits non-zero) on failure:
    prefill (``attention.attend``, q, k, v to output) at hymba's (banded)
    and qwen's (chunked) call beside ``F.scaled_dot_product_attention`` on
    the same q, k and v, a yardstick the port never calls;
-   ``qgemm``'s per-row x-scale mode at pw0; the im2col
+   ``qgemm``'s per-row x-scale mode at pw0; ``qmatmul`` at mnist-cnn's FC
+   (8 x 1568 x 10) and conv1 as im2col (1568 x 144 x 32) beside
+   ``torch.matmul`` on the bf16-rounded x and the dequantized weights; the im2col
    baseline's two ``qgemm`` calls (dw0 1568 x 72 x 8, dw1 392 x 144 x 16)
    in both modes, beside ``torch._int_mm`` / ``torch.matmul`` on the same
    patches, reported with the direct ``qconv_dw`` calls in the kernels line.
@@ -298,6 +322,7 @@ def kernels_vs_plain() -> dict:
               ("qconv_dw", checks.qconv_dw_sweep,
                {"windows": checks.DW_WINDOWS}, True),
               ("qgemm_f32", checks.qgemm_float_sweep, {}, False),
+              ("qmatmul", checks.qmatmul_sweep, {}, False),
               ("qconv_dw_f32", checks.qconv_dw_float_sweep,
                {"windows": checks.DW_WINDOWS}, True),
               ("conv2d_stream", checks.conv2d_stream_sweep, {}, False),
@@ -359,9 +384,10 @@ def _counters() -> dict:
     """Each kernel's launch wrapper, whose ``launches`` counts its launches."""
     from repro_torch.kernels.conv2d_stream.ops import conv2d_stream_cuda
     from repro_torch.kernels.qconv_dw.ops import qconv_dw, qconv_dw_f32
-    from repro_torch.kernels.qmatmul.ops import qgemm, qgemm_f32
+    from repro_torch.kernels.qmatmul.ops import qgemm, qgemm_f32, qmatmul
     from repro_torch.kernels.ssd_scan.ops import ssd_scan_cuda
-    return {"qgemm": qgemm, "qgemm_f32": qgemm_f32, "qconv_dw": qconv_dw,
+    return {"qgemm": qgemm, "qgemm_f32": qgemm_f32, "qmatmul": qmatmul,
+            "qconv_dw": qconv_dw,
             "qconv_dw_f32": qconv_dw_f32, "conv2d_stream": conv2d_stream_cuda,
             "ssd_scan": ssd_scan_cuda, **_ssd_phase_counters()}
 
@@ -457,11 +483,13 @@ def qtorch_path(name: str, cfg, separable: bool, act_bits: int = 8,
 
 
 def _qtorch_serve(name: str, cfg, separable: bool, act_bits: int,
-                  device: str, dw_mode: str, act_ranges):
+                  device: str, dw_mode: str, act_ranges, workload=None):
     """:func:`qtorch_path`'s run: (info, served outputs in request order,
     the card's act_ranges).  ``dw_mode`` lowers the depthwise convs direct
     or through the im2col baseline; ``act_ranges`` (default: calibrate on
-    the card) lets two runs share one calibration."""
+    the card) lets two runs share one calibration; ``workload`` (default:
+    seeded random weights and images) is (params on ``device``, the
+    calibration batch, the requests)."""
     import numpy as np
     from repro_torch.core.adaptive import RuntimePolicy
     from repro_torch.core.flow import DEFAULT_POINTS, DesignFlow, WriterOptions
@@ -472,8 +500,10 @@ def _qtorch_serve(name: str, cfg, separable: bool, act_bits: int,
     dt = DatatypeConfig(act_bits, 8)
     exact = act_bits <= 8
     opts = WriterOptions(dw_mode=dw_mode)
-    params = _params(cfg, separable, device)
-    calib, reqs = _workload(cfg, 66, SEED + 1)
+    if workload is None:
+        workload = (_params(cfg, separable, device),
+                    *_workload(cfg, 66, SEED + 1))
+    params, calib, reqs = workload
     budgets = [(1.0, 0.5, 0.1)[min(i * 3 // len(reqs), 2)]
                for i in range(len(reqs))]              # -> w8, w4, w2
 
@@ -789,6 +819,278 @@ def im2col_path(name: str, cfg, act_bits: int, device: str = "cuda") -> dict:
     log(f"main path {name} im2col D{act_bits}: " + json.dumps(
         {k: v for k, v in info.items() if k not in ("im2col", "direct")}))
     return info
+
+
+# -- Table II: the paper's own table, trained on the card -------------------
+
+TABLE2_TRAIN = (1024, 0)      # training images, seed
+TABLE2_TEST = (512, 99)       # test images, seed
+TABLE2_EPOCHS, TABLE2_BATCH, TABLE2_LR = 6, 64, 0.05
+# the BN running statistics get no gradient; each step moves them toward
+# the batch statistics
+BN_STATS = ("/mean", "/var")
+
+
+def table2_hetero_points():
+    """The two hand-picked per-layer points of the reference's Table II
+    (node names from ``cnn_to_ir``): a W8 backbone with conv1 at W4, and a
+    W4 default with conv0 at W8 and the classifier at W2."""
+    from repro_torch.quant.qtypes import DatatypeConfig, PrecisionMap
+    return (PrecisionMap(DatatypeConfig(16, 8),
+                         {"conv1": DatatypeConfig(16, 4)}),
+            PrecisionMap(DatatypeConfig(16, 4),
+                         {"conv0": DatatypeConfig(16, 8),
+                          "fc": DatatypeConfig(16, 2)}))
+
+
+def train_step(params, x, y, cfg, lr: float = TABLE2_LR):
+    """One SGD step with autograd, as the reference trains the CNN: the
+    weights move down the gradient of ``cnn.loss_fn`` (batch statistics),
+    the BN running statistics (no gradient) to ``0.9*old + 0.1*batch``."""
+    import torch
+    from repro_torch.models import cnn
+    leaves = {k: v.detach().requires_grad_(not k.endswith(BN_STATS))
+              for k, v in params.items()}
+    loss, aux = cnn.loss_fn(leaves, x, y, cfg)
+    names = [k for k, v in leaves.items() if v.requires_grad]
+    grads = dict(zip(names, torch.autograd.grad(loss,
+                                                [leaves[k] for k in names])))
+    with torch.no_grad():
+        new = {k: v - lr * grads[k] if k in grads else v
+               for k, v in params.items()}
+        for k, v in aux.items():
+            new[k] = 0.9 * new[k] + 0.1 * v.detach()
+    return new, loss.detach()
+
+
+def _train_table2(cfg, device: str):
+    """mnist-cnn from the port's own init (seeded), trained on procedural
+    MNIST as the reference's Table II benchmark trains it; (params, test
+    images and labels on ``device``, the float accuracy, training info)."""
+    import torch
+    from repro_torch.data.mnist import make_dataset
+    from repro_torch.models import cnn
+    imgs, labels = make_dataset(TABLE2_TRAIN[0], seed=TABLE2_TRAIN[1])
+    test_x, test_y = make_dataset(TABLE2_TEST[0], seed=TABLE2_TEST[1])
+    x, y = torch.from_numpy(imgs).to(device), torch.from_numpy(labels).to(
+        device)
+    params = cnn.init_params(cfg, torch.Generator().manual_seed(SEED),
+                             device=device)
+    n, bs = len(labels), TABLE2_BATCH
+    epoch_s, losses = [], []
+    for _ in range(TABLE2_EPOCHS):
+        _sync(device)
+        t0 = time.perf_counter()
+        for i in range(0, n - bs + 1, bs):
+            params, loss = train_step(params, x[i:i + bs], y[i:i + bs], cfg)
+        _sync(device)
+        epoch_s.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    tx = torch.from_numpy(test_x).to(device)
+    acc = float(cnn.accuracy(params, tx, test_y, cfg))
+    steps = n // bs
+    # steady state: every epoch after the first (which warms up cuDNN)
+    steady = sum(epoch_s[1:])
+    info = {"train_images": n, "epochs": TABLE2_EPOCHS, "batch": bs,
+            "lr": TABLE2_LR, "steps": steps * TABLE2_EPOCHS,
+            "epoch_s": epoch_s, "last_loss_per_epoch": losses,
+            "s_per_step": steady / (steps * (TABLE2_EPOCHS - 1)),
+            "images_per_s": n * (TABLE2_EPOCHS - 1) / steady,
+            "test_images": len(test_y), "float_accuracy": acc}
+    return params, tx, test_y, acc, info
+
+
+def _best_us_per_image(exe, tx, device: str, calls: int = 5):
+    """Best of ``calls`` forwards on ``tx``, timed between CUDA events after
+    a synchronise, per image; None off the card (no device time there)."""
+    import torch
+    if device != "cuda":
+        return None
+    exe(tx)
+    best = float("inf")
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        exe(tx)
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end))
+    return 1e3 * best / tx.shape[0]
+
+
+def table2_weight_bytes(graph, dt) -> int:
+    """Packed weight storage of the compiled graph under per-layer bits (the
+    reference benchmark's column: a 2-D or larger initializer at its
+    consumer's weight bits, the rest at 32)."""
+    from repro_torch.quant.ptq import effective_weight_dt
+    from repro_torch.quant.qtypes import PrecisionMap
+    default = dt.default if isinstance(dt, PrecisionMap) else dt
+    n = 0
+    for name, v in graph.initializers.items():
+        node_dt = effective_weight_dt(graph, name, default)
+        bits = node_dt.weight_bits if v.ndim >= 2 else 32
+        n += v.size * bits // 8
+    return n
+
+
+def _table2_row(flow, cpu_flow, dt, label, tx, test_y, device):
+    """One Table II row: ``run(("stream",), dt)`` on the card, its accuracy
+    on the test set, zero weights, weight and FIFO bytes and time per image,
+    held against the CPU plain path on the same weights and ranges."""
+    import numpy as np
+    _zero_counts()
+    res = flow.run(("stream",), dtconfig=dt, calib_inputs=(tx[:64],))
+    exe = res.batched["stream"]
+    logits = exe(tx)
+    us = _best_us_per_image(exe, tx, device)
+    forwards = 1 + (6 if us is not None else 0)
+    launches = _read_counts()
+    cpu = cpu_flow.run(("stream",), dtconfig=dt, act_ranges=res.act_ranges)
+    want = cpu.batched["stream"](tx.cpu()).numpy()
+    got = logits.cpu().numpy()
+    err = _check(f"Table II {label}", got, want, exact=False)
+    stats = res.stats.get("zero_weight_frac", 0.0)
+    wb = table2_weight_bytes(res.graph, dt)
+    fifo = res.writers["stream"].topology()["total_fifo_bytes"]
+    if (stats, wb, fifo) != (cpu.stats.get("zero_weight_frac", 0.0),
+                             table2_weight_bytes(cpu.graph, dt),
+                             cpu.writers["stream"].topology()[
+                                 "total_fifo_bytes"]):
+        raise AssertionError(f"Table II {label}: statistics or bytes differ "
+                             "from the CPU plain path")
+    per_fwd = launches["conv2d_stream"] / forwards
+    if device == "cuda" and per_fwd < 1:
+        raise AssertionError(f"Table II {label}: conv2d_stream launched "
+                             f"{launches['conv2d_stream']} times in "
+                             f"{forwards} forwards")
+    acc = float((got.argmax(-1) == test_y).mean())
+    return {"datatype": label, "zero_weights_pct": 100 * stats,
+            "weight_bytes": wb, "fifo_bytes": fifo,
+            "accuracy_pct": 100 * acc,
+            "cpu_accuracy_pct": 100 * float((want.argmax(-1) ==
+                                             test_y).mean()),
+            "us_per_image": us, "conv2d_stream_per_forward": per_fwd,
+            "launches": launches, "vs_cpu_plain": f"max |diff| {err}",
+            "zero_weight_frac": stats}
+
+
+def table2_path(cfg, card: str = "", device: str = "cuda") -> dict:
+    """The paper's Table II on ``device``: train mnist-cnn (autograd SGD,
+    running BN statistics; f32 convolutions and matmuls, deterministic
+    cuDNN), then ``DesignFlow.run(("stream",), ...)`` at each of the six
+    ``TABLE2_POINTS``, the two hand-picked per-layer points and the
+    explorer's ``PrecisionMap`` (``tol=0.02``), every row held against the
+    CPU plain path; claims C1 and C3 gated, C2 printed; then the trained
+    network served at D8 through ``qtorch`` and ``serve_adaptive`` over the
+    test set, W8 -> W4 -> W2, bit for bit against the CPU plain path.  The
+    f32 and determinism flags it sets are restored after it."""
+    import torch
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _table2(cfg, card, device)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic) = flags
+
+
+def _table2(cfg, card: str, device: str) -> dict:
+    """:func:`table2_path`'s run, with the f32 and determinism flags set."""
+    import numpy as np
+    from repro_torch.core.flow import DesignFlow
+    from repro_torch.core.reader import cnn_to_ir
+    from repro_torch.quant.qtypes import TABLE2_POINTS, DatatypeConfig
+    t_phase = time.perf_counter()
+    params, tx, test_y, acc_f, train = _train_table2(cfg, device)
+    log(f"Table II training mnist-cnn on {device} ({card}): "
+        + json.dumps(train))
+    if not acc_f > 0.7:
+        raise AssertionError(f"Table II: trained accuracy {acc_f} <= 0.7")
+    host = {k: v.cpu() for k, v in params.items()}
+    flow = DesignFlow(cnn_to_ir(cfg, params), device=device)
+    cpu_flow = DesignFlow(cnn_to_ir(cfg, host), device="cpu")
+    auto_pm, history = flow.explore_mixed_precision((tx[:64],), tol=0.02)
+    points = [(dt, dt.name) for dt in TABLE2_POINTS]
+    points += [(pm, pm.name) for pm in table2_hetero_points()]
+    per = ",".join(f"{k}:{v.weight_bits}"
+                   for k, v in sorted(auto_pm.per_node.items()))
+    points.append((auto_pm, f"D{auto_pm.default.act_bits}-Wauto[{per}]"))
+    rows = []
+    for dt, label in points:
+        rows.append(_table2_row(flow, cpu_flow, dt, label, tx, test_y,
+                                device))
+        r = rows[-1]
+        log(f"table2 {label}: zero_weights_pct={r['zero_weights_pct']} "
+            f"weight_bytes={r['weight_bytes']} fifo_bytes={r['fifo_bytes']} "
+            f"accuracy_pct={r['accuracy_pct']} "
+            f"us_per_image={r['us_per_image']} ({card}); conv2d_stream "
+            f"{r['conv2d_stream_per_forward']} launches a forward, "
+            f"{r['vs_cpu_plain']} from the CPU plain path")
+    by = {r["datatype"]: r for r in rows}
+    # C2 reads D4-W16, which is no Table II row
+    c2 = _table2_row(flow, cpu_flow, DatatypeConfig(4, 16), "D4-W16", tx,
+                     test_y, device)
+    acc = {k: by[k]["accuracy_pct"] / 100 for k in by}
+    zw = {k: by[k]["zero_weight_frac"] for k in by}
+    claims = {
+        "c1": {k: acc[k] for k in ("D16-W16", "D16-W8", "D16-W4")},
+        "c1_float": acc_f,
+        "c2": {"D16-W8": acc["D16-W8"], "D4-W16": c2["accuracy_pct"] / 100,
+               "gap": acc["D16-W8"] - c2["accuracy_pct"] / 100,
+               "holds": acc["D16-W8"] - c2["accuracy_pct"] / 100 > 0.05},
+        "c3": {k: zw[k] for k in ("D16-W16", "D16-W4", "D16-W2")},
+    }
+    log("Table II claims: " + json.dumps(claims))
+    for k, a in claims["c1"].items():
+        if not a > acc_f - 0.1:
+            raise AssertionError(f"C1: {k} accuracy {a} vs float {acc_f}")
+    if not (zw["D16-W2"] > zw["D16-W4"] > zw["D16-W16"]
+            and zw["D16-W2"] > 0.3):
+        raise AssertionError(f"C3: zero-weight fractions {claims['c3']}")
+
+    # serve the trained network: requests of 1-8 rows over the test set
+    sizes, off = [], 0
+    while off < len(test_y):
+        sizes.append(min(1 + (len(sizes) * 5) % 8, len(test_y) - off))
+        off += sizes[-1]
+    bounds = np.cumsum([0] + sizes)
+    host_x = tx.cpu().numpy()
+    reqs = [host_x[a:b] for a, b in zip(bounds[:-1], bounds[1:])]
+    served, outs, _ = _qtorch_serve(
+        "mnist-cnn trained", cfg, False, 8, device, "direct", None,
+        workload=(params, tx[:64].cpu(), reqs))
+    per_batch = served["launches"]["qgemm"] / max(served["batches"], 1)
+    if device == "cuda" and per_batch < 1:
+        raise AssertionError(f"Table II serving: qgemm launched "
+                             f"{served['launches']['qgemm']} times for "
+                             f"{served['batches']} batches")
+    point_acc = {}
+    for j, bits in enumerate((8, 4, 2)):
+        idx = [i for i in range(len(reqs))
+               if min(i * 3 // len(reqs), 2) == j]
+        pred = np.concatenate([outs[i].argmax(-1) for i in idx])
+        gold = np.concatenate([test_y[bounds[i]:bounds[i + 1]] for i in idx])
+        point_acc[f"w{bits}"] = float((pred == gold).mean())
+    served.update(qgemm_per_batch=per_batch, accuracy_per_point=point_acc)
+    log(f"Table II serving the trained mnist-cnn at D8 ({card}): "
+        f"{len(reqs)} requests, {served['batches']} batches, qgemm "
+        f"{per_batch} launches a batch, accuracy per point "
+        f"{json.dumps(point_acc)}, results equal to the CPU plain path")
+    return {"path": "Table II", "model": "mnist-cnn", "card": card,
+            "training": train, "rows": rows, "d4_w16": c2, "claims": claims,
+            "explorer_moves": len(history), "serving": served,
+            # every run of the phase: the rows, D4-W16 and the serving
+            "launches": {k: sum(r["launches"][k]
+                                for r in rows + [c2, served])
+                         for k in served["launches"]},
+            "phase_s": time.perf_counter() - t_phase}
 
 
 # -- fleet path: fault-tolerant serving with weight-memory integrity ----------
@@ -1732,6 +2034,7 @@ def times() -> dict:
                             2 * 9 * B * oh * ow * C))
         rows["qconv_dw"].append(row)
     rows.update(times_im2col(g, dev))
+    rows.update(times_qmatmul(g, dev))
     rows.update(times_float(g, dev))
     rows.update(times_ssd(dev))
     rows.update(times_attention(dev))
@@ -1784,6 +2087,40 @@ def times_im2col(g, dev) -> dict:
                 xf, w, s, b, bits=8, packed=False, **fepi), graph=True),
             library=_measure(lambda: torch.matmul(xf, wf), graph=True),
             **_bound(4 * M * K + K * N + 8 * N + 4 * M * N, 2 * M * K * N,
+                     F32_FLOPS_PER_S)))
+    return rows
+
+
+# (M, K, N) of the dequant matmul's timed calls: mnist-cnn's FC at batch 8
+# (the skinny mapping) and its conv1 as an im2col matmul
+QMATMUL_TIMED_SHAPES = ((8, 1568, 10), (1568, 144, 32))
+
+
+def times_qmatmul(g, dev) -> dict:
+    """The dequant matmul ``qmatmul`` (f32 activations rounded to bf16, W8
+    codes, no epilogue) at :data:`QMATMUL_TIMED_SHAPES`, beside its plain
+    version and ``torch.matmul`` on the bf16-rounded x and the dequantized
+    weights (TF32 off), with its bound: x, codes and scale read once and
+    the f32 output written once, or the product at the f32 rate."""
+    import torch
+    from repro_torch.kernels.qmatmul.ops import (pick_tiles, qmatmul,
+                                                 qmatmul_plain)
+    from repro_torch.quant.ptq import derive_view
+    rows = {"qmatmul": []}
+    for M, K, N in QMATMUL_TIMED_SHAPES:
+        x = torch.randn((M, K), generator=g).to(dev)
+        w = torch.randint(-127, 128, (K, N), generator=g,
+                          dtype=torch.int8).to(dev)
+        s = (torch.rand((N,), generator=g) * 1e-2).to(dev)
+        xb = x.to(torch.bfloat16).to(torch.float32)
+        wf = derive_view(w, 8).to(torch.float32) * s
+        rows["qmatmul"].append(dict(
+            shape=[M, K, N], tiles=str(pick_tiles(M, K, N, float_mode=True)),
+            kernel=_measure(lambda: qmatmul(x, w, s, bits=8), graph=True),
+            plain=_measure(lambda: qmatmul_plain(x, w, s, bits=8),
+                           graph=True),
+            library=_measure(lambda: torch.matmul(xb, wf), graph=True),
+            **_bound(4 * M * K + K * N + 4 * N + 4 * M * N, 2 * M * K * N,
                      F32_FLOPS_PER_S)))
     return rows
 
@@ -2128,7 +2465,8 @@ def main(argv=None) -> int:
              dse_path("mnist-cnn", mnist_cfg, False, card),
              im2col_path("separable-cnn", sep_cfg, act_bits=8),
              im2col_path("separable-cnn", sep_cfg, act_bits=16),
-             fleet_path("separable-cnn", sep_cfg, card)]
+             fleet_path("separable-cnn", sep_cfg, card),
+             table2_path(mnist_cfg, card)]
     paths += lm_paths(get_config(LM_ARCH))
     # hymba's f32 check on 4 layers, window 64 and Q_CHUNK 64: the banded
     # prefill and a decode that wraps the ring buffer, at full width
@@ -2144,6 +2482,9 @@ def main(argv=None) -> int:
                   "qtorch D8-W8 separable-cnn", 1),            # pw0
         "qgemm_f32": ("qgemm.cu", "qmatmul/kernel.py:68",
                       "qtorch D16-W8 separable-cnn", 1),       # pw0
+        # the dequant matmul: bf16-rounded x, no epilogue; no path runs it
+        "qmatmul": ("qgemm.cu", "qmatmul/kernel.py:68",
+                    "Table II mnist-cnn", 0),                  # the FC
         "qconv_dw": ("qconv_dw.cu", "qconv_dw/kernel.py:51",
                      "qtorch D8-W8 separable-cnn", 0),         # dw0
         "qconv_dw_f32": ("qconv_dw.cu", "qconv_dw/kernel.py:51",
@@ -2205,6 +2546,15 @@ def main(argv=None) -> int:
             direct_qconv_dw_bound_ms=d["bound_ms"])
             for r, d in zip(rows[f"qgemm{suffix}_im2col"],
                             rows[f"qconv_dw{suffix}"])]
+    # the dequant matmul's conv1 im2col call beside its FC row
+    qmm = next(k for k in kernels if k["name"] == "qmatmul")
+    qmm["rows"] = [dict(shape=r["shape"], ms=_ms(r["kernel"]),
+                        graph_ms=r["kernel"]["graph_ms"],
+                        plain_ms=_ms(r["plain"]), library_ms=_ms(r["library"]),
+                        bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                        tiles=r["tiles"])
+                   for r in rows["qmatmul"]]
+    qmm["max_tol_frac"] = sweeps["qmatmul"]["max_tol_frac"]
     # every timed stream conv call (batch 8 and 32) beside the conv2 row
     conv = next(k for k in kernels if k["name"] == "conv2d_stream")
     conv["rows"] = [dict(shape=r["shape"], ms=_ms(r["kernel"]),
@@ -2255,6 +2605,7 @@ def main(argv=None) -> int:
                              if key in v}
                          for k, v in sweeps.items()},
               "main_paths": paths, "times": rows,
+              "table2": next(p for p in paths if p["path"] == "Table II"),
               "total_s": time.perf_counter() - t_all}
     out_dir = ROOT / "build" / "chip_smoke"
     out_dir.mkdir(parents=True, exist_ok=True)

@@ -44,6 +44,15 @@ def resolve(op: str, target: str = "torch") -> Callable:
     return impl
 
 
+def registered_ops(target: str = "torch") -> Dict[str, Callable]:
+    """Effective op table for a target (the ``"torch"`` impls with the
+    target's own merged over them)."""
+    table = dict(OP_REGISTRY.get("torch", {}))
+    if target != "torch":
+        table.update(OP_REGISTRY.get(target, {}))
+    return table
+
+
 def _full_f32(x: torch.Tensor) -> None:
     """Float reference in full f32 on the GPU (PyTorch's cuDNN default is
     TF32)."""

@@ -4,7 +4,8 @@ Each sweep feeds the same seeded inputs to a kernel's entry point and to its
 plain PyTorch version on the same device.  The integer modes, the per-row
 activation scale and the float depthwise conv must agree exactly (same
 operations in the same order, each rounded on its own).  The float ``qgemm``
-(the plain version dequantizes first) and ``conv2d_stream`` (the plain
+(the plain version dequantizes first), the dequant matmul ``qmatmul`` (f32
+sums in another order) and ``conv2d_stream`` (the plain
 version's tap dots sum in cuBLAS's order) and ``ssd_scan`` (f32 sums in
 another order) are held to stated tolerances.
 On a CUDA device the entry point launches the hand-written kernel; on the
@@ -27,8 +28,9 @@ from repro_torch.kernels.qconv_dw.ops import (DW_PACK_ALIGN, qconv_dw_float,
                                               qconv_dw_int8_act,
                                               qconv_dw_int8_act_plain)
 from repro_torch.kernels.qmatmul.ops import (qgemm_float, qgemm_float_plain,
-                                             qmatmul_int8_act,
-                                             qmatmul_int8_act_plain)
+                                             qmatmul, qmatmul_int8_act,
+                                             qmatmul_int8_act_plain,
+                                             qmatmul_plain)
 from repro_torch.kernels.ssd_scan.ops import (ssd_chunk_scan,
                                               ssd_chunk_states,
                                               ssd_chunked_kernel,
@@ -60,6 +62,13 @@ QGEMM_B32_SHAPES = ((25088, 9, 8), (6272, 8, 16), (1568, 16, 32),
                     (32, 1568, 10), (25088, 9, 16), (6272, 144, 32))
 QGEMM_SHAPES = (QGEMM_PATH_SHAPES + QGEMM_RAGGED + QGEMM_SWITCH
                 + QGEMM_DW_IM2COL_SHAPES + QGEMM_B32_SHAPES)
+# (M, K, N) of the dequant matmul qmatmul: the reference's test shapes
+# (tests/test_kernels.py), its batched and ragged (2, 3, 100) x (100, 50) as
+# 6 rows (below 8, so the oracle runs), and the classifier FC's 8 x 1568 x 10
+# (the skinny mapping)
+QMATMUL_SHAPES = ((128, 128, 128), (256, 512, 384), (128, 1024, 256),
+                  (384, 256, 128), (6, 100, 50), (8, 1568, 10))
+QMATMUL_DTYPES = (torch.bfloat16, torch.float32)
 # (B, H, W, C) of the depthwise inputs: separable-cnn dw0/dw1 at batch 8,
 # then ragged ones (odd spatial sizes, C not a multiple of 8 or of 32), then
 # dw0/dw1 at batch 32
@@ -318,6 +327,35 @@ def qgemm_float_sweep(device,
                 failures.append(dict(M=M, K=K, N=N, bits=bits, packed=packed,
                                      epilogue=epi, relu=relu, bias=bias,
                                      err=err, tol=tol))
+    return {"cases": cases, "max_abs_err": worst, "failures": failures,
+            "max_tol_frac": worst_frac}
+
+
+def qmatmul_sweep(device,
+                  shapes: Sequence[Tuple[int, int, int]] = QMATMUL_SHAPES
+                  ) -> Dict[str, object]:
+    """``qmatmul`` against its plain version over bits {8,4,2} x bf16/f32
+    activations, each case within :func:`float_qgemm_tol` (one bf16 ulp of
+    max|y|: the output of a bf16 call is bf16); ``max_tol_frac`` is the
+    worst error over its tolerance."""
+    dev = torch.device(device)
+    cases, worst, worst_frac, failures = 0, 0.0, 0.0, []
+    for si, (M, K, N) in enumerate(shapes):
+        g = _gen(3500 + si)
+        x = torch.randn((M, K), generator=g)
+        codes, s = _weights(g, K, N)
+        codes, s = codes.to(dev), s.to(dev)
+        for bits, dtype in itertools.product((8, 4, 2), QMATMUL_DTYPES):
+            xd = x.to(dtype).to(dev)
+            got = qmatmul(xd, codes, s, bits=bits)
+            want = qmatmul_plain(xd, codes, s, bits=bits)
+            err, tol = _compare(got, want), float_qgemm_tol(want)
+            cases += 1
+            worst = max(worst, err)
+            worst_frac = max(worst_frac, err / tol)
+            if err > tol:
+                failures.append(dict(M=M, K=K, N=N, bits=bits,
+                                     dtype=str(dtype), err=err, tol=tol))
     return {"cases": cases, "max_abs_err": worst, "failures": failures,
             "max_tol_frac": worst_frac}
 

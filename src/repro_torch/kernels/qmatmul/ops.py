@@ -1,7 +1,7 @@
 """Public entry points of the quantized matmul (counterpart of
 ``repro.kernels.qmatmul.ops``).
 
-Two entry points dispatch on the activation tensor's device:
+Three entry points dispatch on the activation tensor's device:
 
 * ``qmatmul_int8_act`` — the fully-integer mode (int8 activation codes, a
   scalar or per-row activation scale): a CUDA tensor launches
@@ -10,15 +10,20 @@ Two entry points dispatch on the activation tensor's device:
 * ``qgemm_float`` — the float-activation mode (the reference's ``qgemm``):
   a CUDA tensor launches the same kernel's f32 mode through
   :func:`qgemm_f32`, a CPU tensor runs
-  :func:`~repro_torch.kernels.qmatmul.ref.qgemm_ref`.
+  :func:`~repro_torch.kernels.qmatmul.ref.qgemm_ref`;
+* ``qmatmul`` — the dequant matmul (the reference's ``qmatmul``: bf16-rounded
+  activations, no epilogue): a CUDA tensor launches the f32 mode on the
+  activations rounded to bf16, a CPU tensor runs :func:`qmatmul_plain`.
+  Where ``min(M, K, N) < 8`` it takes
+  :func:`~repro_torch.kernels.qmatmul.ref.qmatmul_ref` on every device, with
+  no bf16 rounding, as the reference does.
 
 There is no fallback between kernel and plain version and no shape rule: any
 M >= 1 runs the kernel, which masks ragged M/N/K edges itself, so no padded
 copies are made.  :func:`pick_tiles` (the counterpart of the reference's
 ``pick_blocks``, without its timing sweep) chooses the kernel's mapping on
-the host and passes it to the C entry point.  Not ported: the reference's
-``qmatmul`` (bf16 out, no epilogue), which no path of this package calls.
-In this package :func:`qgemm` names the int8-mode launch wrapper.
+the host and passes it to the C entry point.  In this package
+:func:`qgemm` names the int8-mode launch wrapper.
 """
 from __future__ import annotations
 
@@ -29,11 +34,14 @@ import torch
 
 from repro_torch.kernels._build import check, load_kernels
 from repro_torch.kernels.qmatmul.ref import (ActQt, fold_scale, qgemm_ref,
-                                             qmatmul_int8_act_ref)
+                                             qmatmul_int8_act_ref,
+                                             qmatmul_ref)
 from repro_torch.quant.pack import unpack_rows
+from repro_torch.quant.ptq import derive_view
 
 __all__ = ["qgemm", "qgemm_f32", "qgemm_float", "qgemm_float_plain",
-           "qmatmul_int8_act", "qmatmul_int8_act_plain", "scalar_scale",
+           "qmatmul", "qmatmul_plain", "qmatmul_int8_act",
+           "qmatmul_int8_act_plain", "scalar_scale",
            "pick_tiles", "Tiles", "truncate_view_cuda", "ActQt"]
 
 # the card the tile choice fills: an H100 SXM's streaming multiprocessors
@@ -367,3 +375,59 @@ def qgemm_float(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
     else:
         raise ValueError(f"no qgemm_float path for device {x2.device}")
     return y.reshape(*lead, N)
+
+
+def _qmatmul_operands(x: torch.Tensor, codes: torch.Tensor):
+    """(x as (M, K), N, whether the call takes the oracle: some dim < 8)."""
+    K = x.shape[-1]
+    if codes.ndim != 2 or codes.shape[0] != K:
+        raise ValueError(f"codes {tuple(codes.shape)} do not match the "
+                         f"reduction dim {K}")
+    x2 = x.reshape(-1, K)
+    N = codes.shape[1]
+    return x2, N, min(x2.shape[0], K, N) < 8
+
+
+def qmatmul_plain(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
+                  *, bits: int = 8) -> torch.Tensor:
+    """:func:`qmatmul`'s plain version on any device: the activations
+    rounded to bf16, the f32 dot with the ``bits``-bit view of the codes,
+    one multiply by the channel scale, cast to x's dtype (the oracle where
+    ``min(M, K, N) < 8``)."""
+    x2, N, small = _qmatmul_operands(x, codes)
+    if small:
+        y = qmatmul_ref(x2, codes, scale, bits, out_dtype=x.dtype)
+    else:
+        xb = x2.to(torch.bfloat16).to(torch.float32)
+        y = (xb @ derive_view(codes, bits).to(torch.float32)) * \
+            scale.reshape(1, -1).to(torch.float32)
+        y = y.to(x.dtype)
+    return y.reshape(*x.shape[:-1], N)
+
+
+def qmatmul(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor, *,
+            bits: int = 8) -> torch.Tensor:
+    """Dequant matmul (the reference's ``qmatmul``): x (..., K) float;
+    codes (K, N) int8 master; scale (N,) f32 -> (..., N) in x's dtype.
+
+    Where ``min(M, K, N) >= 8`` the activations are rounded to bf16 (exact
+    in f32) and a CUDA tensor launches ``csrc/qgemm.cu``'s f32 mode with the
+    channel scale, no bias and no ReLU (the kernel sums x * code in f32 and
+    scales once); a CPU tensor runs :func:`qmatmul_plain`.  Otherwise the
+    oracle :func:`~repro_torch.kernels.qmatmul.ref.qmatmul_ref` runs on any
+    device, with no bf16 rounding.  Counts the kernel's launches in
+    ``qmatmul.launches``."""
+    x2, N, small = _qmatmul_operands(x, codes)
+    if small or x2.device.type == "cpu":
+        return qmatmul_plain(x, codes, scale, bits=bits)
+    if x2.device.type != "cuda":
+        raise ValueError(f"no qmatmul path for device {x2.device}")
+    xb = x2.to(torch.bfloat16).to(torch.float32).contiguous()
+    y = qgemm_f32(xb, codes.contiguous(),
+                  scale.reshape(-1).to(torch.float32).contiguous(),
+                  bits=bits, packed=False, relu=False, act_qt=None)
+    qmatmul.launches += 1
+    return y.to(x.dtype).reshape(*x.shape[:-1], N)
+
+
+qmatmul.launches = 0

@@ -8,9 +8,10 @@ activation scale), then ``+ bias``, each rounded on its own (never fused into
 one fma), then ReLU and the fixed-point requant with round-half-even.  They
 run on any device: torch has no int32 matmul on CUDA, so :func:`int_dot`
 computes in f32 where that is provably exact and in f64 otherwise — exact
-either way.  The float-activation oracle :func:`qgemm_ref` dequantizes
-first and then takes the f32 dot (the kernel sums x * code and scales
-after, so the two agree to f32 rounding, not bit for bit).
+either way.  The float-activation oracles :func:`qgemm_ref` and
+:func:`qmatmul_ref` dequantize first and then take the f32 dot (the kernel
+sums x * code and scales after, so the two agree to f32 rounding, not bit
+for bit).
 """
 from __future__ import annotations
 
@@ -68,6 +69,17 @@ def fold_scale(scale: torch.Tensor, x_scale: float, bits: int,
     is exact."""
     step = float(1 << (8 - bits)) if packed else 1.0
     return scale.reshape(-1).to(torch.float32) * (step * float(x_scale))
+
+
+def qmatmul_ref(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
+                bits: int = 8, out_dtype: torch.dtype = torch.bfloat16
+                ) -> torch.Tensor:
+    """The dequant matmul's oracle: x (M, K) float times the dequantized
+    ``bits``-bit view of the (K, N) int8 master codes, scale (N,) or (1, N)
+    f32, in f32, cast to ``out_dtype``."""
+    w = derive_view(codes, bits).to(torch.float32) * \
+        scale.reshape(1, -1).to(torch.float32)
+    return (x.to(torch.float32) @ w).to(out_dtype)
 
 
 def qgemm_ref(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,

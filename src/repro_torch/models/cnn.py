@@ -1,7 +1,8 @@
 """The flow's CNN models (counterpart of ``repro.models.cnn``): the paper's
 2-block MNIST CNN and the depthwise-separable classifier, as parameter
 dictionaries and as plain forward functions — the oracles the stream target
-and the quickstart are held to.
+and the quickstart are held to — with the MNIST CNN's loss (batch
+statistics, for autograd training) and accuracy (running statistics).
 
 Weights are HWIO (conv) / (K, N) (Gemm) float32 tensors keyed exactly as the
 reference keys them, so the readers build the same IR from either package.
@@ -22,7 +23,7 @@ import torch.nn.functional as F
 from repro_torch.configs.mnist_cnn import CNNConfig
 from repro_torch.configs.separable_cnn import SeparableCNNConfig
 from repro_torch.core.writers.registry import conv_nhwc
-from repro_torch.device import DeviceLike
+from repro_torch.device import DeviceLike, as_tensor
 
 Config = Union[CNNConfig, SeparableCNNConfig]
 
@@ -163,6 +164,25 @@ def forward(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg: CNNConfig,
         x = torch.relu(x)
     x = x.reshape(x.shape[0], -1)
     return x @ params["fc/w"] + params["fc/b"], aux
+
+
+def loss_fn(params: Dict[str, torch.Tensor], x: torch.Tensor, labels,
+            cfg: CNNConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Mean cross-entropy of ``forward(..., train_stats=True)``: (loss, the
+    batch statistics).  ``labels`` (B,) integer class ids."""
+    logits, aux = forward(params, x, cfg, train_stats=True)
+    labels = as_tensor(labels, logits.device).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(1, labels[:, None])[:, 0]
+    return (logz - gold).mean(), aux
+
+
+def accuracy(params: Dict[str, torch.Tensor], x: torch.Tensor, labels,
+             cfg: CNNConfig) -> torch.Tensor:
+    """Top-1 accuracy with the stored running statistics."""
+    logits, _ = forward(params, x, cfg)
+    labels = as_tensor(labels, logits.device)
+    return (logits.argmax(-1) == labels).to(torch.float32).mean()
 
 
 def depthwise_conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,

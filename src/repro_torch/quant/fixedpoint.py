@@ -32,6 +32,11 @@ def fake_quant(x: torch.Tensor, qt: QType) -> torch.Tensor:
     return x + (y - x).detach()
 
 
+def quant_error(x: torch.Tensor, qt: QType) -> torch.Tensor:
+    """The largest |fake_quant(x) - x|."""
+    return (fake_quant(x, qt) - x).abs().max()
+
+
 def zero_fraction(x: torch.Tensor, qt: QType) -> torch.Tensor:
     """Fraction of values that quantize to exactly 0 (Table II 'Zero-weights')."""
     if qt.is_float:

@@ -1,8 +1,12 @@
 """Post-training quantization (counterpart of ``repro.quant.ptq``).
 
-The int8 master-code rule (:func:`quantize_channelwise`), the nested W4/W2
-views (:func:`derive_view`), the per-FIFO activation-code qtypes, the graph
-weight statistics, and the MDC substrate — a parameter tree quantized once
+The Table II fixed-point path (:func:`quantize_tree_fixed` for the weights
+of a ``Dx-Wy`` point, :class:`ActQuant` for the activations, from ranges
+:func:`calibrate_acts` records), the int8 master-code rule
+(:func:`quantize_channelwise`), the nested W4/W2 views
+(:func:`derive_view`), the per-FIFO activation-code qtypes
+(:func:`act_code_scales`), the graph weight statistics, and the MDC
+substrate — a parameter tree quantized once
 to int8 master codes (:class:`QuantizedParams`,
 :func:`quantize_tree_native`) whose working points are dequantized views
 (:func:`dequantize_tree`).
@@ -10,13 +14,13 @@ to int8 master codes (:class:`QuantizedParams`,
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.device import as_tensor
-from repro_torch.quant.fixedpoint import zero_fraction
+from repro_torch.quant.fixedpoint import fake_quant, zero_fraction
 from repro_torch.quant.qtypes import DatatypeConfig, QType, fixed_for_range
 
 # parameters that stay in high precision (norms, scalar gains, recurrence)
@@ -62,6 +66,45 @@ def graph_weight_stats(graph, default_dt: Optional[DatatypeConfig] = None
     return {"zero_weight_frac": zeros / max(total, 1)}
 
 
+def quantize_tree_fixed(params: Dict[str, torch.Tensor], dt: DatatypeConfig
+                        ) -> Tuple[Dict[str, torch.Tensor], Dict[str, float]]:
+    """Fake-quantize the quantizable weights to Wy (each on the Qm.n grid
+    its own max |w| picks); everything else, and every weight at 32 bits,
+    passes through.  Returns (new params, stats): ``zero_weight_frac`` over
+    the quantized weights alone."""
+    out, zeros, total = {}, 0.0, 0
+    for path, w in params.items():
+        w = as_tensor(w)
+        if is_quantizable(path, w) and dt.weight_bits < 32:
+            qt = weight_qtype(w, dt.weight_bits)
+            out[path] = fake_quant(w, qt)
+            zeros += float(zero_fraction(w, qt)) * w.numel()
+            total += w.numel()
+        else:
+            out[path] = w
+    return out, {"zero_weight_frac": zeros / max(total, 1)}
+
+
+@dataclass
+class ActQuant:
+    """Runtime activation quantizer for Dx (calibrated per site)."""
+    bits: int
+    ranges: Dict[str, float]    # site name -> calibrated max |act|
+
+    def __call__(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        if self.bits >= 32:
+            return x
+        qt = fixed_for_range(self.bits, self.ranges.get(name, 8.0))
+        return fake_quant(x, qt)
+
+
+def calibrate_acts(capture_fn: Callable[[], Dict[str, torch.Tensor]]
+                   ) -> Dict[str, float]:
+    """``capture_fn`` runs the model on a calibration batch and returns named
+    intermediate activations; returns each site's max |x|."""
+    return {k: float(as_tensor(v).abs().max()) for k, v in capture_fn().items()}
+
+
 def top1_agreement(logits, ref) -> float:
     """Fraction of rows whose argmax matches the float reference's."""
     a, b = as_tensor(logits), as_tensor(ref)
@@ -74,6 +117,12 @@ def act_code_qtype(bits: int, act_range: float) -> QType:
     (``2^-frac``) sized so the calibrated range fits ``min(bits, 8)`` signed
     integers."""
     return fixed_for_range(min(bits, 8), act_range)
+
+
+def act_code_scales(act_ranges: Dict[str, float], bits: int = 8
+                    ) -> Dict[str, QType]:
+    """Per-FIFO activation-code qtypes from calibrated ranges."""
+    return {name: act_code_qtype(bits, r) for name, r in act_ranges.items()}
 
 
 def _channel_scale(w: torch.Tensor) -> torch.Tensor:

@@ -44,6 +44,8 @@ class QType:
         return f"Q{self.bits - (self.frac or 0)}.{self.frac}"
 
 
+FLOAT = QType(32, None)
+
 
 def fixed_for_range(bits: int, max_abs: float) -> QType:
     """Pick the Qm.n split so [-max_abs, max_abs] fits: integer bits cover the
@@ -92,6 +94,17 @@ class PrecisionMap:
             return self.default.name
         ov = ",".join(f"{n}:{c.name}" for n, c in sorted(self.per_node.items()))
         return f"{self.default.name}[{ov}]"
+
+
+# Table II exploration points
+TABLE2_POINTS = (
+    DatatypeConfig(32, 32),
+    DatatypeConfig(16, 16),
+    DatatypeConfig(8, 16),
+    DatatypeConfig(16, 8),
+    DatatypeConfig(16, 4),
+    DatatypeConfig(16, 2),
+)
 
 
 def storage_dtype(bits: int) -> torch.dtype:

@@ -243,3 +243,22 @@ def test_background_pump_serves_every_request(case):
         outs = {bits: writer.build(bits=bits)(x).numpy() for bits in (8, 4, 2)}
         assert any(np.array_equal(y, o) for o in outs.values())
     assert srv.stats()["submitted"] == len(reqs)
+
+
+@pytest.mark.parametrize("target,j_target", [("torch", "jax"),
+                                             ("qtorch", "qjax"),
+                                             ("stream", "stream"),
+                                             ("no-such-target", "no-such")])
+def test_registered_ops_cover_the_reference_op_names(target, j_target):
+    """Each target's effective op table names the ops the reference's table
+    for its counterpart names: the ``"torch"`` impls, with the target's own
+    merged over them (an unknown target gets the ``"torch"`` table)."""
+    from repro.core.writers.registry import registered_ops as j_ops
+    from repro_torch.core.writers.registry import OP_REGISTRY, registered_ops
+    table = registered_ops(target)
+    assert set(table) == set(j_ops(j_target))
+    own = OP_REGISTRY.get(target, {}) if target != "torch" else {}
+    for op, impl in table.items():
+        assert impl is own.get(op, OP_REGISTRY["torch"][op]), op
+    table.clear()                              # a copy: the registry stays
+    assert registered_ops(target)

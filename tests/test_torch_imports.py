@@ -99,6 +99,26 @@ def test_fleet_slice_modules_are_among_those_imported_with_jax_blocked():
     assert set(integrity.__all__) <= set(dir(integrity))
 
 
+def test_table2_slice_modules_are_among_those_imported_with_jax_blocked():
+    """The procedural dataset is walked by the jax-blocked import above, and
+    the Table II path's names resolve."""
+    assert {"repro_torch.data", "repro_torch.data.mnist"} <= set(_modules())
+    from repro_torch.core.writers import registry
+    from repro_torch.data import mnist
+    from repro_torch.kernels.qmatmul import ops, ref
+    from repro_torch.quant import fixedpoint, ptq, qtypes
+    for mod, names in ((mnist, ("make_dataset", "batches")),
+                       (cnn, ("loss_fn", "accuracy")),
+                       (qtypes, ("FLOAT", "TABLE2_POINTS")),
+                       (fixedpoint, ("quant_error",)),
+                       (ptq, ("quantize_tree_fixed", "ActQuant",
+                              "calibrate_acts", "act_code_scales")),
+                       (registry, ("registered_ops",)),
+                       (ops, ("qmatmul", "qmatmul_plain")),
+                       (ref, ("qmatmul_ref",))):
+        assert all(hasattr(mod, n) for n in names), mod.__name__
+
+
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")] + ["chip_smoke.py"]))
 def test_no_source_line_imports_jax_or_repro(path):

@@ -76,6 +76,23 @@ def test_qgemm_float_kernel_within_tolerance(cuda):
 
 
 @pytest.mark.cuda
+def test_qmatmul_bf16_in_mode_within_tolerance(cuda):
+    """The dequant matmul (activations rounded to bf16, the float mode with
+    no epilogue) at the reference's test shapes, the ragged 6-row call and
+    the FC, bf16 and f32 in, within one bf16 ulp of max|y|; one launch per
+    call of 8 rows or more, counted by ``qmatmul`` and ``qgemm_f32``."""
+    from repro_torch.kernels.qmatmul.ops import qgemm_f32, qmatmul
+    before = (qmatmul.launches, qgemm_f32.launches)
+    res = checks.qmatmul_sweep(cuda)
+    torch.cuda.synchronize()
+    assert res["failures"] == [], checks.summarize(res)
+    assert res["max_tol_frac"] <= 1.0
+    launched = sum(min(s) >= 8 for s in checks.QMATMUL_SHAPES) * 3 * 2
+    assert qmatmul.launches - before[0] == launched
+    assert qgemm_f32.launches - before[1] == launched
+
+
+@pytest.mark.cuda
 def test_qconv_dw_float_kernel_equals_plain_version(cuda):
     """The float depthwise mode, every window: exact."""
     res = checks.qconv_dw_float_sweep(cuda, windows=checks.DW_WINDOWS)

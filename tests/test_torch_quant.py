@@ -1,5 +1,6 @@
 """The port's numerics core against the reference, exactly: fixed-point
-quantization, nested views, the master-code rule, activation-code qtypes,
+quantization and its error, the Table II points and the fixed-point weight
+tree, the activation quantizer and its calibration, nested views, the master-code rule, activation-code qtypes,
 split-row packing at both alignments, and the packed weight buffer of both
 CNNs (codes, scales, resident bytes, every CRC32 region seal)."""
 import jax
@@ -22,6 +23,7 @@ from repro.quant.qtypes import fixed_for_range as j_ffr
 from repro_torch.quant import fixedpoint as t_fp
 from repro_torch.quant import pack as t_pack
 from repro_torch.quant import ptq as t_ptq
+from repro_torch.quant import qtypes as t_qt
 from repro_torch.quant.qtypes import QType as TQType
 from repro_torch.quant.qtypes import fixed_for_range as t_ffr
 
@@ -229,3 +231,91 @@ def test_packed_weights_dequantized_equals_the_reference(bits):
     for name in j:
         np.testing.assert_array_equal(t[name].numpy(), np.asarray(j[name]),
                                       err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# the Table II fixed-point path: quant_error, quantize_tree_fixed, the points,
+# the activation quantizer and its calibration
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("bits,frac", QTYPES)
+def test_quant_error_equals_the_reference_and_is_half_a_step(bits, frac):
+    x = _x(bits + frac)
+    jq, tq = JQType(bits, frac), TQType(bits, frac)
+    got = float(t_fp.quant_error(torch.from_numpy(x), tq))
+    assert got == float(j_fp.quant_error(jnp.asarray(x), jq))
+    inside = np.clip(x, tq.qmin * tq.scale, tq.qmax * tq.scale)
+    assert float(t_fp.quant_error(torch.from_numpy(inside), tq)) <= \
+        tq.scale / 2
+    assert float(t_fp.quant_error(torch.from_numpy(x), t_qt.FLOAT)) == 0.0
+
+
+def test_table2_points_and_float_equal_the_reference():
+    from repro.quant import qtypes as j_qt
+    assert [(p.act_bits, p.weight_bits, p.name) for p in t_qt.TABLE2_POINTS] \
+        == [(p.act_bits, p.weight_bits, p.name) for p in j_qt.TABLE2_POINTS]
+    f, jf = t_qt.FLOAT, j_qt.FLOAT
+    assert (f.bits, f.frac, f.signed, f.is_float, str(f)) == \
+        (jf.bits, jf.frac, jf.signed, jf.is_float, str(jf))
+
+
+def test_quantize_tree_fixed_table2_points():
+    """The reference's test on the same arrays, and every leaf and the
+    statistic equal to the reference's."""
+    rng = np.random.default_rng(3)
+    params = {"a/w_up": rng.standard_normal((32, 16)).astype(np.float32),
+              "a/norm/w": np.ones(16, np.float32),
+              "a/b": rng.standard_normal(16).astype(np.float32),
+              "c/w": (rng.standard_normal((3, 3, 2, 4)) * 0.1).astype(
+                  np.float32)}
+    from repro.quant.qtypes import TABLE2_POINTS as J_POINTS
+    for dt, jdt in zip(t_qt.TABLE2_POINTS, J_POINTS):
+        q, stats = t_ptq.quantize_tree_fixed(
+            {k: torch.from_numpy(v) for k, v in params.items()}, dt)
+        jq, jstats = j_ptq.quantize_tree_fixed(
+            {k: jnp.asarray(v) for k, v in params.items()}, jdt)
+        assert q["a/norm/w"].shape == (16,)          # norms untouched
+        assert 0.0 <= stats["zero_weight_frac"] <= 1.0
+        if dt.weight_bits >= 32:
+            for k, v in params.items():
+                np.testing.assert_array_equal(q[k].numpy(), v)
+        for k in params:
+            np.testing.assert_array_equal(q[k].numpy(), np.asarray(jq[k]),
+                                          err_msg=f"{dt.name} {k}")
+        # f32 means summed in another order: equal to a few ulps
+        assert stats["zero_weight_frac"] == pytest.approx(
+            jstats["zero_weight_frac"], rel=1e-6, abs=1e-12)
+
+
+def test_quantize_tree_fixed_counts_only_quantized_leaves():
+    w = np.array([[0.001, 1.0], [-1.0, 0.5]], np.float32)
+    q, stats = t_ptq.quantize_tree_fixed(
+        {"l/w": torch.from_numpy(w), "l/b": torch.zeros(2)},
+        t_qt.DatatypeConfig(16, 2))
+    # W2 on the [-2, 1] grid of step 1: 0.001 and 0.5 (a tie) round to 0
+    assert stats["zero_weight_frac"] == 0.5
+    np.testing.assert_array_equal(q["l/w"].numpy(), [[0.0, 1.0], [-1.0, 0.0]])
+
+
+@pytest.mark.parametrize("bits", [32, 16, 8, 4])
+def test_act_quant_and_calibration_equal_the_reference(bits):
+    rng = np.random.default_rng(bits)
+    acts = {"conv0_out": (rng.standard_normal((4, 6, 6, 3)) * 3).astype(
+                np.float32),
+            "fc_out": rng.standard_normal((4, 10)).astype(np.float32),
+            "never_calibrated": rng.standard_normal(7).astype(np.float32)}
+    calib = {k: v for k, v in acts.items() if k != "never_calibrated"}
+    ranges = t_ptq.calibrate_acts(
+        lambda: {k: torch.from_numpy(v) for k, v in calib.items()})
+    j_ranges = j_ptq.calibrate_acts(
+        lambda: {k: jnp.asarray(v) for k, v in calib.items()})
+    assert ranges == j_ranges
+    tq, jq = t_ptq.ActQuant(bits, ranges), j_ptq.ActQuant(bits, j_ranges)
+    for name, v in acts.items():      # an uncalibrated site takes 8.0
+        np.testing.assert_array_equal(tq(name, torch.from_numpy(v)).numpy(),
+                                      np.asarray(jq(name, jnp.asarray(v))))
+    codes = t_ptq.act_code_scales(ranges, bits)
+    j_codes = j_ptq.act_code_scales(j_ranges, bits)
+    assert {k: (q.bits, q.frac) for k, q in codes.items()} == \
+        {k: (q.bits, q.frac) for k, q in j_codes.items()}
+    assert all(q.bits == min(bits, 8) for q in codes.values())
