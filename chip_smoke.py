@@ -39,7 +39,19 @@ Phases, each of which raises (and exits non-zero) on failure:
    version of the phase before it, at both full-width calls and a ragged
    length, f32 and bf16, from a given initial state: the chunk states and
    y within the same bounds, state_pass exactly;
-4. main paths, each with the launch counters zeroed just before it and read
+4. autotune (:func:`autotune_path`) -- with ``REPRO_TORCH_AUTOTUNE_CACHE``
+   at a fresh ``build/chip_smoke/autotune.json``: the ``qtorch`` target on
+   separable-cnn and mnist-cnn at D8 and D16, run at W8/W4/W2 at every
+   serving bucket (1, 2, 4, 8), so every ``qgemm`` and ``qconv_dw`` call
+   of the paths runs its timing sweep once (one ``autotune`` line each:
+   every candidate's best window, the static rule's, the pick, the
+   spread); at every swept call every candidate mapping or tile held
+   against the plain version (int8 and the float depthwise conv bit for
+   bit, the float ``qgemm`` within its tolerance); then a second process
+   on the same file that must resolve every swept call from the disk with
+   no sweep, to the same picks.  The paths below serve on these picks, and
+   a direct-mode ``qtorch`` serving run that sweeps a shape fails;
+5. main paths, each with the launch counters zeroed just before it and read
    just after, on separable-cnn and mnist-cnn at their published widths:
    a. the fully-integer ``qtorch`` target at D8-W8 through
       ``serve_adaptive`` with the pump running: 66 requests of 1-8 rows
@@ -79,7 +91,8 @@ Phases, each of which raises (and exits non-zero) on failure:
       the pump running, every result equal bit for bit to the CPU plain
       path; a second ``explore`` fed that tenant's ``LatencyEWMA`` carries
       the latency measured on the card (printed with the card's name and
-      power limit);
+      power limit); the front's ``tuned_tilings`` equals the autotune
+      cache's entry count;
    h. the im2col depthwise baseline on separable-cnn at D8 and D16
       (:func:`im2col_path`): ``WriterOptions(dw_mode="im2col")`` served
       walking W8 -> W4 -> W2 beside direct mode on one calibration, equal to
@@ -131,7 +144,7 @@ Phases, each of which raises (and exits non-zero) on failure:
       requests of 1-8 rows walking W8 -> W4 -> W2, every result equal to
       the CPU plain path, ``qgemm`` launched on every batch, accuracy per
       point;
-5. times — each kernel and mode, its plain version and the nearest PyTorch
+6. times — each kernel and mode, its plain version and the nearest PyTorch
    library call at the main paths' batch-8 shapes: device time per call
    from the profiler's CUDA activity (and the per-call time of back-to-back
    calls between CUDA events, host overhead included), beside the least
@@ -157,6 +170,9 @@ Phases, each of which raises (and exits non-zero) on failure:
    baseline's two ``qgemm`` calls (dw0 1568 x 72 x 8, dw1 392 x 144 x 16)
    in both modes, beside ``torch._int_mm`` / ``torch.matmul`` on the same
    patches, reported with the direct ``qconv_dw`` calls in the kernels line.
+   Each ``qgemm`` and ``qconv_dw`` call at batch 8 is timed with its tuned
+   pick (the row's ``ms``) and with the static rule's mapping
+   (``static_ms``), both in the kernels line (``tuned_rows``).
 
 It prints one ``{"kernels": [...]}`` JSON line, and as its last line
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the repository's
@@ -174,6 +190,7 @@ Its details go to ``build/chip_smoke/conv2d_stream.json``.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import threading
@@ -363,6 +380,188 @@ def kernels_vs_plain() -> dict:
 
 # -- main path ----------------------------------------------------------------
 
+# the serving buckets of the CNN paths (max_batch 8: the pow2 ladder)
+AUTOTUNE_BUCKETS = (1, 2, 4, 8)
+# set once the autotune phase has tuned every bucket shape of the qtorch
+# paths: a direct-mode qtorch serving run may then sweep no shape
+AUTOTUNED = False
+
+
+def _sweeps() -> int:
+    """Timing sweeps run so far by both kernels' timed picks."""
+    from repro_torch.kernels.qconv_dw.ops import pick_blocks_dw
+    from repro_torch.kernels.qmatmul.ops import pick_blocks
+    return pick_blocks.sweeps + pick_blocks_dw.sweeps
+
+
+def _report_line(r: dict) -> str:
+    """One sweep report as a log line: each candidate's best window, the
+    static pick's, the pick and the spread (ms)."""
+    best = {tuple(c["tiles"]): c["best_ms"] for c in r["candidates"]}
+    shape = r["shape"] + ([f"s{r['strides'][0]}"] if "strides" in r else [])
+    cands = ", ".join(f"{list(t)} {v:.6f}" for t, v in best.items())
+    return (f"{r['kernel']} {shape} W{r['bits']}"
+            f"{' packed' if r['packed'] else ''}: static {r['static']} "
+            f"{best.get(tuple(r['static']), float('nan')):.6f} ms, pick "
+            f"{r['pick']} {best.get(tuple(r['pick']), float('nan')):.6f} ms, "
+            f"spread {r['spread_ms']:.6f} ms; candidates {cands}")
+
+
+_RELOAD = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+from repro_torch.kernels.qconv_dw.ops import pick_blocks_dw
+from repro_torch.kernels.qmatmul.ops import encode_tiles, pick_blocks
+picks = []
+for r in json.loads(sys.stdin.read()):
+    if r["kernel"].startswith("qgemm"):
+        t = pick_blocks(*r["shape"], r["bits"], int8_act=r["kernel"] == "qgemm",
+                        packed=r["packed"], timed=True)
+        picks.append(list(encode_tiles(t)))
+    else:
+        t = pick_blocks_dw(*r["shape"], kh=r["window"][0], kw=r["window"][1],
+                           strides=r["strides"], pads=r["pads"],
+                           bits=r["bits"], int8_act=r["kernel"] == "qconv_dw",
+                           packed=r["packed"], timed=True)
+        picks.append(list(t))
+print(json.dumps({"sweeps": pick_blocks.sweeps + pick_blocks_dw.sweeps,
+                  "picks": picks}))
+"""
+
+
+def hold_candidates(reports: list, device: str) -> dict:
+    """Phase (b) of :func:`autotune_path`: at every swept call of
+    ``reports`` every candidate against the plain version; raises on a
+    disagreement."""
+    from repro_torch.kernels import checks
+    held = {"cases": 0, "max_abs_err": 0.0, "max_tol_frac": 0.0}
+    for r in reports:
+        int8_act = r["kernel"] in ("qgemm", "qconv_dw")
+        if r["kernel"].startswith("qgemm"):
+            M, K, N = r["shape"]
+            res = checks.qgemm_candidates_check(
+                device, M, K, N, bits=r["bits"], packed=r["packed"],
+                int8_act=int8_act)
+        else:
+            res = checks.qconv_dw_candidates_check(
+                device, *r["shape"], kh=r["window"][0], kw=r["window"][1],
+                strides=r["strides"], pads=r["pads"], bits=r["bits"],
+                packed=r["packed"], int8_act=int8_act)
+        if res["failures"]:
+            raise AssertionError(f"autotune candidates of {r['kernel']} "
+                                 f"{r['shape']} W{r['bits']} disagree with "
+                                 f"the plain version: {res['failures']}")
+        held["cases"] += res["cases"]
+        held["max_abs_err"] = max(held["max_abs_err"], res["max_abs_err"])
+        held["max_tol_frac"] = max(held["max_tol_frac"], res["max_tol_frac"])
+    return held
+
+
+def reload_picks(reports: list) -> dict:
+    """Phase (c) of :func:`autotune_path`: a second process on the same
+    cache file resolves every swept call of ``reports``; raises unless it
+    ran no sweep and picked what the reports picked."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _RELOAD, str(SRC)],
+        input=json.dumps(reports), capture_output=True, text=True,
+        timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"autotune reload process failed: "
+                             f"{proc.stderr[-2000:]}")
+    reload = json.loads(proc.stdout.strip().splitlines()[-1])
+    if reload["sweeps"] != 0 or \
+            reload["picks"] != [list(r["pick"]) for r in reports]:
+        raise AssertionError(f"a second process swept {reload['sweeps']} "
+                             f"shapes or picked otherwise: {reload}")
+    return reload
+
+
+def autotune_path(device: str = "cuda") -> dict:
+    """The timed tile picks, before the paths: (a) ``qtorch`` on
+    separable-cnn and mnist-cnn at D8 and D16 built on ``device`` and run
+    at W8/W4/W2 at every serving bucket, so each ``qgemm`` and ``qconv_dw``
+    call of the paths sweeps its candidates once (each report logged: every
+    candidate's best window, the static pick's, the pick, the spread);
+    (b) at every swept call every candidate held against the plain version
+    (int8 bit for bit, the float ``qgemm`` within its tolerance, the float
+    ``qconv_dw`` bit for bit); (c) a second process on the same cache file
+    resolves every swept call from the disk with no sweep, to the same
+    picks.  On the CPU nothing is timed (the static rules) and (b) runs the
+    plain versions."""
+    global AUTOTUNED
+    import numpy as np
+    import torch
+    from repro_torch.core.flow import DesignFlow
+    from repro_torch.core.reader import cnn_to_ir, separable_cnn_to_ir
+    from repro_torch.configs.mnist_cnn import CNNConfig
+    from repro_torch.configs.separable_cnn import SeparableCNNConfig
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.qconv_dw import ops as dwops
+    from repro_torch.kernels.qmatmul import ops as qops
+    from repro_torch.quant.qtypes import DatatypeConfig
+
+    t0 = time.perf_counter()
+    qops.sweep_reports.clear()
+    dwops.sweep_reports.clear()
+    sweeps0 = _sweeps()
+    for name, cfg, separable in (("separable-cnn", SeparableCNNConfig(), True),
+                                 ("mnist-cnn", CNNConfig(), False)):
+        to_ir = separable_cnn_to_ir if separable else cnn_to_ir
+        params = _params(cfg, separable, device)
+        calib = _workload(cfg, 0, SEED + 1)[0]
+        x = calib[:max(AUTOTUNE_BUCKETS)].numpy()
+        for act_bits in (8, 16):
+            res = DesignFlow(to_ir(cfg, params), device=device).run(
+                ("qtorch",), DatatypeConfig(act_bits, 8),
+                calib_inputs=(calib.to(device),))
+            for bits in (8, 4, 2):
+                exe = res.writers["qtorch"].build(bits=bits)
+                for b in AUTOTUNE_BUCKETS:
+                    y = np.asarray(exe(x[:b]).cpu())
+                    if not np.isfinite(y).all():
+                        raise AssertionError(f"{name} D{act_bits} W{bits} "
+                                             f"batch {b}: non-finite")
+    if device == "cuda":
+        torch.cuda.synchronize()
+    tune_s = time.perf_counter() - t0
+    reports = list(qops.sweep_reports) + list(dwops.sweep_reports)
+    if len(reports) != _sweeps() - sweeps0:
+        raise AssertionError(f"{len(reports)} reports for "
+                             f"{_sweeps() - sweeps0} sweeps")
+    for r in reports:
+        log("autotune " + _report_line(r))
+
+    t1 = time.perf_counter()
+    held = hold_candidates(reports, device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    held_s = time.perf_counter() - t1
+    log(f"autotune candidates vs plain ({held_s:.1f} s): "
+        f"{held['cases']} cases, max |diff| {held['max_abs_err']}, "
+        f"worst fraction of the float qgemm tolerance "
+        f"{held['max_tol_frac']}")
+    t2 = time.perf_counter()
+    reload = reload_picks(reports)
+    entries = autotune.tuned_entries()
+    if device == "cuda" and len(entries) != len(reports):
+        raise AssertionError(f"{len(entries)} cache entries for "
+                             f"{len(reports)} sweeps")
+    changed = sum(r["pick"] != r["static"] for r in reports)
+    info = {"path": "autotune", "sweeps": len(reports),
+            "picks_changed": changed, "cache_entries": len(entries),
+            "cache_file": autotune.autotune_cache_path(),
+            "tune_s": tune_s, "candidates_vs_plain": held,
+            "candidates_s": held_s,
+            "reload_sweeps": reload["sweeps"],
+            "reload_s": time.perf_counter() - t2, "reports": reports}
+    log(f"autotune: {len(reports)} sweeps in {tune_s:.1f} s, {changed} "
+        f"picks other than the static rule, {len(entries)} cache entries; "
+        f"a second process resolved all {len(reports)} from the disk with "
+        f"{reload['sweeps']} sweeps in {info['reload_s']:.1f} s")
+    AUTOTUNED = device == "cuda"
+    return info
+
+
 def _params(cfg, separable: bool, device: str, bn_stats: bool = True):
     """Seeded random weights; BN statistics drawn too (unless ``bn_stats``
     is off), so the folded biases are non-zero and the epilogue's bias path
@@ -508,6 +707,7 @@ def _qtorch_serve(name: str, cfg, separable: bool, act_bits: int,
                for i in range(len(reqs))]              # -> w8, w4, w2
 
     _zero_counts()
+    sweeps0 = _sweeps()
     t0 = time.perf_counter()
     res = DesignFlow(to_ir(cfg, params), device=device).run(
         ("qtorch",), dt, calib_inputs=(calib.to(device),), options=opts,
@@ -520,8 +720,12 @@ def _qtorch_serve(name: str, cfg, separable: bool, act_bits: int,
     outs = _serve_all(srv, reqs, budgets)
     serve_s = time.perf_counter() - t_serve
     launches = _read_counts()
+    sweeps = _sweeps() - sweeps0
     stats = srv.stats()
     wall = time.perf_counter() - t0
+    if AUTOTUNED and dw_mode == "direct" and sweeps:
+        raise AssertionError(f"{name} D{act_bits}: {sweeps} timing sweeps "
+                             "while serving shapes the autotune phase tuned")
 
     # the port's plain path on the CPU, same params and same act_ranges
     cpu = DesignFlow(to_ir(cfg, {k: v.cpu() for k, v in params.items()}),
@@ -555,7 +759,7 @@ def _qtorch_serve(name: str, cfg, separable: bool, act_bits: int,
                 + ("" if dw_mode == "direct" else f" dw_mode={dw_mode}"),
         "model": name,
         "requests": len(reqs), "rows": sum(r.shape[0] for r in reqs),
-        "launches": launches, "bits_views": views,
+        "launches": launches, "sweeps": sweeps, "bits_views": views,
         "batches": stats.get("executed_batches"),
         "requests_per_s": len(reqs) / serve_s,
         "p50_latency_ms": 1e3 * stats.get("p50_latency_s", float("nan")),
@@ -698,6 +902,7 @@ def dse_path(name: str, cfg, separable: bool, card: str = "",
     from repro_torch.core.flow import DesignFlow
     from repro_torch.core.reader import cnn_to_ir, separable_cnn_to_ir
     from repro_torch.dse import BudgetInfeasibleError, ResourceBudget
+    from repro_torch.kernels.autotune import tuned_entries
 
     to_ir = separable_cnn_to_ir if separable else cnn_to_ir
     # the models' own initialization: with drawn BN statistics separable-cnn
@@ -724,6 +929,11 @@ def dse_path(name: str, cfg, separable: bool, card: str = "",
     _expect_launched(f"{name} explore", launches,
                      ["qgemm", "qconv_dw"] if separable else ["qgemm"],
                      device)
+    entries = len(tuned_entries())
+    if front.tuned_tilings != entries:
+        raise AssertionError(f"{name}: the front counts "
+                             f"{front.tuned_tilings} tuned tilings, the "
+                             f"cache holds {entries}")
 
     top = front.points[0]
     ceiling = max(p.weight_bytes for p in front.points) - 1
@@ -779,6 +989,7 @@ def dse_path(name: str, cfg, separable: bool, card: str = "",
             "launches": launches, "serve_launches": serve_launches,
             "explore_s": explore_s, "cpu_explore_s": cpu_explore_s,
             "front": json.loads(front.to_json()),
+            "tuned_tilings": front.tuned_tilings,
             "front_equals_cpu": True, "tight_ceiling": ceiling,
             "tight_points": [p.point.name for p in tight.points],
             "served_requests": len(reqs), "served_bits": bits,
@@ -1971,9 +2182,11 @@ def times() -> dict:
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import checks
-    from repro_torch.kernels.qconv_dw.ops import (qconv_dw,
+    from repro_torch.kernels.qconv_dw.ops import (dw_tiles, pick_blocks_dw,
+                                                  qconv_dw,
                                                   qconv_dw_int8_act_plain)
-    from repro_torch.kernels.qmatmul.ops import (pick_tiles, qgemm,
+    from repro_torch.kernels.qmatmul.ops import (pick_blocks, pick_tiles,
+                                                 qgemm,
                                                  qmatmul_int8_act_plain)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1990,13 +2203,18 @@ def times() -> dict:
         s = (torch.rand((N,), generator=g) * 1e-2).to(dev)
         b = (torch.randn((N,), generator=g) * 0.1).to(dev)
         epi = dict(relu=True, act_qt=aqt, out_code=True)
+        static = pick_tiles(M, K, N)
+        tuned = pick_blocks(M, K, N, 8, int8_act=True, timed=True)
+        stat = _measure(lambda: qgemm(x, w, s, b, bits=8, packed=False,
+                                      tiles=static, **epi), graph=True)
         kern = _measure(lambda: qgemm(x, w, s, b, bits=8, packed=False,
                                       **epi), graph=True)
         plain = _measure(lambda: qmatmul_int8_act_plain(
             x, 1.0, w, s, b, bits=8, packed=False, **epi), graph=True)
         lib = _int_mm_measure(x, w)
-        row = dict(shape=[M, K, N], tiles=str(pick_tiles(M, K, N)),
-                   kernel=kern, plain=plain, library=lib,
+        row = dict(shape=[M, K, N], tiles=str(tuned),
+                   static_tiles=str(static), kernel=kern, static=stat,
+                   plain=plain, library=lib,
                    **_bound(M * K + K * N + 8 * N + M * N, 2 * M * K * N))
         rows["qgemm"].append(row)
         if (M, K, N) == checks.QGEMM_PATH_SHAPES[1]:
@@ -2020,6 +2238,12 @@ def times() -> dict:
         b = (torch.randn((C,), generator=g) * 0.1).to(dev)
         epi = dict(kh=3, kw=3, strides=stride, pads="SAME", bits=8,
                    packed=False, relu=True, act_qt=aqt, out_code=True)
+        oh, ow = -(-H // stride[0]), -(-W // stride[1])
+        static = dw_tiles(C, ow, kh=3, kw=3, sw=stride[1], float_mode=False)
+        tuned = pick_blocks_dw(B, H, W, C, kh=3, kw=3, strides=stride,
+                               timed=True)
+        stat = _measure(lambda: qconv_dw(x, w, s, b, tile=static, **epi),
+                        graph=True)
         kern = _measure(lambda: qconv_dw(x, w, s, b, **epi), graph=True)
         plain = _measure(lambda: qconv_dw_int8_act_plain(x, 1.0, w, s, b,
                                                          **epi), graph=True)
@@ -2027,9 +2251,9 @@ def times() -> dict:
         wf = w.t().reshape(C, 1, 3, 3).float().contiguous()
         lib = _measure(lambda: F.conv2d(xf, wf, stride=stride, padding=1,
                                         groups=C), graph=True)
-        oh, ow = -(-H // stride[0]), -(-W // stride[1])
-        row = dict(shape=[B, H, W, C], strides=list(stride), kernel=kern,
-                   plain=plain, library=lib,
+        row = dict(shape=[B, H, W, C], strides=list(stride),
+                   tiles=list(tuned), static_tiles=list(static),
+                   kernel=kern, static=stat, plain=plain, library=lib,
                    **_bound(B * H * W * C + 9 * C + 8 * C + B * oh * ow * C,
                             2 * 9 * B * oh * ow * C))
         rows["qconv_dw"].append(row)
@@ -2134,9 +2358,11 @@ def times_float(g, dev) -> dict:
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import checks
-    from repro_torch.kernels.qconv_dw.ops import (qconv_dw_f32,
+    from repro_torch.kernels.qconv_dw.ops import (dw_tiles, pick_blocks_dw,
+                                                  qconv_dw_f32,
                                                   qconv_dw_float_plain)
-    from repro_torch.kernels.qmatmul.ops import (pick_tiles, qgemm_f32,
+    from repro_torch.kernels.qmatmul.ops import (pick_blocks, pick_tiles,
+                                                 qgemm_f32,
                                                  qgemm_float_plain)
     rows = {"qgemm_f32": [], "qconv_dw_f32": []}
     aqt = (10, -(2 ** 15), 2 ** 15 - 1)
@@ -2149,6 +2375,10 @@ def times_float(g, dev) -> dict:
         s = (torch.rand((N,), generator=g) * 1e-2).to(dev)
         b = (torch.randn((N,), generator=g) * 0.1).to(dev)
         wf = w.float() * s
+        static = pick_tiles(M, K, N, float_mode=True)
+        tuned = pick_blocks(M, K, N, 8, int8_act=False, timed=True)
+        stat = _measure(lambda: qgemm_f32(x, w, s, b, bits=8, packed=False,
+                                          tiles=static, **epi), graph=True)
         kern = _measure(lambda: qgemm_f32(x, w, s, b, bits=8, packed=False,
                                           **epi), graph=True)
         plain = _measure(lambda: qgemm_float_plain(x, w, s, b, bits=8,
@@ -2156,8 +2386,8 @@ def times_float(g, dev) -> dict:
                          graph=True)
         lib = _measure(lambda: torch.matmul(x, wf), graph=True)
         rows["qgemm_f32"].append(dict(
-            shape=[M, K, N], tiles=str(pick_tiles(M, K, N, float_mode=True)),
-            kernel=kern, plain=plain, library=lib,
+            shape=[M, K, N], tiles=str(tuned), static_tiles=str(static),
+            kernel=kern, static=stat, plain=plain, library=lib,
             **_bound(4 * M * K + K * N + 8 * N + 4 * M * N, 2 * M * K * N,
                      F32_FLOPS_PER_S)))
     for (B, H, W, C), stride in (((8, 14, 14, 8), (1, 1)),
@@ -2169,6 +2399,12 @@ def times_float(g, dev) -> dict:
         b = (torch.randn((C,), generator=g) * 0.1).to(dev)
         common = dict(kh=3, kw=3, strides=stride, pads="SAME", bits=8,
                       packed=False, **epi)
+        oh, ow = -(-H // stride[0]), -(-W // stride[1])
+        static = dw_tiles(C, ow, kh=3, kw=3, sw=stride[1], float_mode=True)
+        tuned = pick_blocks_dw(B, H, W, C, kh=3, kw=3, strides=stride,
+                               int8_act=False, timed=True)
+        stat = _measure(lambda: qconv_dw_f32(x, w, s, b, tile=static,
+                                             **common), graph=True)
         kern = _measure(lambda: qconv_dw_f32(x, w, s, b, **common),
                         graph=True)
         plain = _measure(lambda: qconv_dw_float_plain(x, w, s, b, **common),
@@ -2177,9 +2413,9 @@ def times_float(g, dev) -> dict:
         wf = (w.float() * s).t().reshape(C, 1, 3, 3).contiguous()
         lib = _measure(lambda: F.conv2d(xf, wf, stride=stride, padding=1,
                                         groups=C), graph=True)
-        oh, ow = -(-H // stride[0]), -(-W // stride[1])
         rows["qconv_dw_f32"].append(dict(
-            shape=[B, H, W, C], strides=list(stride), kernel=kern,
+            shape=[B, H, W, C], strides=list(stride), tiles=list(tuned),
+            static_tiles=list(static), kernel=kern, static=stat,
             plain=plain, library=lib,
             **_bound(4 * B * H * W * C + 9 * C + 8 * C + 4 * B * oh * ow * C,
                      2 * 9 * B * oh * ow * C, F32_FLOPS_PER_S)))
@@ -2443,6 +2679,12 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(SRC))
     if args.conv2d_stream:
         return conv2d_stream_main()
+    # a fresh tile cache of this run's own, which the autotune phase fills
+    # and every later phase (and its second process) reads
+    cache = ROOT / "build" / "chip_smoke" / "autotune.json"
+    cache.parent.mkdir(parents=True, exist_ok=True)
+    cache.unlink(missing_ok=True)
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = str(cache)
     from repro_torch.configs import get_config
     from repro_torch.kernels import checks
     from repro_torch.configs.mnist_cnn import CNNConfig
@@ -2453,6 +2695,7 @@ def main(argv=None) -> int:
     built = build()
     built["conv2d_stream"] = conv2d_stream_instances()
     sweeps = kernels_vs_plain()
+    tuned = autotune_path()
     sep_cfg, mnist_cfg = SeparableCNNConfig(), CNNConfig()
     paths = [qtorch_path("separable-cnn", sep_cfg, True, act_bits=8),
              qtorch_path("mnist-cnn", mnist_cfg, False, act_bits=8),
@@ -2517,6 +2760,20 @@ def main(argv=None) -> int:
                 plain_graph_ms=r["plain"]["graph_ms"],
                 library_graph_ms=None if r["library"] is None
                 else r["library"]["graph_ms"])
+        if "static" in r:
+            # the timed pick's time (``ms``) beside the static rule's, at
+            # this row and at every other timed call of the kernel
+            kernels[-1].update(
+                tiles=r["tiles"], static_tiles=r["static_tiles"],
+                static_ms=_ms(r["static"]),
+                static_graph_ms=r["static"]["graph_ms"],
+                tuned_rows=[dict(shape=t["shape"], tiles=t["tiles"],
+                                 ms=_ms(t["kernel"]),
+                                 graph_ms=t["kernel"]["graph_ms"],
+                                 static_tiles=t["static_tiles"],
+                                 static_ms=_ms(t["static"]),
+                                 static_graph_ms=t["static"]["graph_ms"])
+                            for t in rows[name]])
     # the classifier FC (the skinny mapping) beside the pw0 row of each mode
     fc = checks.QGEMM_PATH_SHAPES.index((8, 1568, 10))
     for k in kernels[:2]:
@@ -2604,7 +2861,7 @@ def main(argv=None) -> int:
                               "max_tol_frac_by", "vs_f64", "phases")
                              if key in v}
                          for k, v in sweeps.items()},
-              "main_paths": paths, "times": rows,
+              "autotune": tuned, "main_paths": paths, "times": rows,
               "table2": next(p for p in paths if p["path"] == "Table II"),
               "total_s": time.perf_counter() - t_all}
     out_dir = ROOT / "build" / "chip_smoke"

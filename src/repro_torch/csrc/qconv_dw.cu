@@ -18,8 +18,10 @@
 // latency: the launch, one trip to memory, and each thread's chain of loads.
 //
 // What the design does about it: a block owns one output row of one image,
-// a band of up to 64 output columns and a tile of up to 64 channels, so
-// dw0's 8 x 14 output rows give 112 blocks to spread over the SMs.  It
+// a band of up to 64 output columns and a tile of up to 64 channels (both
+// chosen on the host: by default every column and channel of a row, halved
+// until they fit in shared memory; a timed sweep may choose narrower ones),
+// so dw0's 8 x 14 output rows give 112 blocks to spread over the SMs.  It
 //   * makes the channel tile's tap view (truncated with integer arithmetic,
 //     or unpacked) once into shared memory, instead of once per thread, and
 //     fetches each thread's scale and bias, while the input copies fly;
@@ -316,27 +318,22 @@ int launch(const void* x, const void* w, const void* s, const void* bias,
            void* out, int B, int H, int W, int C, int OH, int OW, int kh,
            int kw, int sh, int sw, int ph, int pw, int bits, int packed,
            int kp_rows, int relu, int has_aqt, int out_code, int qmin,
-           int qmax, float mul, float inv, void* stream) {
+           int qmax, int ct, int owb, float mul, float inv, void* stream) {
   const int taps = kh * kw;
   if (kh <= 0 || kw <= 0 || taps > MAX_TAPS || sh <= 0 || sw <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0 || OH <= 0 || OW <= 0 || C <= 0) return rc();
   const int esz = kFloat ? 4 : 1;
   const int vec = C % 4 == 0 ? 4 : 1;
-  // tiles: every channel (up to 64) and every output column (up to 64) of
-  // a row, halved until the taps and the input slab fit in shared memory
-  int ct = C < MAX_CT ? C : MAX_CT;
-  int owb = OW < MAX_OWB ? OW : MAX_OWB;
-  auto smem_of = [&](int ct_, int owb_) {
-    return static_cast<size_t>(tap_bytes(taps, ct_)) +
-           static_cast<size_t>(kh) * ((owb_ - 1) * sw + kw) * ct_ * esz;
-  };
-  while (smem_of(ct, owb) > SMEM_BUDGET && owb > 1) owb = (owb + 1) / 2;
-  while (smem_of(ct, owb) > SMEM_BUDGET && ct > vec) {
-    ct = (ct / 2) / vec * vec;
-    if (ct < vec) ct = vec;
-  }
-  const size_t smem = smem_of(ct, owb);
+  // the tiles come from the host (kernels/qconv_dw/ops.py, `dw_tiles` or a
+  // timed `pick_blocks_dw`): a channel tile of whole vectors up to MAX_CT,
+  // a band of up to MAX_OWB output columns, the taps and the input slab
+  // within SMEM_BUDGET
+  if (ct < vec || ct > MAX_CT || ct % vec != 0 || owb < 1 || owb > MAX_OWB)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem =
+      static_cast<size_t>(tap_bytes(taps, ct)) +
+      static_cast<size_t>(kh) * ((owb - 1) * sw + kw) * ct * esz;
   if (smem > SMEM_BUDGET) return static_cast<int>(cudaErrorInvalidValue);
   // the widest staging copy the channel pitch, the tile and x allow
   const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
@@ -363,9 +360,12 @@ int launch(const void* x, const void* w, const void* s, const void* bias,
 // C entry points (bound with ctypes).  `w` is int8 (kh*kw, C) tap rows, or
 // with `packed` the uint8 (kp_rows, C) split-row buffer; `s` the folded
 // per-channel scale (C,), `bias` (C,) or null; `out` int8 or f32
-// (B, OH, OW, C).  (ph, pw) are the top/left pads.  Each launches on
-// `stream` and returns cudaGetLastError() (cudaErrorInvalidValue for a
-// window past 64 taps).
+// (B, OH, OW, C).  (ph, pw) are the top/left pads; `ct` channels and `owb`
+// output columns of one output row make a block.  Each launches on `stream`
+// and returns cudaGetLastError() (cudaErrorInvalidValue for a window past 64
+// taps, or tiles the kernel does not take: `ct` not a whole number of
+// channel vectors -- 4 channels where C % 4 == 0, else 1 -- or past 64,
+// `owb` outside 1..64, or tiles whose taps and input slab pass 48 KB).
 //
 // int8-activation mode: `x` int8 (B, H, W, C) codes.
 extern "C" int repro_qconv_dw_i8(const void* x, const void* w, const void* s,
@@ -374,10 +374,11 @@ extern "C" int repro_qconv_dw_i8(const void* x, const void* w, const void* s,
                                  int sh, int sw, int ph, int pw, int bits,
                                  int packed, int kp_rows, int relu,
                                  int has_aqt, int out_code, int qmin, int qmax,
-                                 float mul, float inv, void* stream) {
+                                 int ct, int owb, float mul, float inv,
+                                 void* stream) {
   return launch<false>(x, w, s, bias, out, B, H, W, C, OH, OW, kh, kw, sh, sw,
                        ph, pw, bits, packed, kp_rows, relu, has_aqt, out_code,
-                       qmin, qmax, mul, inv, stream);
+                       qmin, qmax, ct, owb, mul, inv, stream);
 }
 
 // float-activation mode: `x` f32 (B, H, W, C); `out_code` must be 0.
@@ -387,10 +388,10 @@ extern "C" int repro_qconv_dw_f32(const void* x, const void* w, const void* s,
                                   int sh, int sw, int ph, int pw, int bits,
                                   int packed, int kp_rows, int relu,
                                   int has_aqt, int out_code, int qmin,
-                                  int qmax, float mul, float inv,
-                                  void* stream) {
+                                  int qmax, int ct, int owb, float mul,
+                                  float inv, void* stream) {
   if (out_code) return static_cast<int>(cudaErrorInvalidValue);
   return launch<true>(x, w, s, bias, out, B, H, W, C, OH, OW, kh, kw, sh, sw,
                       ph, pw, bits, packed, kp_rows, relu, has_aqt, out_code,
-                      qmin, qmax, mul, inv, stream);
+                      qmin, qmax, ct, owb, mul, inv, stream);
 }

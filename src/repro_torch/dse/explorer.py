@@ -40,6 +40,7 @@ from repro_torch.core.writers.torch_writer import float_reference
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.dse.budget import BudgetInfeasibleError, ResourceBudget
 from repro_torch.dse.pareto import ParetoFront, ParetoPoint, prune_dominated
+from repro_torch.kernels.autotune import tuned_entries
 from repro_torch.launch.roofline import (graph_mac_count, im2col_scratch_bytes,
                                          predict_latency_s)
 from repro_torch.quant.pack import PackedWeights
@@ -234,5 +235,4 @@ class DesignSpaceExplorer:
             per_layer_bits=dict(best.caps),
             buckets=self.buckets,
             budget=self.budget if self.budget.constrained else None,
-            # no timed tiling cache in this package (see ParetoFront)
-            tuned_tilings=0)
+            tuned_tilings=len(tuned_entries()))

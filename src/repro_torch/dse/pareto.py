@@ -169,9 +169,10 @@ class ParetoFront:
     per_layer_bits: Dict[str, int] = field(default_factory=dict)  # weight caps
     buckets: Tuple[int, ...] = ()         # batch-bucket ladder candidates cost
     budget: Optional[ResourceBudget] = None
-    # autotune-cache hits at explore time in the reference; the port has no
-    # timed tiling cache (its kernel mappings are the host rules pick_tiles
-    # and stream_tiles), so its explorer writes 0.  Kept for the wire format
+    # the tile picks the autotune cache held at explore time
+    # (repro_torch.kernels.autotune: timed qgemm and qconv_dw tiles), as in
+    # the reference: a measured latency on a tuned shape rests on the
+    # kernel's timed mapping, not on the static host rule
     tuned_tilings: int = 0
     schema: int = FRONT_SCHEMA
 

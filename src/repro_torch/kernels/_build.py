@@ -39,8 +39,9 @@ _L = ctypes.c_longlong
 #  out_code, qmin, qmax, mapping, bm, bn, bk, splits, mul, inv, stream)
 _QGEMM_ARGS = [_P] * 6 + [_I] * 16 + [_F, _F, _P]
 # (x, w, s, bias, out, B, H, W, C, OH, OW, kh, kw, sh, sw, ph, pw, bits,
-#  packed, kp_rows, relu, has_aqt, out_code, qmin, qmax, mul, inv, stream)
-_QCONV_DW_ARGS = [_P] * 5 + [_I] * 20 + [_F, _F, _P]
+#  packed, kp_rows, relu, has_aqt, out_code, qmin, qmax, ct, owb, mul, inv,
+#  stream)
+_QCONV_DW_ARGS = [_P] * 5 + [_I] * 22 + [_F, _F, _P]
 # (x, w, bias, out, B, H, W, Cin, Cout, kh, kw, x_bf16, w_bf16, rows, tw,
 #  ct, px, co, ks, window, ci_vec, x_unit, w_unit, threads, smem_bytes,
 #  stream)

@@ -9,7 +9,11 @@ sums in another order) and ``conv2d_stream`` (the plain
 version's tap dots sum in cuBLAS's order) and ``ssd_scan`` (f32 sums in
 another order) are held to stated tolerances.
 On a CUDA device the entry point launches the hand-written kernel; on the
-CPU it runs the plain version itself (which only exercises the sweep).
+CPU it runs the plain version itself (which only exercises the sweep).  The
+sweeps hold the kernels at their static host mappings (``timed=False``: no
+timing sweep at each of their many shapes); the candidate checks
+(:func:`qgemm_candidates_check`, :func:`qconv_dw_candidates_check`) hold
+every mapping a timed pick may return at the shapes the paths tune.
 ``chip_smoke.py`` and ``tests/test_torch_kernels_cuda.py`` run these on the
 card.
 """
@@ -23,14 +27,20 @@ import torch
 
 from repro_torch.kernels.conv2d_stream.ops import conv2d_stream
 from repro_torch.kernels.conv2d_stream.ref import conv2d_stream_plain
-from repro_torch.kernels.qconv_dw.ops import (DW_PACK_ALIGN, qconv_dw_float,
+from repro_torch.kernels.qconv_dw.ops import (DW_PACK_ALIGN,
+                                              candidate_dw_tiles, qconv_dw,
+                                              qconv_dw_f32, qconv_dw_float,
                                               qconv_dw_float_plain,
                                               qconv_dw_int8_act,
                                               qconv_dw_int8_act_plain)
-from repro_torch.kernels.qmatmul.ops import (qgemm_float, qgemm_float_plain,
-                                             qmatmul, qmatmul_int8_act,
+from repro_torch.kernels.qconv_dw.ref import normalize_pads, out_spatial
+from repro_torch.kernels.qmatmul.ops import (candidate_tiles, encode_tiles,
+                                             qgemm, qgemm_f32, qgemm_float,
+                                             qgemm_float_plain, qmatmul,
+                                             qmatmul_int8_act,
                                              qmatmul_int8_act_plain,
                                              qmatmul_plain)
+from repro_torch.kernels.qmatmul.ref import fold_scale
 from repro_torch.kernels.ssd_scan.ops import (ssd_chunk_scan,
                                               ssd_chunk_states,
                                               ssd_chunked_kernel,
@@ -221,7 +231,7 @@ def qgemm_sweep(device, shapes: Optional[Sequence[Tuple[int, int, int]]] = None,
             aqt = _act_qt(epi, _frac_for(y0))
             args = (x, xs, w, s, b if bias else None)
             got = qmatmul_int8_act(*args, act_qt=aqt, out_code=epi == "code",
-                                   **common)
+                                   timed=False, **common)
             want = qmatmul_int8_act_plain(*args, act_qt=aqt,
                                           out_code=epi == "code", **common)
             err = _compare(got, want)
@@ -232,6 +242,130 @@ def qgemm_sweep(device, shapes: Optional[Sequence[Tuple[int, int, int]]] = None,
                                      epilogue=epi, relu=relu, bias=bias,
                                      err=err))
     return {"cases": cases, "max_abs_err": worst, "failures": failures}
+
+
+def _tile_case(err: float, tol: float, tiles, worst: Dict[str, float],
+               failures: list) -> None:
+    worst["cases"] += 1
+    worst["max_abs_err"] = max(worst["max_abs_err"], err)
+    worst["max_tol_frac"] = max(worst["max_tol_frac"],
+                                err / tol if tol else (0.0 if err == 0
+                                                       else math.inf))
+    if err > tol:
+        failures.append(dict(tiles=tiles, err=err, tol=tol))
+
+
+def qgemm_candidates_check(device, M: int, K: int, N: int, *, bits: int,
+                           packed: bool, int8_act: bool,
+                           seed: int = 5000) -> Dict[str, object]:
+    """Every mapping :func:`~repro_torch.kernels.qmatmul.ops.candidate_tiles`
+    offers for an (M, K, N) call, each launched with its tiles on the same
+    seeded operands, against the plain version, with the path's epilogue
+    (bias, ReLU, requant): the int8 mode to int8 codes, bit for bit; the
+    float mode to a 16-bit fake-quant, within :func:`float_qgemm_tol` (the
+    skinny mapping sums K in another order than the tiled one).  On the CPU
+    each case runs the plain version (which only exercises the check)."""
+    dev = torch.device(device)
+    g = _gen(seed)
+    codes, s = _weights(g, K, N)
+    b = torch.randn((N,), generator=g) * 0.1
+    w = pack_rows(codes, bits, PACK_ALIGN) if packed else codes
+    if int8_act:
+        x = torch.randint(-128, 128, (M, K), generator=g, dtype=torch.int8)
+    else:
+        x = torch.randn((M, K), generator=g) * 0.5
+    x, w, s, b = x.to(dev), w.to(dev), s.to(dev), b.to(dev)
+    common = dict(bits=bits, packed=packed, relu=True)
+    if int8_act:
+        xs = 2.0 ** -4
+        y0 = qmatmul_int8_act_plain(x, xs, w, s, b, act_qt=None,
+                                    out_code=False, **common)
+        aqt = _act_qt("code", _frac_for(y0))
+        want = qmatmul_int8_act_plain(x, xs, w, s, b, act_qt=aqt,
+                                      out_code=True, **common)
+        s_eff = fold_scale(s, xs, bits, packed).contiguous()
+    else:
+        y0 = qgemm_float_plain(x, w, s, b, act_qt=None, **common)
+        aqt = _act_qt("fq", _frac_for(y0))
+        want = qgemm_float_plain(x, w, s, b, act_qt=aqt, **common)
+        s_eff = fold_scale(s, 1.0, bits, packed).contiguous()
+    tol = 0.0 if int8_act else float_qgemm_tol(want, aqt)
+    worst = {"cases": 0, "max_abs_err": 0.0, "max_tol_frac": 0.0}
+    failures: List[dict] = []
+    for t in candidate_tiles(M, K, N, float_mode=not int8_act):
+        if dev.type != "cuda":
+            got = (qmatmul_int8_act(x, xs, w, s, b, act_qt=aqt, out_code=True,
+                                    **common) if int8_act else
+                   qgemm_float(x, w, s, b, act_qt=aqt, **common))
+        elif int8_act:
+            got = qgemm(x, w, s_eff, b, act_qt=aqt, out_code=True, tiles=t,
+                        **common)
+        else:
+            got = qgemm_f32(x, w, s_eff, b, act_qt=aqt, tiles=t, **common)
+        err = _compare(got, want)
+        if int8_act and not torch.equal(got, want):
+            err = max(err, math.ulp(0.0))
+        _tile_case(err, tol, list(encode_tiles(t)), worst, failures)
+    return {**worst, "failures": failures}
+
+
+def qconv_dw_candidates_check(device, B: int, H: int, W: int, C: int, *,
+                              kh: int, kw: int, strides, pads, bits: int,
+                              packed: bool, int8_act: bool,
+                              seed: int = 6000) -> Dict[str, object]:
+    """Every tile :func:`~repro_torch.kernels.qconv_dw.ops.candidate_dw_tiles`
+    offers for a depthwise call, each launched with its (ct, owb) on the
+    same seeded operands, against the plain version bit for bit in both
+    modes (each channel's taps are summed in the same order whatever the
+    tile), with the path's epilogue (bias, ReLU; int8 codes out, or a
+    16-bit fake-quant).  On the CPU each case runs the plain version."""
+    dev = torch.device(device)
+    sh, sw = (int(v) for v in strides)
+    pads = normalize_pads(pads)
+    _, OW, _, _ = out_spatial(H, W, kh, kw, (sh, sw), pads)
+    g = _gen(seed)
+    codes, s = _weights(g, kh * kw, C)
+    b = torch.randn((C,), generator=g) * 0.1
+    w = pack_rows(codes, bits, DW_PACK_ALIGN) if packed else codes
+    if int8_act:
+        x = torch.randint(-128, 128, (B, H, W, C), generator=g,
+                          dtype=torch.int8)
+    else:
+        x = torch.randn((B, H, W, C), generator=g) * 0.5
+    x, w, s, b = x.to(dev), w.to(dev), s.to(dev), b.to(dev)
+    common = dict(kh=kh, kw=kw, strides=(sh, sw), pads=pads, bits=bits,
+                  packed=packed, relu=True)
+    xs = 2.0 ** -6
+    if int8_act:
+        y0 = qconv_dw_int8_act_plain(x, xs, w, s, b, act_qt=None,
+                                     out_code=False, **common)
+        aqt = _act_qt("code", _frac_for(y0))
+        want = qconv_dw_int8_act_plain(x, xs, w, s, b, act_qt=aqt,
+                                       out_code=True, **common)
+        s_eff = fold_scale(s, xs, bits, packed).contiguous()
+    else:
+        y0 = qconv_dw_float_plain(x, w, s, b, act_qt=None, **common)
+        aqt = _act_qt("fq", _frac_for(y0))
+        want = qconv_dw_float_plain(x, w, s, b, act_qt=aqt, **common)
+        s_eff = fold_scale(s, 1.0, bits, packed).contiguous()
+    worst = {"cases": 0, "max_abs_err": 0.0, "max_tol_frac": 0.0}
+    failures: List[dict] = []
+    for t in candidate_dw_tiles(C, OW, kh=kh, kw=kw, sw=sw,
+                                float_mode=not int8_act):
+        if dev.type != "cuda":
+            got = (qconv_dw_int8_act(x, xs, w, s, b, act_qt=aqt,
+                                     out_code=True, **common) if int8_act
+                   else qconv_dw_float(x, w, s, b, act_qt=aqt, **common))
+        elif int8_act:
+            got = qconv_dw(x, w, s_eff, b, act_qt=aqt, out_code=True,
+                           tile=t, **common)
+        else:
+            got = qconv_dw_f32(x, w, s_eff, b, act_qt=aqt, tile=t, **common)
+        err = _compare(got, want)
+        if not torch.equal(got, want):
+            err = max(err, math.ulp(0.0))
+        _tile_case(err, 0.0, list(t), worst, failures)
+    return {**worst, "failures": failures}
 
 
 def _dw_cases(shapes, strides, pads, windows, seed: int, make_x):
@@ -280,7 +414,8 @@ def qconv_dw_sweep(device,
             aqt = _act_qt(epi, _frac_for(y0))
             args = (x, xs, w, s, b if bias else None)
             got = qconv_dw_int8_act(*args, act_qt=aqt,
-                                    out_code=epi == "code", **common)
+                                    out_code=epi == "code", timed=False,
+                                    **common)
             want = qconv_dw_int8_act_plain(*args, act_qt=aqt,
                                            out_code=epi == "code", **common)
             err = _compare(got, want)
@@ -317,7 +452,7 @@ def qgemm_float_sweep(device,
             y0 = qgemm_float_plain(x, w, s, b, act_qt=None, **common)
             aqt = _act_qt(epi, _frac_for(y0))
             args = (x, w, s, b if bias else None)
-            got = qgemm_float(*args, act_qt=aqt, **common)
+            got = qgemm_float(*args, act_qt=aqt, timed=False, **common)
             want = qgemm_float_plain(*args, act_qt=aqt, **common)
             err, tol = _compare(got, want), float_qgemm_tol(want, aqt)
             cases += 1
@@ -347,7 +482,7 @@ def qmatmul_sweep(device,
         codes, s = codes.to(dev), s.to(dev)
         for bits, dtype in itertools.product((8, 4, 2), QMATMUL_DTYPES):
             xd = x.to(dtype).to(dev)
-            got = qmatmul(xd, codes, s, bits=bits)
+            got = qmatmul(xd, codes, s, bits=bits, timed=False)
             want = qmatmul_plain(xd, codes, s, bits=bits)
             err, tol = _compare(got, want), float_qgemm_tol(want)
             cases += 1
@@ -388,7 +523,7 @@ def qconv_dw_float_sweep(device,
             y0 = qconv_dw_float_plain(x, w, s, b, act_qt=None, **common)
             aqt = _act_qt(epi, _frac_for(y0))
             args = (x, w, s, b if bias else None)
-            got = qconv_dw_float(*args, act_qt=aqt, **common)
+            got = qconv_dw_float(*args, act_qt=aqt, timed=False, **common)
             want = qconv_dw_float_plain(*args, act_qt=aqt, **common)
             err = _compare(got, want)
             cases += 1

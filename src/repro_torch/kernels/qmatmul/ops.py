@@ -20,29 +20,37 @@ Three entry points dispatch on the activation tensor's device:
 
 There is no fallback between kernel and plain version and no shape rule: any
 M >= 1 runs the kernel, which masks ragged M/N/K edges itself, so no padded
-copies are made.  :func:`pick_tiles` (the counterpart of the reference's
-``pick_blocks``, without its timing sweep) chooses the kernel's mapping on
-the host and passes it to the C entry point.  In this package
-:func:`qgemm` names the int8-mode launch wrapper.
+copies are made.  The host chooses the kernel's mapping and passes it to the
+C entry point: :func:`pick_tiles` is the static rule, and :func:`pick_blocks`
+(the counterpart of the reference's) times the mappings around it on the
+card the first time a shape is seen and caches the winner in process and on
+disk (:mod:`repro_torch.kernels.autotune`, ``REPRO_TORCH_AUTOTUNE_CACHE``).
+Every CUDA call takes :func:`pick_blocks` unless it passes ``timed=False``
+(the static rule) or its own ``tiles``.  In this package :func:`qgemm`
+names the int8-mode launch wrapper.
 """
 from __future__ import annotations
 
+import threading
+from collections import deque
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import autotune
 from repro_torch.kernels._build import check, load_kernels
 from repro_torch.kernels.qmatmul.ref import (ActQt, fold_scale, qgemm_ref,
                                              qmatmul_int8_act_ref,
                                              qmatmul_ref)
-from repro_torch.quant.pack import unpack_rows
+from repro_torch.quant.pack import PACK_ALIGN, unpack_rows
 from repro_torch.quant.ptq import derive_view
 
 __all__ = ["qgemm", "qgemm_f32", "qgemm_float", "qgemm_float_plain",
            "qmatmul", "qmatmul_plain", "qmatmul_int8_act",
            "qmatmul_int8_act_plain", "scalar_scale",
-           "pick_tiles", "Tiles", "truncate_view_cuda", "ActQt"]
+           "pick_tiles", "pick_blocks", "candidate_tiles", "Tiles",
+           "truncate_view_cuda", "ActQt"]
 
 # the card the tile choice fills: an H100 SXM's streaming multiprocessors
 NUM_SMS = 132
@@ -103,6 +111,234 @@ def pick_tiles(M: int, K: int, N: int, float_mode: bool = False) -> Tiles:
     return Tiles("tiled", bm=bm, bn=bn, bk=32)
 
 
+# -- the timed tile pick ---------------------------------------------------------
+# qgemm.cu's launch limits, repeated on the host so that the candidates are
+# exactly the mappings its `launch` accepts: tiled CTAs stage at least one k
+# step of x and w in 48 KB (TILE_SMEM, 48-byte rows TI_PITCH in the int8
+# mode), skinny clusters at least one 32-wide step of each of M rows in
+# 96 KB (SK_SMEM, SK_WARPS partial sums)
+TILED_BN = (8, 16, 32, 64)
+SKINNY_BN = (8, 16, 32)
+TILED_I8_BM = (16, 32, 64)
+TILED_F32_BK = (8, 16, 32)
+TILE_SMEM = 48 * 1024
+TI_PITCH = 48
+SK_SMEM = 96 * 1024
+SK_WARPS = 8
+# disk-tuple codes of the two mappings (a cache value holds positive ints)
+MAPPING_CODES = {"tiled": 1, "skinny": 2}
+
+# the L1 dict: (M, K, N, bits, int8_act, packed, timed) -> Tiles.  int8_act
+# False is the float mode, so it also keys the float mode; ``timed`` keeps a
+# CPU-side static pick from pinning the rule for later timed calls
+_BLOCK_CACHE: Dict[Tuple[int, int, int, int, bool, bool, bool], Tiles] = {}
+# one sweep at a time: threads serving one card must not time each other's
+# launches
+_SWEEP_LOCK = threading.Lock()
+# each sweep's report (shape, every candidate's windows, the static pick,
+# the pick, the spread), newest last
+sweep_reports: deque = deque(maxlen=512)
+
+# the disk half lives in repro_torch.kernels.autotune (one versioned file for
+# every kernel family); these aliases keep the reference's module-level names
+AUTOTUNE_CACHE_ENV = autotune.AUTOTUNE_CACHE_ENV
+_disk_state = autotune._disk_state          # shared BY IDENTITY with autotune
+autotune_cache_path = autotune.autotune_cache_path
+
+
+def _disk_key(key) -> str:
+    M, K, N, bits, int8_act, packed, _timed = key
+    return f"qgemm:{M}:{K}:{N}:{bits}:{int(int8_act)}:{int(packed)}"
+
+
+def _disk_cache() -> Dict[str, Tuple[int, ...]]:
+    return autotune.disk_cache()
+
+
+def _disk_put(key, tiles: Tiles) -> None:
+    autotune.disk_put(_disk_key(key), encode_tiles(tiles))
+
+
+def encode_tiles(t: Tiles) -> Tuple[int, ...]:
+    """The cache's positive-int tuple of a mapping."""
+    return (MAPPING_CODES[t.mapping], t.bm, t.bn, t.bk, t.splits)
+
+
+def decode_tiles(v: Tuple[int, ...]) -> Optional[Tiles]:
+    """The mapping a cache tuple encodes, or None for a tuple of another
+    arity or mapping code."""
+    names = {c: m for m, c in MAPPING_CODES.items()}
+    if len(v) != 5 or v[0] not in names:
+        return None
+    return Tiles(names[v[0]], *v[1:])
+
+
+def _align16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+def smem_bytes(t: Tiles, M: int, K: int, N: int, float_mode: bool) -> int:
+    """The least shared memory ``qgemm.cu`` stages a call in with mapping
+    ``t``: one k step (its chunk loop takes more steps only where they fit),
+    counting the raw weight rows and the whole-K x block wherever the kernel
+    may stage them.  ``launch`` refuses the mapping above its budget."""
+    esz = 4 if float_mode else 1
+    if t.mapping == "skinny":
+        ldb = N if N <= t.bn else t.bn
+        stage = M * (32 + 16 // esz) * esz + _align16(32 * ldb)
+        red = (SK_WARPS + 1) * M * t.bn * 4
+        return max(stage, red)
+    raw_w = _align16(t.bk * N) if N <= t.bn else 0
+    raw_a = _align16(t.bm * K * esz) if K <= t.bk else 0
+    if float_mode:
+        step = t.bm * (t.bk + 4) * 4 + t.bk * t.bn * 4
+    else:
+        step = (t.bm + t.bn) * TI_PITCH
+    return step + raw_w + raw_a
+
+
+def _legal(t: Tiles, M: int, K: int, N: int, float_mode: bool) -> bool:
+    """Whether ``qgemm.cu``'s ``launch`` takes mapping ``t`` for the call."""
+    if t.mapping == "skinny":
+        ok = (M <= SKINNY_MAX_M and t.bn in SKINNY_BN and t.bk == 32
+              and t.splits == SKINNY_CLUSTER)
+        return ok and smem_bytes(t, M, K, N, float_mode) <= SK_SMEM
+    if t.mapping != "tiled" or t.splits != 1 or t.bn not in TILED_BN:
+        return False
+    if float_mode:
+        ok = t.bm == 512 // t.bn and t.bk in TILED_F32_BK
+    else:
+        ok = t.bm in TILED_I8_BM and t.bk == 32
+    return ok and smem_bytes(t, M, K, N, float_mode) <= TILE_SMEM
+
+
+def _near(sizes: Tuple[int, ...], v: int) -> Tuple[int, ...]:
+    """``v`` and its neighbours in ``sizes``."""
+    i = sizes.index(v)
+    return sizes[max(i - 1, 0):i + 2]
+
+
+def candidate_tiles(M: int, K: int, N: int,
+                    float_mode: bool = False) -> List[Tiles]:
+    """The mappings a sweep times, :func:`pick_tiles`' first: the tiled
+    mapping at its BN and one step either side (int8: every BM of 16, 32,
+    64; float: BM = 512 / BN and every k step of 8, 16, 32), and where
+    M <= 64 the skinny mapping at its BN and one step either side.  Each
+    is one that ``qgemm.cu`` takes; a static pick it would refuse raises."""
+    default = pick_tiles(M, K, N, float_mode)
+    if not _legal(default, M, K, N, float_mode):
+        raise ValueError(f"pick_tiles gave {default} for M={M} K={K} N={N}, "
+                         "which qgemm.cu refuses")
+    out = [default]
+    for bn in _near(TILED_BN, _fit(N, TILED_BN)):
+        if float_mode:
+            out += [Tiles("tiled", 512 // bn, bn, bk) for bk in TILED_F32_BK]
+        else:
+            out += [Tiles("tiled", bm, bn, 32) for bm in TILED_I8_BM]
+    if M <= SKINNY_MAX_M:
+        out += [Tiles("skinny", 16 * -(-M // 16), bn, 32, SKINNY_CLUSTER)
+                for bn in _near(SKINNY_BN, _fit(N, SKINNY_BN))]
+    return [t for t in dict.fromkeys(out) if _legal(t, M, K, N, float_mode)]
+
+
+def _sweep_operands(M: int, K: int, N: int, bits: int, int8_act: bool,
+                    packed: bool):
+    """Operands of the real call's shapes, from a fixed seed, on the card:
+    x, the weight (the split-row buffer when ``packed``), scale, bias and
+    the output, with the path's epilogue (ReLU, requant; int8 codes out in
+    the int8 mode)."""
+    g = torch.Generator().manual_seed(0)
+    dev = torch.device(autotune.SWEEP_DEVICE)
+    if int8_act:
+        x = torch.randint(-128, 128, (M, K), generator=g, dtype=torch.int8)
+    else:
+        x = torch.randn((M, K), generator=g)
+    if packed:
+        rows = -(-K // PACK_ALIGN) * PACK_ALIGN // (8 // bits)
+        w = torch.randint(0, 256, (rows, N), generator=g, dtype=torch.uint8)
+    else:
+        w = torch.randint(-127, 128, (K, N), generator=g, dtype=torch.int8)
+    s = torch.rand((N,), generator=g) * 1e-2
+    b = torch.randn((N,), generator=g) * 0.1
+    out = torch.empty((M, N), dtype=torch.int8 if int8_act else torch.float32)
+    return [t.to(dev) for t in (x, w, s, b, out)]
+
+
+def _sweep(key, cands: List[Tiles]) -> Tiles:
+    """Time the candidates ``cands`` (the static pick first) of ``key``'s
+    call on the card and return the pick (see
+    :func:`repro_torch.kernels.autotune.choose`); its report goes to
+    :data:`sweep_reports`."""
+    M, K, N, bits, int8_act, packed, _timed = key
+    float_mode = not int8_act
+    default = cands[0]
+    x, w, s, b, out = _sweep_operands(M, K, N, bits, int8_act, packed)
+    entry = "repro_qgemm_f32" if float_mode else "repro_qgemm_i8"
+    aqt = (10, -(2 ** 15), 2 ** 15 - 1) if float_mode else (4, -128, 127)
+
+    def launch(t):
+        return lambda: _launch(entry, x, w, None, s, b, out, bits=bits,
+                               packed=packed, relu=True, act_qt=aqt,
+                               out_code=int8_act, tiles=t)
+
+    times = autotune.time_candidates({t: launch(t) for t in cands})
+    pick, spread = autotune.choose(times, default)
+    pick_blocks.sweeps += 1
+    sweep_reports.append({
+        "kernel": "qgemm_f32" if float_mode else "qgemm",
+        "shape": [M, K, N], "bits": bits, "packed": packed,
+        "candidates": [{"tiles": encode_tiles(t), "windows_ms": v,
+                        "best_ms": min(v)} for t, v in times.items()],
+        "static": encode_tiles(default), "pick": encode_tiles(pick),
+        "spread_ms": spread})
+    return pick
+
+
+def pick_blocks(M: int, K: int, N: int, bits: int, *, int8_act: bool = True,
+                packed: bool = False, timed: bool = False) -> Tiles:
+    """The mapping ``csrc/qgemm.cu`` runs an (M, K, N) call with at a working
+    point (``int8_act`` False: the float mode).
+
+    Lookup order, as in the reference: the in-process dict, then (timed
+    picks only) the disk cache, then a timing sweep on the card of
+    :func:`candidate_tiles`, whose pick is written through to both (a call
+    with one candidate takes it, untimed and not persisted).
+    ``timed=False`` (what a call on the CPU gets) returns
+    :func:`pick_tiles` and touches neither disk nor card.  A sweep keeps
+    :func:`pick_tiles` unless a candidate's best window beats its best
+    window by more than the spread the sweep measured.  In the int8 mode
+    every mapping gives the same codes; in the float mode the skinny mapping
+    sums K in another order than the tiled one, so a pick that switches
+    mapping moves float outputs by rounding, within the float paths'
+    tolerance.  A disk entry that is not a candidate of the call reads as a
+    miss.  Counts sweeps in ``pick_blocks.sweeps``."""
+    key = (M, K, N, bits, bool(int8_act), bool(packed), bool(timed))
+    hit = _BLOCK_CACHE.get(key)
+    if hit is not None:
+        return hit
+    if not timed:
+        tiles = pick_tiles(M, K, N, float_mode=not int8_act)
+        _BLOCK_CACHE[key] = tiles
+        return tiles
+    with _SWEEP_LOCK:
+        hit = _BLOCK_CACHE.get(key)
+        if hit is not None:
+            return hit
+        cands = candidate_tiles(M, K, N, not int8_act)
+        disk = _disk_cache().get(_disk_key(key))
+        tiles = None if disk is None else decode_tiles(disk)
+        if len(cands) == 1:
+            tiles = cands[0]
+        elif tiles not in cands:
+            tiles = _sweep(key, cands)
+            _disk_put(key, tiles)
+        _BLOCK_CACHE[key] = tiles
+        return tiles
+
+
+pick_blocks.sweeps = 0
+
+
 def scalar_scale(x_scale) -> Optional[float]:
     """The per-tensor activation scale as a Python float (the writer hot
     path's power of two), or None when ``x_scale`` is a per-row tensor."""
@@ -161,11 +397,10 @@ def _launch(entry: str, x: torch.Tensor, w: torch.Tensor,
             xs: Optional[torch.Tensor], s_eff: torch.Tensor,
             bias: Optional[torch.Tensor], out: torch.Tensor, *, bits: int,
             packed: bool, relu: bool, act_qt: Optional[ActQt],
-            out_code: bool) -> None:
+            out_code: bool, tiles: Tiles) -> None:
     M, K = x.shape
     N = out.shape[1]
     frac, qmin, qmax = act_qt if act_qt is not None else (0, 0, 0)
-    tiles = pick_tiles(M, K, N, float_mode=x.dtype == torch.float32)
     lib = load_kernels()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -183,7 +418,8 @@ def _launch(entry: str, x: torch.Tensor, w: torch.Tensor,
 def qgemm(x_codes: torch.Tensor, w: torch.Tensor, s_eff: torch.Tensor,
           bias: Optional[torch.Tensor] = None, *, bits: int, packed: bool,
           relu: bool, act_qt: Optional[ActQt], out_code: bool,
-          xs: Optional[torch.Tensor] = None) -> torch.Tensor:
+          xs: Optional[torch.Tensor] = None, timed: bool = True,
+          tiles: Optional[Tiles] = None) -> torch.Tensor:
     """Launch ``csrc/qgemm.cu`` in its int8-activation mode on the current
     CUDA stream.
 
@@ -192,7 +428,9 @@ def qgemm(x_codes: torch.Tensor, w: torch.Tensor, s_eff: torch.Tensor,
     f32 — the channel scale with the sub-byte step and, when ``xs`` is None,
     the scalar activation scale folded in; xs (M,) f32 per-row activation
     scale or None; bias (N,) f32 or None.  Returns (M, N) int8 codes when
-    ``out_code``, else f32.  Counts launches in ``qgemm.launches``."""
+    ``out_code``, else f32.  The mapping is ``tiles``, else
+    :func:`pick_blocks` (``timed``: the timed pick; otherwise the static
+    rule).  Counts launches in ``qgemm.launches``."""
     dev = x_codes.device
     if dev.type != "cuda":
         raise ValueError(f"qgemm launches the CUDA kernel; got a {dev} tensor")
@@ -207,8 +445,12 @@ def qgemm(x_codes: torch.Tensor, w: torch.Tensor, s_eff: torch.Tensor,
                       device=dev)
     if M == 0 or N == 0:
         return out
+    if tiles is None:
+        tiles = pick_blocks(M, K, N, bits, int8_act=True, packed=packed,
+                            timed=timed)
     _launch("repro_qgemm_i8", x_codes, w, xs, s_eff, bias, out, bits=bits,
-            packed=packed, relu=relu, act_qt=act_qt, out_code=out_code)
+            packed=packed, relu=relu, act_qt=act_qt, out_code=out_code,
+            tiles=tiles)
     qgemm.launches += 1
     return out
 
@@ -218,11 +460,13 @@ qgemm.launches = 0
 
 def qgemm_f32(x: torch.Tensor, w: torch.Tensor, s_eff: torch.Tensor,
               bias: Optional[torch.Tensor] = None, *, bits: int, packed: bool,
-              relu: bool, act_qt: Optional[ActQt]) -> torch.Tensor:
+              relu: bool, act_qt: Optional[ActQt], timed: bool = True,
+              tiles: Optional[Tiles] = None) -> torch.Tensor:
     """Launch ``csrc/qgemm.cu`` in its float-activation mode on the current
     CUDA stream: x (M, K) f32, the weight operands as for :func:`qgemm`,
-    s_eff (N,) the channel scale with the sub-byte step folded in.  Returns
-    (M, N) f32.  Counts launches in ``qgemm_f32.launches``."""
+    s_eff (N,) the channel scale with the sub-byte step folded in; the
+    mapping as for :func:`qgemm`.  Returns (M, N) f32.  Counts launches in
+    ``qgemm_f32.launches``."""
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"qgemm_f32 launches the CUDA kernel; got a {dev} "
@@ -235,8 +479,12 @@ def qgemm_f32(x: torch.Tensor, w: torch.Tensor, s_eff: torch.Tensor,
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
     if M == 0 or N == 0:
         return out
+    if tiles is None:
+        tiles = pick_blocks(M, K, N, bits, int8_act=False, packed=packed,
+                            timed=timed)
     _launch("repro_qgemm_f32", x, w, None, s_eff, bias, out, bits=bits,
-            packed=packed, relu=relu, act_qt=act_qt, out_code=False)
+            packed=packed, relu=relu, act_qt=act_qt, out_code=False,
+            tiles=tiles)
     qgemm_f32.launches += 1
     return out
 
@@ -290,7 +538,8 @@ def qmatmul_int8_act(x_codes: torch.Tensor, x_scale, codes: torch.Tensor,
                      *, bits: int = 8, relu: bool = False,
                      act_qt: Optional[ActQt] = None, out_code: bool = False,
                      packed: bool = False,
-                     out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                     out_dtype: torch.dtype = torch.float32,
+                     timed: bool = True) -> torch.Tensor:
     """Fully-integer Gemm: x_codes (..., K) int8 activation codes, int32 MACs,
     the fused epilogue re-quantizing straight to the consumer's code.
 
@@ -300,7 +549,8 @@ def qmatmul_int8_act(x_codes: torch.Tensor, x_scale, codes: torch.Tensor,
     dynamic-range path, applied to the accumulator first).  ``codes`` is
     (K, N) int8 or, with ``packed=True``, the split-row (K'/r, N) uint8
     buffer.  ``out_code=True`` returns int8 codes (``act_qt`` required), else
-    the decoded float in ``out_dtype``."""
+    the decoded float in ``out_dtype``.  On the card the mapping is the
+    timed :func:`pick_blocks`, or with ``timed=False`` the static rule."""
     lead = x_codes.shape[:-1]
     K = x_codes.shape[-1]
     N = codes.shape[-1]
@@ -321,7 +571,7 @@ def qmatmul_int8_act(x_codes: torch.Tensor, x_scale, codes: torch.Tensor,
                            packed).contiguous()
         y = qgemm(x2.contiguous(), codes.contiguous(), s_eff, _bias_f32(bias),
                   bits=bits, packed=packed, relu=relu, act_qt=act_qt,
-                  out_code=out_code, xs=rows)
+                  out_code=out_code, xs=rows, timed=timed)
         if not out_code:
             y = y.to(out_dtype)
     elif x2.device.type == "cpu":
@@ -351,12 +601,13 @@ def qgemm_float_plain(x: torch.Tensor, codes: torch.Tensor,
 def qgemm_float(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
                 bias: Optional[torch.Tensor] = None, *, bits: int = 8,
                 relu: bool = False, act_qt: Optional[ActQt] = None,
-                packed: bool = False) -> torch.Tensor:
+                packed: bool = False, timed: bool = True) -> torch.Tensor:
     """Float-activation Gemm with the fused epilogue (the reference's
     ``qgemm``): x (..., K) float; ``codes`` (K, N) int8 master or, with
     ``packed=True``, the split-row (K'/r, N) uint8 buffer; scale (N,) f32;
     bias (N,) or None; ``act_qt`` the consumer's fixed-point activation
-    quant.  Returns (..., N) in x's dtype."""
+    quant; ``timed`` as for :func:`qmatmul_int8_act`.  Returns (..., N) in
+    x's dtype."""
     lead = x.shape[:-1]
     K = x.shape[-1]
     N = codes.shape[-1]
@@ -368,7 +619,7 @@ def qgemm_float(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
         s_eff = fold_scale(scale, 1.0, bits, packed).contiguous()
         y = qgemm_f32(x2.to(torch.float32).contiguous(), codes.contiguous(),
                       s_eff, _bias_f32(bias), bits=bits, packed=packed,
-                      relu=relu, act_qt=act_qt).to(x.dtype)
+                      relu=relu, act_qt=act_qt, timed=timed).to(x.dtype)
     elif x2.device.type == "cpu":
         y = qgemm_float_plain(x2, codes, scale, bias, bits=bits, relu=relu,
                               act_qt=act_qt, packed=packed, out_dtype=x.dtype)
@@ -406,7 +657,7 @@ def qmatmul_plain(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
 
 
 def qmatmul(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor, *,
-            bits: int = 8) -> torch.Tensor:
+            bits: int = 8, timed: bool = True) -> torch.Tensor:
     """Dequant matmul (the reference's ``qmatmul``): x (..., K) float;
     codes (K, N) int8 master; scale (N,) f32 -> (..., N) in x's dtype.
 
@@ -415,7 +666,8 @@ def qmatmul(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor, *,
     channel scale, no bias and no ReLU (the kernel sums x * code in f32 and
     scales once); a CPU tensor runs :func:`qmatmul_plain`.  Otherwise the
     oracle :func:`~repro_torch.kernels.qmatmul.ref.qmatmul_ref` runs on any
-    device, with no bf16 rounding.  Counts the kernel's launches in
+    device, with no bf16 rounding.  ``timed`` as for
+    :func:`qmatmul_int8_act`.  Counts the kernel's launches in
     ``qmatmul.launches``."""
     x2, N, small = _qmatmul_operands(x, codes)
     if small or x2.device.type == "cpu":
@@ -425,7 +677,8 @@ def qmatmul(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor, *,
     xb = x2.to(torch.bfloat16).to(torch.float32).contiguous()
     y = qgemm_f32(xb, codes.contiguous(),
                   scale.reshape(-1).to(torch.float32).contiguous(),
-                  bits=bits, packed=False, relu=False, act_qt=None)
+                  bits=bits, packed=False, relu=False, act_qt=None,
+                  timed=timed)
     qmatmul.launches += 1
     return y.to(x.dtype).reshape(*x.shape[:-1], N)
 

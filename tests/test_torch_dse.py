@@ -14,6 +14,10 @@ With this jax the reference's front on the ``test_dse.py`` fixture has two
 points, w4 (0.9375) and w2 (0.5625), and no w8, so two reference tests fail on
 it (ROADMAP Queue 3, reference facts).  Their mirrors hold the port to the
 front the reference computes.
+
+Each package's front counts its own autotune cache (``tuned_tilings``); the
+module points both caches at empty temporary files, so the counts compare
+like with like.
 """
 import json
 
@@ -28,6 +32,7 @@ from repro.core.reader import cnn_to_ir as j_cnn_to_ir
 from repro.core.reader import separable_cnn_to_ir as j_sep_to_ir
 from repro.dse import ParetoFront as JFront
 from repro.dse import ResourceBudget as JBudget
+from repro.kernels import autotune as j_autotune
 from repro.models import cnn as j_models
 
 from repro_torch.configs.mnist_cnn import CONFIG as T_CNN
@@ -42,6 +47,7 @@ from repro_torch.core.reader import separable_cnn_to_ir
 from repro_torch.dse import (BudgetInfeasibleError, DesignSpaceExplorer,
                              ParetoFront, ParetoPoint, ResourceBudget,
                              prune_dominated, scratch_bytes_for)
+from repro_torch.kernels import autotune
 from repro_torch.launch.roofline import HBM_BW, PEAK_OPS_INT8, graph_mac_count
 from repro_torch.models import cnn
 
@@ -243,6 +249,20 @@ def _calib():
     return np.random.default_rng(0).random((32, *shape), np.float32)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def empty_autotune_caches(tmp_path_factory):
+    """Both packages' autotune caches at empty temporary files for the
+    module (never the home directory's)."""
+    d = tmp_path_factory.mktemp("autotune")
+    paths = {autotune.AUTOTUNE_CACHE_ENV: d / "repro_torch.json",
+             j_autotune.AUTOTUNE_CACHE_ENV: d / "repro.json"}
+    with pytest.MonkeyPatch.context() as mp:
+        for env, path in paths.items():
+            path.write_text("")
+            mp.setenv(env, str(path))
+        yield paths
+
+
 @pytest.fixture(scope="module")
 def sep_graph_calib():
     return _graphs("separable-cnn")[1], _calib()
@@ -280,7 +300,26 @@ def test_explore_unconstrained_front(free_front):
     assert free_front.budget is None
     assert free_front.fifo_slack == 2.0 and free_front.act_bits == 8
     assert free_front.buckets == (1, 2, 4, 8)
-    assert free_front.tuned_tilings == 0
+    # both caches are empty files: the counts agree with the reference's
+    assert free_front.tuned_tilings == \
+        ref_front("separable-cnn").tuned_tilings == \
+        len(autotune.tuned_entries()) == 0
+
+
+def test_front_counts_the_ports_tuned_tilings(sep_graph_calib, free_front,
+                                              tmp_path, monkeypatch):
+    """``tuned_tilings`` is the port's cache's entry count at explore time,
+    as the reference counts its own; the rest of the front is unchanged."""
+    cache = tmp_path / "autotune.json"
+    monkeypatch.setenv(autotune.AUTOTUNE_CACHE_ENV, str(cache))
+    autotune.disk_put("qgemm:6272:9:8:8:1:0", (1, 32, 8, 32, 1))
+    autotune.disk_put("qconv_dw:8:14:14:8:14x14:3x3:1x1:8:1:0", (8, 7))
+    g, calib = sep_graph_calib
+    front = DesignFlow(g, device="cpu").explore((calib,))
+    assert front.tuned_tilings == len(autotune.tuned_entries()) == 2
+    d, free = front.to_dict(), free_front.to_dict()
+    assert d.pop("tuned_tilings") == 2 and free.pop("tuned_tilings") == 0
+    assert d == free
 
 
 def test_explore_deterministic(sep_graph_calib, free_front):
@@ -470,9 +509,7 @@ def _h100_latency(graph, buckets, weight_bytes, scratch_bytes):
 def _assert_front_matches_reference(t_front, j_front, graph):
     jd, td = j_front.to_dict(), t_front.to_dict()
     jpts, tpts = jd.pop("points"), td.pop("points")
-    # tuned_tilings counts the reference's autotune cache, which the port
-    # does not have (always 0 there)
-    jd.pop("tuned_tilings"), td.pop("tuned_tilings")
+    # tuned_tilings included: each counts its own (empty) cache
     assert td == jd
     assert [p["name"] for p in tpts] == [p["name"] for p in jpts]
     for tp, jp, p in zip(tpts, jpts, t_front.points):

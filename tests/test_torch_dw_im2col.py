@@ -141,14 +141,29 @@ def test_writer_validates_dw_mode(case):
 
 
 @pytest.mark.parametrize("shape", [(3, 3, 1, 8), (3, 3, 1, 16), (1, 3, 1, 5),
-                                   (5, 5, 1, 3)])
+                                   (5, 5, 1, 3), (3, 3, 1, 4)])
 def test_expand_dw_codes_equals_the_reference(shape):
-    rng = np.random.default_rng(sum(shape))
-    codes = rng.integers(-127, 128, shape).astype(np.int8)
+    """(3, 3, 1, 4) is ``test_depthwise.py``'s block-diagonal case, drawn
+    as it draws it."""
+    if shape == (3, 3, 1, 4):
+        codes = np.array(jax.random.randint(jax.random.PRNGKey(1), shape,
+                                            -127, 128, jnp.int8))
+    else:
+        rng = np.random.default_rng(sum(shape))
+        codes = rng.integers(-127, 128, shape).astype(np.int8)
     got = expand_dw_codes(torch.from_numpy(codes))
     want = np.asarray(j_expand(jnp.asarray(codes)))
     assert got.dtype == torch.int8
     np.testing.assert_array_equal(got.numpy(), want)
+    # block-diagonal: tap t's C x C block holds the tap's codes on its
+    # diagonal and nothing else
+    kh, kw, _, C = shape
+    taps = codes.reshape(kh * kw, C)
+    assert tuple(got.shape) == (kh * kw * C, C)
+    for t in range(kh * kw):
+        block = got.numpy()[t * C:(t + 1) * C]
+        np.testing.assert_array_equal(np.diag(block), taps[t])
+        assert np.count_nonzero(block - np.diag(np.diag(block))) == 0
     # the bits-bit view of the expansion is the expansion of the view
     for bits in (4, 2):
         np.testing.assert_array_equal(

@@ -119,6 +119,41 @@ def test_table2_slice_modules_are_among_those_imported_with_jax_blocked():
         assert all(hasattr(mod, n) for n in names), mod.__name__
 
 
+def test_autotune_slice_modules_import_alone_with_jax_blocked():
+    """The tile autotuner and the token stream are walked by the
+    jax-blocked import above, and each also imports on its own with jax and
+    the reference package blocked, pulling in neither; the autotune names
+    resolve."""
+    mods = {"repro_torch.kernels.autotune", "repro_torch.data.tokens"}
+    assert mods <= set(_modules())
+    for mod in sorted(mods):
+        code = ("import sys, importlib\n"
+                "for m in ('jax', 'jaxlib', 'repro'):\n"
+                "    sys.modules[m] = None\n"
+                f"importlib.import_module({mod!r})\n"
+                "bad = [m for m in sys.modules if m.split('.')[0] in "
+                "('jax', 'jaxlib', 'repro') and sys.modules[m] is not None]\n"
+                "assert not bad, bad\n")
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                             text=True, env=env, timeout=300)
+        assert out.returncode == 0, out.stderr
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.qconv_dw import ops as dwops
+    from repro_torch.kernels.qmatmul import ops as qops
+    for mod, names in ((autotune, ("CACHE_SCHEMA", "CacheFormatError",
+                                   "disk_put", "tuned_entries",
+                                   "autotune_cache_path", "time_candidates",
+                                   "choose")),
+                       (qops, ("pick_blocks", "candidate_tiles",
+                               "AUTOTUNE_CACHE_ENV", "autotune_cache_path",
+                               "_disk_key")),
+                       (dwops, ("pick_blocks_dw", "dw_tiles",
+                                "candidate_dw_tiles"))):
+        assert all(hasattr(mod, n) for n in names), mod.__name__
+    assert qops._disk_state is autotune._disk_state
+
+
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")] + ["chip_smoke.py"]))
 def test_no_source_line_imports_jax_or_repro(path):

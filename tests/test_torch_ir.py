@@ -161,3 +161,142 @@ def test_params_from_jax_checks_names_shapes_dtypes(which):
     bad.pop("fc/b")
     with pytest.raises(ValueError, match="missing"):
         t_models.params_from_jax(bad, "cpu")
+
+
+# ---------------------------------------------------------------------------
+# tests/test_ir.py on the port: each case builds its graph in both packages
+# from the same numpy arrays and asserts what the reference asserts on both
+# ---------------------------------------------------------------------------
+
+def _toy_graph(ir):
+    return ir.Graph(
+        name="toy",
+        nodes=[
+            ir.Node("Gemm", "fc1", ["input", "w1", "b1"], ["h"]),
+            ir.Node("Relu", "r1", ["h"], ["hr"]),
+            ir.Node("Gemm", "fc2", ["hr", "w2", "b2"], ["logits"]),
+        ],
+        inputs=[ir.TensorInfo("input", (1, 4))],
+        outputs=["logits"],
+        initializers={"w1": np.zeros((4, 8), np.float32),
+                      "b1": np.zeros(8, np.float32),
+                      "w2": np.zeros((8, 2), np.float32),
+                      "b2": np.zeros(2, np.float32)},
+    )
+
+
+BOTH = pytest.mark.parametrize("ir", [j_ir, t_ir], ids=["repro", "port"])
+
+
+@BOTH
+def test_validate_and_topo(ir):
+    g = _toy_graph(ir)
+    g.validate()
+    order = [n.name for n in g.topo_order()]
+    assert order.index("fc1") < order.index("r1") < order.index("fc2")
+    assert order == [n.name for n in _toy_graph(j_ir).topo_order()]
+
+
+@BOTH
+def test_topo_handles_shuffled_nodes(ir):
+    g = _toy_graph(ir)
+    g.nodes = g.nodes[::-1]
+    order = [n.name for n in g.topo_order()]
+    assert order.index("fc1") < order.index("fc2")
+
+
+@BOTH
+def test_undefined_input_rejected(ir):
+    g = _toy_graph(ir)
+    g.nodes[0].inputs[0] = "missing"
+    with pytest.raises(ValueError):
+        g.validate()
+
+
+@BOTH
+def test_cycle_rejected(ir):
+    g = _toy_graph(ir)
+    g.nodes[0].inputs[0] = "logits"
+    with pytest.raises(ValueError):
+        g.topo_order()
+
+
+@BOTH
+def test_unsupported_op_rejected(ir):
+    with pytest.raises(ValueError):
+        ir.Node("FancyOp", "x", [], [])
+
+
+def test_json_roundtrip(tmp_path):
+    """The port saves and loads a graph; the file reads back in the
+    reference identically, and the reference's in the port."""
+    g = _toy_graph(t_ir)
+    path = str(tmp_path / "g.json")
+    g.save(path)
+    g2 = t_ir.Graph.load(path)
+    assert [n.name for n in g2.nodes] == [n.name for n in g.nodes]
+    assert g2.initializers["w1"].shape == (4, 8)
+    np.testing.assert_array_equal(g2.initializers["w1"], g.initializers["w1"])
+    jg = j_ir.Graph.load(path)
+    assert jg.to_json() == g2.to_json()
+    jpath = str(tmp_path / "j.json")
+    _toy_graph(j_ir).save(jpath)
+    assert t_ir.Graph.load(jpath).to_json() == jg.to_json()
+
+
+@BOTH
+def test_producer_consumer_index(ir):
+    g = _toy_graph(ir)
+    assert g.producer_of("h").name == "fc1"
+    assert g.producer_of("input") is None
+    assert [n.name for n in g.consumers_of("hr")] == ["fc2"]
+    g.nodes = g.nodes[:-1]
+    assert g.producer_of("logits") is None
+
+
+def test_topo_order_handles_long_chain():
+    def chain(ir):
+        nodes, prev = [], "input"
+        for i in range(500):
+            nodes.append(ir.Node("Relu", f"r{i}", [prev], [f"t{i}"]))
+            prev = f"t{i}"
+        return ir.Graph("deep", nodes[::-1], [ir.TensorInfo("input", (1, 4))],
+                        [prev])
+
+    order = [n.name for n in chain(t_ir).topo_order()]
+    assert order == [f"r{i}" for i in range(500)]
+    assert order == [n.name for n in chain(j_ir).topo_order()]
+
+
+def test_roundtrip_preserves_pass_annotations(tmp_path):
+    from repro.core.passes import infer_shapes as j_infer
+    from repro.core.passes import make_assign_precision as j_assign
+    from repro_torch.core.passes import infer_shapes, make_assign_precision
+    g = make_assign_precision(TDT(16, 8))(infer_shapes(_toy_graph(t_ir)))
+    path = str(tmp_path / "g.json")
+    g.save(path)
+    g2 = t_ir.Graph.load(path)
+    assert g2.nodes[0].dtconfig == TDT(16, 8)
+    assert tuple(g2.value_info["logits"].shape) == (1, 2)
+    jg = j_assign(JDT(16, 8))(j_infer(_toy_graph(j_ir)))
+    assert jg.to_json() == g.to_json()
+
+
+def test_cnn_to_ir_matches_paper_topology():
+    """Paper: 2 conv blocks (conv, maxpool, batchnorm, relu) + 1 FC."""
+    jg, tg = _pair("mnist-cnn")
+    ops = [n.op for n in tg.topo_order()]
+    assert ops == ["Conv", "MaxPool", "BatchNormalization", "Relu"] * 2 + \
+        ["Flatten", "Gemm"]
+    assert ops == [n.op for n in jg.topo_order()]
+
+
+def test_mlp_to_ir():
+    sizes = [16, 8, 4]
+    params = {f"fc{i}/w": np.zeros((sizes[i], sizes[i + 1]), np.float32)
+              for i in range(2)}
+    params.update({f"fc{i}/b": np.zeros(sizes[i + 1], np.float32)
+                   for i in range(2)})
+    g = t_reader.mlp_to_ir(sizes, params)
+    assert [n.op for n in g.topo_order()] == ["Gemm", "Relu", "Gemm"]
+    assert g.to_json() == j_reader.mlp_to_ir(sizes, params).to_json()

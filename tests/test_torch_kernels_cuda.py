@@ -16,6 +16,26 @@ def cuda():
     return torch.device("cuda")
 
 
+@pytest.fixture(autouse=True)
+def autotune_cache(tmp_path, monkeypatch):
+    """Timed tile picks of these tests go to a temporary cache file, never
+    the home directory's."""
+    from repro_torch.kernels import autotune
+    path = tmp_path / "autotune.json"
+    monkeypatch.setenv(autotune.AUTOTUNE_CACHE_ENV, str(path))
+    return path
+
+
+# the qgemm and qconv_dw calls of both CNNs' qtorch paths at batch 1 and 8
+# (the serving buckets' ends), each mode and weight view
+PATH_GEMMS = [(b * m, k, n) for b in (1, 8)
+              for m, k, n in ((784, 9, 8), (196, 8, 16), (49, 16, 32),
+                              (1, 1568, 10), (784, 9, 16), (196, 144, 32))]
+PATH_DWS = [((b, 14, 14, c), st) for b in (1, 8)
+            for c, st in ((8, (1, 1)), (16, (2, 2)))]
+VIEWS = [(8, False), (4, True), (2, True)]
+
+
 @pytest.mark.cuda
 def test_qgemm_kernel_equals_plain_version(cuda):
     res = checks.qgemm_sweep(cuda)
@@ -317,3 +337,62 @@ def test_fleet_heals_a_master_code_flip_on_the_card(cuda):
     assert info["master_flip"]["served_after"] \
         == 24 * chip_smoke.FLEET_MASTER_FLIPS
     assert info["launches"]["qgemm"] > 0 and info["launches"]["qconv_dw"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8_act", [True, False])
+@pytest.mark.parametrize("shape", PATH_GEMMS)
+def test_every_qgemm_autotune_candidate_equals_plain_version(cuda, shape,
+                                                             int8_act):
+    """Every mapping a timed pick may return at a path call, launched with
+    its tiles: int8 bit for bit, f32 within ``float_qgemm_tol``."""
+    for bits, packed in VIEWS:
+        res = checks.qgemm_candidates_check(cuda, *shape, bits=bits,
+                                            packed=packed, int8_act=int8_act)
+        torch.cuda.synchronize()
+        assert res["failures"] == [], res["failures"]
+        assert res["max_tol_frac"] <= 1.0
+        if int8_act:
+            assert res["max_abs_err"] == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8_act", [True, False])
+@pytest.mark.parametrize("shape,strides", PATH_DWS)
+def test_every_qconv_dw_autotune_tile_equals_plain_version(cuda, shape,
+                                                           strides, int8_act):
+    """Every (ct, owb) a timed pick may return at a path call, launched with
+    its tile: bit for bit in both modes."""
+    for bits, packed in VIEWS:
+        res = checks.qconv_dw_candidates_check(
+            cuda, *shape, kh=3, kw=3, strides=strides, pads="SAME",
+            bits=bits, packed=packed, int8_act=int8_act)
+        torch.cuda.synchronize()
+        assert res["failures"] == [] and res["max_abs_err"] == 0.0
+
+
+@pytest.mark.cuda
+def test_timed_picks_sweep_once_and_persist(cuda, autotune_cache):
+    """A timed pick sweeps its candidates once on the card, reports every
+    candidate's windows, writes the pick through to the cache file, and is
+    found in L1 afterwards; the dw pick likewise."""
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.qconv_dw import ops as dwops
+    from repro_torch.kernels.qmatmul import ops as qops
+    qops._BLOCK_CACHE.clear()
+    dwops._TILE_CACHE.clear()
+    before = (qops.pick_blocks.sweeps, dwops.pick_blocks_dw.sweeps)
+    t = qops.pick_blocks(1568, 8, 16, 8, timed=True)
+    d = dwops.pick_blocks_dw(8, 14, 14, 16, kh=3, kw=3, strides=(2, 2),
+                             timed=True)
+    assert qops.pick_blocks(1568, 8, 16, 8, timed=True) == t
+    assert (qops.pick_blocks.sweeps, dwops.pick_blocks_dw.sweeps) == (
+        before[0] + 1, before[1] + 1)
+    r = qops.sweep_reports[-1]
+    assert len(r["candidates"]) == len(qops.candidate_tiles(1568, 8, 16))
+    assert all(len(c["windows_ms"]) == autotune.SWEEP_WINDOWS and
+               0 < c["best_ms"] < 1.0 for c in r["candidates"])
+    assert autotune.tuned_entries() == {
+        "qgemm:1568:8:16:8:1:0": qops.encode_tiles(t),
+        "qconv_dw:8:14:14:16:7x7:3x3:2x2:8:1:0": d}
+    assert autotune_cache.exists()
