@@ -144,6 +144,30 @@ Phases, each of which raises (and exits non-zero) on failure:
       requests of 1-8 rows walking W8 -> W4 -> W2, every result equal to
       the CPU plain path, ``qgemm`` launched on every batch, accuracy per
       point;
+   m-p. the vision-stub, MoE and encoder-decoder families
+      (:func:`lm_family_paths`, each as j and k, seeded weights from a CUDA
+      generator freed after its phase, every launch counter 0 on every run
+      since no kernel of the port is on their path, the phase's peak device
+      memory printed beside the card's name and power limit):
+      m. phi-3-vision-4.2b at full width (32 layers, 3.83e9 parameters):
+         the bf16 prefill of (4, 2048) tokens with (4, 576, 3072) patches,
+         finite logits, tokens/s; the logits move when the patches move;
+         the f32 check on 4 layers; the server and ``greedy_generate``;
+      n. granite-moe-3b-a800m at full width (32 layers, 40 experts top-8,
+         3.30e9 parameters): the same prefill, finite positive
+         ``lb_loss``/``z_loss``; the f32 check on 4 layers at capacity
+         factor 8 (no slot drops, as the reference's test); the server and
+         ``greedy_generate``;
+      o. mixtral-8x7b at full width on 4 of its 32 layers (the cut and its
+         reason printed: 93.4 GB in bf16 over the card's 80 GB): the
+         prefill on the banded schedule, the f32 check on 2 layers at
+         capacity factor 8, the server and ``greedy_generate``;
+      p. whisper-base in full (6 + 6 layers, ``enc_seq`` 1500, 448 decoder
+         positions): frames (4, 1500, 512) bf16, a teacher-forced prefill
+         of (4, 448) (decoder tokens/s) and the encoder alone (frames/s);
+         the f32 check at full width on (2, 64); the server over
+         ``EncDecDecodeState`` and ``greedy_generate`` with the frames in
+         ``batch_extras``;
 6. times — each kernel and mode, its plain version and the nearest PyTorch
    library call at the main paths' batch-8 shapes: device time per call
    from the profiler's CUDA activity (and the per-call time of back-to-back
@@ -162,8 +186,10 @@ Phases, each of which raises (and exits non-zero) on failure:
    plain version with the bf16 intra flag off and on, and each of its
    phases alone beside the bound of its own work; one layer's attention
    prefill (``attention.attend``, q, k, v to output) at hymba's (banded)
-   and qwen's (chunked) call beside ``F.scaled_dot_product_attention`` on
-   the same q, k and v, a yardstick the port never calls;
+   and qwen's (chunked) call and whisper's non-causal encoder call (4,
+   1500) beside ``F.scaled_dot_product_attention`` on the same q, k and v,
+   a yardstick the port never calls; one layer's ``moe_block`` at granite's
+   (4, 2048) call beside the bound of the slots its routing keeps;
    ``qgemm``'s per-row x-scale mode at pw0; ``qmatmul`` at mnist-cnn's FC
    (8 x 1568 x 10) and conv1 as im2col (1568 x 144 x 32) beside
    ``torch.matmul`` on the bf16-rounded x and the dequantized weights; the im2col
@@ -1826,11 +1852,21 @@ def fleet_path(name: str, cfg, card: str = "", device: str = "cuda",
     return info
 
 
-# -- LM paths: mamba2-1.3b, hymba-1.5b, qwen1.5-0.5b ---------------------------
+# -- LM paths: mamba2-1.3b, hymba-1.5b, qwen1.5-0.5b, phi-3-vision-4.2b,
+# granite-moe-3b-a800m, mixtral-8x7b, whisper-base ---------------------------
 
 LM_ARCH = "mamba2-1.3b"
 HYBRID_ARCH = "hymba-1.5b"
 DENSE_ARCH = "qwen1.5-0.5b"
+VLM_ARCH = "phi-3-vision-4.2b"
+MOE_ARCH = "granite-moe-3b-a800m"
+MIXTRAL_ARCH = "mixtral-8x7b"
+AUDIO_ARCH = "whisper-base"
+# mixtral's 32 layers hold 46.7e9 parameters, 93.4 GB in bf16, over the
+# card's 80 GB, and AdaptiveLMServer.decode dequantizes the whole tree at
+# every step: the phase runs it at full width on 4 layers
+MIXTRAL_LAYERS = 4
+WHISPER_MAX_SEQ = 448            # whisper's decoder positions
 LM_POINTS = (("w8", 8), ("w4", 4), ("w2", 2))
 
 
@@ -1840,13 +1876,43 @@ def _sync(device) -> None:
         torch.cuda.synchronize()
 
 
-def lm_params(cfg, device: str = "cuda") -> dict:
+def lm_params(cfg, device: str = "cuda", max_seq: int = 0) -> dict:
     """Seeded random weights of ``cfg``, drawn on ``device`` by a generator
-    seeded from SEED (the reference's distributions)."""
+    seeded from SEED (the reference's distributions); ``max_seq`` sizes the
+    encoder-decoder's decoder positions."""
     import torch
     from repro_torch.models.params import init_params
     g = torch.Generator(device=device).manual_seed(SEED)
-    return init_params(cfg, g, device=device)
+    return init_params(cfg, g, max_seq=max_seq, device=device)
+
+
+def _lm_extras(cfg, batch: int, seed: int, device: str,
+               patches: bool = True) -> dict:
+    """The family's inputs beside the tokens, in the model's dtype, from a
+    generator on ``device`` seeded with ``seed``: whisper's frames (batch,
+    enc_seq, d), the vision stub's patches (batch, n_patches, d) unless
+    ``patches`` is off."""
+    import torch
+    dt = {"bfloat16": torch.bfloat16, "float32": torch.float32}[cfg.dtype]
+    g = torch.Generator(device=device).manual_seed(seed)
+    out = {}
+    if cfg.family == "audio":
+        out["frames"] = torch.randn((batch, cfg.enc_seq, cfg.d_model),
+                                    generator=g, device=device, dtype=dt)
+    if cfg.n_patches and patches:
+        out["patches"] = torch.randn((batch, cfg.n_patches, cfg.d_model),
+                                     generator=g, device=device, dtype=dt)
+    return out
+
+
+def _expect_no_stray_launches(name: str, launches: dict, cfg) -> None:
+    """An LM path runs no kernel of the port but ``ssd_scan`` (and that only
+    with an SSM block): every other counter must read 0, so no stray path
+    hides; for the MoE, encoder-decoder and vision families every counter."""
+    fired = {k: n for k, n in launches.items()
+             if n and not (cfg.ssm is not None and k.startswith("ssd_scan"))}
+    if fired:
+        raise AssertionError(f"{name}: launched {fired}, expected none")
 
 
 def _tokens(cfg, shape, seed: int, device: str):
@@ -1871,20 +1937,27 @@ def _expect_ssd_launches(name: str, launches: dict, cfg,
 
 def lm_prefill_path(cfg, params, batch: int = 4, seq: int = 2048,
                     device: str = "cuda", reps: int = 3) -> dict:
-    """``make_prefill_step(cfg)`` on (batch, seq) tokens: one prefill with
-    the counters zeroed just before it and read just after (one
-    ``ssd_scan`` launch per layer with an SSM block, none for a dense
-    model), finite logits of the padded vocab, then ``reps`` timed prefills
-    for tokens/s."""
+    """The prefill on (batch, seq) tokens, with whisper's frames or the
+    vision stub's patches: one ``model_api.forward_logits`` with the
+    counters zeroed just before it and read just after (one ``ssd_scan``
+    launch per layer with an SSM block, none for a dense model), finite
+    logits of the padded vocab and, for MoE, finite positive aux losses;
+    then ``reps`` timed ``make_prefill_step(cfg)`` calls for tokens/s.  With
+    patches, moving them must move the logits; for whisper the encoder is
+    also timed alone (frames/s)."""
+    import math
     import statistics
     import torch
+    from repro_torch.models import encdec
     from repro_torch.models.attention import prefill_route
+    from repro_torch.runtime import model_api
     from repro_torch.runtime.serve import make_prefill_step
     toks = _tokens(cfg, (batch, seq), SEED + 5, device)
+    feed = {"tokens": toks, **_lm_extras(cfg, batch, SEED + 10, device)}
     prefill = make_prefill_step(cfg)
     _zero_counts()
     t0 = time.perf_counter()
-    logits = prefill(params, {"tokens": toks})
+    logits, aux = model_api.forward_logits(params, feed, cfg)
     _sync(device)
     first_s = time.perf_counter() - t0
     launches = _read_counts()
@@ -1893,34 +1966,61 @@ def lm_prefill_path(cfg, params, batch: int = 4, seq: int = 2048,
         raise AssertionError(f"{name}: logits {tuple(logits.shape)}")
     if not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"{name}: non-finite logits")
+    aux = {k: float(v) for k, v in aux.items()}
+    if cfg.moe is not None and not all(math.isfinite(v) and v > 0
+                                       for v in aux.values()):
+        raise AssertionError(f"{name}: MoE aux losses {aux}")
     _expect_ssd_launches(name, launches, cfg, device)
-    secs = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        prefill(params, {"tokens": toks})
-        _sync(device)
-        secs.append(time.perf_counter() - t0)
+
+    def timed(fn) -> list:
+        secs = []
+        for _ in range(reps):
+            t1 = time.perf_counter()
+            fn()
+            _sync(device)
+            secs.append(time.perf_counter() - t1)
+        return secs
+
+    secs = timed(lambda: prefill(params, feed))
     med = statistics.median(secs)
     info = {"path": f"prefill {cfg.dtype} ({batch}, {seq})",
             "model": cfg.name, "launches": launches,
             "attention": None if cfg.attention_free
             else prefill_route(cfg, seq), "first_s": first_s,
             "prefill_s": secs, "tokens_per_s": batch * seq / med,
-            "logits_max_abs": float(logits.float().abs().max())}
+            "logits_max_abs": float(logits.float().abs().max()), "aux": aux}
+    if "patches" in feed:
+        moved = prefill(params, dict(feed, patches=feed["patches"] + 1.0))
+        diff = float((moved - logits).abs().max())
+        if not diff > 1e-3:
+            raise AssertionError(f"{name}: moving the patches moved the "
+                                 f"logits by {diff}")
+        info["patches_moved_logits_max_abs"] = diff
+        del moved
+    if "frames" in feed:
+        enc = timed(lambda: encdec.encode(params, feed["frames"], cfg))
+        info["encoder_s"] = enc
+        info["encoder_frames_per_s"] = batch * cfg.enc_seq / \
+            statistics.median(enc)
     log(f"main path {cfg.name} prefill: " + json.dumps(info))
     return info
 
 
 def lm_f32_decode_check(cfg, batch: int = 2, seq: int = 100,
                         device: str = "cuda", n_layers=None,
-                        sliding_window=None, q_chunk=None) -> dict:
+                        sliding_window=None, q_chunk=None,
+                        capacity_factor=None) -> dict:
     """In an f32 copy of ``cfg``: ``forward`` (through the scan kernel where
-    the model has an SSM block) against ``decode_step`` fed token by token,
-    every logit within the reference's ``5e-3*max|logit|``
-    (tests/test_serve.py).  ``n_layers``, ``sliding_window`` and ``q_chunk``
-    (attention's ``Q_CHUNK`` for the run) cut the config so a short run
-    reaches the banded prefill and wraps the decode ring buffer, which a
-    ``sliding_window`` cut must then do; each cut is named in the output."""
+    the model has an SSM block; whisper with f32 frames; the vision stub
+    without patches, which decode never sees) against ``decode_step`` fed
+    token by token, every logit within the reference's
+    ``5e-3*max|logit|`` (tests/test_serve.py).  ``n_layers``,
+    ``sliding_window`` and ``q_chunk`` (attention's ``Q_CHUNK`` for the
+    run) cut the config so a short run reaches the banded prefill and wraps
+    the decode ring buffer, which a ``sliding_window`` cut must then do;
+    ``capacity_factor`` lifts MoE capacity so no slot drops at T = batch or
+    T = batch*seq, as the reference's test does; each change is named in
+    the output."""
     import dataclasses
     import torch
     from repro_torch.models import attention
@@ -1932,19 +2032,26 @@ def lm_f32_decode_check(cfg, batch: int = 2, seq: int = 100,
         cuts["sliding_window"] = sliding_window
     for k, v in cuts.items():
         reduced[k] = f"{getattr(cfg, k)} -> {v}"
+    if capacity_factor is not None:
+        cuts["moe"] = dataclasses.replace(cfg.moe,
+                                          capacity_factor=capacity_factor)
+        reduced["moe.capacity_factor"] = \
+            f"{cfg.moe.capacity_factor} -> {capacity_factor}"
     cfg32 = dataclasses.replace(cfg, dtype="float32", **cuts)
     q_chunk_was = attention.Q_CHUNK
     if q_chunk is not None:
         reduced["attention.Q_CHUNK"] = f"{q_chunk_was} -> {q_chunk}"
         attention.Q_CHUNK = q_chunk
     try:
-        params = lm_params(cfg32, device)
+        params = lm_params(cfg32, device, max_seq=seq)
         toks = _tokens(cfg32, (batch, seq), SEED + 6, device)
+        feed = {"tokens": toks, **_lm_extras(cfg32, batch, SEED + 11, device,
+                                             patches=False)}
         route = None if cfg32.attention_free else \
             attention.prefill_route(cfg32, seq)
         _zero_counts()
         t0 = time.perf_counter()
-        fwd, _ = model_api.forward_logits(params, {"tokens": toks}, cfg32)
+        fwd, _ = model_api.forward_logits(params, feed, cfg32)
         _sync(device)
         fwd_s = time.perf_counter() - t0
         launches = _read_counts()
@@ -1952,8 +2059,8 @@ def lm_f32_decode_check(cfg, batch: int = 2, seq: int = 100,
         attention.Q_CHUNK = q_chunk_was
     name = f"{cfg.name} f32 forward"
     _expect_ssd_launches(name, launches, cfg32, device)
-    st = model_api.init_decode_state(params, {"tokens": toks}, cfg32, batch,
-                                     seq, dtype=torch.float32)
+    st = model_api.init_decode_state(params, feed, cfg32, batch, seq,
+                                     dtype=torch.float32)
     ring = None if st.cache_k is None else st.cache_k.shape[2]
     err = torch.zeros((), device=device)
     t0 = time.perf_counter()
@@ -1988,8 +2095,11 @@ def lm_serve_path(cfg, params, batch: int = 4, steps: int = 12,
     decode steps at thresholds 0.66/0.33: the points seen are w8, w4, w2 in
     order, weight bytes fall with the point, the master codes are unchanged
     and every logit is finite; then ``greedy_generate`` of ``new`` tokens
-    after a ``prompt_len``-token prompt.  The decode path launches no
-    kernel of this slice (the scan kernel runs in the prefill)."""
+    after a ``prompt_len``-token prompt.  Whisper's state comes from its
+    encoder run on the frames, which ``greedy_generate`` takes in
+    ``batch_extras`` (the vision stub's patches too, which decode never
+    reads).  The decode path launches no kernel of the port (the scan
+    kernel runs in the prefill)."""
     import statistics
     import torch
     from repro_torch.core.adaptive import RuntimePolicy, WorkingPoint
@@ -2005,8 +2115,9 @@ def lm_serve_path(cfg, params, batch: int = 4, steps: int = 12,
     quantize_s = time.perf_counter() - t0
     codes = {k: v.clone() for k, v in srv.qparams.codes.items()}
     tok = _tokens(cfg, (batch, 1), SEED + 7, device)
-    state = model_api.init_decode_state(params, {"tokens": tok}, cfg, batch,
-                                        steps + 1)
+    extras = _lm_extras(cfg, batch, SEED + 12, device)
+    state = model_api.init_decode_state(params, {"tokens": tok, **extras},
+                                        cfg, batch, steps + 1)
     seen, nbytes, step_s = [], {}, {}
     for i in range(steps):
         t1 = time.perf_counter()
@@ -2029,7 +2140,7 @@ def lm_serve_path(cfg, params, batch: int = 4, steps: int = 12,
     prompt = _tokens(cfg, (batch, prompt_len), SEED + 8, device)
     t1 = time.perf_counter()
     out = greedy_generate(params, cfg, prompt, max_new=new,
-                          seq_len=prompt_len + new)
+                          seq_len=prompt_len + new, batch_extras=extras)
     _sync(device)
     gen_s = time.perf_counter() - t1
     if tuple(out.shape) != (batch, prompt_len + new) \
@@ -2049,16 +2160,74 @@ def lm_serve_path(cfg, params, batch: int = 4, steps: int = 12,
     return info
 
 
-def lm_paths(cfg, **check) -> list:
-    """One LM at full width on the card: :func:`lm_prefill_path`,
-    :func:`lm_f32_decode_check` (``check`` cuts its config) and
-    :func:`lm_serve_path`, on seeded weights freed afterwards."""
+def lm_paths(cfg, card: str = "", seq: int = 2048, max_seq: int = 0,
+             device: str = "cuda", check=None) -> list:
+    """One LM at full width on the card: :func:`lm_prefill_path` on (4,
+    ``seq``), :func:`lm_f32_decode_check` (``check`` cuts its config) and
+    :func:`lm_serve_path`, on seeded weights freed afterwards (``max_seq``
+    sizes whisper's decoder positions).  No run launches a kernel of the
+    port but ``ssd_scan``.  Prints the phase's peak device memory beside
+    ``card``."""
     import torch
-    params = lm_params(cfg)
-    out = [lm_prefill_path(cfg, params), lm_f32_decode_check(cfg, **check),
-           lm_serve_path(cfg, params)]
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm_params(cfg, device, max_seq=max_seq)
+    out = [lm_prefill_path(cfg, params, seq=seq, device=device),
+           lm_f32_decode_check(cfg, device=device, **(check or {})),
+           lm_serve_path(cfg, params, device=device)]
     del params
-    torch.cuda.empty_cache()
+    for p in out:
+        _expect_no_stray_launches(f"{cfg.name} {p['path']}", p["launches"],
+                                  cfg)
+    if device == "cuda":
+        peak = torch.cuda.max_memory_allocated()
+        torch.cuda.empty_cache()
+        out[0]["peak_memory_bytes"] = peak
+        enc = out[0].get("encoder_frames_per_s")
+        log(f"phase {cfg.name}: prefill {out[0]['tokens_per_s']:.1f} "
+            "tokens/s" + ("" if enc is None else
+                          f", encoder {enc:.1f} frames/s")
+            + f", peak memory {peak} B ({peak / 2 ** 30:.2f} GiB), "
+            f"{time.perf_counter() - t0:.1f} s, on {card}")
+    return out
+
+
+def lm_family_paths(card: str = "", device: str = "cuda") -> list:
+    """Phases m-p: the vision stub, MoE and encoder-decoder families at full
+    width, none of which runs a kernel of the port (every counter of every
+    run 0).  m: phi-3-vision-4.2b, its prefill with (4, 576, d)
+    patches, the f32 check on 4 layers; n: granite-moe-3b-a800m, the f32
+    check on 4 layers at capacity factor 8; o: mixtral-8x7b on
+    ``MIXTRAL_LAYERS`` of its 32 layers (the banded prefill), the f32 check
+    on 2 of them at capacity factor 8; p: whisper-base in full, a (4, 448)
+    teacher-forced prefill on (4, 1500, d) frames, the f32 check on (2,
+    64)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    out = lm_paths(get_config(VLM_ARCH), card, device=device,
+                   check=dict(n_layers=4))
+    out += lm_paths(get_config(MOE_ARCH), card, device=device,
+                    check=dict(n_layers=4, seq=64, capacity_factor=8.0))
+    full = get_config(MIXTRAL_ARCH)
+    cut = dataclasses.replace(full, n_layers=MIXTRAL_LAYERS)
+    reduced = {"n_layers": f"{full.n_layers} -> {MIXTRAL_LAYERS}",
+               "why": f"{full.param_count() / 1e9:.1f}e9 parameters, "
+                      f"{2 * full.param_count() / 1e9:.1f} GB in bf16, over "
+                      "the card's 80 GB; AdaptiveLMServer.decode also "
+                      "dequantizes the whole tree every step"}
+    log(f"{MIXTRAL_ARCH} cut: " + json.dumps(reduced))
+    mix = lm_paths(cut, card, device=device,
+                   check=dict(n_layers=2, seq=64, capacity_factor=8.0))
+    if mix[0]["attention"] != "banded":
+        raise AssertionError(f"{MIXTRAL_ARCH} prefill took the "
+                             f"{mix[0]['attention']} route, not banded")
+    for p in mix:
+        p["reduced"] = dict(reduced, **p.get("reduced", {}))
+    out += mix
+    out += lm_paths(get_config(AUDIO_ARCH), card, seq=WHISPER_MAX_SEQ,
+                    max_seq=WHISPER_MAX_SEQ, device=device,
+                    check=dict(seq=64))
     return out
 
 
@@ -2262,6 +2431,7 @@ def times() -> dict:
     rows.update(times_float(g, dev))
     rows.update(times_ssd(dev))
     rows.update(times_attention(dev))
+    rows.update(times_moe(dev))
     for name, rs in rows.items():
         for r in rs:
             log(f"time {name} {json.dumps(r)}")
@@ -2564,13 +2734,14 @@ def time_ssd_call(dev, shape) -> dict:
 
 
 def attention_bound(B: int, S: int, H: int, Hkv: int, Dh: int, window,
-                    itemsize: int = 2) -> dict:
+                    itemsize: int = 2, causal: bool = True) -> dict:
     """The least time for one layer's prefill attention from q, k, v (after
     RoPE) to its output: bytes are q, k, v and the output, each once;
     operations are q.k and p.v over the (query, key) pairs the causal
-    (and window) mask keeps, as multiply-adds over 989 bf16 TFLOP/s."""
+    (and window) mask keeps, every pair without one, as multiply-adds over
+    989 bf16 TFLOP/s."""
     w = S if window is None else min(window, S)
-    pairs = sum(min(i + 1, w) for i in range(S))
+    pairs = sum(min(i + 1, w) for i in range(S)) if causal else S * S
     nbytes = itemsize * B * S * Dh * (2 * H + 2 * Hkv)
     return _bound(nbytes, 4 * B * H * pairs * Dh, BF16_FLOPS_PER_S)
 
@@ -2579,7 +2750,8 @@ def times_attention(dev) -> dict:
     """One layer's attention prefill (``attention.attend``, from q, k, v
     after RoPE to the output before ``wo``) at the (4, 2048) bf16 prefill
     calls of hymba-1.5b (GQA 25/5, window 2048: the banded schedule) and
-    qwen1.5-0.5b (16 heads: the chunked schedule), beside
+    qwen1.5-0.5b (16 heads: the chunked schedule), and at whisper-base's
+    non-causal encoder call (4, 1500, 8 heads: unchunked), beside
     ``F.scaled_dot_product_attention`` on the same q, k and v (a yardstick
     only: the port never calls it) and the bound of the work."""
     import torch
@@ -2588,9 +2760,11 @@ def times_attention(dev) -> dict:
     from repro_torch.models.attention import attend, prefill_route
     rows = []
     g = torch.Generator(device=dev).manual_seed(SEED + 9)
-    for arch in (HYBRID_ARCH, DENSE_ARCH):
+    for arch, S, causal in ((HYBRID_ARCH, 2048, True),
+                            (DENSE_ARCH, 2048, True),
+                            (AUDIO_ARCH, 1500, False)):
         cfg = get_config(arch)
-        B, S, H, Hkv, Dh = 4, 2048, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        B, H, Hkv, Dh = 4, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         q, k, v = (torch.randn((B, S, h, Dh), generator=g, device=dev,
                                dtype=torch.bfloat16)
                    for h in (H, Hkv, Hkv))
@@ -2604,17 +2778,19 @@ def times_attention(dev) -> dict:
 
         def lib():
             return F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+                qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
                 enable_gqa=Hkv != H)
 
-        out = attend(q, k, v, pos, pos, cfg)
+        out = attend(q, k, v, pos, pos, cfg, causal)
         diff = float((out.float() - lib().transpose(1, 2).float()).abs()
                      .max())
         row = dict(model=arch, shape=[B, S, H, Hkv, Dh], window=win,
-                   route=prefill_route(cfg, S), dtype="bfloat16",
-                   kernel=_measure(lambda: attend(q, k, v, pos, pos, cfg), 10),
+                   causal=causal, route=prefill_route(cfg, S, causal),
+                   dtype="bfloat16",
+                   kernel=_measure(lambda: attend(q, k, v, pos, pos, cfg,
+                                                  causal), 10),
                    library=_measure(lib, 20), sdpa_max_abs_diff=diff,
-                   **attention_bound(B, S, H, Hkv, Dh, win))
+                   **attention_bound(B, S, H, Hkv, Dh, win, causal=causal))
         log(f"time attention {arch} {row['route']} {row['shape']}: "
             f"{_ms(row['kernel'])} ms (SDPA {_ms(row['library'])} ms, bound "
             f"{row['bound_ms']} ms {row['bound_by']}, max |port - SDPA| "
@@ -2622,6 +2798,49 @@ def times_attention(dev) -> dict:
         rows.append(row)
         del q, k, v, qt, kt, vt, out
     return {"attention": rows}
+
+
+def times_moe(dev) -> dict:
+    """One layer's ``moe_block`` at granite-moe-3b-a800m's (4, 2048) bf16
+    prefill call (40 experts top-8, capacity factor 1; seeded weights and
+    input), beside the least time of the work this call's routing keeps:
+    bytes are x, the router, the 40 experts' weights and y, each once;
+    operations are the router product and each kept slot's three expert
+    products, as multiply-adds over 989 bf16 TFLOP/s.  No single PyTorch
+    call computes it (library None); 32 of these calls are granite's
+    prefill MoE share."""
+    import math
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config(MOE_ARCH)
+    m = cfg.moe
+    B, S, d, E, k, f = 4, 2048, cfg.d_model, m.n_experts, m.top_k, \
+        m.d_ff_expert
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+
+    def w(*shape):
+        return (torch.randn(shape, generator=g, device=dev)
+                * shape[-2] ** -0.5).to(torch.bfloat16)
+
+    p = moe.MoELayerParams(router=w(d, E), w_gate=w(1, E, d, f),
+                           w_up=w(1, E, d, f), w_down=w(1, E, f, d))
+    x = torch.randn((B, S, d), generator=g, device=dev).to(torch.bfloat16)
+    T = B * S
+    cap = min(max(int(math.ceil(T * k * m.capacity_factor / E)), 1), T)
+    _, experts, _ = moe.route(x.reshape(T, d), p.router, k)
+    kept = int(torch.clamp(torch.bincount(experts.reshape(-1), minlength=E),
+                           max=cap).sum())
+    nbytes = 2 * (2 * T * d + d * E + 3 * E * d * f)
+    ops = 2 * T * d * E + kept * 3 * 2 * d * f
+    row = dict(model=MOE_ARCH, shape=[B, S, d, E, k, f], capacity=cap,
+               kept_slots=kept, routed_slots=T * k, dtype="bfloat16",
+               kernel=_measure(lambda: moe.moe_block(x, p, cfg), 10),
+               library=None, **_bound(nbytes, ops, BF16_FLOPS_PER_S))
+    log(f"time moe_block {MOE_ARCH} {row['shape']}: {_ms(row['kernel'])} ms "
+        f"(bound {row['bound_ms']} ms {row['bound_by']}; {kept} of {T * k} "
+        f"slots kept at capacity {cap})")
+    return {"moe_block": [row]}
 
 
 def conv2d_stream_main() -> int:
@@ -2710,12 +2929,13 @@ def main(argv=None) -> int:
              im2col_path("separable-cnn", sep_cfg, act_bits=16),
              fleet_path("separable-cnn", sep_cfg, card),
              table2_path(mnist_cfg, card)]
-    paths += lm_paths(get_config(LM_ARCH))
+    paths += lm_paths(get_config(LM_ARCH), card)
     # hymba's f32 check on 4 layers, window 64 and Q_CHUNK 64: the banded
     # prefill and a decode that wraps the ring buffer, at full width
-    paths += lm_paths(get_config(HYBRID_ARCH), seq=256, n_layers=4,
-                      sliding_window=64, q_chunk=64)
-    paths += lm_paths(get_config(DENSE_ARCH))
+    paths += lm_paths(get_config(HYBRID_ARCH), card, check=dict(
+        seq=256, n_layers=4, sliding_window=64, q_chunk=64))
+    paths += lm_paths(get_config(DENSE_ARCH), card)
+    paths += lm_family_paths(card)
     rows = times()
 
     # the JSON row of each kernel and mode: the path run whose launches it
@@ -2879,9 +3099,15 @@ def main(argv=None) -> int:
         if "decode_tokens_per_s" in p:
             log(f"LM {p['model']} decode tokens/s per point: "
                 + json.dumps(p["decode_tokens_per_s"]))
+        if "encoder_frames_per_s" in p:
+            log(f"LM {p['model']} encoder: {p['encoder_frames_per_s']:.1f} "
+                "frames/s")
     for r in rows["attention"]:
         log(f"attention {r['model']} {r['route']}: {_ms(r['kernel'])} ms, "
             f"SDPA {_ms(r['library'])} ms, bound {r['bound_ms']} ms")
+    for r in rows["moe_block"]:
+        log(f"moe_block {r['model']}: {_ms(r['kernel'])} ms, bound "
+            f"{r['bound_ms']} ms")
     log(f"total {time.perf_counter() - t_all:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

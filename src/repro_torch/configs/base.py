@@ -3,8 +3,7 @@
 
 Every LM architecture is expressed as a :class:`ModelConfig`; reduced
 ("smoke") variants are derived with :meth:`ModelConfig.smoke` so CPU tests
-stay cheap.  The port runs only the architectures
-:func:`repro_torch.configs.get_config` lists.
+stay cheap.
 """
 from __future__ import annotations
 

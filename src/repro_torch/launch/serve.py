@@ -49,8 +49,13 @@ def main(argv: Optional[List[str]] = None) -> list:
                               RuntimePolicy(points, thresholds=[0.66, 0.33]))
 
     tok = torch.randint(0, cfg.vocab, (args.batch, 1), generator=g, device=dev)
-    state = model_api.init_decode_state(params, {"tokens": tok}, cfg,
-                                        args.batch, args.seq)
+    batch = {"tokens": tok}
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn((args.batch, cfg.enc_seq, cfg.d_model),
+                                      generator=g, device=dev,
+                                      dtype=torch.bfloat16)
+    state = model_api.init_decode_state(params, batch, cfg, args.batch,
+                                        args.seq)
     budget = 1.0
     switches = []
     last_pt = None

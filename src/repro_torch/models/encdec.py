@@ -1,0 +1,145 @@
+"""Whisper-style encoder-decoder (counterpart of ``repro.models.encdec``).
+
+The conv/mel audio frontend is a stub: the encoder consumes precomputed
+frame embeddings (B, enc_seq, d_model).  Learned absolute positions
+(``enc_pos`` / ``dec_pos``), pre-LayerNorm, GELU MLPs, cross-attention from
+the decoder to the encoder output.  The reference's layer scans become
+Python loops over slices of the stacked trees, as in ``transformer``.
+
+The frames must come in the model's dtype: the reference promotes mixed
+f32/bf16 operands, while ``torch.matmul`` refuses them.
+``abstract_decode_state`` waits with the distributed writer (ROADMAP
+Queue 1 item 6).
+"""
+from __future__ import annotations
+
+from typing import Dict, NamedTuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.attention import attention, decode_attention
+from repro_torch.models.common import embed_lookup, norm, unembed
+from repro_torch.models.transformer import (_attn_params, _layer, _mlp,
+                                            layer_tree)
+
+
+def encode(params: Dict[str, torch.Tensor], frames: torch.Tensor,
+           cfg: ModelConfig) -> torch.Tensor:
+    """frames: (B, enc_seq, d) stub embeddings -> (B, enc_seq, d)."""
+    if frames.dtype != params["enc_pos"].dtype:
+        raise ValueError(f"{cfg.name}: frames are {frames.dtype}, the model "
+                         f"is {params['enc_pos'].dtype}")
+    x = frames + params["enc_pos"][None, : frames.shape[1]]
+    lt = layer_tree(params, "enc/")
+    positions = torch.arange(frames.shape[1], device=x.device)
+    for i in range(cfg.enc_layers):
+        lp = _layer(lt, i)
+        xn = norm(x, lp["attn_norm/w"], cfg.norm)
+        a, _, _ = attention(xn, _attn_params(lp), cfg, positions=positions,
+                            causal=False)
+        x = x + a
+        x = x + _mlp(norm(x, lp["mlp_norm/w"], cfg.norm), lp, cfg)
+    return norm(x, params["enc_final_norm/w"], cfg.norm)
+
+
+def _cross_kv(enc_out: torch.Tensor, lp: Dict[str, torch.Tensor],
+              cfg: ModelConfig):
+    B, Se, _ = enc_out.shape
+    k = torch.matmul(enc_out, lp["cross/wk"])
+    v = torch.matmul(enc_out, lp["cross/wv"])
+    return (k.reshape(B, Se, cfg.n_kv_heads, cfg.head_dim),
+            v.reshape(B, Se, cfg.n_kv_heads, cfg.head_dim))
+
+
+def forward(params: Dict[str, torch.Tensor], tokens: torch.Tensor,
+            frames: torch.Tensor, cfg: ModelConfig, *,
+            collect_cache: bool = False):
+    """Teacher-forced decode pass.  tokens: (B, S); frames: (B, enc_seq, d)
+    -> (logits (B, S, Vp), aux); with ``collect_cache`` also the stacked
+    per-layer (k, v, cross_k, cross_v), each (L, B, S or enc_seq, Hkv, Dh)."""
+    enc_out = encode(params, frames, cfg)
+    S = tokens.shape[1]
+    x = embed_lookup(params["embed/table"], tokens)
+    x = x + params["dec_pos"][None, :S].to(x.dtype)
+    positions = torch.arange(S, device=x.device)
+    enc_pos = torch.arange(enc_out.shape[1], device=x.device)
+    lt = layer_tree(params)
+    caches = []
+    for i in range(cfg.n_layers):
+        lp = _layer(lt, i)
+        xn = norm(x, lp["attn_norm/w"], cfg.norm)
+        a, k, v = attention(xn, _attn_params(lp), cfg, positions=positions)
+        x = x + a
+        ck, cv = _cross_kv(enc_out, lp, cfg)
+        xn = norm(x, lp["cross_norm/w"], cfg.norm)
+        c, _, _ = attention(xn, _attn_params(lp, "cross"), cfg,
+                            positions=positions, causal=False,
+                            kv_override=(ck, cv, enc_pos))
+        x = x + c
+        x = x + _mlp(norm(x, lp["mlp_norm/w"], cfg.norm), lp, cfg)
+        if collect_cache:
+            caches.append((k, v, ck, cv))
+    x = norm(x, params["final_norm/w"], cfg.norm)
+    logits = unembed(x, params["lm_head/w"], False)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = {"lb_loss": zero, "z_loss": zero}
+    if collect_cache:
+        return logits, aux, tuple(torch.stack(t) for t in zip(*caches))
+    return logits, aux
+
+
+class EncDecDecodeState(NamedTuple):
+    cache_k: torch.Tensor    # (L, B, Smax, Hkv*Dh) decoder self-attn (flat kv)
+    cache_v: torch.Tensor
+    cross_k: torch.Tensor    # (L, B, enc_seq, Hkv, Dh) precomputed from encoder
+    cross_v: torch.Tensor
+    index: int               # tokens already in the state
+
+
+def init_decode_state(params: Dict[str, torch.Tensor], frames: torch.Tensor,
+                      cfg: ModelConfig, batch: int, seq_len: int,
+                      dtype: torch.dtype = torch.bfloat16
+                      ) -> EncDecDecodeState:
+    """Runs the encoder and precomputes per-layer cross k/v."""
+    enc_out = encode(params, frames, cfg)
+    lt = layer_tree(params)
+    ck, cv = zip(*(_cross_kv(enc_out, _layer(lt, i), cfg)
+                   for i in range(cfg.n_layers)))
+    k = torch.zeros((cfg.n_layers, batch, seq_len, cfg.kv_dim), dtype=dtype,
+                    device=enc_out.device)
+    return EncDecDecodeState(k, torch.zeros_like(k),
+                             torch.stack(ck).to(dtype),
+                             torch.stack(cv).to(dtype), 0)
+
+
+def decode_step(params: Dict[str, torch.Tensor], tokens: torch.Tensor,
+                state: EncDecDecodeState, cfg: ModelConfig):
+    """tokens: (B, 1) -> (logits, new state).  The state passed in is left
+    as it was."""
+    idx = state.index
+    x = embed_lookup(params["embed/table"], tokens)
+    dec_pos = params["dec_pos"]
+    # the reference's dynamic_slice_in_dim clamps past the table's last row
+    row = min(idx, dec_pos.shape[0] - 1)
+    x = x + dec_pos[None, row:row + 1].to(x.dtype)
+    lt = layer_tree(params)
+    new_k, new_v = [], []
+    for i in range(cfg.n_layers):
+        lp = _layer(lt, i)
+        xn = norm(x, lp["attn_norm/w"], cfg.norm)
+        a, nk, nv = decode_attention(xn, _attn_params(lp), cfg,
+                                     state.cache_k[i], state.cache_v[i], idx)
+        x = x + a
+        xn = norm(x, lp["cross_norm/w"], cfg.norm)
+        c, _, _ = decode_attention(
+            xn, _attn_params(lp, "cross"), cfg, None, None, idx,
+            kv_override=(state.cross_k[i], state.cross_v[i], None))
+        x = x + c
+        x = x + _mlp(norm(x, lp["mlp_norm/w"], cfg.norm), lp, cfg)
+        new_k.append(nk)
+        new_v.append(nv)
+    x = norm(x, params["final_norm/w"], cfg.norm)
+    logits = unembed(x, params["lm_head/w"], False)
+    return logits, EncDecDecodeState(torch.stack(new_k), torch.stack(new_v),
+                                     state.cross_k, state.cross_v, idx + 1)

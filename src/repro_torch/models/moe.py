@@ -1,0 +1,125 @@
+"""Mixture-of-Experts block (counterpart of ``repro.models.moe``): the
+one-device path.
+
+Capacity-based token selection, as the reference does it: each expert
+takes at most ``cap`` of the token slots routed to it, in slot order, cut
+from one argsort of the slots by expert; its SwiGLU FFN runs on those rows
+and its weighted output is scatter-added back.  The experts run one after
+another in expert order, one ``index_add_`` each, so bf16 sums round in the
+reference's sequence.  The gathers are computed for all experts at once on
+the device, so the loop waits on no host copy.
+
+``moe_shard_body`` keeps the reference's per-rank arguments (``tp_total``,
+``rank``); ``moe_block`` runs it for the whole model on one device.  The
+reference's ``shard_map`` path (expert weights stored for more than one
+model rank) waits with the distributed writer, ROADMAP Queue 1 item 6.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.common import swiglu
+from repro_torch.models.params import moe_factors
+
+
+class MoELayerParams(NamedTuple):
+    router: torch.Tensor   # (d, E)
+    w_gate: torch.Tensor   # (tp_total, E/ep, d, f/tp)
+    w_up: torch.Tensor
+    w_down: torch.Tensor   # (tp_total, E/ep, f/tp, d)
+
+
+def route(x: torch.Tensor, router_w: torch.Tensor, top_k: int):
+    """x: (T, d) -> (probs (T,k) f32, experts (T,k) int64, logits (T,E) f32).
+
+    Equal logits go to the lower expert index first, as ``jax.lax.top_k``
+    orders them: a stable descending sort keeps ties in index order."""
+    logits = torch.matmul(x.to(torch.float32), router_w.to(torch.float32))
+    vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    probs = torch.softmax(vals[:, :top_k], dim=-1)
+    return probs, idx[:, :top_k], logits
+
+
+def aux_losses(logits: torch.Tensor, experts: torch.Tensor,
+               n_experts: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(load-balance loss, router z-loss) — the Switch/ST-MoE auxiliaries."""
+    probs = torch.softmax(logits, dim=-1)                    # (T, E)
+    me = probs.mean(dim=0)                                   # mean router prob
+    ce = F.one_hot(experts[:, 0], n_experts).to(torch.float32).mean(dim=0)
+    lb = n_experts * torch.sum(me * ce)
+    z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+    return lb, z
+
+
+def _expert_ffn(xe, wg, wu, wd):
+    """xe: (C, d); wg/wu: (d, fl); wd: (fl, d)."""
+    h = swiglu(torch.matmul(xe, wg), torch.matmul(xe, wu))
+    return torch.matmul(h, wd)
+
+
+def moe_shard_body(x: torch.Tensor, p: MoELayerParams, cfg: ModelConfig,
+                   tp_total: int, rank: int):
+    """One model rank's share.  x: (T, d); p.w_*: the rank's block (1, E/ep,
+    d, fl) / (1, E/ep, fl, d).  Returns (out (T, d), lb, z)."""
+    m = cfg.moe
+    E, k = m.n_experts, m.top_k
+    ep, tp = moe_factors(E, tp_total)
+    e_loc = E // ep
+    T = x.shape[0]
+    n = T * k
+    cap = max(int(math.ceil(T * k * m.capacity_factor / E)), 1)
+    cap = min(cap, T)
+    dev = x.device
+
+    probs, experts, logits = route(x, p.router, k)
+    flat_e = experts.reshape(-1)                             # (T*k,)
+    flat_p = probs.reshape(-1)
+    slots = torch.arange(n, device=dev)
+    flat_tok = slots // k
+    # group the slots by expert; the int64 keys are unique, so the order is
+    # the reference's whatever the sort
+    order = torch.argsort(flat_e * n + slots)
+    sorted_e = flat_e[order]
+    counts = torch.bincount(flat_e, minlength=E)             # (E,)
+    starts = torch.cumsum(counts, 0) - counts
+
+    ids = (rank // tp) * e_loc + torch.arange(e_loc, device=dev)
+    # the reference's dynamic_slice clamps a start to n - cap; the slots of
+    # the experts before that the clamp pulls in fail `valid`, and a segment's
+    # tail beyond `cap` never enters the slice (capacity dropping)
+    start = torch.clamp(starts[ids], max=n - cap)
+    pos = start[:, None] + torch.arange(cap, device=dev)     # (e_loc, cap)
+    slot_idx = order[pos]
+    pos_in_seg = pos - starts[ids][:, None]
+    valid = (sorted_e[pos] == ids[:, None]) & \
+        (pos_in_seg < torch.clamp(counts[ids], max=cap)[:, None])
+    tok = flat_tok[slot_idx]
+    w = (flat_p[slot_idx] * valid).to(x.dtype)
+    keep = valid.to(x.dtype)
+
+    out = torch.zeros_like(x)
+    wg, wu, wd = p.w_gate[0], p.w_up[0], p.w_down[0]         # (E/ep, ...)
+    for j in range(e_loc):
+        xe = x[tok[j]] * keep[j, :, None]
+        ye = _expert_ffn(xe, wg[j], wu[j], wd[j])
+        out.index_add_(0, tok[j], ye * w[j, :, None])
+    lb, z = aux_losses(logits, experts, E)
+    return out, lb, z
+
+
+def moe_block(x: torch.Tensor, p: MoELayerParams, cfg: ModelConfig):
+    """x: (B, S, d) -> (y (B,S,d), load-balance loss, z loss)."""
+    tp_total = p.w_gate.shape[0]
+    if tp_total != 1:
+        raise NotImplementedError(
+            f"{cfg.name}: expert weights stored for {tp_total} model ranks; "
+            "the sharded MoE block waits with the distributed writer "
+            "(ROADMAP Queue 1 item 6)")
+    B, S, d = x.shape
+    y, lb, z = moe_shard_body(x.reshape(B * S, d), p, cfg, 1, 0)
+    return y.reshape(B, S, d), lb, z

@@ -5,9 +5,9 @@ carry-over of the reference's arrays (counterpart of
 ``param_shapes(cfg, max_seq, tp_total)`` is the single source of truth, with
 the reference's path names and layouts: decoder layers stacked on a leading
 L dim under ``layers/``, MoE experts in the expert-parallel layout
-``(tp_total, E/ep, d, f/tp)``.  Shapes cover every family; the port
-initializes and carries over the ``ssm``, ``hybrid`` and ``dense`` trees
-(MoE, encoder-decoder and vision trees wait in ROADMAP Queue 1).
+``(tp_total, E/ep, d, f/tp)``; the encoder-decoder's encoder stack under
+``enc/`` with its positions ``enc_pos``/``dec_pos`` and the decoder's
+``layers/cross/*``; the vision stub's ``vision_proj/w``.
 """
 from __future__ import annotations
 
@@ -17,7 +17,6 @@ from typing import Dict, Mapping, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs import require_lm_family
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 
@@ -151,7 +150,6 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     reference's distributions (drawn from ``generator``, so the numbers
     differ from ``jax.random``'s).  Numbers are drawn on the generator's
     device and the tree lands on ``device``."""
-    require_lm_family(cfg)
     dev = resolve_device(device)
     shapes = param_shapes(cfg, max_seq=max_seq, tp_total=tp_total)
     dt = _dtype(cfg.dtype)
@@ -202,9 +200,10 @@ def params_from_jax(params: Mapping[str, np.ndarray], cfg: ModelConfig,
     shape by shape and dtype by dtype against :func:`param_shapes` and
     :func:`param_dtype`.  bf16 arrays cross bit for bit, viewed as uint16.
     Any mismatch raises ``ValueError``."""
-    require_lm_family(cfg)
     dev = resolve_device(device)
-    expected = param_shapes(cfg)
+    # dec_pos, the one shape that depends on max_seq, sets it
+    max_seq = np.shape(params["dec_pos"])[0] if "dec_pos" in params else 0
+    expected = param_shapes(cfg, max_seq=max_seq)
     missing = sorted(set(expected) - set(params))
     extra = sorted(set(params) - set(expected))
     if missing or extra:

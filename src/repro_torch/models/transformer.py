@@ -1,12 +1,11 @@
-"""Decoder-only LM assembly (counterpart of ``repro.models.transformer``),
-for the ssm, hybrid and dense families.
+"""Decoder-only LM assembly (counterpart of ``repro.models.transformer``):
+the dense, MoE, ssm, hybrid and vision-stub families.
 
 Layers stay stacked on a leading L dim, as the reference keeps them; its
 ``lax.scan`` over layers becomes a Python loop over slices of the stacked
-tree.  MoE, the vision stub and the encoder-decoder raise
-``NotImplementedError``: they wait in ROADMAP Queue 1 (the LM side).  The
-FFN after the mixer runs where the config has one (the reduced smoke
-configs do; mamba2-1.3b has none).
+tree.  The channel mixer after the token mixer is the MoE block, or the FFN
+where the config has one (the reduced smoke configs do; mamba2-1.3b has
+none).
 """
 from __future__ import annotations
 
@@ -14,13 +13,13 @@ from typing import Dict, NamedTuple, Optional
 
 import torch
 
-from repro_torch.configs import require_lm_family
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import (LayerAttnParams, attention,
                                           cache_size, decode_attention)
 from repro_torch.models.common import embed_lookup, gelu, norm, swiglu, unembed
+from repro_torch.models.moe import MoELayerParams, moe_block
 from repro_torch.models.ssm import SSMLayerParams, SSMState, init_ssm_state
 
 LAYER_PREFIX = "layers/"
@@ -53,6 +52,11 @@ def _ssm_params(lp: Dict[str, torch.Tensor]) -> SSMLayerParams:
         w_out=lp["ssm/w_out"])
 
 
+def _moe_params(lp: Dict[str, torch.Tensor]) -> MoELayerParams:
+    return MoELayerParams(router=lp["moe/router"], w_gate=lp["moe/w_gate"],
+                          w_up=lp["moe/w_up"], w_down=lp["moe/w_down"])
+
+
 def _mlp(x, lp, cfg: ModelConfig):
     if cfg.act == "swiglu":
         h = swiglu(torch.matmul(x, lp["mlp/w_gate"]),
@@ -80,17 +84,27 @@ def _token_mixer(x, lp, cfg: ModelConfig, positions):
     return dx, (k, v, ssm_state)
 
 
-def _channel_mixer(x, lp, cfg: ModelConfig) -> Optional[torch.Tensor]:
-    """FFN part: dx, or None when the config has no FFN.  Without MoE there
-    are no aux losses."""
+def _channel_mixer(x, lp, cfg: ModelConfig):
+    """FFN / MoE part -> (dx, (lb, z)): dx is None when the config has
+    neither, (lb, z) the MoE aux losses or None without MoE."""
+    if cfg.moe is not None:
+        xn = norm(x, lp["mlp_norm/w"], cfg.norm)
+        dx, lb, z = moe_block(xn, _moe_params(lp), cfg)
+        return dx, (lb, z)
     if cfg.d_ff > 0:
-        return _mlp(norm(x, lp["mlp_norm/w"], cfg.norm), lp, cfg)
-    return None
+        return _mlp(norm(x, lp["mlp_norm/w"], cfg.norm), lp, cfg), None
+    return None, None
 
 
 def embed_inputs(params, cfg: ModelConfig, tokens, patch_embeds=None):
-    """Token embeddings (the vision stub's patches wait with its family)."""
-    return embed_lookup(params["embed/table"], tokens)
+    """Token embeddings; for the vision stub the projected patches replace
+    the first ``n_patches`` positions (the sequence keeps its length when it
+    is at least ``n_patches`` long, as in the reference)."""
+    x = embed_lookup(params["embed/table"], tokens)
+    if cfg.n_patches and patch_embeds is not None:
+        pe = torch.matmul(patch_embeds.to(x.dtype), params["vision_proj/w"])
+        x = torch.cat([pe, x[:, cfg.n_patches:, :]], dim=1)
+    return x
 
 
 def _logits(params, x, cfg: ModelConfig):
@@ -107,24 +121,28 @@ def forward(params: Dict[str, torch.Tensor], tokens: torch.Tensor,
     With ``collect_cache`` also returns the stacked per-layer (k, v,
     ssm_state) for the prefill->decode handoff: k and v (L,B,S,Hkv,Dh)
     after RoPE, or None for the ssm family; SSMState(ssd (L,B,H,P,N), conv
-    (L,B,K-1,conv_dim)), or None for the dense family."""
-    require_lm_family(cfg)
+    (L,B,K-1,conv_dim)), or None for the dense family.  ``aux`` holds the
+    MoE losses averaged over the layers (zeros without MoE)."""
     x = embed_inputs(params, cfg, tokens, patch_embeds)
     positions = torch.arange(tokens.shape[1], device=x.device)
     lt = layer_tree(params)
     caches = []
+    lb = torch.zeros((), dtype=torch.float32, device=x.device)
+    z = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
         lp = _layer(lt, i)
         dx, cache = _token_mixer(x, lp, cfg, positions)
         x = x + dx
-        dx = _channel_mixer(x, lp, cfg)
+        dx, moe_aux = _channel_mixer(x, lp, cfg)
         if dx is not None:
             x = x + dx
+        if moe_aux is not None:
+            lb = lb + moe_aux[0]
+            z = z + moe_aux[1]
         if collect_cache:
             caches.append(cache)
     logits = _logits(params, x, cfg)
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    aux = {"lb_loss": zero, "z_loss": zero}
+    aux = {"lb_loss": lb / cfg.n_layers, "z_loss": z / cfg.n_layers}
     if collect_cache:
         k, v, st = zip(*caches)
         k = None if k[0] is None else torch.stack(k)
@@ -151,7 +169,6 @@ class DecodeState(NamedTuple):
 def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int,
                       dtype: torch.dtype = torch.bfloat16,
                       device: DeviceLike = None) -> DecodeState:
-    require_lm_family(cfg)
     L = cfg.n_layers
     ck = cv = sd = sc = None
     if cfg.family != "ssm":
@@ -170,8 +187,8 @@ def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int,
 def decode_step(params: Dict[str, torch.Tensor], tokens: torch.Tensor,
                 state: DecodeState, cfg: ModelConfig):
     """tokens: (B, 1) -> (logits (B, 1, Vp), new DecodeState).  The state
-    passed in is left as it was."""
-    require_lm_family(cfg)
+    passed in is left as it was.  The MoE aux losses are dropped, and the
+    vision stub's patches take no part, as in the reference."""
     x = embed_lookup(params["embed/table"], tokens)
     lt = layer_tree(params)
     B = x.shape[0]
@@ -205,7 +222,7 @@ def decode_step(params: Dict[str, torch.Tensor], tokens: torch.Tensor,
         else:
             dx = attn_step(norm(x, lp["attn_norm/w"], cfg.norm), lp, i)
         x = x + dx
-        dx = _channel_mixer(x, lp, cfg)
+        dx, _ = _channel_mixer(x, lp, cfg)
         if dx is not None:
             x = x + dx
     logits = _logits(params, x, cfg)

@@ -154,6 +154,39 @@ def test_autotune_slice_modules_import_alone_with_jax_blocked():
     assert qops._disk_state is autotune._disk_state
 
 
+def test_moe_encdec_slice_modules_import_alone_with_jax_blocked():
+    """The MoE block, the encoder-decoder and the four configs of their
+    families (and the vision stub's) are walked by the jax-blocked import
+    above, and the two model modules each also import on their own with
+    jax and the reference package blocked, pulling in neither; their names
+    resolve."""
+    mods = {"repro_torch.models.moe", "repro_torch.models.encdec",
+            "repro_torch.configs.granite_moe_3b_a800m",
+            "repro_torch.configs.mixtral_8x7b",
+            "repro_torch.configs.whisper_base",
+            "repro_torch.configs.phi3_vision_4_2b"}
+    assert mods <= set(_modules())
+    for mod in ("repro_torch.models.moe", "repro_torch.models.encdec"):
+        code = ("import sys, importlib\n"
+                "for m in ('jax', 'jaxlib', 'repro'):\n"
+                "    sys.modules[m] = None\n"
+                f"importlib.import_module({mod!r})\n"
+                "bad = [m for m in sys.modules if m.split('.')[0] in "
+                "('jax', 'jaxlib', 'repro') and sys.modules[m] is not None]\n"
+                "assert not bad, bad\n")
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                             text=True, env=env, timeout=300)
+        assert out.returncode == 0, out.stderr
+    from repro_torch.models import encdec, moe
+    for mod, names in ((moe, ("MoELayerParams", "route", "aux_losses",
+                              "_expert_ffn", "moe_shard_body", "moe_block")),
+                       (encdec, ("encode", "_cross_kv", "forward",
+                                 "EncDecDecodeState", "init_decode_state",
+                                 "decode_step"))):
+        assert all(hasattr(mod, n) for n in names), mod.__name__
+
+
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")] + ["chip_smoke.py"]))
 def test_no_source_line_imports_jax_or_repro(path):

@@ -1,7 +1,8 @@
 """The port's LM serving path on mamba2-1.3b against the reference: config
 and parameter tree, the carry-over of the reference's weights, ``ssm_block``
 on each scan route, ``forward_logits``/``decode_step``, decode against
-forward, ``greedy_generate``, ``AdaptiveLMServer`` and the CLI.  Weights come
+forward, ``greedy_generate``, ``AdaptiveLMServer`` and the CLI, plus the
+other archs' configs and each family's forward.  Weights come
 from the reference's ``init_params`` (a PRNG key) and cross with
 ``params_from_jax``; tokens are made with numpy from a seed.  The model
 tests use the reduced ``smoke()`` config on the CPU; each states its
@@ -85,9 +86,29 @@ def test_full_width_config_and_shapes_equal_the_reference():
 
 @pytest.mark.parametrize("arch", ["mixtral-8x7b", "phi-3-vision-4.2b",
                                   "granite-moe-3b-a800m", "whisper-base"])
-def test_other_archs_wait_in_the_roadmap(arch):
-    with pytest.raises(KeyError, match="ROADMAP Queue 1"):
-        get_config(arch)
+def test_other_archs_resolve_to_the_reference_configs(arch):
+    """The MoE, vision and encoder-decoder archs resolve to configs equal
+    to the reference's, full and smoke, and their smoke configs initialize
+    and run forward (finite logits of the padded vocab); an unknown arch
+    still raises."""
+    cfg, ref = get_config(arch), j_get_config(arch)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(ref)
+    tc = cfg.smoke()
+    assert dataclasses.asdict(tc) == dataclasses.asdict(ref.smoke())
+    tp = init_params(tc, torch.Generator().manual_seed(0), max_seq=16,
+                     device="cpu")
+    batch = {"tokens": torch.from_numpy(_tokens(2, 16, tc.vocab)).long()}
+    g = torch.Generator().manual_seed(1)
+    if tc.enc_layers:
+        batch["frames"] = torch.randn((2, tc.enc_seq, tc.d_model),
+                                      generator=g).to(torch.bfloat16)
+    if tc.n_patches:
+        batch["patches"] = torch.randn((2, tc.n_patches, tc.d_model),
+                                       generator=g).to(torch.bfloat16)
+    logits, aux = model_api.forward_logits(tp, batch, tc)
+    assert logits.shape == (2, 16, tc.vocab_padded)
+    assert torch.isfinite(logits.float()).all()
+    assert torch.isfinite(aux["lb_loss"]) and torch.isfinite(aux["z_loss"])
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("no-such-arch")
 
@@ -362,24 +383,40 @@ def test_launch_serve_walks_the_points_on_the_cpu(capsys):
     assert "served 12 decode steps, 2 streams" in capsys.readouterr().out
 
 
-def test_other_families_refuse_with_the_roadmap_queue():
-    """MoE, the vision stub and the encoder-decoder (audio) wait in the
-    ROADMAP; the reference's own smoke configs of those families."""
-    moe = dataclasses.replace(get_config(ARCH).smoke(), family="moe",
-                              moe=MoEConfig(4, 2, 32), ssm=None)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        transformer.init_decode_state(moe, 1, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        init_params(moe, torch.Generator(), device="cpu")
-    _, tc = _cfgs()
-    vlm = dataclasses.replace(tc, family="vlm", n_patches=4, ssm=None)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        transformer.forward({}, torch.zeros((1, 8), dtype=torch.long), vlm)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        params_from_jax({}, vlm, "cpu")
-    audio = dataclasses.replace(tc, family="audio")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        model_api.forward_logits({}, {"tokens": None}, audio)
+@pytest.mark.parametrize("family", ["moe", "vlm", "audio"])
+def test_every_family_initializes_and_runs_forward(family):
+    """The MoE, vision-stub and encoder-decoder blocks on mamba2's smoke
+    widths (its SSM swapped for the family's fields, as the refusal test
+    these cases replace built them): the reference's weights carry over,
+    and the f32 forward holds 1e-5 * max|logit| against the reference's,
+    the MoE aux losses 1e-5 relative."""
+    extra = {"moe": dict(moe=MoEConfig(4, 2, 32)),
+             "vlm": dict(n_patches=4),
+             # the reference's encoder-decoder always reads lm_head/w
+             "audio": dict(enc_layers=2, enc_seq=16,
+                           tie_embeddings=False)}[family]
+    jc, tc = (dataclasses.replace(c, family=family, ssm=None, **extra)
+              for c in _cfgs())
+    jp = j_init(jc, jax.random.PRNGKey(2), max_seq=16)
+    tp = params_from_jax({k: np.asarray(v) for k, v in jp.items()}, tc, "cpu")
+    toks = _tokens(2, 16, tc.vocab, seed=2)
+    jb, tb = {"tokens": jnp.asarray(toks)}, {"tokens": torch.from_numpy(
+        toks).long()}
+    rng = np.random.default_rng(3)
+    if family == "audio":
+        f = rng.standard_normal((2, 16, tc.d_model)).astype(np.float32)
+        jb["frames"], tb["frames"] = jnp.asarray(f), torch.from_numpy(f)
+    if family == "vlm":
+        f = rng.standard_normal((2, 4, tc.d_model)).astype(np.float32)
+        jb["patches"], tb["patches"] = jnp.asarray(f), torch.from_numpy(f)
+    want, jaux = j_api.forward_logits(jp, jb, jc)
+    got, aux = model_api.forward_logits(tp, tb, tc)
+    assert got.shape == want.shape and _rel(got, want) < 1e-5
+    for k in ("lb_loss", "z_loss"):
+        if family == "moe":
+            assert _rel(aux[k], jaux[k]) < 1e-5
+        else:
+            assert float(aux[k]) == float(jaux[k]) == 0.0
 
 
 @pytest.mark.parametrize("fn", ["rmsnorm", "layernorm", "rope", "swiglu",
