@@ -168,6 +168,31 @@ Phases, each of which raises (and exits non-zero) on failure:
          the f32 check at full width on (2, 64); the server over
          ``EncDecDecodeState`` and ``greedy_generate`` with the frames in
          ``batch_extras``;
+   q. LM training on qwen1.5-0.5b at full width (:func:`train_path`; 24
+      layers, 464,118,784 parameters, bf16, seeded on the card):
+      ``ft.run_training`` for 6 steps of ``make_train_step(remat=True,
+      microbatches=2)`` on the port's token stream, global batch 8 x 2048,
+      AdamW, a checkpoint every 4 steps into a temporary directory under
+      ``build/chip_smoke/ckpt``: seconds per step (steps 2-6), training
+      tokens/s, peak device memory and every step's loss beside the card's
+      name and power limit (finite, the last below the first); no kernel
+      of the port launched; the last checkpoint restored on the CPU equal
+      bit for bit to the last step's state.  Then an f32 copy cut to 2
+      layers at full width: ``loss_fn`` and its gradients on the card, TF32
+      off, against the CPU plain path (the loss within 1e-5 relative, each
+      gradient within 1e-4 of its max); and the restart check in a process
+      of its own (``--train-restart``, ``CUBLAS_WORKSPACE_CONFIG=:4096:8``,
+      ``torch.use_deterministic_algorithms(True)``): failures injected at
+      steps 3 and 5 of a 6-step run of that copy, whose last checkpoint
+      must equal the uninterrupted run's bit for bit (an op without a
+      deterministic CUDA version would be named and the check held within
+      1e-4 instead);
+   r. mamba2-1.3b at full width on 4 of its 48 layers (the cut printed;
+      :func:`ssm_train_path`), bf16, 4 train steps on (4, 2048): the scan
+      takes the oracle, every ``ssd_scan`` counter reads 0 over the steps,
+      and a direct ``ssd_chunked_kernel`` call on tensors that require
+      grad raises; tokens/s (median of steps 2-4) and peak memory beside
+      the card;
 6. times — each kernel and mode, its plain version and the nearest PyTorch
    library call at the main paths' batch-8 shapes: device time per call
    from the profiler's CUDA activity (and the per-call time of back-to-back
@@ -212,6 +237,11 @@ runs only the header, the build and ``conv2d_stream``'s times
 may not have) on the ``repro_torch`` under ``--src``: a parent commit's,
 unpacked with ``git archive``, is timed so beside the change in one call.
 Its details go to ``build/chip_smoke/conv2d_stream.json``.
+
+    python3 chip_smoke.py --train-restart
+
+runs only phase q's restart check and prints its ``train_restart:`` line
+(phase q starts it so, in a process of its own).
 """
 from __future__ import annotations
 
@@ -2231,6 +2261,396 @@ def lm_family_paths(card: str = "", device: str = "cuda") -> list:
     return out
 
 
+# -- training (phases q, r) -------------------------------------------------------
+
+TRAIN_ARCH = DENSE_ARCH
+TRAIN_SHAPE = (8, 2048)          # global batch, sequence
+TRAIN_MICROBATCHES = 2           # 2 microbatches of 4
+TRAIN_STEPS = 6
+TRAIN_CKPT_EVERY = 4
+# the f32 copy of the gradient and restart checks: full width, cut depth
+TRAIN_CHECK_LAYERS = 2
+TRAIN_CHECK_SHAPE = (2, 128)
+TRAIN_RESTART_SHAPE = (4, 256)
+TRAIN_RESTART_FAILS = (3, 5)
+SSM_TRAIN_LAYERS = 4
+SSM_TRAIN_SHAPE = (4, 2048)
+SSM_TRAIN_STEPS = 4
+GRAD_TOL = 1e-4                  # of each gradient tensor's max|g|
+LOSS_RTOL = 1e-5
+
+
+def _train_opt(steps: int):
+    """The training launcher's optimizer settings for a run of ``steps``."""
+    from repro_torch.optim.adamw import OptConfig
+    return OptConfig(lr=1e-3, warmup_steps=max(steps // 10, 1),
+                     total_steps=steps)
+
+
+def _ckpt_root() -> Path:
+    d = ROOT / "build" / "chip_smoke" / "ckpt"
+    d.mkdir(parents=True, exist_ok=True)
+    return d
+
+
+def train_path(card: str = "", device: str = "cuda", cfg=None,
+               shape=TRAIN_SHAPE, microbatches: int = TRAIN_MICROBATCHES,
+               steps: int = TRAIN_STEPS, ckpt_every: int = TRAIN_CKPT_EVERY,
+               check=None, restart: bool = True) -> list:
+    """Phase q: qwen1.5-0.5b trained at full width (24 layers, bf16,
+    seeded on the card) through ``ft.run_training``: ``steps`` steps of
+    ``make_train_step(remat=True, microbatches=2)`` on the global batch
+    ``shape`` of the port's token stream, AdamW, a checkpoint every
+    ``ckpt_every`` steps into a temporary directory under
+    ``build/chip_smoke/ckpt``.  Seconds per step (steps 2 on), training
+    tokens/s, peak device memory and every step's loss, printed beside the
+    card; the losses must be finite and the last below the first; no
+    kernel of the port launches; the last checkpoint restores on the CPU
+    equal bit for bit to the state the last step returned.  Then
+    :func:`train_f32_check` (``check`` cuts it) and, unless ``restart`` is
+    off, :func:`train_restart_check`."""
+    import math
+    import statistics
+    import tempfile
+    import torch
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import DataConfig
+    from repro_torch.runtime import ft
+    from repro_torch.runtime.train import init_train_state, make_train_step
+    cfg = cfg or get_config(TRAIN_ARCH)
+    batch, seq = shape
+    name = f"{cfg.name} train"
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t_all = time.perf_counter()
+    state = init_train_state(lm_params(cfg, device))
+    n_params = sum(p.numel() for p in state.params.values())
+    step_fn = make_train_step(cfg, _train_opt(steps), remat=True,
+                              microbatches=microbatches)
+    last = {}
+
+    def step(st, b):
+        new, metrics = step_fn(st, b)
+        last["state"] = new
+        return new, metrics
+
+    data = DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch,
+                      seed=SEED)
+    with tempfile.TemporaryDirectory(dir=_ckpt_root()) as d:
+        _zero_counts()
+        t0 = time.perf_counter()
+        res = ft.run_training(step, state, data, steps, d,
+                              ckpt_every=ckpt_every)
+        _sync(device)
+        run_s = time.perf_counter() - t0
+        launches = _read_counts()
+        saved = ckpt.list_steps(d)
+        t0 = time.perf_counter()
+        tree, final_step, extra = ckpt.restore(d)
+        restore_s = time.perf_counter() - t0
+    _expect_no_stray_launches(name, launches, cfg)
+    final = ft._to_tree(last.pop("state"))
+    for part, leaves in final.items():
+        for k, v in leaves.items():
+            got = tree[part][k]
+            if got.device.type != "cpu" or not torch.equal(got, v.cpu()):
+                raise AssertionError(f"{name}: restored {part}/{k} differs "
+                                     "from the state of the last step")
+    del tree, final
+    want = sorted({0, steps} | set(range(ckpt_every, steps, ckpt_every)))
+    if final_step != steps or saved != want or extra != {"data_step": steps}:
+        raise AssertionError(f"{name}: checkpoints {saved} (expected {want}),"
+                             f" final step {final_step}, extra {extra}")
+    losses = [m["loss"] for m in res.metrics_log]
+    dts = [m["dt"] for m in res.metrics_log]
+    if res.restarts or len(losses) != steps or \
+            not all(math.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"{name}: losses {losses}, restarts "
+                             f"{res.restarts}")
+    s_step = statistics.median(dts[1:])
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else None
+    info = {"path": f"train {cfg.dtype} ({batch}, {seq}) in {microbatches} "
+                    "microbatches", "model": cfg.name, "launches": launches,
+            "params": n_params, "steps": steps, "losses": losses,
+            "step_s": dts, "s_per_step": s_step,
+            "tokens_per_s": batch * seq / s_step,
+            "peak_memory_bytes": peak, "checkpoints": saved,
+            "restore_cpu_s": restore_s, "run_s": run_s,
+            "stragglers_flagged": res.flagged_steps}
+    log(f"main path {name}: " + json.dumps(info))
+    del state, step_fn
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        log(f"phase {name}: {n_params} parameters, {s_step:.3f} s/step "
+            f"(median of steps 2-{steps}), {info['tokens_per_s']:.1f} "
+            f"training tokens/s, peak memory {peak} B "
+            f"({peak / 2 ** 30:.2f} GiB), loss {losses[0]:.4f} -> "
+            f"{losses[-1]:.4f}, {time.perf_counter() - t_all:.1f} s, on "
+            f"{card}")
+    out = [info, train_f32_check(cfg, device, **(check or {}))]
+    if restart:
+        out.append(train_restart_check())
+    return out
+
+
+def train_f32_check(cfg, device: str = "cuda",
+                    n_layers: int = TRAIN_CHECK_LAYERS,
+                    shape=TRAIN_CHECK_SHAPE) -> dict:
+    """In an f32 copy of ``cfg`` cut to ``n_layers`` at full width, with
+    TF32 off: ``loss_fn`` and its gradients on ``device`` against the
+    port's CPU plain path on the same weights and batch, the loss within
+    1e-5 relative and every gradient tensor within 1e-4 of its own
+    max|g|."""
+    import dataclasses
+    import math
+    import torch
+    from repro_torch.data.tokens import DataConfig, batch_at
+    from repro_torch.runtime.train import _grads_of
+    cfg32 = dataclasses.replace(cfg, dtype="float32", n_layers=n_layers)
+    name = f"{cfg.name} f32 loss and gradients"
+    batch, seq = shape
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        params = lm_params(cfg32, device)
+        b = batch_at(DataConfig(vocab=cfg32.vocab, seq_len=seq,
+                                global_batch=batch, seed=SEED + 13), 0,
+                     device)
+        _zero_counts()
+        t0 = time.perf_counter()
+        metrics, grads = _grads_of(params, b, cfg32, remat=True)
+        _sync(device)
+        dev_s = time.perf_counter() - t0
+        launches = _read_counts()
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+    _expect_no_stray_launches(name, launches, cfg32)
+    t0 = time.perf_counter()
+    metrics_c, grads_c = _grads_of({k: v.cpu() for k, v in params.items()},
+                                   {k: v.cpu() for k, v in b.items()}, cfg32,
+                                   remat=True)
+    cpu_s = time.perf_counter() - t0
+    loss, loss_c = float(metrics["loss"]), float(metrics_c["loss"])
+    loss_rel = abs(loss - loss_c) / abs(loss_c)
+    worst, worst_k = 0.0, None
+    for k, gc in grads_c.items():
+        scale = float(gc.abs().max())
+        err = float((grads[k].cpu() - gc).abs().max())
+        frac = err / scale if scale else (0.0 if err == 0 else math.inf)
+        if frac > worst:
+            worst, worst_k = frac, k
+    if not (loss_rel <= LOSS_RTOL and worst <= GRAD_TOL):
+        raise AssertionError(f"{name}: loss {loss} vs CPU {loss_c} (rel "
+                             f"{loss_rel}); worst gradient {worst_k} at "
+                             f"{worst} of its max (bound {GRAD_TOL})")
+    info = {"path": f"train f32 loss and gradients vs CPU ({batch}, {seq})",
+            "model": cfg.name, "launches": launches,
+            "reduced": {"n_layers": f"{cfg.n_layers} -> {n_layers}",
+                        "dtype": f"{cfg.dtype} -> float32"},
+            "loss": loss, "loss_cpu": loss_c, "loss_rel_err": loss_rel,
+            "worst_grad_err_over_max": worst, "worst_grad": worst_k,
+            "device_s": dev_s, "cpu_s": cpu_s}
+    log(f"main path {name}: " + json.dumps(info))
+    return info
+
+
+def train_restart_check() -> dict:
+    """The restart check of phase q in a process of its own (its
+    deterministic-algorithm flags and cuBLAS workspace stay out of the
+    other phases): :func:`train_restart_main` with
+    ``CUBLAS_WORKSPACE_CONFIG=:4096:8``.  Fails unless that process
+    reports a restart that ended bit for bit on the uninterrupted run (or,
+    where it names an op without a deterministic CUDA version, within
+    tolerance of it)."""
+    from repro_torch.configs import get_config
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    cmd = [sys.executable, str(ROOT / "chip_smoke.py"), "--train-restart",
+           "--src", str(SRC)]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                         timeout=900)
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in out.stdout.splitlines()
+             if ln.startswith("train_restart: ")]
+    if out.returncode != 0 or not lines:
+        raise AssertionError(f"restart check: rc {out.returncode}\n"
+                             f"{out.stdout[-4000:]}\n{out.stderr[-4000:]}")
+    info = json.loads(lines[-1][len("train_restart: "):])
+    info["process_s"] = wall
+    _expect_no_stray_launches("restart check", info["launches"],
+                              get_config(TRAIN_ARCH))
+    if info["restarts"] != len(TRAIN_RESTART_FAILS) or not (
+            info["bit_equal"] or (info["nondeterministic_ops"]
+                                  and info["within_tolerance"])):
+        raise AssertionError(f"restart check failed: {json.dumps(info)}")
+    log(f"main path {info['model']} restart check: " + json.dumps(info))
+    return info
+
+
+def train_restart_main(device: str = "cuda", cfg=None,
+                       shape=TRAIN_RESTART_SHAPE) -> int:
+    """The restart check itself (``chip_smoke.py --train-restart``): with
+    ``torch.use_deterministic_algorithms(True)``, an f32 copy of
+    qwen1.5-0.5b cut to ``TRAIN_CHECK_LAYERS`` layers at full width runs
+    ``TRAIN_STEPS`` steps of ``ft.run_training`` with a checkpoint every
+    ``TRAIN_CKPT_EVERY`` steps, once uninterrupted and once with failures
+    injected at ``TRAIN_RESTART_FAILS``; the two final checkpoints must be
+    equal bit for bit.  An op that has no deterministic CUDA version warns
+    (``warn_only``): it is named, and the check then holds the moments
+    within 1e-4 of each tensor's max instead.  Prints one
+    ``train_restart: {json}`` line.  ``cfg`` replaces that copy (a CPU
+    rehearsal passes a smoke config)."""
+    import dataclasses
+    import tempfile
+    import warnings
+    import torch
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import DataConfig
+    from repro_torch.runtime import ft
+    from repro_torch.runtime.train import init_train_state, make_train_step
+    t_start = time.perf_counter()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    full = get_config(TRAIN_ARCH)
+    cfg = cfg or dataclasses.replace(full, dtype="float32",
+                                     n_layers=TRAIN_CHECK_LAYERS)
+    batch, seq = shape
+    data = DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch,
+                      seed=SEED + 17)
+    step = make_train_step(cfg, _train_opt(TRAIN_STEPS), remat=True)
+    state = init_train_state(lm_params(cfg, device))
+    _sync(device)
+    setup_s = time.perf_counter() - t_start
+    runs = {}
+    _zero_counts()
+    with warnings.catch_warnings(record=True) as caught, \
+            tempfile.TemporaryDirectory(dir=_ckpt_root()) as d:
+        warnings.simplefilter("always")
+        for label, fails in (("uninterrupted", ()),
+                             ("interrupted", TRAIN_RESTART_FAILS)):
+            t0 = time.perf_counter()
+            res = ft.run_training(
+                step, state, data, TRAIN_STEPS, os.path.join(d, label),
+                ckpt_every=TRAIN_CKPT_EVERY,
+                injector=ft.FailureInjector(fail_at=list(fails)))
+            _sync(device)
+            tree, final_step, _ = ckpt.restore(os.path.join(d, label))
+            runs[label] = dict(res=res, tree=tree, step=final_step,
+                               s=time.perf_counter() - t0)
+    launches = _read_counts()
+    nondet = sorted({str(w.message).split("\n")[0] for w in caught
+                     if "deterministic" in str(w.message)})
+    a, b = runs["uninterrupted"]["tree"], runs["interrupted"]["tree"]
+    equal, worst = True, 0.0
+    for part in ("params", "mu", "nu", "count"):
+        for k in a[part]:
+            x, y = a[part][k], b[part][k]
+            equal &= torch.equal(x, y)
+            scale = float(x.abs().max()) if x.is_floating_point() else 1.0
+            d = float((x.double() - y.double()).abs().max())
+            worst = max(worst, d / scale if scale else d)
+    info = {"model": cfg.name,
+            "path": f"train f32 restart ({batch}, {seq}), failures at "
+                    f"{list(TRAIN_RESTART_FAILS)}",
+            "reduced": {"n_layers": f"{full.n_layers} -> {cfg.n_layers}",
+                        "dtype": f"{full.dtype} -> {cfg.dtype}"},
+            "launches": launches,
+            "restarts": runs["interrupted"]["res"].restarts,
+            "final_steps": [r["step"] for r in runs.values()],
+            "losses": {k: [m["loss"] for m in r["res"].metrics_log]
+                       for k, r in runs.items()},
+            "bit_equal": bool(equal), "max_err_over_max": worst,
+            "within_tolerance": worst <= GRAD_TOL,
+            "nondeterministic_ops": nondet,
+            "setup_s": setup_s,
+            "run_s": {k: r["s"] for k, r in runs.items()},
+            "total_s": time.perf_counter() - t_start}
+    log("train_restart: " + json.dumps(info))
+    return 0
+
+
+def ssm_train_path(card: str = "", device: str = "cuda", cfg=None,
+                   n_layers: int = SSM_TRAIN_LAYERS, shape=SSM_TRAIN_SHAPE,
+                   steps: int = SSM_TRAIN_STEPS) -> dict:
+    """Phase r: mamba2-1.3b at full width on ``n_layers`` of its 48 layers
+    (the cut printed), bf16, ``steps`` train steps on ``shape``: the scan
+    runs through the oracle, so every ``ssd_scan`` counter reads 0 over
+    the steps; a direct ``ssd_chunked_kernel`` call on tensors that require
+    grad raises and launches nothing; tokens/s (the median of steps 2
+    onward; the first is warm-up) and peak device memory printed beside
+    the card."""
+    import dataclasses
+    import math
+    import statistics
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import DataConfig, batch_at
+    from repro_torch.kernels.ssd_scan.ops import ssd_chunked_kernel
+    from repro_torch.runtime.train import init_train_state, make_train_step
+    full = cfg or get_config(LM_ARCH)
+    cfg = dataclasses.replace(full, n_layers=n_layers)
+    reduced = {"n_layers": f"{full.n_layers} -> {n_layers}",
+               "why": "the phase shows the training path's scan route; the "
+                      "depth adds only time"}
+    log(f"{full.name} train cut: " + json.dumps(reduced))
+    name = f"{cfg.name} train"
+    batch, seq = shape
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(lm_params(cfg, device))
+    step = make_train_step(cfg, _train_opt(steps), remat=True)
+    data = DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch,
+                      seed=SEED)
+    losses, dts = [], []
+    _zero_counts()
+    for i in range(steps):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch_at(data, i, device))
+        losses.append(float(metrics["loss"]))
+        dts.append(time.perf_counter() - t0)
+    launches = _read_counts()
+    fired = {k: n for k, n in launches.items() if n}
+    if fired or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{name}: launches {fired}, losses {losses}")
+    g = torch.Generator(device=device).manual_seed(SEED + 19)
+    H, P, N = cfg.n_ssm_heads, cfg.ssm.d_head, cfg.ssm.d_state
+    x = torch.randn((1, 64, H, P), generator=g, device=device,
+                    requires_grad=True)
+    dt = torch.rand((1, 64, H), generator=g, device=device) * 0.1
+    A = -torch.rand((H,), generator=g, device=device)
+    Bm = torch.randn((1, 64, 1, N), generator=g, device=device)
+    refused = None
+    try:
+        ssd_chunked_kernel(x, dt, A, Bm, Bm.clone(),
+                           torch.ones((H,), device=device), cfg.ssm.chunk)
+    except RuntimeError as e:
+        refused = str(e)
+    after = _read_counts()
+    if refused is None or "no backward" not in refused or any(after.values()):
+        raise AssertionError(f"{name}: ssd_chunked_kernel under grad: "
+                             f"{refused!r}, launches {after}")
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else None
+    info = {"path": f"train {cfg.dtype} ({batch}, {seq})", "model": cfg.name,
+            "launches": launches, "reduced": reduced, "losses": losses,
+            "step_s": dts,
+            "tokens_per_s": batch * seq / statistics.median(dts[1:]),
+            "peak_memory_bytes": peak, "refused_under_grad": refused}
+    log(f"main path {name}: " + json.dumps(info))
+    del state, step
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        log(f"phase {name}: {info['tokens_per_s']:.1f} training tokens/s "
+            f"(median of steps 2-{steps}), 0 ssd_scan launches, peak "
+            f"memory {peak} B "
+            f"({peak / 2 ** 30:.2f} GiB), on {card}")
+    return info
+
+
 # -- times ----------------------------------------------------------------------
 
 def _event_ms(fn, iters: int = 200, warmup: int = 20) -> float:
@@ -2876,6 +3296,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--conv2d-stream", action="store_true",
                     help="only build and time conv2d_stream")
+    ap.add_argument("--train-restart", action="store_true",
+                    help="only the restart check of phase q (run by phase q "
+                         "itself in a process of its own)")
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the src/ directory whose repro_torch to run (for "
                          "example a parent commit's, unpacked with git "
@@ -2898,6 +3321,8 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(SRC))
     if args.conv2d_stream:
         return conv2d_stream_main()
+    if args.train_restart:
+        return train_restart_main()
     # a fresh tile cache of this run's own, which the autotune phase fills
     # and every later phase (and its second process) reads
     cache = ROOT / "build" / "chip_smoke" / "autotune.json"
@@ -2936,6 +3361,8 @@ def main(argv=None) -> int:
         seq=256, n_layers=4, sliding_window=64, q_chunk=64))
     paths += lm_paths(get_config(DENSE_ARCH), card)
     paths += lm_family_paths(card)
+    paths += train_path(card)
+    paths.append(ssm_train_path(card))
     rows = times()
 
     # the JSON row of each kernel and mode: the path run whose launches it

@@ -9,6 +9,8 @@ with no fallback; a CPU tensor runs the plain version
 start (``init_state`` given) takes the same routes: the state-passing phase
 starts from the initial state where it would start from zero, so the
 reference wrapper's detour through the model oracle has no counterpart.
+The kernels are forward only, as the reference's: under grad mode an input
+that requires grad raises ``RuntimeError`` (training takes the oracle).
 
 :func:`ssd_scan_cuda` runs the scan as three chunk-parallel phases on the
 current stream: :func:`ssd_chunk_state_cuda` (each chunk's summary state
@@ -56,6 +58,19 @@ def _on_cuda(t: torch.Tensor, what: str) -> torch.device:
     return t.device
 
 
+def _refuse_grad(what: str, *ts) -> None:
+    """The kernels have no backward (nor has the reference's ``ssd_kernel``)
+    and a ``ctypes`` launch is not recorded by autograd: with grad mode on,
+    an input that requires grad would get no gradient and raise nothing, so
+    refuse it.  Training takes the oracle (``ssm_block(use_kernel=False)``)."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in ts):
+        raise RuntimeError(
+            f"{what}: the ssd_scan kernel has no backward; an input requires "
+            "grad under grad mode. Differentiate through the oracle "
+            "ssd_chunked (ssm_block(..., use_kernel=False)) instead")
+
+
 def _inputs(x, dt, A, Bm, C=None, D=None):
     """Check the scan's inputs on x's CUDA device; returns them with the
     last dim of x, Bm and C contiguous, and (B, S, H, P, G, N)."""
@@ -95,6 +110,7 @@ def ssd_chunk_state_cuda(x, dt, A, Bm, chunk: int):
     f32, decay (B,H,nc) f32), nc = ceil(S/chunk).  Operands as for
     :func:`ssd_scan_cuda`.  Counts launches in ``.launches``."""
     dev = _on_cuda(x, "ssd_chunk_state_cuda")
+    _refuse_grad("ssd_chunk_state_cuda", x, dt, A, Bm)
     x, dt, A, Bm, _, _, (Bsz, S, H, P, G, N) = _inputs(x, dt, A, Bm)
     nc = -(-S // chunk) if chunk > 0 else 0     # the kernel refuses chunk <= 0
     states = torch.empty((Bsz, H, nc, N, P), dtype=torch.float32, device=dev)
@@ -119,6 +135,7 @@ def ssd_state_pass_cuda(states, decay, init_state=None):
     (B,H,P,N) f32.  ``decay`` is (B,H,nc) f32.  Counts launches in
     ``.launches``."""
     dev = _on_cuda(states, "ssd_state_pass_cuda")
+    _refuse_grad("ssd_state_pass_cuda", states, decay, init_state)
     if states.ndim != 5 or not states.is_contiguous():
         raise ValueError("states must be a contiguous (B, H, nc, N, P) "
                          f"tensor; got {tuple(states.shape)}")
@@ -147,6 +164,7 @@ def ssd_chunk_scan_cuda(x, dt, A, Bm, C, D, states, chunk: int):
     (what :func:`ssd_state_pass_cuda` leaves).  Counts launches in
     ``.launches``."""
     dev = _on_cuda(x, "ssd_chunk_scan_cuda")
+    _refuse_grad("ssd_chunk_scan_cuda", x, dt, A, Bm, C, D, states)
     x, dt, A, Bm, C, D, (Bsz, S, H, P, G, N) = _inputs(x, dt, A, Bm, C, D)
     nc = -(-S // chunk) if chunk > 0 else 0
     _check_operand(states, "states", (Bsz, H, nc, N, P), _F32, dev)
@@ -179,6 +197,7 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     can have) come back from them as a CUDA error.  Counts one launch per
     call in ``ssd_scan_cuda.launches`` (each phase counts its own)."""
     _on_cuda(x, "ssd_scan_cuda")
+    _refuse_grad("ssd_scan_cuda", x, dt, A, Bm, C, D, init_state)
     Bsz, S, H, P = x.shape
     if Bsz * H == 0:
         N = Bm.shape[3]
@@ -200,7 +219,9 @@ for _fn in (ssd_chunk_state_cuda, ssd_state_pass_cuda, ssd_chunk_scan_cuda,
 def ssd_chunked_kernel(x, dt, A, Bm, C, D, chunk: int, init_state=None):
     """Same contract as ``ssd_chunked``: x (B,S,H,P), dt (B,S,H) f32, A
     (H,), Bm/C (B,S,G,N), D (H,), init_state (B,H,P,N) or None -> (y
-    (B,S,H,P), state (B,H,P,N))."""
+    (B,S,H,P), state (B,H,P,N)).  Forward only, on every device: with grad
+    mode on, an input that requires grad raises ``RuntimeError``."""
+    _refuse_grad("ssd_chunked_kernel", x, dt, A, Bm, C, D, init_state)
     if x.device.type == "cuda":
         return ssd_scan_cuda(
             x, dt.to(torch.float32), A.to(torch.float32), Bm.to(x.dtype),

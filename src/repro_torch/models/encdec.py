@@ -21,25 +21,29 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import attention, decode_attention
 from repro_torch.models.common import embed_lookup, norm, unembed
 from repro_torch.models.transformer import (_attn_params, _layer, _mlp,
-                                            layer_tree)
+                                            layer_tree, run_layer)
 
 
 def encode(params: Dict[str, torch.Tensor], frames: torch.Tensor,
-           cfg: ModelConfig) -> torch.Tensor:
-    """frames: (B, enc_seq, d) stub embeddings -> (B, enc_seq, d)."""
+           cfg: ModelConfig, remat: bool = False) -> torch.Tensor:
+    """frames: (B, enc_seq, d) stub embeddings -> (B, enc_seq, d).
+    ``remat`` checkpoints each layer, as in ``transformer.forward``."""
     if frames.dtype != params["enc_pos"].dtype:
         raise ValueError(f"{cfg.name}: frames are {frames.dtype}, the model "
                          f"is {params['enc_pos'].dtype}")
     x = frames + params["enc_pos"][None, : frames.shape[1]]
     lt = layer_tree(params, "enc/")
     positions = torch.arange(frames.shape[1], device=x.device)
-    for i in range(cfg.enc_layers):
-        lp = _layer(lt, i)
+
+    def layer(x, lp):
         xn = norm(x, lp["attn_norm/w"], cfg.norm)
         a, _, _ = attention(xn, _attn_params(lp), cfg, positions=positions,
                             causal=False)
         x = x + a
-        x = x + _mlp(norm(x, lp["mlp_norm/w"], cfg.norm), lp, cfg)
+        return x + _mlp(norm(x, lp["mlp_norm/w"], cfg.norm), lp, cfg)
+
+    for i in range(cfg.enc_layers):
+        x = run_layer(layer, remat, x, _layer(lt, i))
     return norm(x, params["enc_final_norm/w"], cfg.norm)
 
 
@@ -53,21 +57,21 @@ def _cross_kv(enc_out: torch.Tensor, lp: Dict[str, torch.Tensor],
 
 
 def forward(params: Dict[str, torch.Tensor], tokens: torch.Tensor,
-            frames: torch.Tensor, cfg: ModelConfig, *,
+            frames: torch.Tensor, cfg: ModelConfig, *, remat: bool = False,
             collect_cache: bool = False):
     """Teacher-forced decode pass.  tokens: (B, S); frames: (B, enc_seq, d)
     -> (logits (B, S, Vp), aux); with ``collect_cache`` also the stacked
-    per-layer (k, v, cross_k, cross_v), each (L, B, S or enc_seq, Hkv, Dh)."""
-    enc_out = encode(params, frames, cfg)
+    per-layer (k, v, cross_k, cross_v), each (L, B, S or enc_seq, Hkv, Dh).
+    ``remat`` checkpoints every encoder and decoder layer."""
+    enc_out = encode(params, frames, cfg, remat=remat)
     S = tokens.shape[1]
     x = embed_lookup(params["embed/table"], tokens)
     x = x + params["dec_pos"][None, :S].to(x.dtype)
     positions = torch.arange(S, device=x.device)
     enc_pos = torch.arange(enc_out.shape[1], device=x.device)
     lt = layer_tree(params)
-    caches = []
-    for i in range(cfg.n_layers):
-        lp = _layer(lt, i)
+
+    def layer(x, lp):
         xn = norm(x, lp["attn_norm/w"], cfg.norm)
         a, k, v = attention(xn, _attn_params(lp), cfg, positions=positions)
         x = x + a
@@ -78,8 +82,13 @@ def forward(params: Dict[str, torch.Tensor], tokens: torch.Tensor,
                             kv_override=(ck, cv, enc_pos))
         x = x + c
         x = x + _mlp(norm(x, lp["mlp_norm/w"], cfg.norm), lp, cfg)
+        return x, (k, v, ck, cv)
+
+    caches = []
+    for i in range(cfg.n_layers):
+        x, cache = run_layer(layer, remat, x, _layer(lt, i))
         if collect_cache:
-            caches.append((k, v, ck, cv))
+            caches.append(cache)
     x = norm(x, params["final_norm/w"], cfg.norm)
     logits = unembed(x, params["lm_head/w"], False)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)

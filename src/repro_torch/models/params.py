@@ -216,17 +216,21 @@ def params_from_jax(params: Mapping[str, np.ndarray], cfg: ModelConfig,
         if tuple(arr.shape) != tuple(shape):
             raise ValueError(f"{path}: shape {tuple(arr.shape)}, expected "
                              f"{tuple(shape)} for {cfg.name}")
-        want = param_dtype(path, dt)
-        if want == torch.bfloat16:
-            if arr.dtype.name != "bfloat16":
-                raise ValueError(f"{path}: dtype {arr.dtype}, expected "
-                                 "bfloat16")
-            t = torch.from_numpy(np.ascontiguousarray(arr).view(np.uint16)
-                                 .copy()).view(torch.bfloat16)
-        else:
-            if arr.dtype != np.float32:
-                raise ValueError(f"{path}: dtype {arr.dtype}, expected "
-                                 "float32")
-            t = torch.from_numpy(np.array(arr))
-        out[path] = t.to(dev)
+        out[path] = tensor_from_numpy(path, arr,
+                                      param_dtype(path, dt)).to(dev)
     return out
+
+
+def tensor_from_numpy(name: str, arr: np.ndarray,
+                      want: torch.dtype) -> torch.Tensor:
+    """A reference array (a bf16 one is an ``ml_dtypes`` array) -> a CPU
+    tensor of ``want`` (bf16 or f32), bit for bit: bf16 crosses viewed as
+    16-bit integers.  Another dtype raises ``ValueError``."""
+    if want == torch.bfloat16:
+        if arr.dtype.name != "bfloat16":
+            raise ValueError(f"{name}: dtype {arr.dtype}, expected bfloat16")
+        return torch.from_numpy(np.asarray(arr, order="C").view(np.int16)
+                                .copy()).view(torch.bfloat16)
+    if arr.dtype != np.float32:
+        raise ValueError(f"{name}: dtype {arr.dtype}, expected float32")
+    return torch.from_numpy(np.array(arr))

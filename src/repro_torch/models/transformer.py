@@ -12,6 +12,7 @@ from __future__ import annotations
 from typing import Dict, NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike
@@ -66,17 +67,21 @@ def _mlp(x, lp, cfg: ModelConfig):
     return torch.matmul(h, lp["mlp/w_down"]) + lp["mlp/b_down"]
 
 
-def _token_mixer(x, lp, cfg: ModelConfig, positions):
-    """Full-sequence mixer for one layer; returns (dx, (k, v, ssm_state))."""
+def _token_mixer(x, lp, cfg: ModelConfig, positions,
+                 ssd_kernel: Optional[bool] = None):
+    """Full-sequence mixer for one layer; returns (dx, (k, v, ssm_state)).
+    ``ssd_kernel`` is ``ssm_block``'s ``use_kernel`` (None: auto)."""
     k = v = ssm_state = None
     if cfg.family == "ssm":
         xn = norm(x, lp["ssm_norm/w"], cfg.norm)
-        dx, ssm_state = ssm_mod.ssm_block(xn, _ssm_params(lp), cfg)
+        dx, ssm_state = ssm_mod.ssm_block(xn, _ssm_params(lp), cfg,
+                                          use_kernel=ssd_kernel)
     elif cfg.hybrid:
         xn = norm(x, lp["attn_norm/w"], cfg.norm)
         a, k, v = attention(xn, _attn_params(lp), cfg, positions=positions)
         s, ssm_state = ssm_mod.ssm_block(norm(x, lp["ssm_norm/w"], cfg.norm),
-                                         _ssm_params(lp), cfg)
+                                         _ssm_params(lp), cfg,
+                                         use_kernel=ssd_kernel)
         dx = 0.5 * (a + s)
     else:
         xn = norm(x, lp["attn_norm/w"], cfg.norm)
@@ -114,24 +119,28 @@ def _logits(params, x, cfg: ModelConfig):
 
 
 def forward(params: Dict[str, torch.Tensor], tokens: torch.Tensor,
-            cfg: ModelConfig, *, patch_embeds=None,
-            collect_cache: bool = False):
+            cfg: ModelConfig, *, patch_embeds=None, remat: bool = False,
+            collect_cache: bool = False, ssd_kernel: Optional[bool] = None):
     """tokens: (B, S) -> (logits (B, S, Vp), aux dict).
 
     With ``collect_cache`` also returns the stacked per-layer (k, v,
     ssm_state) for the prefill->decode handoff: k and v (L,B,S,Hkv,Dh)
     after RoPE, or None for the ssm family; SSMState(ssd (L,B,H,P,N), conv
     (L,B,K-1,conv_dim)), or None for the dense family.  ``aux`` holds the
-    MoE losses averaged over the layers (zeros without MoE)."""
+    MoE losses averaged over the layers (zeros without MoE).
+
+    ``remat`` runs each layer under ``torch.utils.checkpoint`` (the
+    reference's ``jax.checkpoint`` of its scanned layer): backward
+    recomputes the layer's activations instead of keeping them, and the
+    numbers are unchanged.  ``ssd_kernel`` is passed to ``ssm_block`` as
+    ``use_kernel``: None takes the scan kernel on a CUDA tensor, False the
+    oracle, which training needs (the kernel has no backward)."""
     x = embed_inputs(params, cfg, tokens, patch_embeds)
     positions = torch.arange(tokens.shape[1], device=x.device)
     lt = layer_tree(params)
-    caches = []
-    lb = torch.zeros((), dtype=torch.float32, device=x.device)
-    z = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.n_layers):
-        lp = _layer(lt, i)
-        dx, cache = _token_mixer(x, lp, cfg, positions)
+
+    def layer(x, lb, z, lp):
+        dx, cache = _token_mixer(x, lp, cfg, positions, ssd_kernel)
         x = x + dx
         dx, moe_aux = _channel_mixer(x, lp, cfg)
         if dx is not None:
@@ -139,6 +148,13 @@ def forward(params: Dict[str, torch.Tensor], tokens: torch.Tensor,
         if moe_aux is not None:
             lb = lb + moe_aux[0]
             z = z + moe_aux[1]
+        return x, lb, z, cache
+
+    caches = []
+    lb = torch.zeros((), dtype=torch.float32, device=x.device)
+    z = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(cfg.n_layers):
+        x, lb, z, cache = run_layer(layer, remat, x, lb, z, _layer(lt, i))
         if collect_cache:
             caches.append(cache)
     logits = _logits(params, x, cfg)
@@ -152,6 +168,15 @@ def forward(params: Dict[str, torch.Tensor], tokens: torch.Tensor,
             conv=torch.stack([s.conv for s in st]))
         return logits, aux, (k, v, st)
     return logits, aux
+
+
+def run_layer(layer, remat: bool, *args):
+    """``layer(*args)``; under ``remat`` through activation checkpointing
+    (non-reentrant, so gradients also reach the tensors ``layer`` closes
+    over)."""
+    if remat:
+        return checkpoint(layer, *args, use_reentrant=False)
+    return layer(*args)
 
 
 # ---------------------------------------------------------------------------

@@ -1,24 +1,30 @@
-"""Fault sources and the straggler watchdog (counterpart of the serving half
-of ``repro.runtime.ft``).
+"""Fault-tolerant training loop and fault sources (counterpart of
+``repro.runtime.ft``): checkpoint/restart, failure injection, the straggler
+watchdog.
 
-``FailureInjector`` drives the chaos layer of the fleet
-(:class:`~repro_torch.runtime.fleet.ChaosExecutable`) and
+``run_training`` resumes params, optimizer state and the data cursor from
+the latest atomic checkpoint after a failure; the token stream is a pure
+function of ``(seed, step)``, so a restarted run sees the batches an
+uninterrupted one would and ends bit for bit where it ends.  On a real
+deployment the failure signal is a missing heartbeat or a collective
+timeout; here failures are injected (``FailureInjector``), which takes the
+same restart path.  ``FailureInjector`` also drives the chaos layer of the
+fleet (:class:`~repro_torch.runtime.fleet.ChaosExecutable`) and
 ``StragglerWatchdog`` flags latency spikes per replica.  Both draw from
-seeded numpy generators exactly as the reference does, so one seed gives the
-same fault schedule in both packages.
-
-Not ported yet: the training loop (``run_training``, ``LoopResult`` and its
-state helpers), which needs the checkpointer and the token stream; it comes
-with the training slice.
+seeded numpy generators exactly as the reference does, so one seed gives
+the same fault schedule in both packages.
 """
 from __future__ import annotations
 
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Callable, Deque, List, Optional
+from typing import Callable, Deque, Dict, List, Optional
 
 import numpy as np
+
+from repro_torch.ckpt import checkpoint as ckpt
+from repro_torch.data.tokens import DataConfig, batch_at
 
 
 class FailureInjector:
@@ -109,3 +115,119 @@ class StragglerWatchdog:
         if slow:
             self.flagged.append(step)
         return slow
+
+
+@dataclass
+class LoopResult:
+    final_step: int
+    restarts: int
+    metrics_log: List[Dict]
+    flagged_steps: List[int]
+
+
+def run_training(step_fn: Callable, init_state, data_cfg: DataConfig,
+                 total_steps: int, ckpt_dir: str, ckpt_every: int = 10,
+                 injector: Optional[FailureInjector] = None,
+                 watchdog: Optional[StragglerWatchdog] = None,
+                 state_shardings=None, max_restarts: int = 10) -> LoopResult:
+    """Run ``total_steps`` of ``step_fn(state, batch) -> (state, metrics)``
+    with checkpoint/restart until completion.  Batches come from
+    ``data.tokens.batch_at`` on the device of ``init_state``'s parameters;
+    a restored state lands beside ``init_state``'s tensors and must match
+    them leaf for leaf (names, shapes, dtypes), else ``ValueError``.
+    ``float(metrics["loss"])`` waits for each step.  A step that raises
+    ``RuntimeError`` restarts from the latest checkpoint, at most
+    ``max_restarts`` times.  ``state_shardings`` other than ``None``
+    raises ``NotImplementedError``: placing a state across devices waits
+    for the distributed writer (ROADMAP Queue 1 item 6)."""
+    if state_shardings is not None:
+        raise NotImplementedError(
+            "run_training(state_shardings=...) places a state across "
+            "devices, which waits for the distributed writer (ROADMAP "
+            "Queue 1 item 6); the port trains on one device")
+    injector = injector or FailureInjector()
+    watchdog = watchdog or StragglerWatchdog()
+    saver = ckpt.AsyncCheckpointer(ckpt_dir)
+    device = next(iter(init_state.params.values())).device
+    restarts = 0
+    log: List[Dict] = []
+
+    latest = ckpt.latest_step(ckpt_dir)
+    if latest is not None:
+        tree, step0, _ = ckpt.restore(ckpt_dir, latest)
+        state, step = _to_state(init_state, tree), step0
+    else:
+        state, step = init_state, 0
+        saver.save(_to_tree(state), 0, {"data_step": 0})
+
+    while step < total_steps:
+        try:
+            t0 = time.monotonic()
+            injector.maybe_fail(step)
+            batch = batch_at(data_cfg, step, device)
+            state, metrics = step_fn(state, batch)
+            loss = float(metrics["loss"])
+            dt = time.monotonic() - t0
+            watchdog.observe(step, dt)
+            log.append({"step": step, "loss": loss, "dt": dt})
+            step += 1
+            if step % ckpt_every == 0:
+                saver.save(_to_tree(state), step, {"data_step": step})
+        except RuntimeError:
+            restarts += 1
+            if restarts > max_restarts:
+                raise
+            saver.wait()
+            latest = ckpt.latest_step(ckpt_dir)
+            tree, step, _ = ckpt.restore(ckpt_dir, latest)
+            state = _to_state(init_state, tree)
+    saver.wait()
+    saver.save(_to_tree(state), step, {"data_step": step})
+    saver.wait()
+    return LoopResult(step, restarts, log, watchdog.flagged)
+
+
+def _to_tree(state) -> Dict:
+    """TrainState -> plain nested dict for the checkpointer."""
+    d = {"params": state.params, "mu": state.opt.mu, "nu": state.opt.nu,
+         "count": {"count": state.opt.count}}
+    if state.err_fb is not None:
+        d["err_fb"] = state.err_fb
+    return d
+
+
+def _to_state(proto, tree):
+    """A restored tree -> TrainState, each leaf on the device of its
+    counterpart in ``proto`` (the state the run started from).  Raises
+    ``ValueError`` when the checkpoint is not a state of the same model and
+    options: other leaf names, shapes or dtypes, or error feedback present
+    in one and not the other."""
+    from repro_torch.optim.adamw import OptState
+    from repro_torch.runtime.train import TrainState
+
+    def beside(part, leaves, like):
+        if set(leaves) != set(like):
+            raise ValueError(
+                f"checkpoint's {part} leaves differ from the run's: only in "
+                f"the checkpoint {sorted(set(leaves) - set(like))}, only in "
+                f"the run {sorted(set(like) - set(leaves))}")
+        for k, v in leaves.items():
+            if v.shape != like[k].shape or v.dtype != like[k].dtype:
+                raise ValueError(
+                    f"checkpoint's {part}[{k!r}] is {v.dtype} "
+                    f"{tuple(v.shape)}, the run's {like[k].dtype} "
+                    f"{tuple(like[k].shape)}")
+        return {k: v.to(like[k].device) for k, v in leaves.items()}
+
+    if ("err_fb" in tree) != (proto.err_fb is not None):
+        raise ValueError("checkpoint and run differ in error feedback "
+                         "(grad_compress)")
+    count = beside("count", tree["count"],
+                   {"count": proto.opt.count})["count"]
+    return TrainState(
+        params=beside("params", tree["params"], proto.params),
+        opt=OptState(mu=beside("mu", tree["mu"], proto.opt.mu),
+                     nu=beside("nu", tree["nu"], proto.opt.nu),
+                     count=count),
+        err_fb=(None if proto.err_fb is None else
+                beside("err_fb", tree["err_fb"], proto.err_fb)))

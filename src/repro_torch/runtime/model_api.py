@@ -6,23 +6,45 @@
   audio:     {tokens, labels, frames (B, enc_seq, d)}
   vlm:       {tokens, labels, patches (B, n_patches, d)}
 
-``loss_fn`` waits for the training slice (ROADMAP Queue 1).
+``loss_fn`` is the training objective: the masked cross-entropy over the
+real vocab plus the MoE auxiliaries.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import encdec, transformer
+from repro_torch.models.common import cross_entropy
 
 
-def forward_logits(params, batch: Dict, cfg: ModelConfig):
+def forward_logits(params, batch: Dict, cfg: ModelConfig, *,
+                   remat: bool = False, ssd_kernel=None):
+    """-> (logits (B, S, Vp), aux).  ``remat`` checkpoints every layer;
+    ``ssd_kernel`` is ``transformer.forward``'s (None: the scan kernel on a
+    CUDA tensor, False: the oracle)."""
     if cfg.family == "audio":
-        return encdec.forward(params, batch["tokens"], batch["frames"], cfg)
+        return encdec.forward(params, batch["tokens"], batch["frames"], cfg,
+                              remat=remat)
     return transformer.forward(params, batch["tokens"], cfg,
-                               patch_embeds=batch.get("patches"))
+                               patch_embeds=batch.get("patches"),
+                               remat=remat, ssd_kernel=ssd_kernel)
+
+
+def loss_fn(params, batch: Dict, cfg: ModelConfig, *, remat: bool = False,
+            lb_coef: float = 0.01, z_coef: float = 1e-3
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """-> (loss, metrics {loss, ce, lb_loss, z_loss}): ``ce +
+    lb_coef*lb_loss + z_coef*z_loss``.  The SSM scan takes the oracle
+    (the scan kernel has no backward), as the reference's training does."""
+    logits, aux = forward_logits(params, batch, cfg, remat=remat,
+                                 ssd_kernel=False)
+    ce = cross_entropy(logits, batch["labels"], cfg.vocab)
+    loss = ce + lb_coef * aux["lb_loss"] + z_coef * aux["z_loss"]
+    metrics = {"loss": loss, "ce": ce, **aux}
+    return loss, metrics
 
 
 def init_decode_state(params, batch: Dict, cfg: ModelConfig, batch_size: int,

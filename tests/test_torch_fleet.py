@@ -647,17 +647,33 @@ def test_fleet_brownout_wired_into_every_replica():
 
 
 def test_fleet_sentinel_feeds_queue_depth_to_brownout():
+    """The sentinel really feeds the depth: a tick that began after the
+    result resolved (the second feed after it; ticks run one after another
+    on one thread, so the first may have read the depth before) reports
+    the drained fleet's depth, 0."""
     sel = BrownoutSelector(POINTS, _slo(hold=1), max_queue_depth=1000)
+    feeds = []
+    observe = sel.observe_depth
+
+    def recording(depth):
+        feeds.append((time.monotonic(), depth))
+        observe(depth)
+
+    sel.observe_depth = recording
     r = make_router({"a": make_factory()}, brownout=sel, probe=None,
                     probe_interval_s=0.005)
     with r:
         r.submit(*vals(1)).result(timeout=10)
-        deadline = time.monotonic() + 5.0
+        done = time.monotonic()
+        deadline = done + 5.0
         while time.monotonic() < deadline:
-            if sel.telemetry()["queue_depth"] is not None:
+            if sum(t > done for t, _ in list(feeds)) >= 2:
                 break
             time.sleep(0.005)
-    assert sel.telemetry()["queue_depth"] == 0   # drained fleet, depth fed
+    after = [d for t, d in list(feeds) if t > done]
+    assert len(after) >= 2, feeds                # the sentinel fed the depth
+    assert after[1] == 0                         # drained fleet
+    assert sel.telemetry()["queue_depth"] == 0
 
 
 def test_fleet_drop_releases_all_attempts():

@@ -1,18 +1,124 @@
-"""Fault sources in the port: the straggler watchdog and the failure
-injector's fire-once, seeded-rate and delay modes.
+"""Fault tolerance in the port: the training loop's restart against the
+uninterrupted run, the straggler watchdog and the failure injector's
+fire-once, seeded-rate and delay modes.
 
-The six serving-side tests of ``tests/test_ft.py`` under the port's mapping
-(``repro.`` -> ``repro_torch.``); the three that need ``run_training`` or
-the checkpointer wait for the training slice.  Then parity: one seed draws
-the reference's fault and delay schedule, and the watchdog flags the same
-steps on the same samples.
+The nine tests of ``tests/test_ft.py`` under the port's mapping
+(``repro.`` -> ``repro_torch.``): the three training ones run the port's
+``run_training`` on its own bf16 smoke weights and token stream (the
+reference's ``_setup``: qwen1.5-0.5b, batch 4 of 32 tokens, seed 7).  Then
+parity: one seed draws the reference's fault and delay schedule, and the
+watchdog flags the same steps on the same samples.
 """
+import dataclasses
+import os
+
 import numpy as np
 import pytest
+import torch
 
 from repro.runtime import ft as j_ft
 
+from repro_torch.ckpt import checkpoint as ckpt
+from repro_torch.configs import get_config
+from repro_torch.data.tokens import DataConfig
+from repro_torch.models.params import init_params
+from repro_torch.optim.adamw import OptConfig
 from repro_torch.runtime import ft
+from repro_torch.runtime.train import init_train_state, make_train_step
+
+ARCH = "qwen1.5-0.5b"
+
+
+def _setup(steps=12):
+    cfg = get_config(ARCH).smoke()
+    params = init_params(cfg, torch.Generator().manual_seed(0), max_seq=32,
+                         device="cpu")
+    state = init_train_state(params)
+    step = make_train_step(cfg, OptConfig(lr=1e-3, warmup_steps=1,
+                                          total_steps=steps))
+    data = DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=4, seed=7)
+    return cfg, state, step, data
+
+
+def test_restart_bit_identical_to_uninterrupted(tmp_path):
+    steps = 12
+    cfg, state, step, data = _setup(steps)
+    # uninterrupted run
+    ft.run_training(step, state, data, steps, str(tmp_path / "a"),
+                    ckpt_every=4)
+    # interrupted run: inject failures at steps 5 and 9
+    r2 = ft.run_training(step, state, data, steps, str(tmp_path / "b"),
+                         ckpt_every=4,
+                         injector=ft.FailureInjector(fail_at=[5, 9]))
+    assert r2.restarts == 2
+    t1, s1, _ = ckpt.restore(str(tmp_path / "a"))
+    t2, s2, _ = ckpt.restore(str(tmp_path / "b"))
+    assert s1 == s2 == steps
+    for part in ("params", "mu", "nu", "count"):
+        for k in t1[part]:
+            assert torch.equal(t1[part][k], t2[part][k]), (part, k)
+    assert t1["params"]["embed/table"].dtype == torch.bfloat16
+    # the run changed the weights it started from, and left them as they were
+    assert not torch.equal(t1["params"]["embed/table"],
+                           state.params["embed/table"])
+    assert torch.equal(init_params(cfg, torch.Generator().manual_seed(0),
+                                   max_seq=32, device="cpu")["embed/table"],
+                       state.params["embed/table"])
+
+
+def test_loss_decreases_over_training(tmp_path):
+    steps = 15
+    cfg, state, step, data = _setup(steps)
+    r = ft.run_training(step, state, data, steps, str(tmp_path / "c"),
+                        ckpt_every=50)
+    losses = [m["loss"] for m in r.metrics_log]
+    assert losses[-1] < losses[0], losses
+
+
+def test_run_training_resumes_from_the_latest_checkpoint(tmp_path):
+    """A second call on the same directory resumes where the first ended
+    (the data cursor is the step) and ends where one longer run ends."""
+    cfg, state, step, data = _setup(6)
+    ft.run_training(step, state, data, 6, str(tmp_path / "a"), ckpt_every=3)
+    ft.run_training(step, state, data, 3, str(tmp_path / "b"), ckpt_every=3)
+    r = ft.run_training(step, state, data, 6, str(tmp_path / "b"),
+                        ckpt_every=3)
+    assert [m["step"] for m in r.metrics_log] == [3, 4, 5]
+    t1, _, _ = ckpt.restore(str(tmp_path / "a"))
+    t2, _, _ = ckpt.restore(str(tmp_path / "b"))
+    assert all(torch.equal(t1["params"][k], t2["params"][k])
+               for k in t1["params"])
+
+
+def test_run_training_refuses_a_checkpoint_of_another_config(tmp_path):
+    """A checkpoint left by another model or other options in the same
+    directory stops the run before any step, with ``ValueError`` (not the
+    restart path, and not a silent resume)."""
+    cfg, state, step, data = _setup(4)
+    ft.run_training(step, state, data, 2, str(tmp_path / "a"))
+    wide = get_config(ARCH).smoke()
+    wide = dataclasses.replace(wide, d_ff=2 * wide.d_ff)
+    other = init_train_state(init_params(
+        wide, torch.Generator().manual_seed(0), max_seq=32, device="cpu"))
+    with pytest.raises(ValueError, match="mlp"):
+        ft.run_training(make_train_step(wide, OptConfig()), other, data, 4,
+                        str(tmp_path / "a"))
+    f32 = init_train_state({k: v.float() for k, v in state.params.items()})
+    with pytest.raises(ValueError, match="float32"):
+        ft.run_training(step, f32, data, 4, str(tmp_path / "a"))
+    with pytest.raises(ValueError, match="error feedback"):
+        ft.run_training(step, init_train_state(state.params,
+                                               grad_compress=True),
+                        data, 4, str(tmp_path / "a"))
+    assert ckpt.latest_step(str(tmp_path / "a")) == 2
+
+
+def test_run_training_refuses_state_shardings(tmp_path):
+    cfg, state, step, data = _setup(2)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        ft.run_training(step, state, data, 2, str(tmp_path / "a"),
+                        state_shardings={"params": {}})
+    assert ckpt.latest_step(str(tmp_path / "a")) is None
 
 
 def test_straggler_watchdog_flags_slow_steps():
@@ -123,3 +229,14 @@ def test_watchdog_flags_equal_the_reference():
     assert [t.observe(i, float(d)) for i, d in enumerate(dts)] == \
         [j.observe(i, float(d)) for i, d in enumerate(dts)]
     assert t.flagged == j.flagged and t.flagged
+
+
+def test_failure_mid_save_keeps_last_good_checkpoint(tmp_path):
+    """Atomic rename: a .tmp dir never shadows the last good step."""
+    tree = {"params": {"w": torch.ones(4)}}
+    ckpt.save(tree, str(tmp_path), 10)
+    # simulate a crashed save: leave a stale tmp dir
+    os.makedirs(str(tmp_path / "step_00000020.tmp"))
+    assert ckpt.latest_step(str(tmp_path)) == 10
+    t, s, _ = ckpt.restore(str(tmp_path))
+    assert s == 10

@@ -187,6 +187,55 @@ def test_moe_encdec_slice_modules_import_alone_with_jax_blocked():
         assert all(hasattr(mod, n) for n in names), mod.__name__
 
 
+def test_training_slice_modules_import_alone_with_jax_blocked():
+    """The training path (AdamW, gradient compression, pruning, the
+    checkpointer, the train step, the fault-tolerant loop and the launcher)
+    is walked by the jax-blocked import above, each module also imports on
+    its own with jax and the reference package blocked, pulling in
+    neither, and the names of the slice resolve."""
+    mods = {"repro_torch.optim", "repro_torch.optim.adamw",
+            "repro_torch.quant.gradcomp", "repro_torch.quant.pruning",
+            "repro_torch.ckpt", "repro_torch.ckpt.checkpoint",
+            "repro_torch.runtime.train", "repro_torch.runtime.ft",
+            "repro_torch.launch.train"}
+    assert mods <= set(_modules())
+    for mod in sorted(mods):
+        code = ("import sys, importlib\n"
+                "for m in ('jax', 'jaxlib', 'repro'):\n"
+                "    sys.modules[m] = None\n"
+                f"importlib.import_module({mod!r})\n"
+                "bad = [m for m in sys.modules if m.split('.')[0] in "
+                "('jax', 'jaxlib', 'repro') and sys.modules[m] is not None]\n"
+                "assert not bad, bad\n")
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                             text=True, env=env, timeout=300)
+        assert out.returncode == 0, (mod, out.stderr)
+    from repro_torch.ckpt import checkpoint
+    from repro_torch.launch import train as launch_train
+    from repro_torch.optim import adamw
+    from repro_torch.quant import gradcomp, pruning
+    from repro_torch.runtime import ft, model_api, train
+    for mod, names in ((adamw, ("OptConfig", "OptState", "init_opt_state",
+                                "schedule", "global_norm", "_NO_DECAY",
+                                "apply_updates")),
+                       (gradcomp, ("init_error_state", "_q_int8",
+                                   "compress_decompress", "compress_tree")),
+                       (pruning, ("magnitude_prune", "nm_prune", "prune_tree",
+                                  "zero_weight_fraction")),
+                       (checkpoint, ("_flatten", "_unflatten", "save",
+                                     "AsyncCheckpointer", "list_steps",
+                                     "latest_step", "restore",
+                                     "_storage_view", "_logical_view")),
+                       (train, ("TrainState", "init_train_state",
+                                "make_train_step", "train_state_from_jax")),
+                       (ft, ("LoopResult", "run_training", "_to_tree",
+                             "_to_state")),
+                       (model_api, ("loss_fn", "forward_logits")),
+                       (launch_train, ("main",))):
+        assert all(hasattr(mod, n) for n in names), mod.__name__
+
+
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")] + ["chip_smoke.py"]))
 def test_no_source_line_imports_jax_or_repro(path):
