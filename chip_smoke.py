@@ -193,6 +193,23 @@ Phases, each of which raises (and exits non-zero) on failure:
       and a direct ``ssd_chunked_kernel`` call on tensors that require
       grad raises; tokens/s (median of steps 2-4) and peak memory beside
       the card;
+   s. SPMD on a device mesh (:func:`spmd_path`): a one-rank NCCL group and
+      its (1, 1) ``make_local_mesh()`` (a group that does not start fails
+      the phase; it is destroyed at the end): mamba2-1.3b's bf16 prefill
+      of (4, 2048) through ``make_prefill_step(cfg, mesh=mesh)`` on
+      parameters placed by ``param_sharding``, 48 ``ssd_scan`` launches
+      through ``local_map`` (each rank's local heads), logits equal to the
+      ``mesh=None`` prefill's bit for bit (or within 2^-5 of max|logit|,
+      the difference printed), tokens/s of both routes; qwen1.5-0.5b's 3
+      train steps of (8, 2048) in 2 microbatches with remat through
+      ``jit_train_step`` from the state ``make_train_step(mesh=None)``
+      steps from, losses and gradient norms within 2e-2 relative and
+      parameters within 5e-2 of each max (the reference's sharded-step
+      tolerances; the largest differences printed), seconds per step of
+      both and peak memory beside phase q's; mnist-cnn's ``"dist"`` target
+      on the (1,) data mesh behind ``AccelServer``, batches 8, 3 and 1
+      equal to the ``"torch"`` target's bit for bit, then requests/s of
+      both targets;
 6. times — each kernel and mode, its plain version and the nearest PyTorch
    library call at the main paths' batch-8 shapes: device time per call
    from the profiler's CUDA activity (and the per-call time of back-to-back
@@ -225,7 +242,8 @@ Phases, each of which raises (and exits non-zero) on failure:
    pick (the row's ``ms``) and with the static rule's mapping
    (``static_ms``), both in the kernels line (``tuned_rows``).
 
-It prints one ``{"kernels": [...]}`` JSON line, and as its last line
+It prints one ``{"kernels": [...]}`` JSON line (``ssd_scan``'s row also
+gives phase s's launches on the mesh under ``mesh``), and as its last line
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the repository's
 ``src/`` beside it, it exits non-zero and prints no result.  Details go to
 ``build/chip_smoke/chip_smoke.json``.
@@ -2651,6 +2669,291 @@ def ssm_train_path(card: str = "", device: str = "cuda", cfg=None,
     return info
 
 
+# -- phase s: SPMD on a DeviceMesh ----------------------------------------------
+
+SPMD_PREFILL_SHAPE = (4, 2048)
+SPMD_TRAIN_SHAPE = (8, 2048)     # 2 microbatches of 4, remat
+SPMD_TRAIN_STEPS = 3
+SPMD_TRAIN_RTOL = 2e-2           # the reference's sharded-step tolerances
+SPMD_PARAM_TOL = 5e-2            # of each tensor's max (q/k/v biases skipped)
+SPMD_DELTA_TOL = 1e-2            # of each update's max, plus a bf16 ulp
+SPMD_BF16_GATE = 2.0 ** -5       # tests/test_torch_lm.py's bf16 logits gate
+SPMD_DIST_BATCHES = (8, 3, 1)
+
+
+def _mesh_path_name(mesh) -> str:
+    from repro_torch.sharding import mesh_shape
+    return "mesh " + "x".join(f"{k}={v}" for k, v in mesh_shape(mesh).items())
+
+
+def spmd_prefill(cfg, mesh, card: str = "", device: str = "cuda",
+                 shape=SPMD_PREFILL_SHAPE, reps: int = 3) -> dict:
+    """The prefill on the mesh: ``make_prefill_step(cfg, mesh=mesh)`` on
+    DTensor parameters placed by ``param_sharding`` and tokens over the
+    data axes, the scan run on each rank's local heads under ``local_map``
+    (one ``ssd_scan`` launch a layer, counted with the counters zeroed just
+    before the mesh run and read just after), its logits against the
+    ``mesh=None`` prefill of the same weights (bit for bit on one rank, or
+    within ``SPMD_BF16_GATE`` of max|logit| with the difference reported);
+    tokens/s of both routes, timed alternately in this process."""
+    import statistics
+    import torch
+    from repro_torch.runtime.serve import make_prefill_step
+    from repro_torch.sharding import (batch_spec, param_sharding, place,
+                                      place_tree)
+    batch, seq = shape
+    params = lm_params(cfg, device)
+    toks = _tokens(cfg, (batch, seq), SEED + 5, device)
+    plain = make_prefill_step(cfg)
+    on_mesh = make_prefill_step(cfg, mesh=mesh)
+    name = f"{cfg.name} {_mesh_path_name(mesh)} prefill"
+    with torch.no_grad():
+        want = plain(params, {"tokens": toks})
+        t0 = time.perf_counter()
+        dparams = place_tree(params, param_sharding(params, mesh))
+        dfeed = {"tokens": place(toks, mesh, batch_spec(mesh, None))}
+        _sync(device)
+        place_s = time.perf_counter() - t0
+        _zero_counts()
+        t0 = time.perf_counter()
+        got = on_mesh(dparams, dfeed)
+        _sync(device)
+        first_s = time.perf_counter() - t0
+        launches = _read_counts()
+        full = got.full_tensor()
+        if tuple(full.shape) != (batch, seq, cfg.vocab_padded) or \
+                not bool(torch.isfinite(full).all()):
+            raise AssertionError(f"{name}: logits {tuple(full.shape)}, "
+                                 "finite: "
+                                 f"{bool(torch.isfinite(full).all())}")
+        equal = torch.equal(full, want)
+        diff = float((full.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        if not equal and diff > SPMD_BF16_GATE * scale:
+            raise AssertionError(f"{name}: max |diff| {diff} from the "
+                                 f"mesh=None prefill over the gate "
+                                 f"{SPMD_BF16_GATE} * {scale}")
+        _expect_ssd_launches(name, launches, cfg, device)
+        del full, got, want
+        secs = {"mesh": [], "none": []}
+        for _ in range(reps):
+            for route, fn in (("none", lambda: plain(params,
+                                                      {"tokens": toks})),
+                              ("mesh", lambda: on_mesh(dparams, dfeed))):
+                t1 = time.perf_counter()
+                fn()
+                _sync(device)
+                secs[route].append(time.perf_counter() - t1)
+    tps = {k: batch * seq / statistics.median(v) for k, v in secs.items()}
+    info = {"path": f"{_mesh_path_name(mesh)} prefill {cfg.dtype} "
+                    f"({batch}, {seq})", "model": cfg.name,
+            "launches": launches, "bit_equal_to_mesh_none": equal,
+            "max_abs_diff": diff, "logits_max_abs": scale,
+            "place_s": place_s, "first_s": first_s, "prefill_s": secs,
+            "tokens_per_s": tps["mesh"], "tokens_per_s_mesh_none": tps["none"],
+            "host_cost_s": statistics.median(secs["mesh"])
+            - statistics.median(secs["none"])}
+    log(f"main path {name}: " + json.dumps(info))
+    log(f"phase s {name}: {tps['mesh']:.1f} tokens/s on the mesh, "
+        f"{tps['none']:.1f} with mesh=None, {launches['ssd_scan']} ssd_scan "
+        f"launches, logits {'bit for bit' if equal else f'max |diff| {diff}'}"
+        f", on {card}")
+    del dparams, params
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return info
+
+
+def spmd_train(cfg, mesh, card: str = "", device: str = "cuda",
+               shape=SPMD_TRAIN_SHAPE, steps: int = SPMD_TRAIN_STEPS,
+               microbatches: int = 2) -> dict:
+    """``steps`` train steps of ``jit_train_step`` on the mesh (remat,
+    ``microbatches``) from the state ``make_train_step(mesh=None)`` steps
+    from, on the port's token stream: every loss and gradient norm within
+    ``SPMD_TRAIN_RTOL`` of the one-device run's and every parameter within
+    ``SPMD_PARAM_TOL`` of its tensor's max (the reference's sharded-step
+    tolerances), the largest differences reported.  Those gates cannot see
+    the update itself (3 steps of lr 1e-3 move a weight by a few tenths of
+    a percent of its max), so each parameter's update (new - initial) must
+    also equal the one-device run's within ``SPMD_DELTA_TOL`` of that
+    update's max plus one bf16 ulp of the parameter per element: a missing
+    or reversed update fails.  Seconds per step of both and the mesh run's
+    peak memory, beside the card."""
+    import statistics
+    import torch
+    from repro_torch.data.tokens import DataConfig, batch_at
+    from repro_torch.runtime.train import (init_train_state, jit_train_step,
+                                           make_train_step)
+    batch, seq = shape
+    name = f"{cfg.name} {_mesh_path_name(mesh)} train"
+    state = init_train_state(lm_params(cfg, device))
+    p0 = {k: v.float().cpu() for k, v in state.params.items()}
+    data = DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch,
+                      seed=SEED)
+    opt = _train_opt(steps)
+
+    def run(step_fn):
+        st, losses, gns, dts = state, [], [], []
+        for i in range(steps):
+            t0 = time.perf_counter()
+            st, m = step_fn(st, batch_at(data, i, device))
+            losses.append(float(m["loss"]))
+            gns.append(float(m["grad_norm"]))
+            dts.append(time.perf_counter() - t0)
+        return st.params, losses, gns, dts
+
+    p1, l1, g1, d1 = run(make_train_step(cfg, opt, remat=True,
+                                         microbatches=microbatches))
+    p1 = {k: v.float().cpu() for k, v in p1.items()}
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    step = jit_train_step(cfg, opt, mesh, state, batch_at(data, 0, device),
+                          remat=True, microbatches=microbatches)
+    _zero_counts()
+    p2, l2, g2, d2 = run(step)
+    launches = _read_counts()
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else None
+    _expect_no_stray_launches(name, launches, cfg)
+    rel_loss = max(abs(a - b) / abs(a) for a, b in zip(l1, l2))
+    rel_gn = max(abs(a - b) / abs(a) for a, b in zip(g1, g2))
+    worst, worst_k, d_worst, d_worst_k, d_moved = 0.0, None, 0.0, None, 0
+    d_max = 0.0
+    for k, a in p1.items():
+        b = p2[k].full_tensor().float().cpu()
+        u1, u2 = a - p0[k], b - p0[k]
+        # one bf16 ulp of |a| is at most |a| * 2^-7 (8 significant bits)
+        d_bad = (u2 - u1).abs() > (SPMD_DELTA_TOL * u1.abs().max()
+                                   + a.abs() * 2.0 ** -7)
+        d_rel = float((u2 - u1).abs().max()) / (float(u1.abs().max()) + 1e-30)
+        d_moved += int((u1 != 0).sum())
+        d_max = max(d_max, d_rel)
+        if bool(d_bad.any()) and d_rel >= d_worst:
+            d_worst, d_worst_k = d_rel, k
+        if k.endswith(("/bq", "/bk", "/bv")):
+            continue
+        rel = float((a - b).abs().max()) / (float(a.abs().max()) + 1e-6)
+        if rel > worst:
+            worst, worst_k = rel, k
+    if rel_loss >= SPMD_TRAIN_RTOL or rel_gn >= SPMD_TRAIN_RTOL or \
+            worst >= SPMD_PARAM_TOL or d_worst_k is not None or not d_moved:
+        raise AssertionError(f"{name}: losses {l2} vs {l1}, grad norms {g2} "
+                             f"vs {g1}, worst parameter {worst_k} {worst}, "
+                             f"update off at {d_worst_k} ({d_worst} of its "
+                             f"max), {d_moved} elements moved one-device")
+    info = {"path": f"{_mesh_path_name(mesh)} train {cfg.dtype} "
+                    f"({batch}, {seq}) in {microbatches} microbatches",
+            "model": cfg.name, "launches": launches, "steps": steps,
+            "losses": l2, "losses_mesh_none": l1, "grad_norms": g2,
+            "grad_norms_mesh_none": g1, "max_loss_rel": rel_loss,
+            "max_grad_norm_rel": rel_gn, "max_param_rel": worst,
+            "bit_equal_to_mesh_none": l1 == l2 and g1 == g2 and worst == 0.0,
+            "max_param_rel_at": worst_k,
+            "max_update_rel": d_max, "update_elements_moved": d_moved,
+            "step_s": d2,
+            "step_s_mesh_none": d1,
+            "s_per_step": statistics.median(d2[1:]),
+            "s_per_step_mesh_none": statistics.median(d1[1:]),
+            "tokens_per_s": batch * seq / statistics.median(d2[1:]),
+            "peak_memory_bytes": peak}
+    log(f"main path {name}: " + json.dumps(info))
+    del p2, state, step
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return info
+
+
+def spmd_dist_serve(cfg, mesh, card: str = "", device: str = "cuda") -> dict:
+    """mnist-cnn's ``"dist"`` target on the data mesh behind
+    ``AccelServer``: batches 8, 3 and 1 equal to the ``"torch"`` target's
+    bit for bit on one rank; then 33 requests of 1-8 rows with the pump
+    running through each target's server (each result within 1e-5 of its
+    request run alone), requests/s of both."""
+    import numpy as np
+    from repro_torch.core.passes import PassManager, structural_pipeline
+    from repro_torch.core.reader import cnn_to_ir
+    from repro_torch.core.writers.dist_writer import DistWriter
+    from repro_torch.core.writers.torch_writer import TorchWriter
+    from repro_torch.runtime.serve import AccelServer
+    name = f"mnist-cnn dist {_mesh_path_name(mesh)}"
+    params = _params(cfg, False, device)
+    g = PassManager(structural_pipeline()).run(cnn_to_ir(cfg, params))
+    dw = DistWriter(g, device=device)
+    ref = TorchWriter(g, device=device).build()
+    _, reqs = _workload(cfg, 33, SEED + 23)
+    x = np.concatenate(reqs)[:max(SPMD_DIST_BATCHES)]
+    _zero_counts()
+    srv = AccelServer(dw.build_batched(mesh), max_batch=8, max_wait=0.0)
+    for b in SPMD_DIST_BATCHES:
+        t = srv.submit(x[:b])
+        srv.pump(flush=True)
+        _check(f"{name} batch {b}", srv.result(t), ref(x[:b]).cpu().numpy(),
+               exact=True)
+    rates, stats = {}, {}
+    for target, exe in (("dist", dw.build_batched(mesh)),
+                        ("torch", TorchWriter(g, device=device)
+                         .build_batched())):
+        srv = AccelServer(exe, max_batch=8, max_wait=0.002)
+        t0 = time.perf_counter()
+        outs = _serve_all(srv, reqs)
+        rates[target] = len(reqs) / (time.perf_counter() - t0)
+        stats[target] = srv.stats()
+        # coalesced batches round the convolutions' sums in their own
+        # order: the reference's serving test holds them within 1e-5
+        worst = max(float(np.abs(o - ref(r).cpu().numpy()).max())
+                    for o, r in zip(outs, reqs))
+        if not worst <= 1e-5:
+            raise AssertionError(f"{name} {target}: served results "
+                                 f"{worst} from per-request ones")
+    launches = _read_counts()
+    info = {"path": f"dist {_mesh_path_name(mesh)}", "model": "mnist-cnn",
+            "launches": launches, "batches_bit_equal": list(SPMD_DIST_BATCHES),
+            "requests": len(reqs), "requests_per_s": rates["dist"],
+            "requests_per_s_torch": rates["torch"],
+            "p50_latency_ms": 1e3 * stats["dist"].get("p50_latency_s",
+                                                      float("nan")),
+            "p95_latency_ms": 1e3 * stats["dist"].get("p95_latency_s",
+                                                      float("nan"))}
+    log(f"main path {name}: " + json.dumps(info))
+    log(f"phase s {name}: {rates['dist']:.1f} req/s (torch target "
+        f"{rates['torch']:.1f}), batches {SPMD_DIST_BATCHES} bit for bit, "
+        f"on {card}")
+    return info
+
+
+def spmd_path(card: str = "", device: str = "cuda", prefill_cfg=None,
+              train_cfg=None, prefill_shape=SPMD_PREFILL_SHAPE,
+              train_shape=SPMD_TRAIN_SHAPE,
+              train_steps: int = SPMD_TRAIN_STEPS) -> list:
+    """Phase s: a one-rank process group (NCCL on the card) and its
+    (1, 1) ``make_local_mesh()``; mamba2-1.3b's prefill on the mesh
+    (:func:`spmd_prefill`), qwen1.5-0.5b's train step through
+    ``jit_train_step`` (:func:`spmd_train`) and mnist-cnn's ``"dist"``
+    target on the (1,) data mesh (:func:`spmd_dist_serve`).  The group is
+    destroyed at the end; a group that does not start fails the phase."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.configs.mnist_cnn import CNNConfig
+    from repro_torch.launch.mesh import compat_make_mesh, make_local_mesh
+    t0 = time.perf_counter()
+    mesh = make_local_mesh(device=device)
+    backend = dist.get_backend()
+    if device == "cuda" and backend != "nccl":
+        raise AssertionError(f"phase s: the group's backend is {backend}")
+    try:
+        out = [spmd_prefill(prefill_cfg or get_config(LM_ARCH), mesh, card,
+                            device, prefill_shape),
+               spmd_train(train_cfg or get_config(TRAIN_ARCH), mesh, card,
+                          device, train_shape, train_steps),
+               spmd_dist_serve(CNNConfig(), compat_make_mesh((1,), ("data",)),
+                               card, device)]
+    finally:
+        dist.destroy_process_group()
+    log(f"phase s: a one-rank {backend} group, "
+        f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
 # -- times ----------------------------------------------------------------------
 
 def _event_ms(fn, iters: int = 200, warmup: int = 20) -> float:
@@ -3363,6 +3666,7 @@ def main(argv=None) -> int:
     paths += lm_family_paths(card)
     paths += train_path(card)
     paths.append(ssm_train_path(card))
+    paths += spmd_path(card)
     rows = times()
 
     # the JSON row of each kernel and mode: the path run whose launches it
@@ -3491,6 +3795,14 @@ def main(argv=None) -> int:
                        "launches": hy_prefill[f"ssd_scan.{name}"],
                        **built["ssd_phases_hymba"]["bfloat16"][name]}
                 for name, r in hy["phases"].items()})
+    # phase s: the same scan on each rank's local heads under local_map
+    mesh_run = next(p for p in paths if p["path"].startswith("mesh ")
+                    and " prefill " in p["path"])
+    kernels[-1]["mesh"] = dict(
+        path=f"{mesh_run['path']} {mesh_run['model']}", route="local_map",
+        launches=mesh_run["launches"]["ssd_scan"],
+        phases={name: mesh_run["launches"][f"ssd_scan.{name}"]
+                for name in SSD_PHASES})
     kernels[-1].update(
         plain_bf16_intra_ms=_ms(ssd["plain_bf16_intra"]),
         vs_f64=sweeps["ssd_scan"]["vs_f64"],
@@ -3529,6 +3841,15 @@ def main(argv=None) -> int:
         if "encoder_frames_per_s" in p:
             log(f"LM {p['model']} encoder: {p['encoder_frames_per_s']:.1f} "
                 "frames/s")
+    q_run = next(p for p in paths if p["model"] == TRAIN_ARCH
+                 and p["path"].startswith("train "))
+    s_run = next(p for p in paths if p["model"] == TRAIN_ARCH
+                 and p["path"].startswith("mesh "))
+    log(f"train {TRAIN_ARCH}: phase q {q_run['s_per_step']:.3f} s/step, "
+        f"peak {q_run['peak_memory_bytes']} B; phase s on the mesh "
+        f"{s_run['s_per_step']:.3f} s/step (mesh=None "
+        f"{s_run['s_per_step_mesh_none']:.3f}), peak "
+        f"{s_run['peak_memory_bytes']} B")
     for r in rows["attention"]:
         log(f"attention {r['model']} {r['route']}: {_ms(r['kernel'])} ms, "
             f"SDPA {_ms(r['library'])} ms, bound {r['bound_ms']} ms")

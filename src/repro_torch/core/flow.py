@@ -19,7 +19,8 @@ working points over one int8 master tree (:class:`AdaptiveAccelerator`).
 ``explore_mixed_precision`` is the greedy per-layer search.  Everything runs
 on the flow's device: ``DesignFlow(graph, device=None)`` means ``"cuda"``
 and raises when CUDA is missing; pass ``device="cpu"`` for the plain path.
-Not ported yet: the ``"dist"`` target.
+``"dist"`` (:class:`DistWriter`) is the float interpreter as an SPMD
+executable on a device mesh: ``writers["dist"].build_batched(mesh)``.
 """
 from __future__ import annotations
 
@@ -35,6 +36,7 @@ from repro_torch.core.ir import Graph
 from repro_torch.core.passes import (PassManager, default_pipeline,
                                      explore_mixed_precision, strip_precision,
                                      structural_pipeline)
+from repro_torch.core.writers.dist_writer import DistWriter
 from repro_torch.core.writers.qtorch_writer import QTorchWriter
 from repro_torch.core.writers.stream_writer import StreamWriter
 from repro_torch.core.writers.torch_writer import (BatchedExecutable,
@@ -44,7 +46,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.quant.ptq import graph_weight_stats
 from repro_torch.quant.qtypes import DatatypeConfig, PrecisionMap
 
-WRITERS = {"torch": TorchWriter, "stream": StreamWriter,
+WRITERS = {"torch": TorchWriter, "stream": StreamWriter, "dist": DistWriter,
            "qtorch": QTorchWriter}
 
 # default adaptive ladder: the paper's W8/W4/W2 nested working points

@@ -40,15 +40,21 @@ def _dtype_name(x) -> str:
 class BatchedExecutable:
     """Batch-polymorphic artifact: dispatches on the concrete input signature
     (shapes + dtypes) and keeps at most ``max_entries`` signatures in an LRU.
-    PyTorch runs eagerly, so every signature runs the same interpreter; the
-    LRU is the serving bookkeeping the scheduler's bucket policy reads."""
+    PyTorch runs eagerly, so without ``compile_fn`` every signature runs the
+    same interpreter; the LRU is the serving bookkeeping the scheduler's
+    bucket policy reads.  ``compile_fn(signature)``, called on a miss,
+    returns the callable that signature runs (the distributed writer's
+    per-batch padded SPMD runner); ``fn`` may then be None."""
 
-    def __init__(self, fn: Callable, max_entries: int = 8,
+    def __init__(self, fn: Optional[Callable], max_entries: int = 8,
+                 compile_fn: Optional[Callable[[Signature], Callable]] = None,
                  on_compile: Optional[Callable[[Signature], None]] = None,
                  bits: Optional[int] = None):
         if max_entries < 1:
             raise ValueError("max_entries must be >= 1")
-        self._fn = fn
+        if fn is None and compile_fn is None:
+            raise ValueError("BatchedExecutable needs fn or compile_fn")
+        self._compile = compile_fn or (lambda sig: fn)
         self._cache: "OrderedDict[Signature, Callable]" = OrderedDict()
         self.max_entries = max_entries
         self.hits = 0
@@ -70,7 +76,7 @@ class BatchedExecutable:
             self.misses += 1
             if self.on_compile is not None:
                 self.on_compile(sig)
-            exe = self._fn
+            exe = self._compile(sig)
             self._cache[sig] = exe
             while len(self._cache) > self.max_entries:
                 self._cache.popitem(last=False)

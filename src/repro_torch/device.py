@@ -41,10 +41,20 @@ def to_numpy(x):
     numpy has no bfloat16, so a bf16 tensor comes back as float32: exact,
     so a caller that takes bf16 casts it back to the same values.  (The
     reference's ``np.asarray`` gives an ``ml_dtypes`` bfloat16 array; the
-    port cannot count on having ``ml_dtypes``.)"""
+    port cannot count on having ``ml_dtypes``.)  A DTensor comes back as
+    its global value (``full_tensor()``, a collective every rank joins)."""
     if isinstance(x, torch.Tensor):
+        if is_dtensor(x):
+            x = x.full_tensor()
         x = x.detach()
         if x.dtype == torch.bfloat16:
             x = x.to(torch.float32)
         return x.cpu().numpy()
     return np.asarray(x)
+
+
+def is_dtensor(x) -> bool:
+    if not torch.distributed.is_available():
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)

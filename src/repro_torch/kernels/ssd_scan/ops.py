@@ -51,11 +51,37 @@ def _check_operand(t: torch.Tensor, name: str, shape, dtypes, dev) -> None:
                          f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def _on_cuda(t: torch.Tensor, what: str) -> torch.device:
-    if t.device.type != "cuda":
+def _refuse_dtensor(what: str, ts) -> None:
+    """The launches pass raw ``data_ptr()``s through ``ctypes``: a DTensor
+    would hand over one rank's shard as if it were the whole tensor.  On a
+    device mesh the model runs the scan on each rank's local shards
+    (``ssm_block`` under ``repro_torch.sharding.shard_map``)."""
+    if torch.distributed.is_available():
+        from torch.distributed.tensor import DTensor
+        if any(isinstance(t, DTensor) for t in ts):
+            raise TypeError(
+                f"{what}: got a DTensor; pass each rank's local shards (run "
+                "the scan under local_map / repro_torch.sharding.shard_map)")
+
+
+def _device_type(what: str, *ts) -> str:
+    """The route of an entry point: ``cuda`` or ``cpu`` from the first
+    tensor's device.  A DTensor among ``ts`` raises ``TypeError``."""
+    _refuse_dtensor(what, ts)
+    kind = ts[0].device.type
+    if kind not in ("cuda", "cpu"):
+        raise ValueError(f"no ssd_scan path for device {ts[0].device}")
+    return kind
+
+
+def _on_cuda(what: str, *ts) -> torch.device:
+    """The checks before a launch: no DTensor, the first tensor on a CUDA
+    device (returned), no input that requires grad under grad mode."""
+    if _device_type(what, *ts) != "cuda":
         raise ValueError(f"{what} launches the CUDA kernel; got a "
-                         f"{t.device} tensor")
-    return t.device
+                         f"{ts[0].device} tensor")
+    _refuse_grad(what, *ts)
+    return ts[0].device
 
 
 def _refuse_grad(what: str, *ts) -> None:
@@ -109,8 +135,7 @@ def ssd_chunk_state_cuda(x, dt, A, Bm, chunk: int):
     ``S_c = (B*w)^T x`` and decay ``exp(l_last)`` -> (states (B,H,nc,N,P)
     f32, decay (B,H,nc) f32), nc = ceil(S/chunk).  Operands as for
     :func:`ssd_scan_cuda`.  Counts launches in ``.launches``."""
-    dev = _on_cuda(x, "ssd_chunk_state_cuda")
-    _refuse_grad("ssd_chunk_state_cuda", x, dt, A, Bm)
+    dev = _on_cuda("ssd_chunk_state_cuda", x, dt, A, Bm)
     x, dt, A, Bm, _, _, (Bsz, S, H, P, G, N) = _inputs(x, dt, A, Bm)
     nc = -(-S // chunk) if chunk > 0 else 0     # the kernel refuses chunk <= 0
     states = torch.empty((Bsz, H, nc, N, P), dtype=torch.float32, device=dev)
@@ -134,8 +159,7 @@ def ssd_state_pass_cuda(states, decay, init_state=None):
     from ``init_state`` (B,H,P,N) f32 or zero; returns the final state
     (B,H,P,N) f32.  ``decay`` is (B,H,nc) f32.  Counts launches in
     ``.launches``."""
-    dev = _on_cuda(states, "ssd_state_pass_cuda")
-    _refuse_grad("ssd_state_pass_cuda", states, decay, init_state)
+    dev = _on_cuda("ssd_state_pass_cuda", states, decay, init_state)
     if states.ndim != 5 or not states.is_contiguous():
         raise ValueError("states must be a contiguous (B, H, nc, N, P) "
                          f"tensor; got {tuple(states.shape)}")
@@ -163,8 +187,7 @@ def ssd_chunk_scan_cuda(x, dt, A, Bm, C, D, states, chunk: int):
     inputs and ``states`` (B,H,nc,N,P) f32, the state entering each chunk
     (what :func:`ssd_state_pass_cuda` leaves).  Counts launches in
     ``.launches``."""
-    dev = _on_cuda(x, "ssd_chunk_scan_cuda")
-    _refuse_grad("ssd_chunk_scan_cuda", x, dt, A, Bm, C, D, states)
+    dev = _on_cuda("ssd_chunk_scan_cuda", x, dt, A, Bm, C, D, states)
     x, dt, A, Bm, C, D, (Bsz, S, H, P, G, N) = _inputs(x, dt, A, Bm, C, D)
     nc = -(-S // chunk) if chunk > 0 else 0
     _check_operand(states, "states", (Bsz, H, nc, N, P), _F32, dev)
@@ -196,8 +219,7 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     N not a multiple of 4, a phase's tiles over the shared memory a block
     can have) come back from them as a CUDA error.  Counts one launch per
     call in ``ssd_scan_cuda.launches`` (each phase counts its own)."""
-    _on_cuda(x, "ssd_scan_cuda")
-    _refuse_grad("ssd_scan_cuda", x, dt, A, Bm, C, D, init_state)
+    _on_cuda("ssd_scan_cuda", x, dt, A, Bm, C, D, init_state)
     Bsz, S, H, P = x.shape
     if Bsz * H == 0:
         N = Bm.shape[3]
@@ -220,30 +242,25 @@ def ssd_chunked_kernel(x, dt, A, Bm, C, D, chunk: int, init_state=None):
     """Same contract as ``ssd_chunked``: x (B,S,H,P), dt (B,S,H) f32, A
     (H,), Bm/C (B,S,G,N), D (H,), init_state (B,H,P,N) or None -> (y
     (B,S,H,P), state (B,H,P,N)).  Forward only, on every device: with grad
-    mode on, an input that requires grad raises ``RuntimeError``."""
+    mode on, an input that requires grad raises ``RuntimeError``; a DTensor
+    raises ``TypeError``."""
+    kind = _device_type("ssd_chunked_kernel", x, dt, A, Bm, C, D,
+                        init_state)
     _refuse_grad("ssd_chunked_kernel", x, dt, A, Bm, C, D, init_state)
-    if x.device.type == "cuda":
+    if kind == "cuda":
         return ssd_scan_cuda(
             x, dt.to(torch.float32), A.to(torch.float32), Bm.to(x.dtype),
             C.to(x.dtype), D.to(torch.float32), chunk,
             None if init_state is None else init_state.to(torch.float32))
-    if x.device.type == "cpu":
-        return ssd_chunked_plain(x, dt, A, Bm, C, D, chunk, init_state)
-    raise ValueError(f"no ssd_scan path for device {x.device}")
-
-
-def _route(t: torch.Tensor, cuda_fn, plain_fn):
-    if t.device.type == "cuda":
-        return cuda_fn
-    if t.device.type == "cpu":
-        return plain_fn
-    raise ValueError(f"no ssd_scan path for device {t.device}")
+    return ssd_chunked_plain(x, dt, A, Bm, C, D, chunk, init_state)
 
 
 def ssd_chunk_states(x, dt, A, Bm, chunk: int):
     """Phase 1 on x's device (the kernel on CUDA, the plain version on the
     CPU) -> (states (B,H,nc,N,P) f32, decay (B,H,nc) f32)."""
-    fn = _route(x, ssd_chunk_state_cuda, ssd_chunk_states_plain)
+    fn = (ssd_chunk_state_cuda if _device_type("ssd_chunk_states", x, dt, A,
+                                               Bm) == "cuda"
+          else ssd_chunk_states_plain)
     return fn(x, dt, A, Bm, chunk)
 
 
@@ -251,16 +268,16 @@ def ssd_state_pass(states, decay, init_state=None):
     """Phase 2 on the states' device -> (entering states (B,H,nc,N,P),
     final state (B,H,P,N)).  On the card the kernel overwrites ``states``
     with the entering states and the same tensor is returned."""
-    if states.device.type == "cuda":
+    if _device_type("ssd_state_pass", states, decay, init_state) == "cuda":
         return states, ssd_state_pass_cuda(states, decay, init_state)
-    if states.device.type == "cpu":
-        return ssd_state_pass_plain(states, decay, init_state)
-    raise ValueError(f"no ssd_scan path for device {states.device}")
+    return ssd_state_pass_plain(states, decay, init_state)
 
 
 def ssd_chunk_scan(x, dt, A, Bm, C, D, states, chunk: int):
     """Phase 3 on x's device -> y (B,S,H,P) in x's dtype."""
-    fn = _route(x, ssd_chunk_scan_cuda, ssd_chunk_scan_plain)
+    fn = (ssd_chunk_scan_cuda if _device_type("ssd_chunk_scan", x, dt, A, Bm,
+                                              C, D, states) == "cuda"
+          else ssd_chunk_scan_plain)
     return fn(x, dt, A, Bm, C, D, states, chunk)
 
 

@@ -13,7 +13,8 @@ HBM3 bandwidth.
 
 Not ported yet: ``parse_collectives``, ``CollectiveStats``,
 ``RooflineReport`` and ``model_flops_for``, which read XLA HLO text and
-dry-run shapes; they come with the distributed writer.
+dry-run shapes; they come with the dry-run slice (ROADMAP Queue 1 item
+6b), from collectives counted by DTensor's ``CommDebugMode``.
 """
 from __future__ import annotations
 

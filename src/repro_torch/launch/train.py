@@ -9,9 +9,10 @@ straggler watchdog, resumable data) on one device.
 
 The arguments are the reference's plus ``--device`` (``cuda`` unless the
 caller asks for the CPU).  ``--smoke`` takes the reduced config; without
-it the full config runs on the one device (``tp_total`` 1: the
-reference's 16x16 production mesh waits with the distributed writer,
-ROADMAP Queue 1 item 6).  A run resumes from the latest checkpoint in
+it the full config runs on the one device (``tp_total`` 1).  The
+reference's 16x16 production mesh (``launch.mesh.make_production_mesh``
+with ``train.jit_train_step``) is launched by the dry-run slice, ROADMAP
+Queue 1 item 6b.  A run resumes from the latest checkpoint in
 ``--ckpt-dir`` when there is one, as the reference's does.
 """
 from __future__ import annotations

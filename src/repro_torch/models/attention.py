@@ -20,8 +20,18 @@ Perf knobs (``repro_torch.perf.FLAGS``, read at call time):
   * banded SWA prefill (only the in-window key band is computed per q
     chunk);
   * bf16 score tensors when the activations are bf16.
-The reference's head-sharding constraint (``_constrain_heads``) and its
-``mesh`` arguments have no counterpart on one card.
+On a device mesh (``mesh=``, DTensor activations and parameters) the
+projections follow DTensor's sharding propagation from the parameters, as
+the reference's follow GSPMD's; q/k/v are pinned where the q heads neither
+divide nor fit under the model axis (``FLAGS.attn_head_constraint``, the
+reference's ``_constrain_heads``), and the attention core (scores, mask,
+softmax, values, the cache update) runs under
+:func:`repro_torch.sharding.shard_map` on each rank's whole kv-head groups
+and batch rows, so the d_head contraction is never split.  DTensor cannot
+cut a head dim the model axis does not divide the way JAX pads it: such
+heads (and a flat projection that would split inside a head) are
+replicated over 'model' instead, and the core runs whole on each model
+rank there.
 """
 from __future__ import annotations
 
@@ -32,6 +42,8 @@ import torch
 from repro_torch import perf
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import apply_rope, rope_angles
+from repro_torch.sharding import (P, batch_axes, constrain, dp_size,
+                                  heads_view, shard_map, tp_size)
 
 Q_CHUNK = 1024  # query-block size for chunked attention
 PAD_POS = -10 ** 9     # position of the keys padded in front of a band
@@ -48,16 +60,38 @@ class LayerAttnParams(NamedTuple):
     bv: Optional[torch.Tensor] = None
 
 
-def _proj_qkv(x: torch.Tensor, p: LayerAttnParams, cfg: ModelConfig):
+def _constrain_heads(x, mesh, batch_sharded: bool = True):
+    """x: (B, S, H, Dh) -> head-sharded over 'model' where it divides H;
+    otherwise replicated there (JAX pads the uneven heads, DTensor cannot
+    split them in the attention that follows)."""
+    dp = batch_axes(mesh) if batch_sharded and x.shape[0] % 2 == 0 else None
+    heads = "model" if x.shape[2] % tp_size(mesh) == 0 else None
+    return constrain(x, mesh, P(dp, None, heads, None))
+
+
+def _proj_qkv(x: torch.Tensor, p: LayerAttnParams, cfg: ModelConfig,
+              mesh=None):
     B, S, _ = x.shape
     q = torch.matmul(x, p.wq)
     k = torch.matmul(x, p.wk)
     v = torch.matmul(x, p.wv)
     if p.bq is not None:
         q, k, v = q + p.bq, k + p.bk, v + p.bv
-    q = q.reshape(B, S, cfg.n_heads, cfg.head_dim)
-    k = k.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
-    v = v.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    q = heads_view(q, (B, S, cfg.n_heads, cfg.head_dim), cfg.n_heads, mesh)
+    k = heads_view(k, (B, S, cfg.n_kv_heads, cfg.head_dim), cfg.n_kv_heads,
+                   mesh)
+    v = heads_view(v, (B, S, cfg.n_kv_heads, cfg.head_dim), cfg.n_kv_heads,
+                   mesh)
+    # Pin head-sharded layouts only where the q heads neither divide nor fit
+    # under the model axis (the reference's gate: divisible counts propagate
+    # fine, and H < tp would leave more slots than heads).  The decision
+    # follows the q-head count and applies to k/v too.
+    if mesh is not None and perf.FLAGS.attn_head_constraint:
+        tp = tp_size(mesh)
+        if cfg.n_heads % tp != 0 and cfg.n_heads > tp:
+            q = _constrain_heads(q, mesh)
+            k = _constrain_heads(k, mesh)
+            v = _constrain_heads(v, mesh)
     return q, k, v
 
 
@@ -166,16 +200,52 @@ def attend(q, k, v, positions, kpos, cfg: ModelConfig, causal: bool = True,
     return torch.cat(outs, dim=1)
 
 
+def _group_specs(mesh, B: int, Hkv: int):
+    """(q spec (B,S,Hkv,G,Dh), k/v spec (B,S,Hkv,Dh)): whole kv-head groups
+    over 'model' and the batch over the data axes, each where it divides."""
+    bspec = batch_axes(mesh) if B % dp_size(mesh) == 0 else None
+    hspec = "model" if Hkv % tp_size(mesh) == 0 else None
+    return P(bspec, None, hspec, None, None), P(bspec, None, hspec, None)
+
+
+def _on_kv_groups(core, mesh, q, k, v, *extra, extra_specs=(),
+                  extra_out=()):
+    """``core(q, k, v, *extra)`` -> (out (B,S,H,Dh), *more) on each rank's
+    local kv-head groups: q (B,S,H,Dh), k/v (B,S,Hkv,Dh)."""
+    B, S, H, Dh = q.shape
+    Hkv = k.shape[2]
+    G = H // Hkv
+    qspec, kvspec = _group_specs(mesh, B, Hkv)
+    # q sharded on H in whole groups, so its (Hkv, G) view keeps the shards
+    q5 = constrain(q, mesh, P(qspec[0], None, qspec[2], None)).reshape(
+        B, S, Hkv, G, Dh)
+
+    def body(q5, k, v, *rest):
+        b, s, hl = q5.shape[:3]
+        out = core(q5.reshape(b, s, hl * G, Dh), k, v, *rest)
+        if not extra_out:
+            return out.reshape(b, s, hl, G, Dh)
+        return (out[0].reshape(b, s, hl, G, Dh),) + tuple(out[1:])
+
+    outs = shard_map(body, mesh, (qspec, kvspec, kvspec) + tuple(extra_specs),
+                     [qspec, *extra_out] if extra_out else qspec)(
+        q5, k, v, *extra)
+    if not extra_out:
+        return outs.reshape(B, S, H, Dh)
+    return (outs[0].reshape(B, S, H, Dh),) + tuple(outs[1:])
+
+
 def attention(x: torch.Tensor, p: LayerAttnParams, cfg: ModelConfig, *,
               positions: Optional[torch.Tensor] = None, causal: bool = True,
-              kv_override=None):
+              kv_override=None, mesh=None):
     """Full-sequence attention (prefill / encoder).
 
     kv_override: (k, v, kpos) for cross-attention (q from x, kv precomputed).
     Returns (out (B,S,d), k, v) — k/v returned for cache population at
-    prefill (after RoPE)."""
+    prefill (after RoPE).  ``mesh``: the device mesh x and p lie on as
+    DTensors (the head pins of :func:`_proj_qkv`)."""
     B, S, _ = x.shape
-    q, k, v = _proj_qkv(x, p, cfg)
+    q, k, v = _proj_qkv(x, p, cfg, mesh)
     if positions is None:
         positions = torch.arange(S, device=x.device)
     if kv_override is not None:
@@ -186,8 +256,13 @@ def attention(x: torch.Tensor, p: LayerAttnParams, cfg: ModelConfig, *,
             q = apply_rope(q, cos, sin)
             k = apply_rope(k, cos, sin)
         kpos = positions
-    out = attend(q, k, v, positions, kpos, cfg, causal,
-                 cross=kv_override is not None)
+    cross = kv_override is not None
+    if mesh is None:
+        out = attend(q, k, v, positions, kpos, cfg, causal, cross)
+    else:
+        out = _on_kv_groups(
+            lambda q, k, v: attend(q, k, v, positions, kpos, cfg, causal,
+                                   cross), mesh, q, k, v)
     out = out.reshape(B, S, cfg.q_dim)
     return torch.matmul(out, p.wo), k, v
 
@@ -201,7 +276,7 @@ def cache_size(cfg: ModelConfig, seq_len: int) -> int:
 
 def decode_attention(x: torch.Tensor, p: LayerAttnParams, cfg: ModelConfig,
                      cache_k: torch.Tensor, cache_v: torch.Tensor, index: int,
-                     *, kv_override=None):
+                     *, kv_override=None, mesh=None):
     """Single-token decode.  x: (B, 1, d); cache_k/v: (B, Smax, Hkv*Dh)
     *flattened* on the kv dim; index: host int, the tokens already in the
     cache.
@@ -210,16 +285,21 @@ def decode_attention(x: torch.Tensor, p: LayerAttnParams, cfg: ModelConfig,
     Returns (out, new_cache_k, new_cache_v): new tensors, the caches passed
     in are left as they were."""
     B = x.shape[0]
-    q, k, v = _proj_qkv(x, p, cfg)
+    q, k, v = _proj_qkv(x, p, cfg, mesh)
     scale = cfg.head_dim ** -0.5
     dev = x.device
     if kv_override is not None:
         ko, vo, _ = kv_override
-        out = _sdpa_chunk(q, ko.to(q.dtype), vo.to(q.dtype),
-                          torch.zeros(1, dtype=torch.long, device=dev),
-                          torch.zeros(ko.shape[1], dtype=torch.long,
-                                      device=dev),
-                          None, False, scale, perf.FLAGS.gqa_grouped)
+
+        def cross(q, ko, vo):
+            return _sdpa_chunk(q, ko.to(q.dtype), vo.to(q.dtype),
+                               torch.zeros(1, dtype=torch.long, device=dev),
+                               torch.zeros(ko.shape[1], dtype=torch.long,
+                                           device=dev),
+                               None, False, scale, perf.FLAGS.gqa_grouped)
+
+        out = (cross(q, ko, vo) if mesh is None
+               else _on_kv_groups(cross, mesh, q, ko, vo))
         out = out.reshape(B, 1, cfg.q_dim)
         return torch.matmul(out, p.wo), cache_k, cache_v
 
@@ -229,20 +309,34 @@ def decode_attention(x: torch.Tensor, p: LayerAttnParams, cfg: ModelConfig,
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
 
-    smax = cache_k.shape[1]
-    slot = index % smax if cfg.sliding_window is not None else index
-    # the reference's dynamic_update_slice clamps a start past the end
-    slot = min(slot, smax - 1)
-    cache_k = cache_k.clone()
-    cache_v = cache_v.clone()
-    cache_k[:, slot] = k.reshape(B, cfg.kv_dim).to(cache_k.dtype)
-    cache_v[:, slot] = v.reshape(B, cfg.kv_dim).to(cache_v.dtype)
+    def core(q, k, v, cache_k, cache_v):
+        """Insert k/v at the slot and attend over the written slots (batch
+        and head counts from the tensors: on a mesh, the local shards)."""
+        Bl, Hkv, Dh = k.shape[0], k.shape[2], k.shape[3]
+        smax = cache_k.shape[1]
+        slot = index % smax if cfg.sliding_window is not None else index
+        # the reference's dynamic_update_slice clamps a start past the end
+        slot = min(slot, smax - 1)
+        cache_k = cache_k.clone()
+        cache_v = cache_v.clone()
+        cache_k[:, slot] = k.reshape(Bl, Hkv * Dh).to(cache_k.dtype)
+        cache_v[:, slot] = v.reshape(Bl, Hkv * Dh).to(cache_v.dtype)
+        kc = cache_k.reshape(Bl, smax, Hkv, Dh).to(q.dtype)
+        vc = cache_v.reshape(Bl, smax, Hkv, Dh).to(q.dtype)
+        valid = torch.arange(smax, device=dev) <= min(index, smax - 1)
+        kpos = torch.where(valid, 0, EMPTY_POS)  # unwritten slots fail causality
+        out = _sdpa_chunk(q, kc, vc,
+                          torch.zeros(1, dtype=torch.long, device=dev),
+                          kpos, None, True, scale, perf.FLAGS.gqa_grouped)
+        return out, cache_k, cache_v
 
-    kc = cache_k.reshape(B, smax, cfg.n_kv_heads, cfg.head_dim).to(q.dtype)
-    vc = cache_v.reshape(B, smax, cfg.n_kv_heads, cfg.head_dim).to(q.dtype)
-    valid = torch.arange(smax, device=dev) <= min(index, smax - 1)
-    kpos = torch.where(valid, 0, EMPTY_POS)  # unwritten slots fail causality
-    out = _sdpa_chunk(q, kc, vc, torch.zeros(1, dtype=torch.long, device=dev),
-                      kpos, None, True, scale, perf.FLAGS.gqa_grouped)
+    if mesh is None:
+        out, cache_k, cache_v = core(q, k, v, cache_k, cache_v)
+    else:
+        _, kvspec = _group_specs(mesh, B, k.shape[2])
+        cspec = P(kvspec[0], None, kvspec[2])
+        out, cache_k, cache_v = _on_kv_groups(
+            core, mesh, q, k, v, cache_k, cache_v,
+            extra_specs=(cspec, cspec), extra_out=(cspec, cspec))
     out = out.reshape(B, 1, cfg.q_dim)
     return torch.matmul(out, p.wo), cache_k, cache_v

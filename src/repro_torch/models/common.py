@@ -59,8 +59,35 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return table[tokens]
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
+                 mesh=None) -> torch.Tensor:
+    """Rows of ``table`` for ``tokens``.  On a mesh each rank looks the
+    tokens up in its own vocab shard of the table (zeros for the tokens it
+    does not hold) and one sum over 'model' completes the rows: indexing a
+    DTensor would gather the whole table onto every rank.  On one model
+    rank the lookup and its gradient are the one-device path's, bit for
+    bit."""
+    if mesh is None:
+        return table[tokens]
+    from repro_torch.sharding import (P, batch_axes, constrain, dp_size,
+                                      shard_map, tp_size, with_partial)
+    bspec = batch_axes(mesh) if tokens.shape[0] % dp_size(mesh) == 0 \
+        else None
+    rows = P(bspec, None, None)
+    if table.shape[0] % tp_size(mesh):         # the rule left it whole
+        return shard_map(lambda t, tok: t[tok], mesh,
+                         (P(None, None), P(bspec, None)), rows)(table, tokens)
+
+    def body(t, tok):
+        idx = tok - mesh.get_local_rank("model") * t.shape[0]
+        mine = (idx >= 0) & (idx < t.shape[0])
+        got = t[idx.clamp(0, t.shape[0] - 1)]
+        return torch.where(mine[..., None], got, torch.zeros(
+            (), dtype=got.dtype, device=got.device))
+
+    out = shard_map(body, mesh, (P("model", None), P(bspec, None)),
+                    with_partial(rows, mesh, ("model",)))(table, tokens)
+    return constrain(out, mesh, rows)
 
 
 def unembed(x: torch.Tensor, table_or_head: torch.Tensor,
@@ -80,5 +107,5 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     logits = torch.where(mask, logits, torch.full((), neg,
                                                   device=logits.device))
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    return torch.mean(logz - gold)
+    gold = torch.gather(logits, -1, labels[..., None].long())
+    return torch.mean(logz[..., None] - gold)

@@ -7,9 +7,10 @@ the decoder to the encoder output.  The reference's layer scans become
 Python loops over slices of the stacked trees, as in ``transformer``.
 
 The frames must come in the model's dtype: the reference promotes mixed
-f32/bf16 operands, while ``torch.matmul`` refuses them.
-``abstract_decode_state`` waits with the distributed writer (ROADMAP
-Queue 1 item 6).
+f32/bf16 operands, while ``torch.matmul`` refuses them.  ``mesh=`` and
+``tp_total`` are ``transformer.forward``'s (DTensor parameters on a device
+mesh).  ``abstract_decode_state`` waits with the dry-run slice (ROADMAP
+Queue 1 item 6b).
 """
 from __future__ import annotations
 
@@ -22,12 +23,18 @@ from repro_torch.models.attention import attention, decode_attention
 from repro_torch.models.common import embed_lookup, norm, unembed
 from repro_torch.models.transformer import (_attn_params, _layer, _mlp,
                                             layer_tree, run_layer)
+from repro_torch.sharding import mesh_scope
 
 
 def encode(params: Dict[str, torch.Tensor], frames: torch.Tensor,
-           cfg: ModelConfig, remat: bool = False) -> torch.Tensor:
+           cfg: ModelConfig, remat: bool = False, mesh=None) -> torch.Tensor:
     """frames: (B, enc_seq, d) stub embeddings -> (B, enc_seq, d).
     ``remat`` checkpoints each layer, as in ``transformer.forward``."""
+    with mesh_scope(mesh):
+        return _encode(params, frames, cfg, remat, mesh)
+
+
+def _encode(params, frames, cfg: ModelConfig, remat: bool, mesh):
     if frames.dtype != params["enc_pos"].dtype:
         raise ValueError(f"{cfg.name}: frames are {frames.dtype}, the model "
                          f"is {params['enc_pos'].dtype}")
@@ -38,7 +45,7 @@ def encode(params: Dict[str, torch.Tensor], frames: torch.Tensor,
     def layer(x, lp):
         xn = norm(x, lp["attn_norm/w"], cfg.norm)
         a, _, _ = attention(xn, _attn_params(lp), cfg, positions=positions,
-                            causal=False)
+                            causal=False, mesh=mesh)
         x = x + a
         return x + _mlp(norm(x, lp["mlp_norm/w"], cfg.norm), lp, cfg)
 
@@ -57,15 +64,24 @@ def _cross_kv(enc_out: torch.Tensor, lp: Dict[str, torch.Tensor],
 
 
 def forward(params: Dict[str, torch.Tensor], tokens: torch.Tensor,
-            frames: torch.Tensor, cfg: ModelConfig, *, remat: bool = False,
+            frames: torch.Tensor, cfg: ModelConfig, *, mesh=None,
+            tp_total: int = 1, remat: bool = False,
             collect_cache: bool = False):
     """Teacher-forced decode pass.  tokens: (B, S); frames: (B, enc_seq, d)
     -> (logits (B, S, Vp), aux); with ``collect_cache`` also the stacked
     per-layer (k, v, cross_k, cross_v), each (L, B, S or enc_seq, Hkv, Dh).
     ``remat`` checkpoints every encoder and decoder layer."""
-    enc_out = encode(params, frames, cfg, remat=remat)
+    del tp_total          # no MoE in the encoder-decoder
+    with mesh_scope(mesh):
+        return _forward(params, tokens, frames, cfg, mesh, remat,
+                        collect_cache)
+
+
+def _forward(params, tokens, frames, cfg: ModelConfig, mesh, remat,
+             collect_cache):
+    enc_out = encode(params, frames, cfg, remat=remat, mesh=mesh)
     S = tokens.shape[1]
-    x = embed_lookup(params["embed/table"], tokens)
+    x = embed_lookup(params["embed/table"], tokens, mesh)
     x = x + params["dec_pos"][None, :S].to(x.dtype)
     positions = torch.arange(S, device=x.device)
     enc_pos = torch.arange(enc_out.shape[1], device=x.device)
@@ -73,13 +89,14 @@ def forward(params: Dict[str, torch.Tensor], tokens: torch.Tensor,
 
     def layer(x, lp):
         xn = norm(x, lp["attn_norm/w"], cfg.norm)
-        a, k, v = attention(xn, _attn_params(lp), cfg, positions=positions)
+        a, k, v = attention(xn, _attn_params(lp), cfg, positions=positions,
+                            mesh=mesh)
         x = x + a
         ck, cv = _cross_kv(enc_out, lp, cfg)
         xn = norm(x, lp["cross_norm/w"], cfg.norm)
         c, _, _ = attention(xn, _attn_params(lp, "cross"), cfg,
                             positions=positions, causal=False,
-                            kv_override=(ck, cv, enc_pos))
+                            kv_override=(ck, cv, enc_pos), mesh=mesh)
         x = x + c
         x = x + _mlp(norm(x, lp["mlp_norm/w"], cfg.norm), lp, cfg)
         return x, (k, v, ck, cv)
@@ -123,11 +140,19 @@ def init_decode_state(params: Dict[str, torch.Tensor], frames: torch.Tensor,
 
 
 def decode_step(params: Dict[str, torch.Tensor], tokens: torch.Tensor,
-                state: EncDecDecodeState, cfg: ModelConfig):
+                state: EncDecDecodeState, cfg: ModelConfig, *, mesh=None,
+                tp_total: int = 1):
     """tokens: (B, 1) -> (logits, new state).  The state passed in is left
     as it was."""
+    del tp_total          # no MoE in the encoder-decoder
+    with mesh_scope(mesh):
+        return _decode_step(params, tokens, state, cfg, mesh)
+
+
+def _decode_step(params, tokens, state: EncDecDecodeState, cfg: ModelConfig,
+                 mesh):
     idx = state.index
-    x = embed_lookup(params["embed/table"], tokens)
+    x = embed_lookup(params["embed/table"], tokens, mesh)
     dec_pos = params["dec_pos"]
     # the reference's dynamic_slice_in_dim clamps past the table's last row
     row = min(idx, dec_pos.shape[0] - 1)
@@ -138,12 +163,13 @@ def decode_step(params: Dict[str, torch.Tensor], tokens: torch.Tensor,
         lp = _layer(lt, i)
         xn = norm(x, lp["attn_norm/w"], cfg.norm)
         a, nk, nv = decode_attention(xn, _attn_params(lp), cfg,
-                                     state.cache_k[i], state.cache_v[i], idx)
+                                     state.cache_k[i], state.cache_v[i], idx,
+                                     mesh=mesh)
         x = x + a
         xn = norm(x, lp["cross_norm/w"], cfg.norm)
         c, _, _ = decode_attention(
             xn, _attn_params(lp, "cross"), cfg, None, None, idx,
-            kv_override=(state.cross_k[i], state.cross_v[i], None))
+            kv_override=(state.cross_k[i], state.cross_v[i], None), mesh=mesh)
         x = x + c
         x = x + _mlp(norm(x, lp["mlp_norm/w"], cfg.norm), lp, cfg)
         new_k.append(nk)

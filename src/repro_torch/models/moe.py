@@ -10,9 +10,17 @@ reference's sequence.  The gathers are computed for all experts at once on
 the device, so the loop waits on no host copy.
 
 ``moe_shard_body`` keeps the reference's per-rank arguments (``tp_total``,
-``rank``); ``moe_block`` runs it for the whole model on one device.  The
-reference's ``shard_map`` path (expert weights stored for more than one
-model rank) waits with the distributed writer, ROADMAP Queue 1 item 6.
+``rank``).  Without a mesh ``moe_block`` runs it for the whole model on one
+device.  On a device mesh it runs under
+:func:`repro_torch.sharding.shard_map` with the reference's ep x tp layout:
+rank ``r`` on 'model' holds tp-slice ``r % tp`` of experts
+``[(r//tp)*E/ep, (r//tp+1)*E/ep)`` (expert weights stored as ``(tp_total,
+E/ep, d, f/tp)``, dim 0 over 'model'), tokens over the data axes when they
+divide them, replicated over 'model'.  The body sees plain local tensors,
+so the routing's sort, gathers and ``index_add_`` never meet DTensor; each
+rank's output is one term of a sum over 'model' (the reference's
+``psum``), and the aux losses are averaged over the data axes when the
+tokens are sharded there (its ``pmean``).
 """
 from __future__ import annotations
 
@@ -25,6 +33,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import swiglu
 from repro_torch.models.params import moe_factors
+from repro_torch.sharding import (P, batch_axes, constrain, dp_size,
+                                  shard_map, tp_size, with_partial)
 
 
 class MoELayerParams(NamedTuple):
@@ -112,14 +122,65 @@ def moe_shard_body(x: torch.Tensor, p: MoELayerParams, cfg: ModelConfig,
     return out, lb, z
 
 
-def moe_block(x: torch.Tensor, p: MoELayerParams, cfg: ModelConfig):
-    """x: (B, S, d) -> (y (B,S,d), load-balance loss, z loss)."""
-    tp_total = p.w_gate.shape[0]
-    if tp_total != 1:
-        raise NotImplementedError(
-            f"{cfg.name}: expert weights stored for {tp_total} model ranks; "
-            "the sharded MoE block waits with the distributed writer "
-            "(ROADMAP Queue 1 item 6)")
+def moe_block(x: torch.Tensor, p: MoELayerParams, cfg: ModelConfig,
+              mesh=None, tp_total: int = None):
+    """x: (B, S, d) -> (y (B,S,d), load-balance loss, z loss).
+
+    ``tp_total`` (default: the expert weights' leading dim) is the number
+    of model ranks the weights are stored for; more than one needs a mesh
+    whose 'model' axis has that many ranks."""
     B, S, d = x.shape
-    y, lb, z = moe_shard_body(x.reshape(B * S, d), p, cfg, 1, 0)
+    if tp_total is None:
+        tp_total = p.w_gate.shape[0]
+    if p.w_gate.shape[0] != tp_total:
+        raise ValueError(f"expert weights stored for {p.w_gate.shape[0]} "
+                         f"model ranks; tp_total is {tp_total}")
+    if mesh is None:
+        if tp_total != 1:
+            raise ValueError(
+                f"{cfg.name}: expert weights stored for {tp_total} model "
+                "ranks run on a device mesh with that many on 'model' "
+                "(pass mesh=)")
+        y, lb, z = moe_shard_body(x.reshape(B * S, d), p, cfg, 1, 0)
+        return y.reshape(B, S, d), lb, z
+    return _moe_on_mesh(x, p, cfg, mesh, tp_total)
+
+
+def _moe_on_mesh(x, p: MoELayerParams, cfg: ModelConfig, mesh,
+                 tp_total: int):
+    """The reference's ``shard_map`` path of ``moe_block``."""
+    B, S, d = x.shape
+    if tp_total not in (1, tp_size(mesh)):
+        raise ValueError(f"expert weights stored for {tp_total} model ranks "
+                         f"on a mesh with {tp_size(mesh)} on 'model'")
+    xt = x.reshape(B * S, d)
+    dp = batch_axes(mesh)
+    # tiny decode batches can't shard over dp: replicate tokens instead
+    # (each data shard redundantly computes them)
+    tok_spec = P(dp, None) if (B * S) % dp_size(mesh) == 0 else P(None, None)
+    dp_axes = dp if tok_spec[0] is not None else ()
+    split = tp_total > 1
+    w_spec = P("model", None, None, None) if split else P()
+    # y: one term per model rank (psum); lb/z: averaged over the data
+    # shards (pmean), and each model rank holds 1/tp of the equal values
+    # so that their gradient is counted once
+    y_pl = with_partial(tok_spec, mesh, ("model",)) if split else tok_spec
+    aux_pl = with_partial(P(), mesh, dp_axes, "avg")
+    if split:
+        aux_pl = with_partial(aux_pl, mesh, ("model",))
+
+    def body(xt, router, wg, wu, wd):
+        rank = mesh.get_local_rank("model") if split else 0
+        y, lb, z = moe_shard_body(xt, MoELayerParams(router, wg, wu, wd),
+                                  cfg, tp_total, rank)
+        if split:
+            lb, z = lb / tp_total, z / tp_total
+        return y, lb, z
+
+    y, lb, z = shard_map(body, mesh, (tok_spec, P(), w_spec, w_spec, w_spec),
+                         [y_pl, aux_pl, aux_pl],
+                         out_shapes=[(B * S, d), None, None])(
+        xt, p.router, p.w_gate, p.w_up, p.w_down)
+    y = constrain(y, mesh, tok_spec)
+    lb, z = constrain(lb, mesh, P()), constrain(z, mesh, P())
     return y.reshape(B, S, d), lb, z

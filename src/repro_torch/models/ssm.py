@@ -7,8 +7,12 @@ carried by a linear recurrence.  :func:`ssd_chunked` is the plain oracle the
 models use off the card; on a CUDA tensor :func:`ssm_block` runs the scan
 through the hand-written kernel (``repro_torch.kernels.ssd_scan``).
 
-The reference's mesh layout pins (``_constrain_inner``,
-``FLAGS.ssd_constraint``) have no counterpart on one card.
+On a device mesh (``mesh=``, DTensor activations and parameters) the
+inner activations and the SSD heads are pinned to model-sharded layouts
+(``_constrain_inner`` and the head pins, ``FLAGS.ssd_constraint``), and the
+scan runs on each rank's local heads and batch rows under
+:func:`repro_torch.sharding.shard_map` (``local_map``): the scan kernel's
+``ctypes`` launches never see a DTensor.
 """
 from __future__ import annotations
 
@@ -21,6 +25,8 @@ from repro_torch import perf
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike
 from repro_torch.models.common import rmsnorm
+from repro_torch.sharding import (P, batch_axes, constrain, dp_size,
+                                  heads_view, shard_map, tp_size)
 
 
 class SSMLayerParams(NamedTuple):
@@ -160,16 +166,56 @@ def ssd_decode_step(x, dt, A, Bm, C, D, state):
     return y.to(x.dtype), new_state
 
 
+def _constrain_inner(t, mesh):
+    """(B, S, d_inner-like) -> last dim over 'model' (divisible by design)."""
+    if mesh is None or not perf.FLAGS.ssd_constraint:
+        return t
+    bspec = batch_axes(mesh) if t.shape[0] % 2 == 0 else None
+    spec = P(bspec, None, "model") if t.shape[-1] % tp_size(mesh) == 0 \
+        else P(bspec, None, None)
+    return constrain(t, mesh, spec)
+
+
+def _scan_on_shards(scan, mesh, xh, dt, A, Bm, C, D, chunk, init):
+    """``scan`` on each rank's local heads and batch rows (the reference's
+    Pallas call under ``jit`` on a mesh): x/dt/init sharded on heads over
+    'model' and on the batch over the data axes when they divide it, A/D on
+    heads, Bm/C (one group in every config) whole on each model rank.
+    Uneven head counts split as ``torch.chunk`` does; the scan is per head,
+    so each head's values are those of the one-device scan."""
+    Bsz, S, H, Pd = xh.shape
+    N = Bm.shape[-1]
+    bspec = batch_axes(mesh) if Bsz % dp_size(mesh) == 0 else None
+    heads = P(bspec, None, "model", None)
+    state = P(bspec, "model", None, None)
+
+    def body(x, dt, A, Bm, C, D, init):
+        if x.shape[2] == 0:      # a rank past the last head holds none
+            return (x.new_empty(x.shape),
+                    x.new_empty((x.shape[0], 0, Pd, N), dtype=torch.float32))
+        return scan(x, dt, A, Bm, C, D, chunk, init)
+
+    fn = shard_map(body, mesh,
+                   (heads, P(bspec, None, "model"), P("model"),
+                    P(bspec, None, None, None), P(bspec, None, None, None),
+                    P("model"), None if init is None else state),
+                   [heads, state],
+                   out_shapes=[(Bsz, S, H, Pd), (Bsz, H, Pd, N)])
+    return fn(xh, dt, A, Bm, C, D, init)
+
+
 def ssm_block(x: torch.Tensor, p: SSMLayerParams, cfg: ModelConfig,
               state: Optional[SSMState] = None,
-              use_kernel: Optional[bool] = None):
+              use_kernel: Optional[bool] = None, mesh=None):
     """Full-sequence SSM mixer.  x: (B, S, d) -> (y (B,S,d), final SSMState).
 
     ``use_kernel=None`` (the default) means auto: the scan goes through the
     hand-written kernel for a CUDA tensor and through the oracle
     :func:`ssd_chunked` elsewhere (the rule of the reference's ``qjax``
     writer).  ``True`` takes the kernel's entry point on any device (on the
-    CPU that is the kernel's plain version), ``False`` the oracle."""
+    CPU that is the kernel's plain version), ``False`` the oracle.
+    ``mesh``: the device mesh x and p lie on as DTensors; the scan then
+    runs on each rank's local shards."""
     s = cfg.ssm
     B, S, _ = x.shape
     H, Pd = cfg.n_ssm_heads, s.d_head
@@ -177,30 +223,59 @@ def ssm_block(x: torch.Tensor, p: SSMLayerParams, cfg: ModelConfig,
     xbc, conv_state = _causal_conv(xbc, p.conv,
                                    None if state is None else state.conv)
     xi, BC = xbc[..., :cfg.d_inner], xbc[..., cfg.d_inner:]
+    z = _constrain_inner(z, mesh)
+    xi = _constrain_inner(xi, mesh)
     gn = s.n_groups * s.d_state
     Bm = BC[..., :gn].reshape(B, S, s.n_groups, s.d_state)
     Cm = BC[..., gn:].reshape(B, S, s.n_groups, s.d_state)
     dt = F.softplus(dt.to(torch.float32) + p.dt_bias)
     A = -torch.exp(p.A_log)
-    xh = xi.reshape(B, S, H, Pd)
+    xh = heads_view(xi, (B, S, H, Pd), H, mesh)
+    if mesh is not None and perf.FLAGS.ssd_constraint:
+        # pin the SSD head layout so the chunked scan is never resharded or
+        # partial-summed across ranks
+        bspec = batch_axes(mesh) if B % 2 == 0 else None
+        xh = constrain(xh, mesh, P(bspec, None, "model", None))
+        dt = constrain(dt, mesh, P(bspec, None, "model"))
     if use_kernel is None:
         use_kernel = x.is_cuda
     init = None if state is None else state.ssd
     if use_kernel:
         from repro_torch.kernels.ssd_scan.ops import ssd_chunked_kernel
-        y, ssd_state = ssd_chunked_kernel(xh, dt, A, Bm, Cm, p.D, s.chunk,
-                                          init)
+        scan = ssd_chunked_kernel
     else:
-        y, ssd_state = ssd_chunked(xh, dt, A, Bm, Cm, p.D, s.chunk, init)
-    y = y.reshape(B, S, cfg.d_inner)
+        scan = ssd_chunked
+    if mesh is not None:
+        y, ssd_state = _scan_on_shards(scan, mesh, xh, dt, A, Bm, Cm, p.D,
+                                       s.chunk, init)
+    else:
+        y, ssd_state = scan(xh, dt, A, Bm, Cm, p.D, s.chunk, init)
+    y = heads_view(y, (B, S, cfg.d_inner), H, mesh)
     y = rmsnorm(y * F.silu(z.to(torch.float32)).to(y.dtype), p.norm_w)
     out = torch.matmul(y, p.w_out)
     return out, SSMState(ssd=ssd_state, conv=conv_state)
 
 
+def _decode_on_shards(mesh, xh, dt, A, Bm, C, D, state):
+    """``ssd_decode_step`` on each rank's local heads and batch rows, as
+    :func:`_scan_on_shards` runs the scan."""
+    Bsz, H, Pd = xh.shape
+    N = Bm.shape[-1]
+    bspec = batch_axes(mesh) if Bsz % dp_size(mesh) == 0 else None
+    heads = P(bspec, "model", None)
+    st = P(bspec, "model", None, None)
+    fn = shard_map(ssd_decode_step, mesh,
+                   (heads, P(bspec, "model"), P("model"),
+                    P(bspec, None, None), P(bspec, None, None), P("model"),
+                    st),
+                   [heads, st], out_shapes=[(Bsz, H, Pd), (Bsz, H, Pd, N)])
+    return fn(xh, dt, A, Bm, C, D, state)
+
+
 def ssm_decode(x: torch.Tensor, p: SSMLayerParams, cfg: ModelConfig,
-               state: SSMState):
-    """One-token SSM step.  x: (B, 1, d) -> (y (B,1,d), new state)."""
+               state: SSMState, mesh=None):
+    """One-token SSM step.  x: (B, 1, d) -> (y (B,1,d), new state).  On a
+    mesh the per-head update runs on each rank's local heads."""
     s = cfg.ssm
     B = x.shape[0]
     H, Pd = cfg.n_ssm_heads, s.d_head
@@ -215,9 +290,13 @@ def ssm_decode(x: torch.Tensor, p: SSMLayerParams, cfg: ModelConfig,
     Cm = BC[..., gn:].reshape(B, s.n_groups, s.d_state)
     dt = F.softplus(dt.to(torch.float32) + p.dt_bias)
     A = -torch.exp(p.A_log)
-    yh, ssd_state = ssd_decode_step(xi.reshape(B, H, Pd), dt, A, Bm, Cm, p.D,
-                                    state.ssd)
-    yh = yh.reshape(B, cfg.d_inner)
+    xh = heads_view(xi, (B, H, Pd), H, mesh)
+    if mesh is None:
+        yh, ssd_state = ssd_decode_step(xh, dt, A, Bm, Cm, p.D, state.ssd)
+    else:
+        yh, ssd_state = _decode_on_shards(mesh, xh, dt, A, Bm, Cm, p.D,
+                                          state.ssd)
+    yh = heads_view(yh, (B, cfg.d_inner), H, mesh)
     yh = rmsnorm(yh * F.silu(z.to(torch.float32)).to(yh.dtype), p.norm_w)
     out = torch.matmul(yh, p.w_out)
     return out[:, None, :], SSMState(ssd=ssd_state, conv=conv_state)

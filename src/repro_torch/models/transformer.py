@@ -6,6 +6,13 @@ Layers stay stacked on a leading L dim, as the reference keeps them; its
 tree.  The channel mixer after the token mixer is the MoE block, or the FFN
 where the config has one (the reduced smoke configs do; mamba2-1.3b has
 none).
+
+``mesh=`` runs a model whose parameters (and tokens) are DTensors on a
+device mesh, placed by :mod:`repro_torch.sharding`'s rules: the layers'
+layout pins and the expert-parallel MoE block read it, everything else
+follows DTensor's sharding propagation (as the reference's follows
+GSPMD's) inside :func:`repro_torch.sharding.mesh_scope`.  ``tp_total`` is
+the number of model ranks the MoE experts are stored for.
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ from repro_torch.models.attention import (LayerAttnParams, attention,
 from repro_torch.models.common import embed_lookup, gelu, norm, swiglu, unembed
 from repro_torch.models.moe import MoELayerParams, moe_block
 from repro_torch.models.ssm import SSMLayerParams, SSMState, init_ssm_state
+from repro_torch.sharding import heads_view, mesh_scope
 
 LAYER_PREFIX = "layers/"
 
@@ -68,44 +76,47 @@ def _mlp(x, lp, cfg: ModelConfig):
 
 
 def _token_mixer(x, lp, cfg: ModelConfig, positions,
-                 ssd_kernel: Optional[bool] = None):
+                 ssd_kernel: Optional[bool] = None, mesh=None):
     """Full-sequence mixer for one layer; returns (dx, (k, v, ssm_state)).
     ``ssd_kernel`` is ``ssm_block``'s ``use_kernel`` (None: auto)."""
     k = v = ssm_state = None
     if cfg.family == "ssm":
         xn = norm(x, lp["ssm_norm/w"], cfg.norm)
         dx, ssm_state = ssm_mod.ssm_block(xn, _ssm_params(lp), cfg,
-                                          use_kernel=ssd_kernel)
+                                          use_kernel=ssd_kernel, mesh=mesh)
     elif cfg.hybrid:
         xn = norm(x, lp["attn_norm/w"], cfg.norm)
-        a, k, v = attention(xn, _attn_params(lp), cfg, positions=positions)
+        a, k, v = attention(xn, _attn_params(lp), cfg, positions=positions,
+                            mesh=mesh)
         s, ssm_state = ssm_mod.ssm_block(norm(x, lp["ssm_norm/w"], cfg.norm),
                                          _ssm_params(lp), cfg,
-                                         use_kernel=ssd_kernel)
+                                         use_kernel=ssd_kernel, mesh=mesh)
         dx = 0.5 * (a + s)
     else:
         xn = norm(x, lp["attn_norm/w"], cfg.norm)
-        dx, k, v = attention(xn, _attn_params(lp), cfg, positions=positions)
+        dx, k, v = attention(xn, _attn_params(lp), cfg, positions=positions,
+                             mesh=mesh)
     return dx, (k, v, ssm_state)
 
 
-def _channel_mixer(x, lp, cfg: ModelConfig):
+def _channel_mixer(x, lp, cfg: ModelConfig, mesh=None, tp_total: int = 1):
     """FFN / MoE part -> (dx, (lb, z)): dx is None when the config has
     neither, (lb, z) the MoE aux losses or None without MoE."""
     if cfg.moe is not None:
         xn = norm(x, lp["mlp_norm/w"], cfg.norm)
-        dx, lb, z = moe_block(xn, _moe_params(lp), cfg)
+        dx, lb, z = moe_block(xn, _moe_params(lp), cfg, mesh, tp_total)
         return dx, (lb, z)
     if cfg.d_ff > 0:
         return _mlp(norm(x, lp["mlp_norm/w"], cfg.norm), lp, cfg), None
     return None, None
 
 
-def embed_inputs(params, cfg: ModelConfig, tokens, patch_embeds=None):
+def embed_inputs(params, cfg: ModelConfig, tokens, patch_embeds=None,
+                 mesh=None):
     """Token embeddings; for the vision stub the projected patches replace
     the first ``n_patches`` positions (the sequence keeps its length when it
     is at least ``n_patches`` long, as in the reference)."""
-    x = embed_lookup(params["embed/table"], tokens)
+    x = embed_lookup(params["embed/table"], tokens, mesh)
     if cfg.n_patches and patch_embeds is not None:
         pe = torch.matmul(patch_embeds.to(x.dtype), params["vision_proj/w"])
         x = torch.cat([pe, x[:, cfg.n_patches:, :]], dim=1)
@@ -119,7 +130,8 @@ def _logits(params, x, cfg: ModelConfig):
 
 
 def forward(params: Dict[str, torch.Tensor], tokens: torch.Tensor,
-            cfg: ModelConfig, *, patch_embeds=None, remat: bool = False,
+            cfg: ModelConfig, *, mesh=None, tp_total: int = 1,
+            patch_embeds=None, remat: bool = False,
             collect_cache: bool = False, ssd_kernel: Optional[bool] = None):
     """tokens: (B, S) -> (logits (B, S, Vp), aux dict).
 
@@ -135,14 +147,21 @@ def forward(params: Dict[str, torch.Tensor], tokens: torch.Tensor,
     numbers are unchanged.  ``ssd_kernel`` is passed to ``ssm_block`` as
     ``use_kernel``: None takes the scan kernel on a CUDA tensor, False the
     oracle, which training needs (the kernel has no backward)."""
-    x = embed_inputs(params, cfg, tokens, patch_embeds)
+    with mesh_scope(mesh):
+        return _forward(params, tokens, cfg, mesh, tp_total, patch_embeds,
+                        remat, collect_cache, ssd_kernel)
+
+
+def _forward(params, tokens, cfg: ModelConfig, mesh, tp_total, patch_embeds,
+             remat, collect_cache, ssd_kernel):
+    x = embed_inputs(params, cfg, tokens, patch_embeds, mesh)
     positions = torch.arange(tokens.shape[1], device=x.device)
     lt = layer_tree(params)
 
     def layer(x, lb, z, lp):
-        dx, cache = _token_mixer(x, lp, cfg, positions, ssd_kernel)
+        dx, cache = _token_mixer(x, lp, cfg, positions, ssd_kernel, mesh)
         x = x + dx
-        dx, moe_aux = _channel_mixer(x, lp, cfg)
+        dx, moe_aux = _channel_mixer(x, lp, cfg, mesh, tp_total)
         if dx is not None:
             x = x + dx
         if moe_aux is not None:
@@ -210,11 +229,18 @@ def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int,
 
 
 def decode_step(params: Dict[str, torch.Tensor], tokens: torch.Tensor,
-                state: DecodeState, cfg: ModelConfig):
+                state: DecodeState, cfg: ModelConfig, *, mesh=None,
+                tp_total: int = 1):
     """tokens: (B, 1) -> (logits (B, 1, Vp), new DecodeState).  The state
     passed in is left as it was.  The MoE aux losses are dropped, and the
     vision stub's patches take no part, as in the reference."""
-    x = embed_lookup(params["embed/table"], tokens)
+    with mesh_scope(mesh):
+        return _decode_step(params, tokens, state, cfg, mesh, tp_total)
+
+
+def _decode_step(params, tokens, state: DecodeState, cfg: ModelConfig, mesh,
+                 tp_total):
+    x = embed_lookup(params["embed/table"], tokens, mesh)
     lt = layer_tree(params)
     B = x.shape[0]
     idx = state.index
@@ -222,16 +248,17 @@ def decode_step(params: Dict[str, torch.Tensor], tokens: torch.Tensor,
 
     def ssm_step(xn, lp, i):
         H, Pd, N = cfg.n_ssm_heads, cfg.ssm.d_head, cfg.ssm.d_state
-        sd = state.ssm_ssd[i].reshape(B, H, Pd, N)
+        sd = heads_view(state.ssm_ssd[i], (B, H, Pd, N), H, mesh)
         dx, st = ssm_mod.ssm_decode(xn, _ssm_params(lp), cfg,
-                                    SSMState(sd, state.ssm_conv[i]))
-        new_sd.append(st.ssd.reshape(B, cfg.d_inner, N))
+                                    SSMState(sd, state.ssm_conv[i]), mesh)
+        new_sd.append(heads_view(st.ssd, (B, cfg.d_inner, N), H, mesh))
         new_sc.append(st.conv)
         return dx
 
     def attn_step(xn, lp, i):
         dx, nk, nv = decode_attention(xn, _attn_params(lp), cfg,
-                                      state.cache_k[i], state.cache_v[i], idx)
+                                      state.cache_k[i], state.cache_v[i], idx,
+                                      mesh=mesh)
         new_k.append(nk)
         new_v.append(nv)
         return dx
@@ -247,7 +274,7 @@ def decode_step(params: Dict[str, torch.Tensor], tokens: torch.Tensor,
         else:
             dx = attn_step(norm(x, lp["attn_norm/w"], cfg.norm), lp, i)
         x = x + dx
-        dx, _ = _channel_mixer(x, lp, cfg)
+        dx, _ = _channel_mixer(x, lp, cfg, mesh, tp_total)
         if dx is not None:
             x = x + dx
     logits = _logits(params, x, cfg)

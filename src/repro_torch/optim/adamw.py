@@ -5,8 +5,9 @@ Plain functions over flat dicts of tensors (the layout of
 ``repro_torch.models.params``), in the reference's order of operations, so
 one state steps the same way in both packages.  ``torch.optim.AdamW`` is
 not used: its update order and bias correction round differently.  The
-reference's ZeRO-1 sharding of the moments waits with the distributed
-writer (ROADMAP Queue 1 item 6).
+moments' ZeRO-1 layout on a device mesh is placed by
+``runtime.train.state_shardings``; the update itself runs on whatever the
+tensors are (DTensors on a mesh).
 """
 from __future__ import annotations
 

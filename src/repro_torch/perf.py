@@ -2,10 +2,10 @@
 
 Defaults are the optimized configuration; :func:`set_baseline` restores the
 first-cut behaviour.  The port holds the flags its code reads: the SSD
-oracle's ``ssd_bf16_intra`` and attention's ``gqa_grouped``, ``swa_banded``
-and ``attn_bf16_scores``.  The reference's mesh flags
-(``attn_head_constraint``, ``ssd_constraint``) arrive with the distributed
-slice.  Read the flags as ``perf.FLAGS`` at call time: :func:`set_baseline`
+oracle's ``ssd_bf16_intra``, attention's ``gqa_grouped``, ``swa_banded``
+and ``attn_bf16_scores``, and the mesh layout pins ``attn_head_constraint``
+and ``ssd_constraint`` (read only when a model runs on a device mesh).
+Read the flags as ``perf.FLAGS`` at call time: :func:`set_baseline`
 rebinds the module attribute.
 """
 from __future__ import annotations
@@ -15,8 +15,13 @@ from dataclasses import dataclass
 
 @dataclass
 class PerfFlags:
+    # on a mesh: pin q/k/v to head-sharded layouts so the d_head contraction
+    # is never split across the model axis
+    attn_head_constraint: bool = True
     # intra-chunk SSD math in bf16 (states stay f32)
     ssd_bf16_intra: bool = True
+    # on a mesh: pin the SSD inner activations to model-sharded layouts
+    ssd_constraint: bool = True
     # GQA attention without materializing repeated kv heads
     gqa_grouped: bool = True
     # sliding-window prefill computes only the key band
@@ -30,5 +35,6 @@ FLAGS = PerfFlags()
 
 def set_baseline() -> None:
     global FLAGS
-    FLAGS = PerfFlags(ssd_bf16_intra=False, gqa_grouped=False,
+    FLAGS = PerfFlags(attn_head_constraint=False, ssd_bf16_intra=False,
+                      ssd_constraint=False, gqa_grouped=False,
                       swa_banded=False, attn_bf16_scores=False)

@@ -25,6 +25,7 @@ import numpy as np
 
 from repro_torch.ckpt import checkpoint as ckpt
 from repro_torch.data.tokens import DataConfig, batch_at
+from repro_torch.device import is_dtensor
 
 
 class FailureInjector:
@@ -137,14 +138,11 @@ def run_training(step_fn: Callable, init_state, data_cfg: DataConfig,
     them leaf for leaf (names, shapes, dtypes), else ``ValueError``.
     ``float(metrics["loss"])`` waits for each step.  A step that raises
     ``RuntimeError`` restarts from the latest checkpoint, at most
-    ``max_restarts`` times.  ``state_shardings`` other than ``None``
-    raises ``NotImplementedError``: placing a state across devices waits
-    for the distributed writer (ROADMAP Queue 1 item 6)."""
-    if state_shardings is not None:
-        raise NotImplementedError(
-            "run_training(state_shardings=...) places a state across "
-            "devices, which waits for the distributed writer (ROADMAP "
-            "Queue 1 item 6); the port trains on one device")
+    ``max_restarts`` times.  ``state_shardings`` (a TrainState of
+    :class:`repro_torch.sharding.NamedSharding`, as
+    ``train.state_shardings`` gives) places a restored state onto a device
+    mesh, whatever mesh wrote it: the reference's elastic re-mesh.  On a
+    mesh every rank runs the loop, and rank 0 writes the checkpoints."""
     injector = injector or FailureInjector()
     watchdog = watchdog or StragglerWatchdog()
     saver = ckpt.AsyncCheckpointer(ckpt_dir)
@@ -152,9 +150,10 @@ def run_training(step_fn: Callable, init_state, data_cfg: DataConfig,
     restarts = 0
     log: List[Dict] = []
 
+    shardings = None if state_shardings is None else _to_tree(state_shardings)
     latest = ckpt.latest_step(ckpt_dir)
     if latest is not None:
-        tree, step0, _ = ckpt.restore(ckpt_dir, latest)
+        tree, step0, _ = ckpt.restore(ckpt_dir, latest, shardings)
         state, step = _to_state(init_state, tree), step0
     else:
         state, step = init_state, 0
@@ -179,7 +178,7 @@ def run_training(step_fn: Callable, init_state, data_cfg: DataConfig,
                 raise
             saver.wait()
             latest = ckpt.latest_step(ckpt_dir)
-            tree, step, _ = ckpt.restore(ckpt_dir, latest)
+            tree, step, _ = ckpt.restore(ckpt_dir, latest, shardings)
             state = _to_state(init_state, tree)
     saver.wait()
     saver.save(_to_tree(state), step, {"data_step": step})
@@ -217,7 +216,9 @@ def _to_state(proto, tree):
                     f"checkpoint's {part}[{k!r}] is {v.dtype} "
                     f"{tuple(v.shape)}, the run's {like[k].dtype} "
                     f"{tuple(like[k].shape)}")
-        return {k: v.to(like[k].device) for k, v in leaves.items()}
+        # a leaf restored onto a mesh is placed already
+        return {k: v if is_dtensor(v) else v.to(like[k].device)
+                for k, v in leaves.items()}
 
     if ("err_fb" in tree) != (proto.err_fb is not None):
         raise ValueError("checkpoint and run differ in error feedback "

@@ -7,7 +7,8 @@
   vlm:       {tokens, labels, patches (B, n_patches, d)}
 
 ``loss_fn`` is the training objective: the masked cross-entropy over the
-real vocab plus the MoE auxiliaries.
+real vocab plus the MoE auxiliaries.  ``mesh``/``tp_total`` pass through to
+the models (DTensor parameters and batch on a device mesh).
 """
 from __future__ import annotations
 
@@ -18,31 +19,36 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import encdec, transformer
 from repro_torch.models.common import cross_entropy
+from repro_torch.sharding import mesh_scope
 
 
-def forward_logits(params, batch: Dict, cfg: ModelConfig, *,
-                   remat: bool = False, ssd_kernel=None):
+def forward_logits(params, batch: Dict, cfg: ModelConfig, *, mesh=None,
+                   tp_total: int = 1, remat: bool = False, ssd_kernel=None):
     """-> (logits (B, S, Vp), aux).  ``remat`` checkpoints every layer;
     ``ssd_kernel`` is ``transformer.forward``'s (None: the scan kernel on a
     CUDA tensor, False: the oracle)."""
     if cfg.family == "audio":
         return encdec.forward(params, batch["tokens"], batch["frames"], cfg,
-                              remat=remat)
-    return transformer.forward(params, batch["tokens"], cfg,
+                              mesh=mesh, tp_total=tp_total, remat=remat)
+    return transformer.forward(params, batch["tokens"], cfg, mesh=mesh,
+                               tp_total=tp_total,
                                patch_embeds=batch.get("patches"),
                                remat=remat, ssd_kernel=ssd_kernel)
 
 
-def loss_fn(params, batch: Dict, cfg: ModelConfig, *, remat: bool = False,
-            lb_coef: float = 0.01, z_coef: float = 1e-3
+def loss_fn(params, batch: Dict, cfg: ModelConfig, *, mesh=None,
+            tp_total: int = 1, remat: bool = False, lb_coef: float = 0.01,
+            z_coef: float = 1e-3
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """-> (loss, metrics {loss, ce, lb_loss, z_loss}): ``ce +
     lb_coef*lb_loss + z_coef*z_loss``.  The SSM scan takes the oracle
     (the scan kernel has no backward), as the reference's training does."""
-    logits, aux = forward_logits(params, batch, cfg, remat=remat,
-                                 ssd_kernel=False)
-    ce = cross_entropy(logits, batch["labels"], cfg.vocab)
-    loss = ce + lb_coef * aux["lb_loss"] + z_coef * aux["z_loss"]
+    with mesh_scope(mesh):
+        logits, aux = forward_logits(params, batch, cfg, mesh=mesh,
+                                     tp_total=tp_total, remat=remat,
+                                     ssd_kernel=False)
+        ce = cross_entropy(logits, batch["labels"], cfg.vocab)
+        loss = ce + lb_coef * aux["lb_loss"] + z_coef * aux["z_loss"]
     metrics = {"loss": loss, "ce": ce, **aux}
     return loss, metrics
 
@@ -58,7 +64,10 @@ def init_decode_state(params, batch: Dict, cfg: ModelConfig, batch_size: int,
                                          params["embed/table"].device)
 
 
-def decode_step(params, tokens, state, cfg: ModelConfig):
+def decode_step(params, tokens, state, cfg: ModelConfig, *, mesh=None,
+                tp_total: int = 1):
     if cfg.family == "audio":
-        return encdec.decode_step(params, tokens, state, cfg)
-    return transformer.decode_step(params, tokens, state, cfg)
+        return encdec.decode_step(params, tokens, state, cfg, mesh=mesh,
+                                  tp_total=tp_total)
+    return transformer.decode_step(params, tokens, state, cfg, mesh=mesh,
+                                   tp_total=tp_total)

@@ -21,7 +21,10 @@ A :class:`~repro_torch.runtime.integrity.Scrubber` attached with
 fatal: the port's executables read the live weight buffers, so from the
 moment the server dies no batch's result is resolved any more.
 
-Not ported yet: ``decode_state_shardings`` (no mesh on one card).
+On a device mesh, ``make_prefill_step(cfg, mesh=, tp_total=)`` and
+``make_decode_step`` run the model on DTensor parameters placed by
+:func:`repro_torch.sharding.param_sharding`, and
+:func:`decode_state_shardings` gives the decode state's layout.
 """
 from __future__ import annotations
 
@@ -45,11 +48,13 @@ from repro_torch.runtime import model_api
 from repro_torch.runtime.scheduler import (CoalescingScheduler, LatencyEWMA,
                                            QueueFull, RequestSignature,
                                            ScheduledBatch, percentile)
+from repro_torch.sharding import P, NamedSharding, batch_axes, tp_size
 
 __all__ = [
     "AccelServer", "AdaptiveLMServer", "BatchReport", "NumericalFault",
     "QueueFull", "ServeMetrics", "ServerStopped", "ServiceObjective",
-    "Ticket", "greedy_generate", "make_decode_step", "make_prefill_step",
+    "Ticket", "decode_state_shardings", "greedy_generate",
+    "make_decode_step", "make_prefill_step",
 ]
 
 
@@ -69,17 +74,57 @@ class NumericalFault(RuntimeError):
     un-wrapped so the fleet router can retry the request elsewhere."""
 
 
-def make_prefill_step(cfg: ModelConfig):
+def decode_state_shardings(cfg: ModelConfig, state, mesh):
+    """Shardings for a DecodeState / EncDecDecodeState (flat kv dims):
+    batch over the data axes, the last dim over 'model' where it divides
+    it; the index (a host int in the port) gets ``P()``, as in the
+    reference."""
+    from repro_torch.models import encdec, transformer
+    dp = batch_axes(mesh)
+    tp = tp_size(mesh)
+
+    def spec_for(x):
+        if x is None:
+            return None
+        if x.ndim == 0:
+            return NamedSharding(mesh, P())
+        # (L, B, ..., feat): batch over dp; last dim over model when divisible
+        parts = [None] * x.ndim
+        parts[1] = dp
+        if x.shape[-1] % tp == 0 and x.shape[-1] >= tp:
+            parts[-1] = "model"
+        return NamedSharding(mesh, P(*parts))
+
+    if isinstance(state, transformer.DecodeState):
+        return transformer.DecodeState(
+            cache_k=spec_for(state.cache_k),
+            cache_v=spec_for(state.cache_v),
+            ssm_ssd=(None if state.ssm_ssd is None else NamedSharding(
+                mesh, P(None, dp, "model", None))),
+            ssm_conv=(None if state.ssm_conv is None else NamedSharding(
+                mesh, P(None, dp, None, None))),
+            index=NamedSharding(mesh, P()))
+    return encdec.EncDecDecodeState(
+        cache_k=spec_for(state.cache_k),
+        cache_v=spec_for(state.cache_v),
+        cross_k=NamedSharding(mesh, P(None, dp, None, None, None)),
+        cross_v=NamedSharding(mesh, P(None, dp, None, None, None)),
+        index=NamedSharding(mesh, P()))
+
+
+def make_prefill_step(cfg: ModelConfig, *, mesh=None, tp_total: int = 1):
     def prefill(params, batch):
-        logits, _ = model_api.forward_logits(params, batch, cfg)
+        logits, _ = model_api.forward_logits(params, batch, cfg, mesh=mesh,
+                                             tp_total=tp_total)
         return logits
 
     return prefill
 
 
-def make_decode_step(cfg: ModelConfig):
+def make_decode_step(cfg: ModelConfig, *, mesh=None, tp_total: int = 1):
     def step(params, tokens, state):
-        return model_api.decode_step(params, tokens, state, cfg)
+        return model_api.decode_step(params, tokens, state, cfg, mesh=mesh,
+                                     tp_total=tp_total)
 
     return step
 

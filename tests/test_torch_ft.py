@@ -114,11 +114,41 @@ def test_run_training_refuses_a_checkpoint_of_another_config(tmp_path):
 
 
 def test_run_training_refuses_state_shardings(tmp_path):
-    cfg, state, step, data = _setup(2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        ft.run_training(step, state, data, 2, str(tmp_path / "a"),
-                        state_shardings={"params": {}})
-    assert ckpt.latest_step(str(tmp_path / "a")) is None
+    """``state_shardings``, which once raised, re-meshes a restored state:
+    two steps on one device leave a checkpoint, and the run resumes from
+    it on a one-rank (1, 1) mesh (``make_local_mesh`` starts a gloo group
+    in this process) through ``jit_train_step``, its state restored onto
+    ``state_shardings``' layouts; its losses are the uninterrupted
+    one-device run's within 1e-5 relative."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.runtime.train import jit_train_step, state_shardings
+    cfg, state, step, data = _setup(4)
+    whole = ft.run_training(step, state, data, 4, str(tmp_path / "whole"))
+    ft.run_training(step, state, data, 2, str(tmp_path / "a"))
+    mesh = make_local_mesh(device="cpu")
+    try:
+        sh = state_shardings(cfg, state, mesh)
+        batch = {"tokens": torch.zeros((4, 32), dtype=torch.int32),
+                 "labels": torch.zeros((4, 32), dtype=torch.int32)}
+        mstep = jit_train_step(cfg, OptConfig(lr=1e-3, warmup_steps=1,
+                                              total_steps=4),
+                               mesh, state, batch)
+        seen = []
+
+        def spy(st, b):
+            seen.append(st.params["embed/table"])
+            return mstep(st, b)
+
+        res = ft.run_training(spy, state, data, 4, str(tmp_path / "a"),
+                              state_shardings=sh)
+        assert res.final_step == 4 and [e["step"] for e in res.metrics_log] \
+            == [2, 3]
+        assert tuple(seen[0].placements) == sh.params["embed/table"].placements
+        for got, want in zip(res.metrics_log, whole.metrics_log[2:]):
+            assert abs(got["loss"] - want["loss"]) <= 1e-5 * abs(want["loss"])
+    finally:
+        dist.destroy_process_group()
 
 
 def test_straggler_watchdog_flags_slow_steps():

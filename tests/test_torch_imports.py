@@ -77,6 +77,17 @@ def test_attention_slice_modules_are_among_those_imported_with_jax_blocked():
     assert mods <= set(_modules())
 
 
+def test_spmd_slice_modules_are_among_those_imported_with_jax_blocked():
+    """The sharding rules, the mesh and the distributed writer are walked
+    by the jax-blocked import above, and ``"dist"`` is a flow target."""
+    from repro_torch.core.flow import WRITERS
+    from repro_torch.core.writers.dist_writer import DistWriter
+    mods = {"repro_torch.sharding", "repro_torch.launch.mesh",
+            "repro_torch.core.writers.dist_writer"}
+    assert mods <= set(_modules())
+    assert WRITERS["dist"] is DistWriter
+
+
 def test_dse_slice_modules_are_among_those_imported_with_jax_blocked():
     """The design-space explorer's modules (the explorer, its budget and
     front, roofline's CNN terms) are walked by the jax-blocked import above."""

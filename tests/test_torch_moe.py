@@ -244,9 +244,34 @@ def test_moe_block_matches_reference(dtype):
 
 
 def test_moe_block_refuses_weights_stored_for_more_ranks():
-    """Expert weights laid out for two model ranks need the sharded path,
-    which waits with the distributed writer."""
+    """Expert weights laid out for two model ranks need a mesh with two
+    ranks on 'model' (``ValueError`` without one, or on a one-rank mesh);
+    on a one-rank (1, 1) mesh (``make_local_mesh`` starts a gloo group in
+    this process) the sharded path runs the body on its local shards and
+    equals the one-device block bit for bit.  (Two and more model ranks:
+    ``tests/test_torch_distributed.py``.)"""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    from repro_torch.launch.mesh import make_local_mesh
     _, tc = _cfgs()
-    _, tp = _params(_weights(tc, seed=13, tp_total=2), "float32")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        moe.moe_block(torch.zeros((1, 4, tc.d_model)), tp, tc)
+    _, tp2 = _params(_weights(tc, seed=13, tp_total=2), "float32")
+    with pytest.raises(ValueError, match="mesh"):
+        moe.moe_block(torch.zeros((1, 4, tc.d_model)), tp2, tc)
+    _, tp = _params(_weights(tc, seed=11), "float32")
+    x = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        (2, 8, tc.d_model)).astype(np.float32))
+    want = moe.moe_block(x, tp, tc)
+    mesh = make_local_mesh(device="cpu")
+    try:
+        rep = [Replicate(), Replicate()]
+        with pytest.raises(ValueError, match="2 model ranks"):
+            moe.moe_block(distribute_tensor(x, mesh, rep),
+                          moe.MoELayerParams(*(distribute_tensor(w, mesh, rep)
+                                               for w in tp2)), tc, mesh)
+        got = moe.moe_block(distribute_tensor(x, mesh, rep),
+                            moe.MoELayerParams(*(distribute_tensor(w, mesh, rep)
+                                                 for w in tp)), tc, mesh)
+        for g, w in zip(got, want):
+            assert torch.equal(g.full_tensor(), w)
+    finally:
+        dist.destroy_process_group()

@@ -346,10 +346,36 @@ def test_train_step_takes_the_scan_oracle(arch, monkeypatch):
 
 
 def test_mesh_and_tp_raise_not_implemented():
-    _, tc, _, _ = _params(DENSE)
-    for kw in (dict(mesh=object()), dict(tp_total=2)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            train.make_train_step(tc, OptConfig(), **kw)
+    """The mesh path, which once raised, on a one-rank (1, 1) mesh
+    (``make_local_mesh`` starts a gloo group in this process): two
+    microbatches with remat through ``jit_train_step`` from the
+    one-device state land where ``make_train_step(mesh=None)`` does, bit
+    for bit (one rank runs the same local ops), in the layouts
+    ``state_shardings`` gives, with plain 0-d metrics.  (Multi-rank meshes:
+    ``tests/test_torch_distributed.py``.)"""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_mesh
+    _, tc, _, tp = _params(DENSE)
+    _, tb = _both(_batch(tc, B=4))
+    opt = OptConfig(**OPT)
+    state = train.init_train_state(tp)
+    s1, m1 = train.make_train_step(tc, opt, microbatches=2)(state, tb)
+    mesh = make_local_mesh(device="cpu")
+    try:
+        step = train.jit_train_step(tc, opt, mesh, state, tb, microbatches=2)
+        s2, m2 = step(state, tb)
+        sh = train.state_shardings(tc, state, mesh)
+        for k in ("loss", "grad_norm"):
+            assert type(m2[k]) is torch.Tensor and m2[k].ndim == 0
+            assert torch.equal(m2[k], m1[k]), k
+        for k in tp:
+            assert tuple(s2.params[k].placements) == sh.params[k].placements
+            for a, b in ((s2.params[k], s1.params[k]),
+                         (s2.opt.mu[k], s1.opt.mu[k]),
+                         (s2.opt.nu[k], s1.opt.nu[k])):
+                assert torch.equal(a.full_tensor(), b), k
+    finally:
+        dist.destroy_process_group()
 
 
 def test_train_state_from_jax_crosses_bit_for_bit():
