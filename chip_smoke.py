@@ -210,6 +210,20 @@ Phases, each of which raises (and exits non-zero) on failure:
       on the (1,) data mesh behind ``AccelServer``, batches 8, 3 and 1
       equal to the ``"torch"`` target's bit for bit, then requests/s of
       both targets;
+   t. the dry-run (:func:`dryrun_path`, after the times below), each job
+      in a process of its own (``--dryrun JOB``; the fake process group
+      is that process's default group), all started together: the
+      counters' known answers (a sharded MLP's 2^38 FLOPs a rank on a fake
+      (16, 16) mesh, one all-reduce's ring wire bytes); four production
+      cells through ``launch.dryrun.run_cell`` (qwen1.5-0.5b x train_4k
+      and mamba2-1.3b x prefill_32k and hymba-1.5b x long_500k on 16x16,
+      mixtral-8x7b x decode_32k on 2x16x16), each report's line with
+      ``trace_s`` and its collective counts by op; and, on a one-rank fake
+      mesh, phase q's train step and the mamba2 bf16 prefill, their
+      roofline ``step_s`` and bound beside the seconds this run measured
+      for them and ``model_flops / (measured_s * 989e12)``, the measured
+      share of the bf16 peak.  It fails if a job fails, a cell counts no
+      collective or a term is not finite;
 6. times — each kernel and mode, its plain version and the nearest PyTorch
    library call at the main paths' batch-8 shapes: device time per call
    from the profiler's CUDA activity (and the per-call time of back-to-back
@@ -260,6 +274,11 @@ Its details go to ``build/chip_smoke/conv2d_stream.json``.
 
 runs only phase q's restart check and prints its ``train_restart:`` line
 (phase q starts it so, in a process of its own).
+
+    python3 chip_smoke.py --dryrun JOB
+
+runs one job of phase t and prints its ``dryrun:`` line (phase t starts
+each so).
 """
 from __future__ import annotations
 
@@ -2954,6 +2973,187 @@ def spmd_path(card: str = "", device: str = "cuda", prefill_cfg=None,
     return out
 
 
+# -- phase t: the dry-run on fake meshes ----------------------------------------
+
+# (arch, shape, multi_pod): one cell of each kind on the production meshes
+DRYRUN_CELLS = (("qwen1.5-0.5b", "train_4k", False),
+                ("mamba2-1.3b", "prefill_32k", False),
+                ("mixtral-8x7b", "decode_32k", True),
+                ("hymba-1.5b", "long_500k", False))
+DRYRUN_TIMEOUT_S = 900
+
+
+def _calibration(which: str):
+    """(cfg, ShapeConfig, extra) of the card's own steps: phase q's train
+    step and the mamba2 bf16 prefill path."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    if which == "train":
+        B, S = TRAIN_SHAPE
+        return (get_config(TRAIN_ARCH), ShapeConfig("phase_q", S, B, "train"),
+                {"microbatches": TRAIN_MICROBATCHES})
+    return (get_config(LM_ARCH), ShapeConfig("prefill_4x2048", 2048, 4,
+                                             "prefill"), {})
+
+
+def _counter_check() -> dict:
+    """The counters' known answers on a fake (16, 16) mesh, with this
+    machine's torch: a sharded MLP's 2^38 FLOPs a rank (not the global
+    2^46) and one all-reduce of f32 (16, 1024) over 16 ranks."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
+                                          distribute_tensor)
+    from repro_torch.launch import dryrun
+    with dryrun.fake_group(256):
+        mesh = dryrun._make_mesh((16, 16))
+        with FakeTensorMode(allow_non_fake_inputs=False):
+            bf = torch.bfloat16
+            x = distribute_tensor(torch.empty(256, 4096, 2048, dtype=bf),
+                                  mesh, [Shard(0), Replicate()])
+            w1 = distribute_tensor(torch.empty(2048, 8192, dtype=bf), mesh,
+                                   [Replicate(), Shard(1)])
+            w2 = distribute_tensor(torch.empty(8192, 2048, dtype=bf), mesh,
+                                   [Replicate(), Shard(0)])
+            _, mlp, _ = dryrun.measure(lambda a, b, c: (a @ b) @ c,
+                                       x, w1, w2)
+            part = DTensor.from_local(torch.empty(16, 1024), mesh,
+                                      [Replicate(), Partial()])
+            _, ar, _ = dryrun.measure(lambda t: t.redistribute(
+                mesh, [Replicate(), Replicate()]), part)
+    out = {"mlp_flops": mlp.flops, "all_reduce": dict(ar.collective.counts),
+           "all_reduce_wire_bytes": ar.collective.wire_bytes}
+    if mlp.flops != 2 ** 38 or out["all_reduce"] != {"all-reduce": 1} or \
+            ar.collective.wire_bytes != 2 * 15 / 16 * 16 * 1024 * 4:
+        raise AssertionError(f"the dry-run's counters: {out}")
+    return out
+
+
+def dryrun_job(job: str) -> dict:
+    """One job of phase t, in the process that runs it: ``counters``, the
+    counters' known answers; ``calibrate train|prefill``, a card step
+    traced on a one-rank fake mesh; else ``arch shape multi_pod``, one
+    production cell through ``dryrun.run_cell``."""
+    from repro_torch.launch import dryrun
+    _zero_counts()
+    if job == "counters":
+        info = _counter_check()
+    elif job.startswith("calibrate "):
+        cfg, shape, extra = _calibration(job.split()[1])
+        traced = dryrun.trace_cell(cfg, shape, (1, 1), extra=extra)
+        rep = dryrun.report_for(cfg.name, shape, "1x1", 1, traced, cfg)
+        info = {**rep.to_dict(), "memory_analysis": traced["memory"],
+                "lower_s": traced["lower_s"], "trace_s": traced["trace_s"],
+                "ops": traced["ops"], "extra": extra}
+    else:
+        arch, shape, multi_pod = job.split()
+        info = dryrun.run_cell(arch, shape, multi_pod=multi_pod == "1",
+                               out_dir=str(ROOT / "build" / "chip_smoke"
+                                           / "dryrun"))
+    info["job"] = job
+    info["launches"] = _read_counts()
+    return info
+
+
+def dryrun_main(job: str) -> int:
+    log("dryrun: " + json.dumps(dryrun_job(job)))
+    return 0
+
+
+def _finite_terms(name: str, r: dict) -> None:
+    import math
+    for k in ("flops_per_device", "bytes_per_device", "collective_wire_bytes",
+              "model_flops", "compute_s", "memory_s", "collective_s",
+              "step_s", "useful_flops_ratio", "mfu"):
+        if not math.isfinite(r[k]):
+            raise AssertionError(f"phase t {name}: {k} = {r[k]}")
+
+
+def dryrun_path(card: str, paths: list) -> dict:
+    """Phase t: the dry-run (``repro_torch.launch.dryrun``) on fake meshes,
+    each job in a process of its own (the fake process group is that
+    process's default group), all started together: the counters' known
+    answers, the four :data:`DRYRUN_CELLS` on the 16x16 and 2x16x16 meshes,
+    and the card's own train step (phase q) and mamba2 prefill traced on a
+    one-rank mesh, whose roofline ``step_s`` is printed beside the seconds
+    this run measured for them and the measured share of the bf16 peak.
+    Fails if a job fails, a cell's collective counts are empty or a term
+    is not finite."""
+    import statistics
+    from repro_torch.launch.roofline import PEAK_FLOPS_BF16
+    t0 = time.perf_counter()
+    out_dir = ROOT / "build" / "chip_smoke" / "dryrun"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    jobs = (["counters"] + [f"{a} {s} {int(mp)}" for a, s, mp in DRYRUN_CELLS]
+            + ["calibrate train", "calibrate prefill"])
+    procs = []
+    for i, job in enumerate(jobs):
+        logf = open(out_dir / f"job{i}.log", "w")
+        procs.append((job, logf, subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--dryrun", job,
+             "--src", str(SRC)], stdout=logf, stderr=subprocess.STDOUT,
+            text=True)))
+    results = {}
+    try:
+        for job, logf, proc in procs:
+            rc = proc.wait(timeout=DRYRUN_TIMEOUT_S)
+            logf.close()
+            text = Path(logf.name).read_text()
+            lines = [ln for ln in text.splitlines()
+                     if ln.startswith("dryrun: ")]
+            if rc != 0 or not lines:
+                raise AssertionError(f"phase t {job}: rc {rc}\n"
+                                     f"{text[-4000:]}")
+            results[job] = json.loads(lines[-1][len("dryrun: "):])
+    finally:
+        for _, logf, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            logf.close()
+    log("phase t counters: " + json.dumps(results["counters"]))
+    cells = []
+    for arch, shape, mp in DRYRUN_CELLS:
+        r = results[f"{arch} {shape} {int(mp)}"]
+        name = f"{arch} x {shape} x {r['mesh']}"
+        if not sum(r["collective_counts"].values()) > 0:
+            raise AssertionError(f"phase t {name}: no collective counted")
+        _finite_terms(name, r)
+        mem = r["memory_analysis"]
+        log(f"phase t {name}: trace_s={r['trace_s']} lower_s={r['lower_s']} "
+            f"bound={r['bound']} step_s={r['step_s']:.4g} "
+            f"compute={r['compute_s']:.4g}s memory={r['memory_s']:.4g}s "
+            f"collective={r['collective_s']:.4g}s mfu={r['mfu']:.4g} "
+            f"useful={r['useful_flops_ratio']:.4g} peak/rank="
+            f"{mem['peak_bytes'] / 2**30:.2f} GiB ops={r['ops']} "
+            f"collectives={json.dumps(r['collective_counts'])}")
+        cells.append(r)
+    q_run = next(p for p in paths if p["model"] == TRAIN_ARCH
+                 and p["path"].startswith("train "))
+    pre = next(p for p in paths if p["model"] == LM_ARCH
+               and p["path"] == "prefill bfloat16 (4, 2048)")
+    measured = {"train": q_run["s_per_step"],
+                "prefill": statistics.median(pre["prefill_s"])}
+    calib = {}
+    for which in ("train", "prefill"):
+        r = results[f"calibrate {which}"]
+        _finite_terms(f"calibration {which}", r)
+        s = measured[which]
+        share = r["model_flops"] / (s * PEAK_FLOPS_BF16)
+        calib[which] = {**r, "measured_s": s, "measured_bf16_peak_share": share}
+        log(f"phase t calibration {r['arch']} {which} {r['shape']}: roofline "
+            f"step_s={r['step_s']:.4g} bound={r['bound']} "
+            f"(compute={r['compute_s']:.4g}s memory={r['memory_s']:.4g}s) "
+            f"measured {s:.4g} s; model_flops={r['model_flops']:.4g}, "
+            f"measured share of the bf16 peak {share:.4g} "
+            f"(roofline mfu {r['mfu']:.4g}); trace_s={r['trace_s']:.1f} "
+            f"[{card}]")
+    wall = time.perf_counter() - t0
+    log(f"phase t: {len(jobs)} processes, {wall:.1f} s")
+    return {"counters": results["counters"], "cells": cells,
+            "calibration": calib, "phase_s": wall}
+
+
 # -- times ----------------------------------------------------------------------
 
 def _event_ms(fn, iters: int = 200, warmup: int = 20) -> float:
@@ -3602,6 +3802,9 @@ def main(argv=None) -> int:
     ap.add_argument("--train-restart", action="store_true",
                     help="only the restart check of phase q (run by phase q "
                          "itself in a process of its own)")
+    ap.add_argument("--dryrun", default=None, metavar="JOB",
+                    help="only one job of phase t (run by phase t itself, "
+                         "each job in a process of its own)")
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the src/ directory whose repro_torch to run (for "
                          "example a parent commit's, unpacked with git "
@@ -3626,6 +3829,8 @@ def main(argv=None) -> int:
         return conv2d_stream_main()
     if args.train_restart:
         return train_restart_main()
+    if args.dryrun:
+        return dryrun_main(args.dryrun)
     # a fresh tile cache of this run's own, which the autotune phase fills
     # and every later phase (and its second process) reads
     cache = ROOT / "build" / "chip_smoke" / "autotune.json"
@@ -3668,6 +3873,7 @@ def main(argv=None) -> int:
     paths.append(ssm_train_path(card))
     paths += spmd_path(card)
     rows = times()
+    dry = dryrun_path(card, paths)
 
     # the JSON row of each kernel and mode: the path run whose launches it
     # reports and the batch-8 call of that run it is timed at
@@ -3821,6 +4027,7 @@ def main(argv=None) -> int:
                              if key in v}
                          for k, v in sweeps.items()},
               "autotune": tuned, "main_paths": paths, "times": rows,
+              "dryrun": dry,
               "table2": next(p for p in paths if p["path"] == "Table II"),
               "total_s": time.perf_counter() - t_all}
     out_dir = ROOT / "build" / "chip_smoke"

@@ -9,8 +9,8 @@ Python loops over slices of the stacked trees, as in ``transformer``.
 The frames must come in the model's dtype: the reference promotes mixed
 f32/bf16 operands, while ``torch.matmul`` refuses them.  ``mesh=`` and
 ``tp_total`` are ``transformer.forward``'s (DTensor parameters on a device
-mesh).  ``abstract_decode_state`` waits with the dry-run slice (ROADMAP
-Queue 1 item 6b).
+mesh).  :func:`abstract_decode_state` gives the decode state's leaves as
+meta tensors without running the encoder (the dry-run's input).
 """
 from __future__ import annotations
 
@@ -137,6 +137,21 @@ def init_decode_state(params: Dict[str, torch.Tensor], frames: torch.Tensor,
     return EncDecDecodeState(k, torch.zeros_like(k),
                              torch.stack(ck).to(dtype),
                              torch.stack(cv).to(dtype), 0)
+
+
+def abstract_decode_state(cfg: ModelConfig, batch: int, seq_len: int,
+                          dtype: torch.dtype = torch.bfloat16
+                          ) -> EncDecDecodeState:
+    """The shapes :func:`init_decode_state` gives, as meta tensors, built
+    directly: the encoder does not run.  ``index`` is the port's host int
+    0, where the reference's is a 0-d int32."""
+    L = cfg.n_layers
+    k = torch.empty((L, batch, seq_len, cfg.kv_dim), dtype=dtype,
+                    device="meta")
+    c = torch.empty((L, batch, cfg.enc_seq, cfg.n_kv_heads, cfg.head_dim),
+                    dtype=dtype, device="meta")
+    return EncDecDecodeState(k, torch.empty_like(k), c, torch.empty_like(c),
+                             0)
 
 
 def decode_step(params: Dict[str, torch.Tensor], tokens: torch.Tensor,

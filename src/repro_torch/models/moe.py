@@ -95,7 +95,10 @@ def moe_shard_body(x: torch.Tensor, p: MoELayerParams, cfg: ModelConfig,
     # the reference's whatever the sort
     order = torch.argsort(flat_e * n + slots)
     sorted_e = flat_e[order]
-    counts = torch.bincount(flat_e, minlength=E)             # (E,)
+    # a fixed-size count (bincount's output size depends on the data, which
+    # a traced step on fake tensors cannot give)
+    counts = torch.zeros(E, dtype=torch.long, device=dev).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))                  # (E,)
     starts = torch.cumsum(counts, 0) - counts
 
     ids = (rank // tp) * e_loc + torch.arange(e_loc, device=dev)

@@ -180,6 +180,16 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     return params
 
 
+def abstract_params(cfg: ModelConfig, max_seq: int = 0,
+                    tp_total: int = 1) -> Dict[str, torch.Tensor]:
+    """``param_shapes`` with ``param_dtype`` as meta tensors: a shape and a
+    dtype and no storage (the reference's ``ShapeDtypeStruct`` leaves)."""
+    dt = _dtype(cfg.dtype)
+    return {p: torch.empty(s, dtype=param_dtype(p, dt), device="meta")
+            for p, s in param_shapes(cfg, max_seq=max_seq,
+                                     tp_total=tp_total).items()}
+
+
 def count_params_analytic(cfg: ModelConfig, active_only: bool = False,
                           max_seq: int = 0) -> int:
     """Total (or MoE-active) parameter count; positions/embeddings included."""

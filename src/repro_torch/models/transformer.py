@@ -228,6 +228,14 @@ def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int,
     return DecodeState(ck, cv, sd, sc, 0)
 
 
+def abstract_decode_state(cfg: ModelConfig, batch: int, seq_len: int,
+                          dtype: torch.dtype = torch.bfloat16) -> DecodeState:
+    """:func:`init_decode_state` on the meta device: the same leaves with
+    no storage (the reference's ``jax.eval_shape`` of it).  ``index`` is
+    the port's host int 0, where the reference's is a 0-d int32."""
+    return init_decode_state(cfg, batch, seq_len, dtype, device="meta")
+
+
 def decode_step(params: Dict[str, torch.Tensor], tokens: torch.Tensor,
                 state: DecodeState, cfg: ModelConfig, *, mesh=None,
                 tp_total: int = 1):

@@ -305,3 +305,23 @@ def test_qtorch_refuses_the_unported_float_activation_mode():
     assert all(torch.is_floating_point(v) for k, v in env.items()
                if isinstance(v, torch.Tensor) and k in w._fused_act)
     assert w._fused_act, "no hot op ran the fused float epilogue"
+
+
+def test_dryrun_slice_modules_are_among_those_imported_with_jax_blocked():
+    """The dry-run's modules (the abstract cell specs and the traced,
+    counted step) are walked by the jax-blocked import above, and their
+    entry points resolve."""
+    mods = {"repro_torch.launch.specs", "repro_torch.launch.dryrun"}
+    assert mods <= set(_modules())
+    from repro_torch.launch import dryrun, roofline, specs
+    for mod, names in ((specs, ("input_specs", "batch_sharding",
+                                "abstract_decode_state",
+                                "decode_state_sharding",
+                                "abstract_train_state",
+                                "abstract_inference_params",
+                                "param_sharding_for")),
+                       (dryrun, ("run_cell", "trace_cell", "StepCounter",
+                                 "main")),
+                       (roofline, ("CollectiveStats", "parse_collectives",
+                                   "RooflineReport", "model_flops_for"))):
+        assert all(hasattr(mod, n) for n in names), mod.__name__

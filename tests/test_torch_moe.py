@@ -275,3 +275,23 @@ def test_moe_block_refuses_weights_stored_for_more_ranks():
             assert torch.equal(g.full_tensor(), w)
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_block_runs_under_fake_tensor_mode(dtype):
+    """The block traces on fake tensors (the dry-run's mode, real tensors
+    refused): its per-expert counts have a fixed size, where
+    ``torch.bincount``'s depends on the data and raises there.  Outputs
+    have the block's shapes and dtypes; nothing is computed."""
+    from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode
+    _, tc = _cfgs()
+    shapes = [a.shape for a in _weights(tc, seed=11)]
+    with FakeTensorMode(allow_non_fake_inputs=False):
+        p = moe.MoELayerParams(*(torch.empty(s, dtype=TDT[dtype])
+                                 for s in shapes))
+        x = torch.empty((2, 8, tc.d_model), dtype=TDT[dtype])
+        y, lb, z = moe.moe_block(x, p, tc)
+    assert isinstance(y, FakeTensor)
+    assert y.shape == (2, 8, tc.d_model) and y.dtype == TDT[dtype]
+    assert lb.shape == () and z.shape == ()
+    assert lb.dtype == torch.float32 and z.dtype == torch.float32

@@ -85,9 +85,86 @@ def test_latency_with_explicit_constants_equals_the_reference(flops, nbytes):
 def test_defaults_are_the_h100s():
     assert tr.PEAK_OPS_INT8 == 1.979e15
     assert tr.PEAK_FLOPS_F32 == 67e12
+    assert tr.PEAK_FLOPS_BF16 == 989e12
     assert tr.HBM_BW == 3.35e12
+    assert tr.NVLINK_BW == 450e9 and tr.IB_BW == 50e9
+    assert tr.GPUS_PER_NODE == 8
     assert tr.predict_latency_s(2 * 1.979e15, 0.0) == 2.0
     assert tr.predict_latency_s(0.0, 3.35e12) == 1.0
-    # none of the reference's TPU constants came along
-    for name in ("PEAK_FLOPS_BF16", "PEAK_FLOPS_INT8", "ICI_BW"):
+    # none of the reference's TPU constants came along: the bf16 peak is
+    # the H100's, and its ICI link has no counterpart
+    assert tr.PEAK_FLOPS_BF16 != jr.PEAK_FLOPS_BF16
+    for name in ("PEAK_FLOPS_INT8", "ICI_BW"):
         assert not hasattr(tr, name)
+
+
+# -- the dry-run's half: the mirrors of test_roofline_pruning.py's four ----
+
+def _stats_equal(got, want):
+    assert dict(got.counts) == dict(want.counts)
+    assert set(got.bytes_by_op) == set(want.bytes_by_op)
+    for op, b in want.bytes_by_op.items():
+        assert got.bytes_by_op[op] == b, op
+    assert got.wire_bytes == want.wire_bytes
+    assert got.raw_bytes == want.raw_bytes
+
+
+@pytest.mark.parametrize("sample", ["hlo", "tuple"])
+def test_parse_collectives_equals_the_reference(sample):
+    from test_roofline_pruning import HLO_SAMPLE
+    txt = HLO_SAMPLE if sample == "hlo" else (
+        '%t = (f32[8,8]{1,0}, f32[4]{0}) all-reduce(%a, %b), '
+        'replica_groups=[4,64]<=[256], to_apply=%add')
+    got, want = tr.parse_collectives(txt), jr.parse_collectives(txt)
+    _stats_equal(got, want)
+    # every wire byte lies on one link or the other
+    assert got.nvlink_wire_bytes + got.ib_wire_bytes == got.wire_bytes
+
+
+def test_parse_collectives_prices_groups_by_node():
+    """The sample's 16-rank all-reduce and all-gather span two 8-GPU nodes
+    (InfiniBand); its 8-rank reduce-scatter and the permute lie in one
+    (NVLink)."""
+    from test_roofline_pruning import HLO_SAMPLE
+    st = tr.parse_collectives(HLO_SAMPLE)
+    ar = 2 * 15 / 16 * 16 * 1024 * 4
+    ag = 15 / 16 * 4096 * 512 * 2
+    rs = 7 * 256 * 512 * 2
+    assert st.ib_wire_bytes == ar + ag
+    assert st.nvlink_wire_bytes == rs + 128
+    rep = tr.RooflineReport("a", "s", "16x16", 256, 0.0, 0.0, st, 1.0)
+    assert rep.collective_s == (ar + ag) / tr.IB_BW + (rs + 128) / tr.NVLINK_BW
+
+
+def test_roofline_bound_selection():
+    coll = tr.CollectiveStats(counts={}, bytes_by_op={}, wire_bytes=5e9,
+                              raw_bytes=5e9, ib_wire_bytes=5e9)
+    r = tr.RooflineReport("a", "s", "16x16", 256, flops_per_device=1e12,
+                          bytes_per_device=1e9, collective=coll,
+                          model_flops=1e15)
+    assert r.collective_s > r.memory_s and r.collective_s > r.compute_s
+    assert r.bound == "collective"
+    assert 0 < r.mfu < 1
+    assert r.compute_s == 1e12 / 989e12 and r.memory_s == 1e9 / 3.35e12
+    # the same bytes inside one node are 9x cheaper: memory-bound then
+    fast = tr.CollectiveStats(wire_bytes=5e9, nvlink_wire_bytes=5e9)
+    r = tr.RooflineReport("a", "s", "16x16", 256, 1e12, 1e11, fast, 1e15)
+    assert r.bound == "memory" and r.step_s == r.memory_s
+    jrep = jr.RooflineReport("a", "s", "16x16", 256, 1e12, 1e11, fast, 1e15)
+    assert set(r.to_dict()) == set(jrep.to_dict())
+
+
+def test_model_flops_equal_the_reference_for_every_cell():
+    from repro.configs import ARCH_IDS
+    from repro.configs import get_config as j_get_config
+    from repro.configs.base import shapes_for as j_shapes_for
+    from repro_torch.configs import get_config, shapes_for
+    for arch in ARCH_IDS:
+        jc, tc = j_get_config(arch), get_config(arch)
+        assert tc.active_param_count() == jc.active_param_count()
+        js, ts = j_shapes_for(jc), shapes_for(tc)
+        assert [s.name for s in ts] == [s.name for s in js]
+        for jsh, tsh in zip(js, ts):
+            assert tr.model_flops_for(tc, tsh, tc.active_param_count()) == \
+                jr.model_flops_for(jc, jsh, jc.active_param_count()), \
+                (arch, tsh.name)

@@ -1,7 +1,10 @@
 """The port's LM training against the reference: ``model_api.loss_fn`` and
-its gradients in five families (dense qwen1.5-0.5b, ssm mamba2-1.3b through
-the oracle, hybrid hymba-1.5b, MoE granite-moe-3b-a800m whose load-balance
-and z losses enter the loss, encoder-decoder whisper-base), the train step
+its gradients in all ten archs of the registry (dense qwen1.5-0.5b,
+phi3-mini, h2o-danube-3 with its sliding window and codeqwen1.5; ssm
+mamba2-1.3b through the oracle; hybrid hymba-1.5b; MoE granite-moe-3b-a800m
+and mixtral-8x7b, whose load-balance and z losses enter the loss;
+encoder-decoder whisper-base; the vision stub phi-3-vision with its patches
+in the loss), the train step
 of ``runtime.train`` over one and three steps, with two microbatches and
 with int8 gradient compression, ``remat`` against none, the scan kernel's
 refusal under autograd, and the launcher.
@@ -47,7 +50,9 @@ from repro_torch.optim.adamw import OptConfig
 from repro_torch.runtime import model_api, train
 
 FAMILIES = ["qwen1.5-0.5b", "mamba2-1.3b", "hymba-1.5b",
-            "granite-moe-3b-a800m", "whisper-base"]
+            "granite-moe-3b-a800m", "whisper-base", "phi3-mini-3.8b",
+            "h2o-danube-3-4b", "codeqwen1.5-7b", "mixtral-8x7b",
+            "phi-3-vision-4.2b"]
 DENSE = "qwen1.5-0.5b"
 LOSS_RTOL = 1e-5
 GRAD_TOL = 1e-4
