@@ -206,10 +206,15 @@ Phases, each of which raises (and exits non-zero) on failure:
       steps from, losses and gradient norms within 2e-2 relative and
       parameters within 5e-2 of each max (the reference's sharded-step
       tolerances; the largest differences printed), seconds per step of
-      both and peak memory beside phase q's; mnist-cnn's ``"dist"`` target
-      on the (1,) data mesh behind ``AccelServer``, batches 8, 3 and 1
-      equal to the ``"torch"`` target's bit for bit, then requests/s of
-      both targets;
+      both and peak memory beside phase q's; qwen1.5-0.5b's 8 decode
+      steps of batch 1 with every layer's cache laid out over its 64 slots
+      on the data axes (the sequence-sharded decode core, vocab-sharded
+      logits), logits and caches against the ``mesh=None`` decode,
+      seconds per step of both; mnist-cnn's ``"dist"`` target on the (1,)
+      data mesh behind ``AccelServer``, batches 8, 3 and 1 equal to the
+      ``"torch"`` target's bit for bit, then requests/s of both targets.
+      On the one rank the prefill, the train step and the decode must
+      equal ``mesh=None``'s bit for bit;
    t. the dry-run (:func:`dryrun_path`, after the times below), each job
       in a process of its own (``--dryrun JOB``; the fake process group
       is that process's default group), all started together: the
@@ -218,12 +223,17 @@ Phases, each of which raises (and exits non-zero) on failure:
       cells through ``launch.dryrun.run_cell`` (qwen1.5-0.5b x train_4k
       and mamba2-1.3b x prefill_32k and hymba-1.5b x long_500k on 16x16,
       mixtral-8x7b x decode_32k on 2x16x16), each report's line with
-      ``trace_s`` and its collective counts by op; and, on a one-rank fake
+      ``trace_s`` and its collective counts by op, its per-rank peak and
+      all-gather wire bytes beside the port's before its head and decode
+      core ran on local shards and the reference's dry-run
+      (``DRYRUN_BEFORE``, ``DRYRUN_REFERENCE``), and the sites of its
+      largest collectives; and, on a one-rank fake
       mesh, phase q's train step and the mamba2 bf16 prefill, their
       roofline ``step_s`` and bound beside the seconds this run measured
       for them and ``model_flops / (measured_s * 989e12)``, the measured
       share of the bf16 peak.  It fails if a job fails, a cell counts no
-      collective or a term is not finite;
+      collective, a term is not finite or qwen1.5-0.5b x train_4k's peak a
+      rank exceeds the card's memory;
 6. times — each kernel and mode, its plain version and the nearest PyTorch
    library call at the main paths' batch-8 shapes: device time per call
    from the profiler's CUDA activity (and the per-call time of back-to-back
@@ -2698,6 +2708,8 @@ SPMD_PARAM_TOL = 5e-2            # of each tensor's max (q/k/v biases skipped)
 SPMD_DELTA_TOL = 1e-2            # of each update's max, plus a bf16 ulp
 SPMD_BF16_GATE = 2.0 ** -5       # tests/test_torch_lm.py's bf16 logits gate
 SPMD_DIST_BATCHES = (8, 3, 1)
+SPMD_DECODE_SLOTS = 64           # the cache's slots, over the data axes
+SPMD_DECODE_STEPS = 8            # batch 1, as long_500k's
 
 
 def _mesh_path_name(mesh) -> str:
@@ -2882,6 +2894,83 @@ def spmd_train(cfg, mesh, card: str = "", device: str = "cuda",
     return info
 
 
+def spmd_decode(cfg, mesh, card: str = "", device: str = "cuda",
+                slots: int = SPMD_DECODE_SLOTS,
+                steps: int = SPMD_DECODE_STEPS) -> dict:
+    """``steps`` decode steps of batch 1 on the mesh with every layer's
+    cache laid out over its slots on the data axes (``launch.specs.
+    decode_state_sharding``'s layout for a batch the data axes do not
+    divide, long_500k's), so ``decode_attention`` takes the
+    sequence-sharded core and the head returns vocab-sharded logits: each
+    step's logits and the final caches against the ``mesh=None`` decode of
+    the same weights and tokens, bit for bit on one rank (else within
+    ``SPMD_BF16_GATE`` of max|logit|); seconds per step of both."""
+    import statistics
+    import torch
+    from repro_torch.runtime import model_api
+    from repro_torch.sharding import (P, batch_axes, param_sharding, place,
+                                      place_tree, to_placements, tp_size)
+    name = f"{cfg.name} {_mesh_path_name(mesh)} decode"
+    params = lm_params(cfg, device)
+    toks = _tokens(cfg, (1, steps), SEED + 31, device)
+    st1 = model_api.init_decode_state(params, {}, cfg, 1, slots)
+    feat = "model" if cfg.kv_dim % tp_size(mesh) == 0 else None
+    cspec = P(None, None, batch_axes(mesh), feat)      # (L, B, slots, kv)
+    dparams = place_tree(params, param_sharding(params, mesh))
+    st2 = st1._replace(cache_k=place(st1.cache_k, mesh, cspec),
+                       cache_v=place(st1.cache_v, mesh, cspec))
+    secs = {"mesh": [], "none": []}
+    equal, diff, scale = True, 0.0, 0.0
+    _zero_counts()
+    with torch.no_grad():
+        for i in range(steps):
+            t0 = time.perf_counter()
+            want, st1 = model_api.decode_step(params, toks[:, i:i + 1], st1,
+                                              cfg)
+            _sync(device)
+            t1 = time.perf_counter()
+            got, st2 = model_api.decode_step(
+                dparams, place(toks[:, i:i + 1], mesh, P()), st2, cfg,
+                mesh=mesh)
+            full = got.full_tensor()
+            _sync(device)
+            secs["none"].append(t1 - t0)
+            secs["mesh"].append(time.perf_counter() - t1)
+            if not bool(torch.isfinite(full).all()):
+                raise AssertionError(f"{name}: step {i} logits not finite")
+            equal &= torch.equal(full, want)
+            diff = max(diff, float((full.float() - want.float()).abs().max()))
+            scale = max(scale, float(want.float().abs().max()))
+    launches = _read_counts()
+    _expect_no_stray_launches(name, launches, cfg)
+    if tuple(st2.cache_k.placements) != to_placements(cspec, mesh):
+        raise AssertionError(f"{name}: the cache left its slots' layout: "
+                             f"{st2.cache_k.placements}")
+    for a, b in ((st2.cache_k, st1.cache_k), (st2.cache_v, st1.cache_v)):
+        equal &= torch.equal(a.full_tensor(), b)
+    if not equal and diff > SPMD_BF16_GATE * scale:
+        raise AssertionError(f"{name}: max |diff| {diff} from the mesh=None "
+                             f"decode over the gate {SPMD_BF16_GATE} * "
+                             f"{scale}")
+    info = {"path": f"{_mesh_path_name(mesh)} decode {cfg.dtype} batch 1, "
+                    f"{slots} slots over the data axes", "model": cfg.name,
+            "launches": launches, "steps": steps,
+            "bit_equal_to_mesh_none": equal, "max_abs_diff": diff,
+            "logits_max_abs": scale, "step_s": secs["mesh"],
+            "step_s_mesh_none": secs["none"],
+            "s_per_step": statistics.median(secs["mesh"][1:]),
+            "s_per_step_mesh_none": statistics.median(secs["none"][1:])}
+    log(f"main path {name}: " + json.dumps(info))
+    log(f"phase s {name}: {steps} steps, {info['s_per_step']:.4f} s a step "
+        f"on the mesh, {info['s_per_step_mesh_none']:.4f} with mesh=None, "
+        f"logits and caches {'bit for bit' if equal else f'max |diff| {diff}'}"
+        f", on {card}")
+    del dparams, params
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return info
+
+
 def spmd_dist_serve(cfg, mesh, card: str = "", device: str = "cuda") -> dict:
     """mnist-cnn's ``"dist"`` target on the data mesh behind
     ``AccelServer``: batches 8, 3 and 1 equal to the ``"torch"`` target's
@@ -2947,9 +3036,13 @@ def spmd_path(card: str = "", device: str = "cuda", prefill_cfg=None,
     """Phase s: a one-rank process group (NCCL on the card) and its
     (1, 1) ``make_local_mesh()``; mamba2-1.3b's prefill on the mesh
     (:func:`spmd_prefill`), qwen1.5-0.5b's train step through
-    ``jit_train_step`` (:func:`spmd_train`) and mnist-cnn's ``"dist"``
-    target on the (1,) data mesh (:func:`spmd_dist_serve`).  The group is
-    destroyed at the end; a group that does not start fails the phase."""
+    ``jit_train_step`` (:func:`spmd_train`, the vocab-parallel
+    cross-entropy), its decode on a cache sharded over its slots
+    (:func:`spmd_decode`) and mnist-cnn's ``"dist"`` target on the (1,)
+    data mesh (:func:`spmd_dist_serve`).  On one rank the prefill, the
+    train step and the decode must equal ``mesh=None``'s bit for bit.  The
+    group is destroyed at the end; a group that does not start fails the
+    phase."""
     import torch.distributed as dist
     from repro_torch.configs import get_config
     from repro_torch.configs.mnist_cnn import CNNConfig
@@ -2964,10 +3057,18 @@ def spmd_path(card: str = "", device: str = "cuda", prefill_cfg=None,
                             device, prefill_shape),
                spmd_train(train_cfg or get_config(TRAIN_ARCH), mesh, card,
                           device, train_shape, train_steps),
+               spmd_decode(train_cfg or get_config(TRAIN_ARCH), mesh, card,
+                           device),
                spmd_dist_serve(CNNConfig(), compat_make_mesh((1,), ("data",)),
                                card, device)]
     finally:
         dist.destroy_process_group()
+    if all(n == 1 for n in tuple(mesh.shape)):
+        off = [f"{p['model']} {p['path']}" for p in out[:3]
+               if not p["bit_equal_to_mesh_none"]]
+        if off:
+            raise AssertionError(f"phase s: on one rank {off} differ from "
+                                 "mesh=None")
     log(f"phase s: a one-rank {backend} group, "
         f"{time.perf_counter() - t0:.1f} s")
     return out
@@ -2981,6 +3082,21 @@ DRYRUN_CELLS = (("qwen1.5-0.5b", "train_4k", False),
                 ("mixtral-8x7b", "decode_32k", True),
                 ("hymba-1.5b", "long_500k", False))
 DRYRUN_TIMEOUT_S = 900
+# Per rank, for each of DRYRUN_CELLS: (peak bytes, all-gather wire bytes)
+# of the port before its head and decode core ran on local shards (phase t
+# on the card, torch 2.11), and (argument + temp bytes, all-gather wire
+# bytes) of the reference's dry-run, ``repro.launch.dryrun.run_cell``
+# (XLA's CPU-backend buffer assignment, computed on a host CPU, not a
+# device figure), printed beside this run's.
+DRYRUN_BEFORE = {"qwen1.5-0.5b train_4k": (724.0e9, 40622.6e6),
+                 "mamba2-1.3b prefill_32k": (6.20e9, 25670.7e6),
+                 "mixtral-8x7b decode_32k": (10.27e9, 2014.7e6),
+                 "hymba-1.5b long_500k": (0.40e9, 98.5e6)}
+DRYRUN_REFERENCE = {"qwen1.5-0.5b train_4k": (14.55e9, 58.1e6),
+                    "mamba2-1.3b prefill_32k": (1.73e9, 3019.9e6),
+                    "mixtral-8x7b decode_32k": (18.30e9, 138.4e6),
+                    "hymba-1.5b long_500k": (0.60e9, 13.4e6)}
+DRYRUN_FIT_CELL = "qwen1.5-0.5b train_4k"    # must fit one card's memory
 
 
 def _calibration(which: str):
@@ -3069,16 +3185,19 @@ def _finite_terms(name: str, r: dict) -> None:
             raise AssertionError(f"phase t {name}: {k} = {r[k]}")
 
 
-def dryrun_path(card: str, paths: list) -> dict:
+def dryrun_path(card: str, paths: list, capacity: int) -> dict:
     """Phase t: the dry-run (``repro_torch.launch.dryrun``) on fake meshes,
     each job in a process of its own (the fake process group is that
     process's default group), all started together: the counters' known
-    answers, the four :data:`DRYRUN_CELLS` on the 16x16 and 2x16x16 meshes,
-    and the card's own train step (phase q) and mamba2 prefill traced on a
-    one-rank mesh, whose roofline ``step_s`` is printed beside the seconds
-    this run measured for them and the measured share of the bf16 peak.
-    Fails if a job fails, a cell's collective counts are empty or a term
-    is not finite."""
+    answers, the four :data:`DRYRUN_CELLS` on the 16x16 and 2x16x16 meshes
+    (each cell's per-rank peak and all-gather wire bytes printed beside
+    :data:`DRYRUN_BEFORE` and :data:`DRYRUN_REFERENCE`), and the card's own
+    train step (phase q) and mamba2 prefill traced on a one-rank mesh,
+    whose roofline ``step_s`` is printed beside the seconds this run
+    measured for them and the measured share of the bf16 peak.  Fails if a
+    job fails, a cell's collective counts are empty, a term is not finite
+    or :data:`DRYRUN_FIT_CELL`'s peak a rank exceeds ``capacity`` bytes
+    (the card's memory)."""
     import statistics
     from repro_torch.launch.roofline import PEAK_FLOPS_BF16
     t0 = time.perf_counter()
@@ -3127,6 +3246,21 @@ def dryrun_path(card: str, paths: list) -> dict:
             f"useful={r['useful_flops_ratio']:.4g} peak/rank="
             f"{mem['peak_bytes'] / 2**30:.2f} GiB ops={r['ops']} "
             f"collectives={json.dumps(r['collective_counts'])}")
+        key = f"{arch} {shape}"
+        gathered = r["collective_bytes_by_op"].get("all-gather", 0.0)
+        (b_peak, b_ag), (j_mem, j_ag) = DRYRUN_BEFORE[key], \
+            DRYRUN_REFERENCE[key]
+        log(f"phase t {name} per rank: peak {mem['peak_bytes'] / 1e9:.3f} GB"
+            f" (before {b_peak / 1e9:.2f} GB; reference args + temps "
+            f"{j_mem / 1e9:.2f} GB, XLA's CPU buffer assignment on a host), "
+            f"all-gather {gathered / 1e6:.1f} MB (before {b_ag / 1e6:.1f} MB;"
+            f" reference {j_ag / 1e6:.1f} MB)")
+        log(f"phase t {name} collective sites (count, wire MB): " + "; ".join(
+            f"{c['op']} at {c['site']} ({c['count']}, "
+            f"{c['wire_bytes'] / 1e6:.2f})" for c in r["collective_sites"]))
+        if key == DRYRUN_FIT_CELL and mem["peak_bytes"] > capacity:
+            raise AssertionError(f"phase t {name}: peak {mem['peak_bytes']} "
+                                 f"B a rank over the card's {capacity} B")
         cells.append(r)
     q_run = next(p for p in paths if p["model"] == TRAIN_ARCH
                  and p["path"].startswith("train "))
@@ -3873,7 +4007,8 @@ def main(argv=None) -> int:
     paths.append(ssm_train_path(card))
     paths += spmd_path(card)
     rows = times()
-    dry = dryrun_path(card, paths)
+    dry = dryrun_path(card, paths,
+                      torch.cuda.get_device_properties(0).total_memory)
 
     # the JSON row of each kernel and mode: the path run whose launches it
     # reports and the batch-8 call of that run it is timed at
@@ -4051,7 +4186,7 @@ def main(argv=None) -> int:
     q_run = next(p for p in paths if p["model"] == TRAIN_ARCH
                  and p["path"].startswith("train "))
     s_run = next(p for p in paths if p["model"] == TRAIN_ARCH
-                 and p["path"].startswith("mesh "))
+                 and p["path"].startswith("mesh ") and " train " in p["path"])
     log(f"train {TRAIN_ARCH}: phase q {q_run['s_per_step']:.3f} s/step, "
         f"peak {q_run['peak_memory_bytes']} B; phase s on the mesh "
         f"{s_run['s_per_step']:.3f} s/step (mesh=None "

@@ -31,7 +31,11 @@ place of XLA's analyses:
 * Collectives (``parse_collectives(compiled.as_text())``): each
   ``_c10d_functional`` op DTensor runs, with its process group's ranks,
   sized as HLO sizes them (an all-gather by its gathered result, a
-  reduce-scatter by its scattered result).
+  reduce-scatter by its scattered result).  Each is also charged to its
+  site, the two innermost frames of the port's own code (not this
+  module's or ``sharding.py``'s) that asked for it: the report's
+  ``collective_sites`` lists the largest by wire bytes, which names the
+  op behind a cell's gathers.
 * Memory (``memory_analysis()``): the peak of
   ``torch.distributed._tools.mem_tracker.MemTracker`` over the step (local
   storages, the state included), the local shards of the arguments and of
@@ -56,6 +60,7 @@ import dataclasses
 import json
 import math
 import os
+import sys
 import time
 import traceback
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -68,7 +73,7 @@ from repro_torch.configs import ARCH_IDS, get_config, get_shape
 from repro_torch.configs.base import ModelConfig, ShapeConfig, shapes_for
 from repro_torch.launch import specs as S
 from repro_torch.launch.roofline import (CollectiveStats, RooflineReport,
-                                         model_flops_for)
+                                         model_flops_for, wire_bytes)
 
 ARTIFACT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                             "artifacts", "dryrun_torch")
@@ -126,7 +131,7 @@ class _Marks:
             if not cls.alltoall:
                 ranks = dist.get_process_group_ranks(mesh.get_group(mesh_dim))
                 for c in cls.counters:
-                    c.collective.add("all-to-all", _nbytes(x), ranks)
+                    c.record("all-to-all", _nbytes(x), ranks)
             cls.alltoall += 1
             try:
                 return a2a(x, gather_dim, shard_dim, mesh, mesh_dim)
@@ -180,6 +185,32 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+# frames of the port that only carry a collective to DTensor: a site is
+# the frame that called them
+_NOT_SITES = ("/repro_torch/launch/dryrun.py", "/repro_torch/sharding.py")
+# the counters' own frames, never a site
+_COUNTING = ("_site", "record", "_count", "__torch_dispatch__", "reshard")
+# sites kept in a report, the largest by wire bytes
+N_SITES = 12
+
+
+def _site(depth: int = 2) -> str:
+    """``path:line function`` of the ``depth`` innermost frames of the
+    port's code on the stack outside :data:`_NOT_SITES` (or, without one,
+    inside them: the dry-run's own placing of a step's outputs), innermost
+    first, joined by `` < ``."""
+    ours, carriers = [], []
+    f = sys._getframe(1)
+    while f is not None and len(ours) < depth:
+        path = f.f_code.co_filename.replace(os.sep, "/")
+        if "/repro_torch/" in path and f.f_code.co_name not in _COUNTING:
+            where = (f"{path.rsplit('/repro_torch/', 1)[-1]}:{f.f_lineno} "
+                     f"{f.f_code.co_name}")
+            (carriers if path.endswith(_NOT_SITES) else ours).append(where)
+        f = f.f_back
+    return " < ".join(ours or carriers[:depth]) or "?"
+
+
 def _group_ranks(group_name: str) -> List[int]:
     from torch.distributed.distributed_c10d import _resolve_process_group
     return dist.get_process_group_ranks(_resolve_process_group(group_name))
@@ -190,7 +221,8 @@ class StepCounter:
     FLOPs, bytes and collectives over the ops run inside it (see the
     module docstring).  ``flops``, ``bytes`` and ``collective`` (a
     :class:`CollectiveStats`) hold the sums; ``ops`` the local ops
-    counted."""
+    counted; ``sites`` {(op, site): [count, wire bytes]} the collectives
+    by the frame that asked for them (:func:`_site`)."""
 
     def __init__(self):
         from torch.utils._python_dispatch import TorchDispatchMode
@@ -215,6 +247,22 @@ class StepCounter:
         self.bytes = 0
         self.ops = 0
         self.collective = CollectiveStats()
+        self.sites: Dict[Tuple[str, str], List[float]] = {}
+
+    def record(self, op: str, size: float, ranks: Sequence[int]) -> None:
+        """One collective (as :meth:`CollectiveStats.add`), also charged to
+        its site."""
+        self.collective.add(op, size, ranks)
+        if len(ranks) > 1:
+            entry = self.sites.setdefault((op, _site()), [0, 0.0])
+            entry[0] += 1
+            entry[1] += wire_bytes(op, size, len(ranks))
+
+    def top_sites(self, n: int = N_SITES) -> List[Dict]:
+        """The ``n`` sites with the most wire bytes."""
+        top = sorted(self.sites.items(), key=lambda kv: -kv[1][1])[:n]
+        return [{"op": op, "site": site, "count": c, "wire_bytes": w}
+                for (op, site), (c, w) in top]
 
     def __enter__(self):
         self._stack.enter_context(_Marks.active(self))
@@ -232,9 +280,9 @@ class StepCounter:
             if name in _COLLECTIVES:
                 group = [a for a in (*args, *kwargs.values())
                          if isinstance(a, str)][-1]
-                self.collective.add(_COLLECTIVES[name],
-                                    sum(_nbytes(t) for t in _tensors(out)),
-                                    _group_ranks(group))
+                self.record(_COLLECTIVES[name],
+                            sum(_nbytes(t) for t in _tensors(out)),
+                            _group_ranks(group))
                 return
             if name == "wait_tensor":
                 return
@@ -478,8 +526,8 @@ def trace_cell(cfg: ModelConfig, shape: ShapeConfig,
                extra: Optional[Dict] = None) -> Dict:
     """Trace one step of ``cfg`` x ``shape`` on a fake mesh of
     ``mesh_shape`` under the counters.
-    -> {flops, bytes, collective (CollectiveStats), memory, lower_s,
-    trace_s, ops}.  Nothing is allocated: the fake mode takes no real
+    -> {flops, bytes, collective (CollectiveStats), sites (the largest
+    :meth:`StepCounter.top_sites`), memory, lower_s, trace_s, ops}.  Nothing is allocated: the fake mode takes no real
     tensor (``allow_non_fake_inputs=False``)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from repro_torch.sharding import place_tree
@@ -499,7 +547,8 @@ def trace_cell(cfg: ModelConfig, shape: ShapeConfig,
             _, counter, memory = measure(step, *args)
             trace_s = time.perf_counter() - t0
     return {"flops": counter.flops, "bytes": counter.bytes,
-            "collective": counter.collective, "memory": memory,
+            "collective": counter.collective,
+            "sites": counter.top_sites(), "memory": memory,
             "ops": counter.ops, "lower_s": lower_s, "trace_s": trace_s}
 
 
@@ -545,6 +594,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
               "n_active": cfg.active_param_count(),
               "collective_nvlink_wire_bytes": coll.nvlink_wire_bytes,
               "collective_ib_wire_bytes": coll.ib_wire_bytes,
+              "collective_sites": traced["sites"],
               "ops": traced["ops"], "status": "ok"}
     os.makedirs(out_dir, exist_ok=True)
     with open(cell_path(out_dir, arch, shape_name, mesh_name, tag), "w") as f:

@@ -31,7 +31,11 @@ and batch rows, so the d_head contraction is never split.  DTensor cannot
 cut a head dim the model axis does not divide the way JAX pads it: such
 heads (and a flat projection that would split inside a head) are
 replicated over 'model' instead, and the core runs whole on each model
-rank there.
+rank there.  A decode cache whose slots are sharded over the data axes
+(``launch.specs.decode_state_sharding`` for a batch they do not divide)
+is attended on each rank's own slots, the softmax completed by
+all-reduces (:func:`_decode_on_seq_shards`), as GSPMD partitions the
+reference's decode over such a cache.
 """
 from __future__ import annotations
 
@@ -42,8 +46,9 @@ import torch
 from repro_torch import perf
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import apply_rope, rope_angles
-from repro_torch.sharding import (P, batch_axes, constrain, dp_size,
-                                  heads_view, shard_map, tp_size)
+from repro_torch.sharding import (P, axis_names, batch_axes, constrain,
+                                  dp_size, heads_view, mesh_shape, shard_map,
+                                  tp_size)
 
 Q_CHUNK = 1024  # query-block size for chunked attention
 PAD_POS = -10 ** 9     # position of the keys padded in front of a band
@@ -121,10 +126,12 @@ def _softmax(s: torch.Tensor) -> torch.Tensor:
     return e / e.sum(dim=-1, keepdim=True)
 
 
-def _sdpa_chunk(q, k, v, qpos, kpos, window, causal, scale, grouped: bool):
+def _sdpa_chunk(q, k, v, qpos, kpos, window, causal, scale, grouped: bool,
+                softmax=_softmax):
     """q: (B, Qc, H, Dh); k/v: (B, S, Hkv, Dh) -> (B, Qc, H, Dh).
 
-    grouped=True computes scores per kv group without repeating k/v."""
+    grouped=True computes scores per kv group without repeating k/v.
+    ``softmax`` normalises the masked scores over their last dim."""
     B, Qc, H, Dh = q.shape
     Hkv = k.shape[2]
     m = _mask(qpos, kpos, window, causal)
@@ -138,7 +145,7 @@ def _sdpa_chunk(q, k, v, qpos, kpos, window, causal, scale, grouped: bool):
         s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()
                          ).to(sdt) * scale_t
         s = s.masked_fill(~m, neg)
-        prob = _softmax(s).to(v.dtype)
+        prob = softmax(s).to(v.dtype)
         o = torch.einsum("bhgqk,bkhd->bqhgd", prob, v)
         return o.reshape(B, Qc, H, Dh)
     kx = _expand_kv(k, H)
@@ -146,7 +153,7 @@ def _sdpa_chunk(q, k, v, qpos, kpos, window, causal, scale, grouped: bool):
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kx.float()).to(sdt) \
         * scale_t
     s = s.masked_fill(~m, neg)
-    prob = _softmax(s).to(vx.dtype)
+    prob = softmax(s).to(vx.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", prob, vx)
 
 
@@ -200,22 +207,24 @@ def attend(q, k, v, positions, kpos, cfg: ModelConfig, causal: bool = True,
     return torch.cat(outs, dim=1)
 
 
-def _group_specs(mesh, B: int, Hkv: int):
+def _group_specs(mesh, B: int, Hkv: int, batch: bool = True):
     """(q spec (B,S,Hkv,G,Dh), k/v spec (B,S,Hkv,Dh)): whole kv-head groups
-    over 'model' and the batch over the data axes, each where it divides."""
-    bspec = batch_axes(mesh) if B % dp_size(mesh) == 0 else None
+    over 'model' and the batch over the data axes (unless ``batch`` is
+    False), each where it divides."""
+    bspec = batch_axes(mesh) if batch and B % dp_size(mesh) == 0 else None
     hspec = "model" if Hkv % tp_size(mesh) == 0 else None
     return P(bspec, None, hspec, None, None), P(bspec, None, hspec, None)
 
 
 def _on_kv_groups(core, mesh, q, k, v, *extra, extra_specs=(),
-                  extra_out=()):
+                  extra_out=(), batch: bool = True):
     """``core(q, k, v, *extra)`` -> (out (B,S,H,Dh), *more) on each rank's
-    local kv-head groups: q (B,S,H,Dh), k/v (B,S,Hkv,Dh)."""
+    local kv-head groups: q (B,S,H,Dh), k/v (B,S,Hkv,Dh); the batch over
+    the data axes unless ``batch`` is False."""
     B, S, H, Dh = q.shape
     Hkv = k.shape[2]
     G = H // Hkv
-    qspec, kvspec = _group_specs(mesh, B, Hkv)
+    qspec, kvspec = _group_specs(mesh, B, Hkv, batch)
     # q sharded on H in whole groups, so its (Hkv, G) view keeps the shards
     q5 = constrain(q, mesh, P(qspec[0], None, qspec[2], None)).reshape(
         B, S, Hkv, G, Dh)
@@ -309,29 +318,41 @@ def decode_attention(x: torch.Tensor, p: LayerAttnParams, cfg: ModelConfig,
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
 
-    def core(q, k, v, cache_k, cache_v):
+    def core(q, k, v, cache_k, cache_v, first: int = 0, smax=None,
+             softmax=_softmax):
         """Insert k/v at the slot and attend over the written slots (batch
-        and head counts from the tensors: on a mesh, the local shards)."""
+        and head counts from the tensors: on a mesh, the local shards).
+        ``cache_k``/``cache_v`` hold the slots from ``first`` on of a cache
+        of ``smax`` slots (all of them by default); the slot is written only
+        where it falls among them, and ``softmax`` completes the softmax
+        over the slots the other shards hold."""
         Bl, Hkv, Dh = k.shape[0], k.shape[2], k.shape[3]
-        smax = cache_k.shape[1]
+        held = cache_k.shape[1]
+        smax = held if smax is None else smax
         slot = index % smax if cfg.sliding_window is not None else index
         # the reference's dynamic_update_slice clamps a start past the end
-        slot = min(slot, smax - 1)
-        cache_k = cache_k.clone()
-        cache_v = cache_v.clone()
-        cache_k[:, slot] = k.reshape(Bl, Hkv * Dh).to(cache_k.dtype)
-        cache_v[:, slot] = v.reshape(Bl, Hkv * Dh).to(cache_v.dtype)
-        kc = cache_k.reshape(Bl, smax, Hkv, Dh).to(q.dtype)
-        vc = cache_v.reshape(Bl, smax, Hkv, Dh).to(q.dtype)
-        valid = torch.arange(smax, device=dev) <= min(index, smax - 1)
+        slot = min(slot, smax - 1) - first
+        if 0 <= slot < held:
+            cache_k = cache_k.clone()
+            cache_v = cache_v.clone()
+            cache_k[:, slot] = k.reshape(Bl, Hkv * Dh).to(cache_k.dtype)
+            cache_v[:, slot] = v.reshape(Bl, Hkv * Dh).to(cache_v.dtype)
+        kc = cache_k.reshape(Bl, held, Hkv, Dh).to(q.dtype)
+        vc = cache_v.reshape(Bl, held, Hkv, Dh).to(q.dtype)
+        valid = torch.arange(first, first + held, device=dev) <= min(
+            index, smax - 1)
         kpos = torch.where(valid, 0, EMPTY_POS)  # unwritten slots fail causality
         out = _sdpa_chunk(q, kc, vc,
                           torch.zeros(1, dtype=torch.long, device=dev),
-                          kpos, None, True, scale, perf.FLAGS.gqa_grouped)
+                          kpos, None, True, scale, perf.FLAGS.gqa_grouped,
+                          softmax)
         return out, cache_k, cache_v
 
     if mesh is None:
         out, cache_k, cache_v = core(q, k, v, cache_k, cache_v)
+    elif _seq_sharded(cache_k, mesh):
+        out, cache_k, cache_v = _decode_on_seq_shards(core, mesh, q, k, v,
+                                                      cache_k, cache_v)
     else:
         _, kvspec = _group_specs(mesh, B, k.shape[2])
         cspec = P(kvspec[0], None, kvspec[2])
@@ -340,3 +361,52 @@ def decode_attention(x: torch.Tensor, p: LayerAttnParams, cfg: ModelConfig,
             extra_specs=(cspec, cspec), extra_out=(cspec, cspec))
     out = out.reshape(B, 1, cfg.q_dim)
     return torch.matmul(out, p.wo), cache_k, cache_v
+
+
+def _seq_sharded(cache, mesh) -> bool:
+    """Whether a (B, Smax, Hkv*Dh) cache's slots are sharded evenly over
+    the data axes (``launch.specs.decode_state_sharding`` for a batch the
+    data axes do not divide)."""
+    from torch.distributed.tensor import DTensor, Shard
+    if not isinstance(cache, DTensor) or cache.shape[1] % dp_size(mesh):
+        return False
+    names = axis_names(mesh)
+    return all(cache.placements[names.index(a)] == Shard(1)
+               for a in batch_axes(mesh))
+
+
+def _decode_on_seq_shards(core, mesh, q, k, v, cache_k, cache_v):
+    """The decode ``core`` on each rank's own cache slots, the batch
+    replicated over the data axes: the rank that holds the slot writes k
+    and v, each rank scores its slots, and all-reduces over the data axes
+    of the scores' max (B, H), the softmax's sum (B, H) and the output (B,
+    H, Dh) complete the softmax and the value product; the cache is never
+    gathered.  On one data rank each all-reduce returns its input, so the
+    result is the one-device core's, bit for bit."""
+    from torch.distributed import _functional_collectives as funcol
+    names = axis_names(mesh)
+    dims = [names.index(a) for a in batch_axes(mesh)]
+    smax = cache_k.shape[1]
+
+    def all_reduce(t, op):
+        for d in dims:
+            t = funcol.all_reduce(t, op, (mesh, d))
+        return funcol.wait_tensor(t)
+
+    def softmax(s):
+        e = torch.exp(s - all_reduce(s.amax(dim=-1, keepdim=True), "max"))
+        return e / all_reduce(e.sum(dim=-1, keepdim=True), "sum")
+
+    def body(q, k, v, cache_k, cache_v):
+        rank = 0
+        for a in batch_axes(mesh):
+            rank = rank * mesh_shape(mesh)[a] + mesh.get_local_rank(a)
+        out, cache_k, cache_v = core(q, k, v, cache_k, cache_v,
+                                     rank * cache_k.shape[1], smax, softmax)
+        return all_reduce(out, "sum"), cache_k, cache_v
+
+    _, kvspec = _group_specs(mesh, q.shape[0], k.shape[2], batch=False)
+    cspec = P(None, batch_axes(mesh), kvspec[2])
+    return _on_kv_groups(body, mesh, q, k, v, cache_k, cache_v,
+                         extra_specs=(cspec, cspec), extra_out=(cspec, cspec),
+                         batch=False)

@@ -91,21 +91,149 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
 
 
 def unembed(x: torch.Tensor, table_or_head: torch.Tensor,
-            tied: bool) -> torch.Tensor:
-    """x: (..., d) -> logits (..., Vp)."""
-    if tied:
-        return torch.matmul(x, table_or_head.t())
-    return torch.matmul(x, table_or_head)
+            tied: bool, mesh=None) -> torch.Tensor:
+    """x: (..., d) -> logits (..., Vp).  On a mesh each rank multiplies its
+    rows by its own vocab shard of the table (tied, ``P("model", None)``)
+    or of the head (``P(None, "model")``), and the logits come back
+    vocab-sharded, ``P(batch, ..., "model")``, as GSPMD partitions the
+    reference's einsum: a product on DTensors would reshard the table to
+    the hidden dim and return partial sums over the whole vocab on every
+    rank.  On one model rank the product is the one-device path's."""
+    def product(a, w):
+        return torch.matmul(a, w.t() if tied else w)
+
+    if mesh is None:
+        return product(x, table_or_head)
+    from repro_torch.sharding import P, batch_axes, dp_size, shard_map, tp_size
+    bspec = batch_axes(mesh) if x.shape[0] % dp_size(mesh) == 0 else None
+    rest = (None,) * (x.ndim - 2)
+    vocab = table_or_head.shape[0 if tied else 1]
+    if vocab % tp_size(mesh):                  # the rule left it whole
+        wspec, vspec = P(None, None), None
+    else:
+        wspec = P("model", None) if tied else P(None, "model")
+        vspec = "model"
+    return shard_map(product, mesh, (P(bspec, *rest, None), wspec),
+                     P(bspec, *rest, vspec))(x, table_or_head)
+
+
+def _masked_f32(logits: torch.Tensor, vocab_real: int,
+                offset: int = 0) -> torch.Tensor:
+    """f32 logits with the columns at or past ``vocab_real`` (global
+    index: ``offset`` plus the local one) set to f32's lowest value."""
+    logits = logits.to(torch.float32)
+    neg = torch.finfo(torch.float32).min
+    cols = torch.arange(logits.shape[-1], device=logits.device) + offset
+    return torch.where(cols < vocab_real, logits,
+                       torch.full((), neg, device=logits.device))
+
+
+# f32 values of one chunk of rows in the cross-entropy (256 MB)
+CE_CHUNK_ELEMS = 1 << 26
+
+
+class _ShardCE(torch.autograd.Function):
+    """Logits (..., V) holding the vocab's columns from ``offset`` on,
+    labels (...) -> (lse, gold), f32 (...): each row's log-sum-exp over its
+    real columns (global index below ``vocab_real``) and its gold logit
+    where these columns hold the label, else 0.
+
+    The rows go in chunks of ``CE_CHUNK_ELEMS`` f32 values, forward and
+    backward, and the backward recomputes a chunk's f32 logits from the
+    saved ones: no f32 tensor of all the rows exists, where autograd of
+    ``torch.logsumexp`` and ``torch.gather`` would keep the masked f32
+    logits and make four more of their size in the backward.  The
+    gradient is theirs, op for op: ``g_lse * exp(x - lse)``, plus
+    ``g_gold`` at the label, zero on the padded columns, cast to the
+    logits' dtype."""
+
+    @staticmethod
+    def _chunks(n: int, v: int):
+        step = max(1, CE_CHUNK_ELEMS // max(v, 1))
+        return [slice(i, min(i + step, n)) for i in range(0, n, step)]
+
+    @staticmethod
+    def forward(ctx, logits, labels, vocab_real: int, offset: int):
+        v = logits.shape[-1]
+        rows = logits.reshape(-1, v)
+        idx = labels.reshape(-1).long() - offset
+        lse = torch.empty(rows.shape[0], dtype=torch.float32,
+                          device=logits.device)
+        gold = torch.empty_like(lse)
+        zero = torch.zeros((), dtype=torch.float32, device=logits.device)
+        for sl in _ShardCE._chunks(rows.shape[0], v):
+            x = _masked_f32(rows[sl], vocab_real, offset)
+            lse[sl] = torch.logsumexp(x, dim=-1)
+            i = idx[sl]
+            got = torch.gather(x, -1, i.clamp(0, v - 1)[:, None])[:, 0]
+            gold[sl] = torch.where((i >= 0) & (i < v), got, zero)
+        ctx.save_for_backward(logits, labels, lse)
+        ctx.vocab_real, ctx.offset = vocab_real, offset
+        return lse.view(labels.shape), gold.view(labels.shape)
+
+    @staticmethod
+    def backward(ctx, g_lse, g_gold):
+        logits, labels, lse = ctx.saved_tensors
+        v = logits.shape[-1]
+        rows = logits.reshape(-1, v)
+        idx = labels.reshape(-1).long() - ctx.offset
+        g_lse, g_gold = g_lse.reshape(-1), g_gold.reshape(-1)
+        real = (torch.arange(v, device=logits.device) + ctx.offset
+                < ctx.vocab_real)
+        zero = torch.zeros((), dtype=torch.float32, device=logits.device)
+        grad = torch.empty_like(rows)
+        for sl in _ShardCE._chunks(rows.shape[0], v):
+            x = _masked_f32(rows[sl], ctx.vocab_real, ctx.offset)
+            gx = g_lse[sl, None] * (x - lse[sl, None]).exp()
+            i = idx[sl]
+            gx.scatter_add_(-1, i.clamp(0, v - 1)[:, None], torch.where(
+                (i >= 0) & (i < v), g_gold[sl], zero)[:, None])
+            grad[sl] = torch.where(real, gx, zero).to(grad.dtype)
+        return grad.view(logits.shape), None, None, None
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  vocab_real: int) -> torch.Tensor:
-    """Masked CE over the *real* vocab (padded logits excluded)."""
-    logits = logits.to(torch.float32)
-    neg = torch.finfo(torch.float32).min
-    mask = torch.arange(logits.shape[-1], device=logits.device) < vocab_real
-    logits = torch.where(mask, logits, torch.full((), neg,
-                                                  device=logits.device))
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())
-    return torch.mean(logz[..., None] - gold)
+                  vocab_real: int, mesh=None) -> torch.Tensor:
+    """Masked CE over the *real* vocab (padded logits excluded), row by
+    row through :class:`_ShardCE`.
+
+    On a mesh the vocab stays sharded: each rank takes, on its own columns,
+    the log-sum-exp of its rows (``lse_r``) and the gold logit where it
+    holds the label (0 elsewhere, a partial sum over 'model', as
+    :func:`embed_lookup` does).  Across 'model', ``logz = M + log(sum_r
+    exp(lse_r - M))`` with ``M = max_r lse_r`` (an all-reduce max, no
+    gradient through it) and the sum an all-reduce.  No rank holds a
+    tensor of the whole vocab.  On one model rank ``logz`` is ``lse_0``
+    and its gradient factor 1.0, so the loss and its gradient are the
+    one-device path's, bit for bit."""
+    if mesh is None:
+        lse, gold = _ShardCE.apply(logits, labels, vocab_real, 0)
+        return torch.mean(lse - gold)
+    from repro_torch.sharding import (P, batch_axes, constrain, dp_size,
+                                      shard_map, tp_size, with_partial)
+    bspec = batch_axes(mesh) if labels.shape[0] % dp_size(mesh) == 0 \
+        else None
+    rest = (None,) * (labels.ndim - 1)
+    rows = P(bspec, *rest)
+    if logits.shape[-1] % tp_size(mesh):       # the rule left it whole
+        def whole(lg, lb):
+            lse, gold = _ShardCE.apply(lg, lb, vocab_real, 0)
+            return lse - gold
+
+        return torch.mean(shard_map(whole, mesh, (P(bspec, *rest, None),
+                                                  rows), rows)(logits,
+                                                               labels))
+
+    def body(lg, lb):
+        lse, gold = _ShardCE.apply(
+            lg, lb, vocab_real, mesh.get_local_rank("model") * lg.shape[-1])
+        return lse[None], gold
+
+    # lse_r stacked over 'model' on a leading dim, the gold a partial sum
+    lse, gold = shard_map(body, mesh, (P(bspec, *rest, "model"), rows),
+                          [P("model", bspec, *rest),
+                           with_partial(rows, mesh, ("model",))])(logits,
+                                                                  labels)
+    m = constrain(lse.detach().amax(dim=0), mesh, rows)
+    logz = m + torch.log(torch.exp(lse - m[None]).sum(dim=0))
+    return torch.mean(logz - constrain(gold, mesh, rows))

@@ -107,7 +107,7 @@ def _forward(params, tokens, frames, cfg: ModelConfig, mesh, remat,
         if collect_cache:
             caches.append(cache)
     x = norm(x, params["final_norm/w"], cfg.norm)
-    logits = unembed(x, params["lm_head/w"], False)
+    logits = unembed(x, params["lm_head/w"], False, mesh)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     aux = {"lb_loss": zero, "z_loss": zero}
     if collect_cache:
@@ -190,6 +190,6 @@ def _decode_step(params, tokens, state: EncDecDecodeState, cfg: ModelConfig,
         new_k.append(nk)
         new_v.append(nv)
     x = norm(x, params["final_norm/w"], cfg.norm)
-    logits = unembed(x, params["lm_head/w"], False)
+    logits = unembed(x, params["lm_head/w"], False, mesh)
     return logits, EncDecDecodeState(torch.stack(new_k), torch.stack(new_v),
                                      state.cross_k, state.cross_v, idx + 1)

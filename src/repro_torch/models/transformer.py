@@ -123,10 +123,10 @@ def embed_inputs(params, cfg: ModelConfig, tokens, patch_embeds=None,
     return x
 
 
-def _logits(params, x, cfg: ModelConfig):
+def _logits(params, x, cfg: ModelConfig, mesh=None):
     x = norm(x, params["final_norm/w"], cfg.norm)
     return unembed(x, params["embed/table"] if cfg.tie_embeddings
-                   else params["lm_head/w"], cfg.tie_embeddings)
+                   else params["lm_head/w"], cfg.tie_embeddings, mesh)
 
 
 def forward(params: Dict[str, torch.Tensor], tokens: torch.Tensor,
@@ -176,7 +176,7 @@ def _forward(params, tokens, cfg: ModelConfig, mesh, tp_total, patch_embeds,
         x, lb, z, cache = run_layer(layer, remat, x, lb, z, _layer(lt, i))
         if collect_cache:
             caches.append(cache)
-    logits = _logits(params, x, cfg)
+    logits = _logits(params, x, cfg, mesh)
     aux = {"lb_loss": lb / cfg.n_layers, "z_loss": z / cfg.n_layers}
     if collect_cache:
         k, v, st = zip(*caches)
@@ -285,7 +285,7 @@ def _decode_step(params, tokens, state: DecodeState, cfg: ModelConfig, mesh,
         dx, _ = _channel_mixer(x, lp, cfg, mesh, tp_total)
         if dx is not None:
             x = x + dx
-    logits = _logits(params, x, cfg)
+    logits = _logits(params, x, cfg, mesh)
 
     def stacked(ts):
         return torch.stack(ts) if ts else None

@@ -47,7 +47,7 @@ def loss_fn(params, batch: Dict, cfg: ModelConfig, *, mesh=None,
         logits, aux = forward_logits(params, batch, cfg, mesh=mesh,
                                      tp_total=tp_total, remat=remat,
                                      ssd_kernel=False)
-        ce = cross_entropy(logits, batch["labels"], cfg.vocab)
+        ce = cross_entropy(logits, batch["labels"], cfg.vocab, mesh)
         loss = ce + lb_coef * aux["lb_loss"] + z_coef * aux["z_loss"]
     metrics = {"loss": loss, "ce": ce, **aux}
     return loss, metrics
