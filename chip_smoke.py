@@ -223,17 +223,19 @@ Phases, each of which raises (and exits non-zero) on failure:
       cells through ``launch.dryrun.run_cell`` (qwen1.5-0.5b x train_4k
       and mamba2-1.3b x prefill_32k and hymba-1.5b x long_500k on 16x16,
       mixtral-8x7b x decode_32k on 2x16x16), each report's line with
-      ``trace_s`` and its collective counts by op, its per-rank peak and
-      all-gather wire bytes beside the port's before its head and decode
-      core ran on local shards and the reference's dry-run
-      (``DRYRUN_BEFORE``, ``DRYRUN_REFERENCE``), and the sites of its
-      largest collectives; and, on a one-rank fake
+      ``trace_s`` and its collective counts by op, its per-rank peak,
+      all-gather and all wire bytes beside the port's before its Mamba-2
+      conv and split-head decode core ran on each rank's own shards and
+      the reference's dry-run (``DRYRUN_BEFORE``, ``DRYRUN_REFERENCE``),
+      and the sites of its largest collectives; and, on a one-rank fake
       mesh, phase q's train step and the mamba2 bf16 prefill, their
       roofline ``step_s`` and bound beside the seconds this run measured
       for them and ``model_flops / (measured_s * 989e12)``, the measured
       share of the bf16 peak.  It fails if a job fails, a cell counts no
-      collective, a term is not finite or qwen1.5-0.5b x train_4k's peak a
-      rank exceeds the card's memory;
+      collective, a term is not finite, qwen1.5-0.5b x train_4k's peak a
+      rank exceeds the card's memory, mamba2's prefill_32k or mixtral's
+      decode_32k all-gathers more than the reference a rank, or mixtral's
+      wire bytes a rank exceed 250 MB;
 6. times — each kernel and mode, its plain version and the nearest PyTorch
    library call at the main paths' batch-8 shapes: device time per call
    from the profiler's CUDA activity (and the per-call time of back-to-back
@@ -3082,21 +3084,27 @@ DRYRUN_CELLS = (("qwen1.5-0.5b", "train_4k", False),
                 ("mixtral-8x7b", "decode_32k", True),
                 ("hymba-1.5b", "long_500k", False))
 DRYRUN_TIMEOUT_S = 900
-# Per rank, for each of DRYRUN_CELLS: (peak bytes, all-gather wire bytes)
-# of the port before its head and decode core ran on local shards (phase t
-# on the card, torch 2.11), and (argument + temp bytes, all-gather wire
-# bytes) of the reference's dry-run, ``repro.launch.dryrun.run_cell``
-# (XLA's CPU-backend buffer assignment, computed on a host CPU, not a
-# device figure), printed beside this run's.
-DRYRUN_BEFORE = {"qwen1.5-0.5b train_4k": (724.0e9, 40622.6e6),
-                 "mamba2-1.3b prefill_32k": (6.20e9, 25670.7e6),
-                 "mixtral-8x7b decode_32k": (10.27e9, 2014.7e6),
-                 "hymba-1.5b long_500k": (0.40e9, 98.5e6)}
+# Per rank, for each of DRYRUN_CELLS: (peak bytes, all-gather wire bytes,
+# all wire bytes) of the port before its Mamba-2 conv and its split-head
+# decode core ran on each rank's own shards (phase t on the card, torch
+# 2.11), and (argument + temp bytes, all-gather wire bytes) of the
+# reference's dry-run, ``repro.launch.dryrun.run_cell`` (XLA's CPU-backend
+# buffer assignment, computed on a host CPU, not a device figure), printed
+# beside this run's.
+DRYRUN_BEFORE = {"qwen1.5-0.5b train_4k": (8.558e9, 3251.3e6, 45.67e9),
+                 "mamba2-1.3b prefill_32k": (6.196e9, 25670.7e6, 50.36e9),
+                 "mixtral-8x7b decode_32k": (10.270e9, 2014.7e6, 2.019e9),
+                 "hymba-1.5b long_500k": (0.239e9, 19.9e6, 0.0205e9)}
 DRYRUN_REFERENCE = {"qwen1.5-0.5b train_4k": (14.55e9, 58.1e6),
                     "mamba2-1.3b prefill_32k": (1.73e9, 3019.9e6),
                     "mixtral-8x7b decode_32k": (18.30e9, 138.4e6),
                     "hymba-1.5b long_500k": (0.60e9, 13.4e6)}
 DRYRUN_FIT_CELL = "qwen1.5-0.5b train_4k"    # must fit one card's memory
+# cells whose all-gather wire bytes a rank must not exceed the reference's
+DRYRUN_GATHER_CELLS = ("mamba2-1.3b prefill_32k", "mixtral-8x7b decode_32k")
+# cells whose wire bytes a rank must stay under a bound: mixtral's decode
+# sums its split heads' scores over the 2 ranks of a head, not all 16
+DRYRUN_WIRE_BOUND = {"mixtral-8x7b decode_32k": 250e6}
 
 
 def _calibration(which: str):
@@ -3190,14 +3198,17 @@ def dryrun_path(card: str, paths: list, capacity: int) -> dict:
     each job in a process of its own (the fake process group is that
     process's default group), all started together: the counters' known
     answers, the four :data:`DRYRUN_CELLS` on the 16x16 and 2x16x16 meshes
-    (each cell's per-rank peak and all-gather wire bytes printed beside
-    :data:`DRYRUN_BEFORE` and :data:`DRYRUN_REFERENCE`), and the card's own
+    (each cell's per-rank peak, all-gather and all wire bytes printed
+    beside :data:`DRYRUN_BEFORE` and :data:`DRYRUN_REFERENCE`, with the
+    card's name and power limit), and the card's own
     train step (phase q) and mamba2 prefill traced on a one-rank mesh,
     whose roofline ``step_s`` is printed beside the seconds this run
     measured for them and the measured share of the bf16 peak.  Fails if a
-    job fails, a cell's collective counts are empty, a term is not finite
-    or :data:`DRYRUN_FIT_CELL`'s peak a rank exceeds ``capacity`` bytes
-    (the card's memory)."""
+    job fails, a cell's collective counts are empty, a term is not finite,
+    :data:`DRYRUN_FIT_CELL`'s peak a rank exceeds ``capacity`` bytes (the
+    card's memory), a cell of :data:`DRYRUN_GATHER_CELLS` all-gathers more
+    than the reference a rank or a cell's wire bytes a rank exceed its
+    :data:`DRYRUN_WIRE_BOUND`."""
     import statistics
     from repro_torch.launch.roofline import PEAK_FLOPS_BF16
     t0 = time.perf_counter()
@@ -3248,19 +3259,27 @@ def dryrun_path(card: str, paths: list, capacity: int) -> dict:
             f"collectives={json.dumps(r['collective_counts'])}")
         key = f"{arch} {shape}"
         gathered = r["collective_bytes_by_op"].get("all-gather", 0.0)
-        (b_peak, b_ag), (j_mem, j_ag) = DRYRUN_BEFORE[key], \
+        wire = r["collective_wire_bytes"]
+        (b_peak, b_ag, b_wire), (j_mem, j_ag) = DRYRUN_BEFORE[key], \
             DRYRUN_REFERENCE[key]
-        log(f"phase t {name} per rank: peak {mem['peak_bytes'] / 1e9:.3f} GB"
-            f" (before {b_peak / 1e9:.2f} GB; reference args + temps "
-            f"{j_mem / 1e9:.2f} GB, XLA's CPU buffer assignment on a host), "
-            f"all-gather {gathered / 1e6:.1f} MB (before {b_ag / 1e6:.1f} MB;"
-            f" reference {j_ag / 1e6:.1f} MB)")
+        log(f"phase t {name} per rank [{card}]: peak "
+            f"{mem['peak_bytes'] / 1e9:.3f} GB (before {b_peak / 1e9:.3f} GB;"
+            f" reference args + temps {j_mem / 1e9:.2f} GB, XLA's CPU buffer "
+            f"assignment on a host), all-gather {gathered / 1e6:.1f} MB "
+            f"(before {b_ag / 1e6:.1f} MB; reference {j_ag / 1e6:.1f} MB), "
+            f"wire {wire / 1e9:.4f} GB (before {b_wire / 1e9:.4f} GB)")
         log(f"phase t {name} collective sites (count, wire MB): " + "; ".join(
             f"{c['op']} at {c['site']} ({c['count']}, "
             f"{c['wire_bytes'] / 1e6:.2f})" for c in r["collective_sites"]))
         if key == DRYRUN_FIT_CELL and mem["peak_bytes"] > capacity:
             raise AssertionError(f"phase t {name}: peak {mem['peak_bytes']} "
                                  f"B a rank over the card's {capacity} B")
+        if key in DRYRUN_GATHER_CELLS and gathered > j_ag:
+            raise AssertionError(f"phase t {name}: all-gathers {gathered} B "
+                                 f"a rank over the reference's {j_ag} B")
+        if wire > DRYRUN_WIRE_BOUND.get(key, float("inf")):
+            raise AssertionError(f"phase t {name}: wire bytes {wire} a rank "
+                                 f"over {DRYRUN_WIRE_BOUND[key]}")
         cells.append(r)
     q_run = next(p for p in paths if p["model"] == TRAIN_ARCH
                  and p["path"].startswith("train "))

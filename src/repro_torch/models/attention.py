@@ -35,7 +35,10 @@ rank there.  A decode cache whose slots are sharded over the data axes
 (``launch.specs.decode_state_sharding`` for a batch they do not divide)
 is attended on each rank's own slots, the softmax completed by
 all-reduces (:func:`_decode_on_seq_shards`), as GSPMD partitions the
-reference's decode over such a cache.
+reference's decode over such a cache; one whose flat kv dim the model
+axis splits inside each kv head is attended on each rank's own dims of
+its head, the scores summed over the head's ranks
+(:func:`_decode_on_split_heads`).
 """
 from __future__ import annotations
 
@@ -283,6 +286,14 @@ def cache_size(cfg: ModelConfig, seq_len: int) -> int:
     return seq_len
 
 
+def _slot(cfg: ModelConfig, index: int, smax: int) -> int:
+    """The cache slot a decode step at ``index`` writes: the ring's for
+    SWA; the reference's dynamic_update_slice clamps a start past the
+    end."""
+    slot = index % smax if cfg.sliding_window is not None else index
+    return min(slot, smax - 1)
+
+
 def decode_attention(x: torch.Tensor, p: LayerAttnParams, cfg: ModelConfig,
                      cache_k: torch.Tensor, cache_v: torch.Tensor, index: int,
                      *, kv_override=None, mesh=None):
@@ -329,9 +340,7 @@ def decode_attention(x: torch.Tensor, p: LayerAttnParams, cfg: ModelConfig,
         Bl, Hkv, Dh = k.shape[0], k.shape[2], k.shape[3]
         held = cache_k.shape[1]
         smax = held if smax is None else smax
-        slot = index % smax if cfg.sliding_window is not None else index
-        # the reference's dynamic_update_slice clamps a start past the end
-        slot = min(slot, smax - 1) - first
+        slot = _slot(cfg, index, smax) - first
         if 0 <= slot < held:
             cache_k = cache_k.clone()
             cache_v = cache_v.clone()
@@ -348,11 +357,21 @@ def decode_attention(x: torch.Tensor, p: LayerAttnParams, cfg: ModelConfig,
                           softmax)
         return out, cache_k, cache_v
 
+    # On a mesh: a cache whose slots are sharded over the data axes (batch
+    # 1, long_500k) is attended on each rank's own slots; one whose flat kv
+    # dim splits inside a kv head (8 kv heads over model 16: mixtral,
+    # granite, h2o-danube3, whisper's decoder) on each rank's own dims of
+    # its head; else (kv heads that divide the model axis, or whose shards
+    # cross head boundaries, as hymba's 5 heads over 16) on whole kv-head
+    # groups.
     if mesh is None:
         out, cache_k, cache_v = core(q, k, v, cache_k, cache_v)
     elif _seq_sharded(cache_k, mesh):
         out, cache_k, cache_v = _decode_on_seq_shards(core, mesh, q, k, v,
                                                       cache_k, cache_v)
+    elif _split_in_head(cache_k, mesh, k.shape[2]):
+        out, cache_k, cache_v = _decode_on_split_heads(
+            mesh, q, k, v, cache_k, cache_v, cfg, index, scale)
     else:
         _, kvspec = _group_specs(mesh, B, k.shape[2])
         cspec = P(kvspec[0], None, kvspec[2])
@@ -410,3 +429,88 @@ def _decode_on_seq_shards(core, mesh, q, k, v, cache_k, cache_v):
     return _on_kv_groups(body, mesh, q, k, v, cache_k, cache_v,
                          extra_specs=(cspec, cspec), extra_out=(cspec, cspec),
                          batch=False)
+
+
+def _split_in_head(cache, mesh, n_kv: int) -> bool:
+    """Whether a (B, Smax, Hkv*Dh) cache's flat kv dim is sharded over
+    'model' inside its kv heads: the model axis does not divide the kv
+    heads but they divide it, so each kv head lies on tp / Hkv consecutive
+    model ranks (``launch.specs.decode_state_sharding``'s layout for 8 kv
+    heads on model 16)."""
+    from torch.distributed.tensor import DTensor, Shard
+    tp = tp_size(mesh)
+    if not isinstance(cache, DTensor) or n_kv % tp == 0 or tp % n_kv:
+        return False
+    return cache.placements[axis_names(mesh).index("model")] == Shard(2)
+
+
+def _head_group(mesh, r: int):
+    """The process group of the ``r`` consecutive model ranks that hold
+    this rank's kv head.  Every rank creates every such group, in the same
+    order, when they all reach their first split-head decode on ``mesh``;
+    the groups are kept on the mesh.  The mesh's rank layout is host
+    bookkeeping, read outside any tensor mode (the dry-run's fake one)."""
+    groups = mesh.__dict__.setdefault("_repro_kv_head_groups", {})
+    if r not in groups:
+        import torch.distributed as dist
+        from torch.utils._python_dispatch import _disable_current_modes
+        with _disable_current_modes():
+            ranks = mesh.mesh.reshape(-1, r).tolist()
+        groups[r] = dist.new_subgroups_by_enumeration(ranks)[0]
+    return groups[r]
+
+
+def _decode_on_split_heads(mesh, q, k, v, cache_k, cache_v,
+                           cfg: ModelConfig, index: int, scale: float):
+    """The decode core on a cache whose kv heads are each split over r =
+    tp / Hkv consecutive model ranks (:func:`_split_in_head`), on the
+    cache's own shards: model rank m holds dims [(m % r) * Dh/r, +Dh/r) of
+    kv head m // r.  Each rank writes its dims of the new k and v (after
+    RoPE, whole) into the slot, scores its dims of the q heads of its
+    head's group against its cache dims, and an all-reduce over the r
+    ranks of the head (:func:`_head_group`) completes the (B, G, Smax)
+    f32 scores; then the scale, the mask and the softmax as
+    :func:`_sdpa_chunk` runs them, and each rank's dims of the value
+    product.  The (B, H, Dh) output is made whole from the parts; the
+    cache is never gathered.  The scores are summed in another order than
+    the one-device dot, so they match it within float tolerance; the
+    caches are copies, bit for bit."""
+    from torch.distributed import _functional_collectives as funcol
+    B, _, H, Dh = q.shape
+    Hkv = k.shape[2]
+    tp = tp_size(mesh)
+    r, G = tp // Hkv, H // Hkv
+    dl = Dh // r
+    smax = cache_k.shape[1]
+    slot = _slot(cfg, index, smax)
+    part = _head_group(mesh, r)
+    sdt = torch.bfloat16 if (perf.FLAGS.attn_bf16_scores
+                             and q.dtype == torch.bfloat16) else torch.float32
+    valid = torch.arange(smax, device=q.device) <= min(index, smax - 1)
+
+    def body(q, k, v, cache_k, cache_v):
+        m = mesh.get_local_rank("model")
+        h, d0 = m // r, (m % r) * dl
+        cache_k, cache_v = cache_k.clone(), cache_v.clone()
+        cache_k[:, slot] = k[:, 0, h, d0:d0 + dl].to(cache_k.dtype)
+        cache_v[:, slot] = v[:, 0, h, d0:d0 + dl].to(cache_v.dtype)
+        qh = q[:, 0, h * G:(h + 1) * G, d0:d0 + dl]          # (Bl, G, dl)
+        s = torch.einsum("bgd,bkd->bgk", qh.float(),
+                         cache_k.to(q.dtype).float())
+        s = funcol.wait_tensor(funcol.all_reduce(s, "sum", part))
+        s = s.to(sdt) * torch.tensor(scale, dtype=sdt, device=q.device)
+        s = s.masked_fill(~valid, torch.finfo(sdt).min)
+        prob = _softmax(s).to(v.dtype)
+        o = torch.einsum("bgk,bkd->bgd", prob, cache_v.to(q.dtype))
+        return o[:, None], cache_k, cache_v                 # (Bl, 1, G, dl)
+
+    bspec = batch_axes(mesh) if B % dp_size(mesh) == 0 else None
+    whole = P(bspec, None, None, None)
+    cspec = P(bspec, None, "model")
+    o, cache_k, cache_v = shard_map(
+        body, mesh, (whole, whole, whole, cspec, cspec),
+        [P(bspec, "model", None, None), cspec, cspec])(q, k, v, cache_k,
+                                                       cache_v)
+    # (B, tp, G, dl), model rank m = h * r + part -> (B, 1, H, Dh)
+    o = constrain(o, mesh, whole).reshape(B, Hkv, r, G, dl)
+    return o.transpose(2, 3).reshape(B, 1, H, Dh), cache_k, cache_v

@@ -9,10 +9,12 @@ through the hand-written kernel (``repro_torch.kernels.ssd_scan``).
 
 On a device mesh (``mesh=``, DTensor activations and parameters) the
 inner activations and the SSD heads are pinned to model-sharded layouts
-(``_constrain_inner`` and the head pins, ``FLAGS.ssd_constraint``), and the
-scan runs on each rank's local heads and batch rows under
-:func:`repro_torch.sharding.shard_map` (``local_map``): the scan kernel's
-``ctypes`` launches never see a DTensor.
+(``_constrain_inner`` and the head pins, ``FLAGS.ssd_constraint``), the
+depthwise conv runs on each rank's own channels, the x part apart from
+the B/C part (:func:`_conv_channels`), and the scan runs on each rank's
+local heads and batch rows under :func:`repro_torch.sharding.shard_map`
+(``local_map``): the scan kernel's ``ctypes`` launches never see a
+DTensor.
 """
 from __future__ import annotations
 
@@ -48,12 +50,9 @@ class SSMState(NamedTuple):
 
 
 def _project_in(x: torch.Tensor, p: SSMLayerParams):
-    """Separate z/x/BC/dt projections."""
-    z = torch.matmul(x, p.w_z)
-    xv = torch.matmul(x, p.w_x)
-    bc = torch.matmul(x, p.w_bc)
-    dt = torch.matmul(x, p.w_dt)
-    return z, torch.cat([xv, bc], dim=-1), dt
+    """Separate z/x/BC/dt projections, each on its weight's layout."""
+    return (torch.matmul(x, p.w_z), torch.matmul(x, p.w_x),
+            torch.matmul(x, p.w_bc), torch.matmul(x, p.w_dt))
 
 
 def _causal_conv(xbc: torch.Tensor, w: torch.Tensor,
@@ -71,6 +70,75 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor,
     y = sum(xp[:, i:i + S, :] * w[i] for i in range(K))
     new_state = xp[:, -(K - 1):, :]
     return F.silu(y.to(torch.float32)).to(xbc.dtype), new_state
+
+
+def _conv_on_shards(mesh, u, w, state, feat):
+    """The output of :func:`_causal_conv` on each rank's own channels and
+    batch rows: u (B, S, C) and state (B, K-1, C) with C over ``feat``
+    (``"model"`` or None: whole on each model rank), the batch over the
+    data axes where they divide it."""
+    bspec = batch_axes(mesh) if u.shape[0] % dp_size(mesh) == 0 else None
+    act = P(bspec, None, feat)
+    return shard_map(lambda u, w, s: _causal_conv(u, w, s)[0], mesh,
+                     (act, P(None, feat), None if state is None else act),
+                     act)(u, w, state)
+
+
+def _conv_state(u, state, K: int):
+    """The conv's new state, the last K-1 inputs of [state; u]: u (B, S,
+    C); state (B, K-1, C) or None (zeros)."""
+    u = u[:, -(K - 1):, :]
+    prev = (torch.zeros((u.shape[0], K - 1, u.shape[2]), dtype=u.dtype,
+                        device=u.device)
+            if state is None else state.to(u.dtype))
+    return torch.cat([prev, u], dim=1)[:, -(K - 1):, :]
+
+
+def _conv_channels(xv, bc, w, state, cfg: ModelConfig, mesh):
+    """:func:`_causal_conv` of the x channels ``xv`` (B, S, d_inner) and
+    the B/C channels ``bc`` (B, S, 2*G*N) with the (K, conv_dim) weight
+    ``w``.  ``state``: (B, K-1, conv_dim) or None.  Returns (x part, B/C
+    part, new state (B, K-1, conv_dim)).  Without a mesh, one conv over
+    their concatenation.  On a mesh the two parts run apart, each with its
+    columns of ``w`` (the conv is per channel, so the numbers are the
+    same), and no (B, S, .) activation is gathered for the conv:
+
+    * SSD heads that divide the model axis (mamba2): the x channels stay on
+      the model-sharded layout of ``w_x``'s product, through the conv to
+      the scan.  The weight's shards (conv_dim / tp columns a rank) cross
+      d_inner, so the (K, conv_dim) weight is gathered (a few KB) and
+      ``shard_map`` cuts its x columns to the x part's layout.  The B/C
+      channels (2*G*N, small) are whole on each model rank, as
+      :func:`_scan_on_shards` takes them.
+    * Heads that do not divide it (hymba at model 16): the scan and
+      ``heads_view`` take x whole on each model rank, so x and B/C are
+      made whole first and the conv runs on the weight's own shards, its
+      output made whole after; the weight never moves.
+
+    The new state is rejoined from the inputs' last K-1 steps, whole over
+    'model' as ``decode_state_sharding`` lays it out."""
+    di, K = cfg.d_inner, w.shape[0]
+    if mesh is None:
+        y, new_state = _causal_conv(torch.cat([xv, bc], dim=-1), w, state)
+        return y[..., :di], y[..., di:], new_state
+    sx, sbc = (None, None) if state is None else (state[..., :di],
+                                                  state[..., di:])
+    tp = tp_size(mesh)
+    bspec = batch_axes(mesh) if xv.shape[0] % dp_size(mesh) == 0 else None
+    whole = P(bspec, None, None)
+    bc = constrain(bc, mesh, whole)
+    if cfg.n_ssm_heads % tp == 0:
+        w = constrain(w, mesh, P(None, None))
+        yx = _conv_on_shards(mesh, xv, w[:, :di], sx, "model")
+        ybc = _conv_on_shards(mesh, bc, w[:, di:], sbc, None)
+        u = torch.cat([constrain(xv[:, -(K - 1):], mesh, whole),
+                       bc[:, -(K - 1):]], dim=-1)
+    else:
+        u = torch.cat([constrain(xv, mesh, whole), bc], dim=-1)
+        feat = "model" if w.shape[1] % tp == 0 else None
+        y = constrain(_conv_on_shards(mesh, u, w, state, feat), mesh, whole)
+        yx, ybc = y[..., :di], y[..., di:]
+    return yx, ybc, _conv_state(u, state, K)
 
 
 def _ssd_scan(x, dt, A, Bm, C, D, chunk: int, init_state, intra_bf16: bool):
@@ -219,10 +287,9 @@ def ssm_block(x: torch.Tensor, p: SSMLayerParams, cfg: ModelConfig,
     s = cfg.ssm
     B, S, _ = x.shape
     H, Pd = cfg.n_ssm_heads, s.d_head
-    z, xbc, dt = _project_in(x, p)
-    xbc, conv_state = _causal_conv(xbc, p.conv,
-                                   None if state is None else state.conv)
-    xi, BC = xbc[..., :cfg.d_inner], xbc[..., cfg.d_inner:]
+    z, xv, bc, dt = _project_in(x, p)
+    xi, BC, conv_state = _conv_channels(
+        xv, bc, p.conv, None if state is None else state.conv, cfg, mesh)
     z = _constrain_inner(z, mesh)
     xi = _constrain_inner(xi, mesh)
     gn = s.n_groups * s.d_state
@@ -279,12 +346,10 @@ def ssm_decode(x: torch.Tensor, p: SSMLayerParams, cfg: ModelConfig,
     s = cfg.ssm
     B = x.shape[0]
     H, Pd = cfg.n_ssm_heads, s.d_head
-    z, xbc, dt = _project_in(x[:, 0], p)
-    xp = torch.cat([state.conv.to(xbc.dtype), xbc[:, None, :]], dim=1)
-    y = sum(xp[:, i, :] * p.conv[i] for i in range(p.conv.shape[0]))
-    xbc = F.silu(y.to(torch.float32)).to(xbc.dtype)
-    conv_state = xp[:, 1:, :]
-    xi, BC = xbc[..., :cfg.d_inner], xbc[..., cfg.d_inner:]
+    z, xv, bc, dt = _project_in(x[:, 0], p)
+    xi, BC, conv_state = _conv_channels(xv[:, None], bc[:, None], p.conv,
+                                        state.conv, cfg, mesh)
+    xi, BC = xi[:, 0], BC[:, 0]
     gn = s.n_groups * s.d_state
     Bm = BC[..., :gn].reshape(B, s.n_groups, s.d_state)
     Cm = BC[..., gn:].reshape(B, s.n_groups, s.d_state)

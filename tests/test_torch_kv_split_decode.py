@@ -1,0 +1,322 @@
+"""Decode attention on a cache sharded inside a kv head, against
+``mesh=None``, the reference and the reference's dry-run.
+
+Where the model axis does not divide the kv heads but they divide it
+(mixtral's, granite's and h2o-danube3's 8 kv heads, whisper's decoder's 8
+heads, on model 16), ``launch.specs.decode_state_sharding`` leaves each
+rank Dh * Hkv / tp consecutive dims of one kv head.  ``decode_attention``
+then runs its core on the cache's own shards
+(``attention._decode_on_split_heads``): partial scores summed over the
+ranks of one head, each rank's dims of the value product, no gather of
+the cache.  A small GQA layer (4 q heads and 2 kv heads of 16 dims, 8
+dims a rank on model 4) decodes eight steps on 2x4 gloo ranks (the
+helpers of ``test_torch_distributed.py``), into a full cache and into a
+ring that wraps: the outputs within 1e-5 of ``mesh=None``'s max in f32
+and within 2^-5 in bf16 (the reference's float tolerances; the partial
+dot products are summed in another order), the caches bit for bit (they
+are copies).  ``mesh=None`` itself is held against the reference's
+``decode_attention`` within the same tolerances.  On a one-rank mesh no
+head is split and the decode is ``mesh=None``'s bit for bit.
+
+The dry-run: the families that take the branch take it in every layer on
+a fake mesh and gather no cache shard at the attention; mixtral-8x7b
+decode_32k cut to 2 layers on a fake (2, 16, 16) mesh all-gathers at
+most the reference's bytes a rank and moves at most twice its wire bytes
+(an all-reduce of the whole scores over the 16 model ranks would not).
+"""
+import dataclasses
+import inspect
+import json
+import os
+import subprocess
+import sys
+import textwrap
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+
+from repro.configs import get_config as j_get_config
+from repro.models import attention as j_attn
+
+from repro_torch.configs import get_config, get_shape
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch import dryrun as D
+from repro_torch.launch import roofline as tr
+from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.models import attention
+from repro_torch.sharding import P, mesh_scope, place
+
+from test_torch_distributed import REPO, _run_ranks
+
+B, STEPS, SEQ = 2, 8, 8
+TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -5}
+DRY_LAYERS = 2
+
+
+def _cfg(get, window, dtype: str):
+    """qwen's smoke layer with 2 kv heads: 4 q heads, head dim 16."""
+    import dataclasses
+    return dataclasses.replace(get("qwen1.5-0.5b").smoke(), n_kv_heads=2,
+                               dtype=dtype, sliding_window=window)
+
+
+def _setup(window, dtype: str, seed: int = 0):
+    """(cfg, f32 weights (wq, wk, wv, wo), xs (STEPS, B, 1, d), smax)."""
+    cfg = _cfg(get_config, window, dtype)
+    rng = np.random.default_rng(seed)
+    d, qd, kd = cfg.d_model, cfg.q_dim, cfg.kv_dim
+    w = tuple((0.2 * rng.standard_normal(s)).astype(np.float32)
+              for s in ((d, qd), (d, kd), (d, kd), (qd, d)))
+    xs = rng.standard_normal((STEPS, B, 1, d)).astype(np.float32)
+    return cfg, w, xs, attention.cache_size(cfg, SEQ)
+
+
+def _decode(cfg, w, xs, smax, mesh=None, cspec=None):
+    """The port's decode steps -> (outputs, cache_k, cache_v); on a mesh
+    the weights by the sharding rules and the caches on ``cspec``.
+    Self-contained: the rank processes run its source."""
+    import torch
+    from repro_torch.models import attention
+    from repro_torch.sharding import P, mesh_scope, place
+    B = xs.shape[1]
+    dt = getattr(torch, cfg.dtype)
+    p = attention.LayerAttnParams(*(torch.from_numpy(a).to(dt) for a in w))
+    ck = torch.zeros(B, smax, cfg.kv_dim, dtype=dt)
+    cv = torch.zeros_like(ck)
+    if mesh is not None:
+        specs = (P(None, "model"),) * 3 + (P("model", None),)
+        p = attention.LayerAttnParams(*(place(t, mesh, s)
+                                        for t, s in zip(p, specs)))
+        ck, cv = place(ck, mesh, cspec), place(cv, mesh, cspec)
+    outs = []
+    with torch.no_grad(), mesh_scope(mesh):
+        for i, x in enumerate(xs):
+            x = torch.from_numpy(x).to(dt)
+            if mesh is not None:
+                x = place(x, mesh, P("data", None, None))
+            o, ck, cv = attention.decode_attention(x, p, cfg, ck, cv, i,
+                                                   mesh=mesh)
+            outs.append(o)
+    return outs, ck, cv
+
+
+def _reference(window, dtype: str, w, xs, smax):
+    """The reference's eight decode steps on the same weights and inputs."""
+    cfg = _cfg(j_get_config, window, dtype)
+    dt = getattr(jnp, dtype)
+    p = j_attn.LayerAttnParams(*(jnp.asarray(a, dt) for a in w))
+    ck = jnp.zeros((B, smax, cfg.kv_dim), dt)
+    cv = jnp.zeros_like(ck)
+    outs = []
+    for i, x in enumerate(xs):
+        o, ck, cv = j_attn.decode_attention(jnp.asarray(x, dt), p, cfg, ck,
+                                            cv, jnp.int32(i))
+        outs.append(np.asarray(o, np.float32))
+    return outs
+
+
+def _close(got, want, tol):
+    """|got - want| within ``tol`` of max |want|."""
+    import torch
+    got, want = torch.as_tensor(got).float(), torch.as_tensor(want).float()
+    err = float((got - want).abs().max())
+    assert err <= tol * float(want.abs().max()), err
+
+
+# -- 2x4 gloo ranks ---------------------------------------------------------------
+
+def test_split_head_decode_on_2x4_ranks(tmp_path):
+    """Eight steps with a full cache of 8 slots and a ring of 4 that wraps,
+    f32 and bf16: every step's output within the float tolerance of
+    ``mesh=None``'s (itself within it of the reference's), the caches bit
+    for bit and on their layout, and every step through the split-head
+    core."""
+    cases = []
+    for window in (None, 4):
+        for dtype in ("float32", "bfloat16"):
+            cfg, w, xs, smax = _setup(window, dtype)
+            outs, ck, cv = _decode(cfg, w, xs, smax)
+            for got, want in zip(outs, _reference(window, dtype, w, xs,
+                                                  smax)):
+                _close(got, want, TOL[dtype])
+            cases.append({"window": window, "dtype": dtype, "w": w,
+                          "xs": xs, "smax": smax, "outs": outs, "ck": ck,
+                          "cv": cv})
+    torch.save(cases, tmp_path / "in.pt")
+    helpers = "".join(textwrap.dedent(inspect.getsource(f)) + "\n"
+                      for f in (_cfg, _decode, _close))
+    out = _run_ranks(tmp_path, 8, helpers + textwrap.dedent(f"""
+        from repro_torch.configs import get_config
+        from repro_torch.launch.mesh import compat_make_mesh
+        from repro_torch.models import attention
+        from repro_torch.sharding import P, to_placements
+        calls = []
+        split = attention._decode_on_split_heads
+
+        def counted(*a, **k):
+            calls.append(1)
+            return split(*a, **k)
+
+        attention._decode_on_split_heads = counted
+        mesh = compat_make_mesh((2, 4), ("data", "model"))
+        cspec = P("data", None, "model")
+        for c in torch.load(os.path.join(DATA, "in.pt"), weights_only=False):
+            cfg = _cfg(get_config, c["window"], c["dtype"])
+            n = len(calls)
+            outs, ck, cv = _decode(cfg, c["w"], c["xs"], c["smax"], mesh,
+                                   cspec)
+            assert len(calls) - n == {STEPS}, calls
+            for g, want in zip(outs, c["outs"]):
+                _close(g.full_tensor(), want, {TOL!r}[c["dtype"]])
+            for g, want in ((ck, c["ck"]), (cv, c["cv"])):
+                assert tuple(g.placements) == to_placements(cspec, mesh)
+                assert torch.equal(g.full_tensor(), want), c["window"]
+        if RANK == 0:
+            print("OK split-head decode")
+    """))
+    assert "OK split-head decode" in out
+
+
+# -- one rank: bit for bit ---------------------------------------------------------
+
+@pytest.fixture
+def one_rank_mesh():
+    """A (1, 1) mesh on a one-rank gloo group in this process."""
+    yield make_local_mesh(device="cpu")
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [None, 4])
+def test_one_rank_decode_is_bit_for_bit(one_rank_mesh, window, dtype):
+    """At (1, 1) no kv head is split (``_split_in_head`` is False): the
+    outputs and caches equal ``mesh=None``'s bit for bit."""
+    cfg, w, xs, smax = _setup(window, dtype, seed=1)
+    want, wk, wv = _decode(cfg, w, xs, smax)
+    cspec = P("data", None, "model")
+    got, gk, gv = _decode(cfg, w, xs, smax, one_rank_mesh, cspec)
+    assert not attention._split_in_head(gk, one_rank_mesh, cfg.n_kv_heads)
+    for g, o in zip(got, want):
+        assert torch.equal(g.full_tensor(), o)
+    assert torch.equal(gk.full_tensor(), wk)
+    assert torch.equal(gv.full_tensor(), wv)
+
+
+# -- the dry-run -------------------------------------------------------------------
+
+def _trace(cfg, shape, mesh_shape, monkeypatch):
+    """The port's cell on a fake mesh -> (traced, split-head core calls)."""
+    calls = []
+    split = attention._decode_on_split_heads
+
+    def counted(*a, **k):
+        calls.append(1)
+        return split(*a, **k)
+
+    monkeypatch.setattr(attention, "_decode_on_split_heads", counted)
+    return D.trace_cell(cfg, shape, mesh_shape), len(calls)
+
+
+def _cache_sites(traced, B_l, smax, kv_shard, where="models/attention.py"):
+    """No all-gather at the old group core's entry (``_on_kv_groups``), and
+    each all-gather site whose frames name ``where`` moves (per call) less
+    than one rank's (B_l, smax, kv_shard) bf16 cache shard."""
+    gathers = [s for s in traced["sites"] if s["op"] == "all-gather"]
+    assert not [s for s in gathers if "_on_kv_groups" in s["site"]], gathers
+    for s in gathers:
+        if where in s["site"]:
+            assert s["wire_bytes"] / s["count"] < B_l * smax * kv_shard * 2, s
+
+
+# (arch, fake mesh): 2 kv heads of the smoke configs over model 4, whisper's
+# 4 decoder heads over model 8
+SPLIT_CASES = (("mixtral-8x7b", (2, 4)), ("granite-moe-3b-a800m", (2, 4)),
+               ("h2o-danube-3-4b", (2, 4)), ("whisper-base", (2, 8)))
+
+
+@pytest.mark.parametrize("arch,mesh_shape", SPLIT_CASES,
+                         ids=[c[0] for c in SPLIT_CASES])
+def test_families_take_the_split_head_core(arch, mesh_shape, monkeypatch):
+    """A decode step of each family whose kv heads the model axis splits
+    (smoke configs, a fake mesh) runs the split-head core in every layer
+    and gathers no cache shard at the attention."""
+    cfg = get_config(arch).smoke()
+    tp = mesh_shape[1]
+    assert cfg.n_kv_heads % tp and tp % cfg.n_kv_heads == 0
+    shape = ShapeConfig("decode_64", 64, 8, "decode")
+    traced, calls = _trace(cfg, shape, mesh_shape, monkeypatch)
+    assert calls == cfg.n_layers, calls
+    # at smoke width a cache shard is smaller than the projections' small
+    # gathers: hold the core's own sites to it
+    _cache_sites(traced, shape.global_batch // mesh_shape[0],
+                 attention.cache_size(cfg, shape.seq_len), cfg.kv_dim // tp,
+                 where="_decode_on_split_heads")
+
+
+def test_hymba_keeps_the_group_core_on_model_16(monkeypatch):
+    """hymba-1.5b's 5 kv heads over model 16: 20-value shards cross head
+    boundaries, so its long-context decode keeps the other cores."""
+    cfg = dataclasses.replace(get_config("hymba-1.5b"), n_layers=1)
+    _, calls = _trace(cfg, get_shape("long_500k"), (16, 16), monkeypatch)
+    assert calls == 0
+
+
+@pytest.fixture(scope="module")
+def reference_dryrun():
+    """The reference's mixtral decode_32k cut to 2 layers on the 2x16x16
+    mesh, compiled in a subprocess started when the first test asks."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+               JAX_PLATFORMS="cpu")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(REPO, "scripts", "dryrun_parity.py"),
+         "--reference-only", "--layers", str(DRY_LAYERS), "--multi-pod",
+         "--cell=mixtral-8x7b:decode_32k"],
+        env=env, text=True, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    result = {}
+
+    def get():
+        if not result:
+            out, err = proc.communicate(timeout=300)
+            lines = [ln for ln in out.splitlines() if ln.startswith("REF ")]
+            assert proc.returncode == 0 and lines, err[-4000:]
+            result.update(json.loads(lines[-1][4:]))
+        return result
+
+    yield get
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def test_mixtral_decode_gathers_at_most_the_reference(reference_dryrun,
+                                                      monkeypatch):
+    """mixtral-8x7b decode_32k at 2 layers on a fake (2, 16, 16) mesh: the
+    split-head core in both layers; all-gather wire bytes a rank at most
+    the reference's and all wire bytes at most twice its; no all-gather at
+    the attention moves a cache shard; each layer's score all-reduce spans
+    the 2 ranks of one kv head."""
+    groups = []
+    add = tr.CollectiveStats.add
+
+    def recording(self, op, size, ranks):
+        if op == "all-reduce":
+            groups.append(len(ranks))
+        return add(self, op, size, ranks)
+
+    monkeypatch.setattr(tr.CollectiveStats, "add", recording)
+    cfg = dataclasses.replace(get_config("mixtral-8x7b"), n_layers=DRY_LAYERS)
+    shape = get_shape("decode_32k")
+    traced, calls = _trace(cfg, shape, (2, 16, 16), monkeypatch)
+    assert calls == DRY_LAYERS
+    assert groups.count(2) >= DRY_LAYERS, groups
+    coll = traced["collective"]
+    ref = reference_dryrun()["mixtral-8x7b"]
+    got = coll.bytes_by_op.get("all-gather", 0.0)
+    assert got <= ref["all_gather"], (got, ref)
+    assert coll.wire_bytes <= 2 * ref["wire_bytes"], (coll.wire_bytes, ref)
+    _cache_sites(traced, shape.global_batch // 32,
+                 attention.cache_size(cfg, shape.seq_len), cfg.kv_dim // 16)
