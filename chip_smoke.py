@@ -219,23 +219,26 @@ Phases, each of which raises (and exits non-zero) on failure:
       in a process of its own (``--dryrun JOB``; the fake process group
       is that process's default group), all started together: the
       counters' known answers (a sharded MLP's 2^38 FLOPs a rank on a fake
-      (16, 16) mesh, one all-reduce's ring wire bytes); four production
-      cells through ``launch.dryrun.run_cell`` (qwen1.5-0.5b x train_4k
-      and mamba2-1.3b x prefill_32k and hymba-1.5b x long_500k on 16x16,
-      mixtral-8x7b x decode_32k on 2x16x16), each report's line with
-      ``trace_s`` and its collective counts by op, its per-rank peak,
-      all-gather and all wire bytes beside the port's before its Mamba-2
-      conv and split-head decode core ran on each rank's own shards and
-      the reference's dry-run (``DRYRUN_BEFORE``, ``DRYRUN_REFERENCE``),
-      and the sites of its largest collectives; and, on a one-rank fake
+      (16, 16) mesh, one all-reduce's ring wire bytes); five production
+      cells through ``launch.dryrun.run_cell`` (qwen1.5-0.5b x train_4k,
+      mamba2-1.3b x prefill_32k, hymba-1.5b x long_500k and hymba-1.5b x
+      train_4k on 16x16, mixtral-8x7b x decode_32k on 2x16x16), each
+      report's line with ``trace_s`` and its collective counts by op, its
+      per-rank peak, all-gather and all wire bytes beside the port's
+      before its SSD heads were padded over 'model' and the reference's
+      dry-run (``DRYRUN_BEFORE``, ``DRYRUN_REFERENCE``), and the sites of
+      its largest collectives; hymba's train_4k (50 SSD heads, padded to
+      64) must give every model rank 4 heads and gather no x activation
+      in ``models/ssm.py``; and, on a one-rank fake
       mesh, phase q's train step and the mamba2 bf16 prefill, their
       roofline ``step_s`` and bound beside the seconds this run measured
       for them and ``model_flops / (measured_s * 989e12)``, the measured
       share of the bf16 peak.  It fails if a job fails, a cell counts no
       collective, a term is not finite, qwen1.5-0.5b x train_4k's peak a
       rank exceeds the card's memory, mamba2's prefill_32k or mixtral's
-      decode_32k all-gathers more than the reference a rank, or mixtral's
-      wire bytes a rank exceed 250 MB;
+      decode_32k all-gathers more than the reference a rank, mixtral's
+      wire bytes a rank exceed 250 MB, or hymba's train_4k fails its
+      head or gather gate;
 6. times — each kernel and mode, its plain version and the nearest PyTorch
    library call at the main paths' batch-8 shapes: device time per call
    from the profiler's CUDA activity (and the per-call time of back-to-back
@@ -3082,23 +3085,32 @@ def spmd_path(card: str = "", device: str = "cuda", prefill_cfg=None,
 DRYRUN_CELLS = (("qwen1.5-0.5b", "train_4k", False),
                 ("mamba2-1.3b", "prefill_32k", False),
                 ("mixtral-8x7b", "decode_32k", True),
-                ("hymba-1.5b", "long_500k", False))
+                ("hymba-1.5b", "long_500k", False),
+                ("hymba-1.5b", "train_4k", False))
 DRYRUN_TIMEOUT_S = 900
 # Per rank, for each of DRYRUN_CELLS: (peak bytes, all-gather wire bytes,
-# all wire bytes) of the port before its Mamba-2 conv and its split-head
-# decode core ran on each rank's own shards (phase t on the card, torch
-# 2.11), and (argument + temp bytes, all-gather wire bytes) of the
-# reference's dry-run, ``repro.launch.dryrun.run_cell`` (XLA's CPU-backend
-# buffer assignment, computed on a host CPU, not a device figure), printed
-# beside this run's.
-DRYRUN_BEFORE = {"qwen1.5-0.5b train_4k": (8.558e9, 3251.3e6, 45.67e9),
-                 "mamba2-1.3b prefill_32k": (6.196e9, 25670.7e6, 50.36e9),
-                 "mixtral-8x7b decode_32k": (10.270e9, 2014.7e6, 2.019e9),
-                 "hymba-1.5b long_500k": (0.239e9, 19.9e6, 0.0205e9)}
+# all wire bytes) of the port before its SSD heads were padded over
+# 'model' (phase t on the card, torch 2.11; None where that trace raised:
+# hymba's train_4k, whose backward DTensor refused to view on uneven head
+# shards), and (argument + temp bytes,
+# all-gather wire bytes) of the reference's dry-run at full depth
+# (``repro.launch.dryrun``, ``scripts/dryrun_parity.py --reference-only
+# --layers 0`` for the first four, ``--layers 32`` for hymba's train_4k:
+# XLA's CPU-backend buffer assignment, computed on a host CPU, not a
+# device figure), printed beside this run's.
+DRYRUN_BEFORE = {"qwen1.5-0.5b train_4k": (8.558e9, 3251.3e6, 45.6656e9),
+                 "mamba2-1.3b prefill_32k": (2.771e9, 1513.7e6, 26.1998e9),
+                 "mixtral-8x7b decode_32k": (6.243e9, 2.5e6, 0.0148e9),
+                 "hymba-1.5b long_500k": (0.239e9, 19.7e6, 0.0203e9),
+                 "hymba-1.5b train_4k": None}
 DRYRUN_REFERENCE = {"qwen1.5-0.5b train_4k": (14.55e9, 58.1e6),
                     "mamba2-1.3b prefill_32k": (1.73e9, 3019.9e6),
                     "mixtral-8x7b decode_32k": (18.30e9, 138.4e6),
-                    "hymba-1.5b long_500k": (0.60e9, 13.4e6)}
+                    "hymba-1.5b long_500k": (0.60e9, 13.4e6),
+                    "hymba-1.5b train_4k": (277.70e9, 68665.1e6)}
+# cells whose SSD heads the model axis does not divide: the heads a model
+# rank must scan once they are padded (hymba's 50 heads, 64 over 16 ranks)
+DRYRUN_PADDED_HEADS = {"hymba-1.5b train_4k": 4}
 DRYRUN_FIT_CELL = "qwen1.5-0.5b train_4k"    # must fit one card's memory
 # cells whose all-gather wire bytes a rank must not exceed the reference's
 DRYRUN_GATHER_CELLS = ("mamba2-1.3b prefill_32k", "mixtral-8x7b decode_32k")
@@ -3170,10 +3182,23 @@ def dryrun_job(job: str) -> dict:
                 "lower_s": traced["lower_s"], "trace_s": traced["trace_s"],
                 "ops": traced["ops"], "extra": extra}
     else:
+        from repro_torch.models import ssm
         arch, shape, multi_pod = job.split()
-        info = dryrun.run_cell(arch, shape, multi_pod=multi_pod == "1",
-                               out_dir=str(ROOT / "build" / "chip_smoke"
-                                           / "dryrun"))
+        heads, scan = [], ssm.ssd_chunked
+
+        def counted(x, *args, **kwargs):
+            # the SSD heads each scan runs on, on the traced rank
+            heads.append(x.shape[2])
+            return scan(x, *args, **kwargs)
+
+        ssm.ssd_chunked = counted
+        try:
+            info = dryrun.run_cell(arch, shape, multi_pod=multi_pod == "1",
+                                   out_dir=str(ROOT / "build" / "chip_smoke"
+                                               / "dryrun"), n_sites=None)
+        finally:
+            ssm.ssd_chunked = scan
+        info["ssd_local_heads"] = heads
     info["job"] = job
     info["launches"] = _read_counts()
     return info
@@ -3193,23 +3218,60 @@ def _finite_terms(name: str, r: dict) -> None:
             raise AssertionError(f"phase t {name}: {k} = {r[k]}")
 
 
+def _padded_heads_gate(name: str, r: dict, cfg, shape, mesh_shape,
+                       want: int) -> None:
+    """Phase t's gates on a cell whose SSD heads the model axis does not
+    divide: every model rank scans ``want`` heads (the padded layout, and
+    each scan the traced rank ran), and no all-gather site in
+    ``models/ssm.py`` moves, per call, as much as a rank's (B_l, S,
+    d_inner / tp) bf16 x activation."""
+    import math
+    from repro_torch.models.ssm import ssd_heads
+    tp = mesh_shape[-1]
+    per_rank = [ssd_heads(cfg.n_ssm_heads, tp) // tp] * tp
+    seen = r["ssd_local_heads"]
+    if per_rank != [want] * tp or set(seen) != {want}:
+        raise AssertionError(f"phase t {name}: SSD heads a model rank "
+                             f"{per_rank}, scans on the traced rank {seen}; "
+                             f"want {want} on each")
+    x_shard = (shape.global_batch // math.prod(mesh_shape[:-1])
+               * shape.seq_len * (cfg.d_inner // tp) * 2)
+    per_call = [(c["wire_bytes"] / c["count"], c)
+                for c in r["collective_sites"] if c["op"] == "all-gather"
+                and "models/ssm.py" in c["site"]]
+    largest = max((b for b, _ in per_call), default=0.0)
+    log(f"phase t {name}: {want} SSD heads on each of {tp} model ranks "
+        f"({len(seen)} scans on the traced rank); largest models/ssm.py "
+        f"all-gather a call {largest / 1e6:.2f} MB against a rank's x "
+        f"activation {x_shard / 1e6:.2f} MB")
+    over = [c for b, c in per_call if b >= x_shard]
+    if over:
+        raise AssertionError(f"phase t {name}: models/ssm.py all-gathers an "
+                             f"x activation: {over}")
+
+
 def dryrun_path(card: str, paths: list, capacity: int) -> dict:
     """Phase t: the dry-run (``repro_torch.launch.dryrun``) on fake meshes,
     each job in a process of its own (the fake process group is that
     process's default group), all started together: the counters' known
-    answers, the four :data:`DRYRUN_CELLS` on the 16x16 and 2x16x16 meshes
+    answers, the five :data:`DRYRUN_CELLS` on the 16x16 and 2x16x16 meshes
     (each cell's per-rank peak, all-gather and all wire bytes printed
     beside :data:`DRYRUN_BEFORE` and :data:`DRYRUN_REFERENCE`, with the
-    card's name and power limit), and the card's own
-    train step (phase q) and mamba2 prefill traced on a one-rank mesh,
-    whose roofline ``step_s`` is printed beside the seconds this run
-    measured for them and the measured share of the bf16 peak.  Fails if a
-    job fails, a cell's collective counts are empty, a term is not finite,
-    :data:`DRYRUN_FIT_CELL`'s peak a rank exceeds ``capacity`` bytes (the
-    card's memory), a cell of :data:`DRYRUN_GATHER_CELLS` all-gathers more
-    than the reference a rank or a cell's wire bytes a rank exceed its
-    :data:`DRYRUN_WIRE_BOUND`."""
+    card's name and power limit, and its largest collective sites), and
+    the card's own train step (phase q) and mamba2 prefill traced on a
+    one-rank mesh, whose roofline ``step_s`` is printed beside the seconds
+    this run measured for them and the measured share of the bf16 peak.
+    Fails if a job fails, a cell's collective counts are empty, a term is
+    not finite, :data:`DRYRUN_FIT_CELL`'s peak a rank exceeds ``capacity``
+    bytes (the card's memory), a cell of :data:`DRYRUN_GATHER_CELLS`
+    all-gathers more than the reference a rank, a cell's wire bytes a
+    rank exceed its :data:`DRYRUN_WIRE_BOUND`, or a cell of
+    :data:`DRYRUN_PADDED_HEADS` gives a model rank another SSD head count
+    or has an all-gather site in ``models/ssm.py`` that moves, per call,
+    as much as a rank's (B_l, S, d_inner / 16) bf16 x activation."""
     import statistics
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.launch.dryrun import N_SITES, PRODUCTION_MESHES
     from repro_torch.launch.roofline import PEAK_FLOPS_BF16
     t0 = time.perf_counter()
     out_dir = ROOT / "build" / "chip_smoke" / "dryrun"
@@ -3260,17 +3322,26 @@ def dryrun_path(card: str, paths: list, capacity: int) -> dict:
         key = f"{arch} {shape}"
         gathered = r["collective_bytes_by_op"].get("all-gather", 0.0)
         wire = r["collective_wire_bytes"]
-        (b_peak, b_ag, b_wire), (j_mem, j_ag) = DRYRUN_BEFORE[key], \
-            DRYRUN_REFERENCE[key]
+        j_mem, j_ag = DRYRUN_REFERENCE[key]
+        b_peak, b_ag, b_wire = (
+            (f"{v / u:.{d}f} {n}" for v, u, d, n in zip(
+                DRYRUN_BEFORE[key], (1e9, 1e6, 1e9), (3, 1, 4),
+                ("GB", "MB", "GB")))
+            if DRYRUN_BEFORE[key] else ["the trace raised"] * 3)
         log(f"phase t {name} per rank [{card}]: peak "
-            f"{mem['peak_bytes'] / 1e9:.3f} GB (before {b_peak / 1e9:.3f} GB;"
+            f"{mem['peak_bytes'] / 1e9:.3f} GB (before {b_peak};"
             f" reference args + temps {j_mem / 1e9:.2f} GB, XLA's CPU buffer "
             f"assignment on a host), all-gather {gathered / 1e6:.1f} MB "
-            f"(before {b_ag / 1e6:.1f} MB; reference {j_ag / 1e6:.1f} MB), "
-            f"wire {wire / 1e9:.4f} GB (before {b_wire / 1e9:.4f} GB)")
+            f"(before {b_ag}; reference {j_ag / 1e6:.1f} MB), "
+            f"wire {wire / 1e9:.4f} GB (before {b_wire})")
         log(f"phase t {name} collective sites (count, wire MB): " + "; ".join(
             f"{c['op']} at {c['site']} ({c['count']}, "
-            f"{c['wire_bytes'] / 1e6:.2f})" for c in r["collective_sites"]))
+            f"{c['wire_bytes'] / 1e6:.2f})"
+            for c in r["collective_sites"][:N_SITES]))
+        if key in DRYRUN_PADDED_HEADS:
+            _padded_heads_gate(name, r, get_config(arch), get_shape(shape),
+                               PRODUCTION_MESHES[r["mesh"]],
+                               DRYRUN_PADDED_HEADS[key])
         if key == DRYRUN_FIT_CELL and mem["peak_bytes"] > capacity:
             raise AssertionError(f"phase t {name}: peak {mem['peak_bytes']} "
                                  f"B a rank over the card's {capacity} B")

@@ -18,7 +18,8 @@ the reference minutes and several GB).
 Prints one line a figure and a last JSON line ``{"reference": {...},
 "port": {...}}``.  ``--reference-only`` prints the reference's JSON line
 alone (``REF {...}``) for one or more ``--cell arch:shape``, as
-``tests/test_torch_head_sharding.py`` reads it.  Needs jax for the
+``tests/test_torch_head_sharding.py`` reads it; ``--port-only`` the
+port's (``PORT {...}``) for ``--arch``/``--shape``.  Needs jax for the
 reference; the port's half needs torch only.
 """
 from __future__ import annotations
@@ -103,6 +104,7 @@ def main(argv=None) -> int:
     ap.add_argument("--layers", type=int, default=2)
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--reference-only", action="store_true")
+    ap.add_argument("--port-only", action="store_true")
     ap.add_argument("--cell", action="append", default=[],
                     help="arch:shape (with --reference-only)")
     args = ap.parse_args(argv)
@@ -113,6 +115,10 @@ def main(argv=None) -> int:
                                                   args.multi_pod)))
         return 0
     sys.path.insert(0, SRC)
+    if args.port_only:
+        print("PORT " + json.dumps(port_cell(args.arch, args.shape,
+                                             args.layers, args.multi_pod)))
+        return 0
     ref = reference_in_subprocess([(args.arch, args.shape)], args.layers,
                                   args.multi_pod)[args.arch]
     port = port_cell(args.arch, args.shape, args.layers, args.multi_pod)

@@ -258,8 +258,8 @@ class StepCounter:
             entry[0] += 1
             entry[1] += wire_bytes(op, size, len(ranks))
 
-    def top_sites(self, n: int = N_SITES) -> List[Dict]:
-        """The ``n`` sites with the most wire bytes."""
+    def top_sites(self, n: Optional[int] = N_SITES) -> List[Dict]:
+        """The ``n`` sites with the most wire bytes (None: every site)."""
         top = sorted(self.sites.items(), key=lambda kv: -kv[1][1])[:n]
         return [{"op": op, "site": site, "count": c, "wire_bytes": w}
                 for (op, site), (c, w) in top]
@@ -523,12 +523,14 @@ def _build_step(cfg: ModelConfig, shape: ShapeConfig, mesh, *, remat: bool,
 def trace_cell(cfg: ModelConfig, shape: ShapeConfig,
                mesh_shape: Sequence[int], *, remat: bool = True,
                grad_compress: bool = False,
-               extra: Optional[Dict] = None) -> Dict:
+               extra: Optional[Dict] = None,
+               n_sites: Optional[int] = N_SITES) -> Dict:
     """Trace one step of ``cfg`` x ``shape`` on a fake mesh of
     ``mesh_shape`` under the counters.
-    -> {flops, bytes, collective (CollectiveStats), sites (the largest
-    :meth:`StepCounter.top_sites`), memory, lower_s, trace_s, ops}.  Nothing is allocated: the fake mode takes no real
-    tensor (``allow_non_fake_inputs=False``)."""
+    -> {flops, bytes, collective (CollectiveStats), sites (the
+    ``n_sites`` largest of :meth:`StepCounter.top_sites`, None: all),
+    memory, lower_s, trace_s, ops}.  Nothing is allocated: the fake mode
+    takes no real tensor (``allow_non_fake_inputs=False``)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from repro_torch.sharding import place_tree
     extra = extra or {}
@@ -548,7 +550,7 @@ def trace_cell(cfg: ModelConfig, shape: ShapeConfig,
             trace_s = time.perf_counter() - t0
     return {"flops": counter.flops, "bytes": counter.bytes,
             "collective": counter.collective,
-            "sites": counter.top_sites(), "memory": memory,
+            "sites": counter.top_sites(n_sites), "memory": memory,
             "ops": counter.ops, "lower_s": lower_s, "trace_s": trace_s}
 
 
@@ -572,16 +574,19 @@ def cell_path(out_dir: str, arch: str, shape_name: str, mesh_name: str,
 def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
              remat: bool = True, grad_compress: bool = False,
              extra: Optional[Dict] = None, out_dir: str = ARTIFACT_DIR,
-             tag: str = "", verbose: bool = True) -> Dict:
+             tag: str = "", verbose: bool = True,
+             n_sites: Optional[int] = N_SITES) -> Dict:
     """Trace one cell on the production mesh (``PRODUCTION_MESHES``) and
-    write its report."""
+    write its report (``collective_sites``: the ``n_sites`` largest, None:
+    all)."""
     cfg = get_config(arch)
     shape = get_shape(shape_name)
     mesh_name = "2x16x16" if multi_pod else "16x16"
     mesh_shape = PRODUCTION_MESHES[mesh_name]
     chips = math.prod(mesh_shape)
     traced = trace_cell(cfg, shape, mesh_shape, remat=remat,
-                        grad_compress=grad_compress, extra=extra)
+                        grad_compress=grad_compress, extra=extra,
+                        n_sites=n_sites)
     rep = report_for(arch, shape, mesh_name, chips, traced, cfg)
     mem = traced["memory"]
     coll = traced["collective"]

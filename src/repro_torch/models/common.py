@@ -2,14 +2,21 @@
 counterpart of ``repro.models.common``), as plain tensor functions."""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
 
-def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,
+            n: Optional[int] = None) -> torch.Tensor:
+    """RMS norm over the last dim; ``n``: the mean is over its first ``n``
+    channels, the rest being zeros (heads padded onto a mesh)."""
     dt = x.dtype
     x = x.to(torch.float32)
-    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    ms = (torch.mean(x * x, dim=-1, keepdim=True) if n is None
+          else torch.sum(x * x, dim=-1, keepdim=True) / n)
+    x = x * torch.rsqrt(ms + eps)
     return (x * w.to(torch.float32)).to(dt)
 
 

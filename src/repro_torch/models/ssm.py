@@ -14,7 +14,11 @@ depthwise conv runs on each rank's own channels, the x part apart from
 the B/C part (:func:`_conv_channels`), and the scan runs on each rank's
 local heads and batch rows under :func:`repro_torch.sharding.shard_map`
 (``local_map``): the scan kernel's ``ctypes`` launches never see a
-DTensor.
+DTensor.  Where the model axis does not divide the SSD heads,
+:func:`ssm_block` pads them with zero heads to a multiple of it
+(:func:`ssd_heads`, :func:`_pad_heads`), as the reference pads uneven
+head counts on 'model': every rank then holds the same number of whole
+heads.
 """
 from __future__ import annotations
 
@@ -28,7 +32,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike
 from repro_torch.models.common import rmsnorm
 from repro_torch.sharding import (P, batch_axes, constrain, dp_size,
-                                  heads_view, shard_map, tp_size)
+                                  gather_axis, heads_view, shard_map,
+                                  tp_size)
 
 
 class SSMLayerParams(NamedTuple):
@@ -94,29 +99,44 @@ def _conv_state(u, state, K: int):
     return torch.cat([prev, u], dim=1)[:, -(K - 1):, :]
 
 
+def _zero_pad(t, dim: int, n: int, mesh, spec=None):
+    """``t`` with ``n`` zeros appended along ``dim``, laid out as ``spec``
+    if given.  A DTensor is made whole over 'model' first (a weight or a
+    state: DTensor cannot append to an uneven or a misaligned shard)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(t, DTensor):
+        t = gather_axis(t, mesh, "model")
+    shape = list(t.shape)
+    shape[dim] = n
+    out = torch.cat([t, t.new_zeros(shape)], dim=dim)
+    return out if spec is None else constrain(out, mesh, spec)
+
+
 def _conv_channels(xv, bc, w, state, cfg: ModelConfig, mesh):
-    """:func:`_causal_conv` of the x channels ``xv`` (B, S, d_inner) and
-    the B/C channels ``bc`` (B, S, 2*G*N) with the (K, conv_dim) weight
-    ``w``.  ``state``: (B, K-1, conv_dim) or None.  Returns (x part, B/C
-    part, new state (B, K-1, conv_dim)).  Without a mesh, one conv over
-    their concatenation.  On a mesh the two parts run apart, each with its
+    """:func:`_causal_conv` of the x channels ``xv`` (B, S, d_inner, or
+    Hp * d_head with zero heads padded after the real ones) and the B/C
+    channels ``bc`` (B, S, 2*G*N) with the (K, conv_dim) weight ``w``.
+    ``state``: (B, K-1, conv_dim) or None.  Returns (x part, B/C part, new
+    state (B, K-1, conv_dim)).  Without a mesh, one conv over their
+    concatenation.  On a mesh the two parts run apart, each with its
     columns of ``w`` (the conv is per channel, so the numbers are the
     same), and no (B, S, .) activation is gathered for the conv:
 
-    * SSD heads that divide the model axis (mamba2): the x channels stay on
-      the model-sharded layout of ``w_x``'s product, through the conv to
-      the scan.  The weight's shards (conv_dim / tp columns a rank) cross
-      d_inner, so the (K, conv_dim) weight is gathered (a few KB) and
-      ``shard_map`` cuts its x columns to the x part's layout.  The B/C
-      channels (2*G*N, small) are whole on each model rank, as
-      :func:`_scan_on_shards` takes them.
-    * Heads that do not divide it (hymba at model 16): the scan and
-      ``heads_view`` take x whole on each model rank, so x and B/C are
-      made whole first and the conv runs on the weight's own shards, its
-      output made whole after; the weight never moves.
+    * x on whole heads that divide the model axis (mamba2; hymba's
+      prefill, its heads padded): the x channels stay on the model-sharded
+      layout of ``w_x``'s product, through the conv to the scan.  The
+      weight's shards (conv_dim / tp columns a rank) cross d_inner, so the
+      (K, conv_dim) weight is gathered (a few KB) and ``shard_map`` cuts
+      its x columns, zero-padded to ``xv``'s width, to the x part's
+      layout.  The B/C channels (2*G*N, small) are whole on each model
+      rank, as :func:`_scan_on_shards` takes them.
+    * Heads that do not divide it (hymba's one-token decode at model 16):
+      x and B/C are made whole first and the conv runs on the weight's
+      own shards, its output made whole after; the weight never moves.
 
-    The new state is rejoined from the inputs' last K-1 steps, whole over
-    'model' as ``decode_state_sharding`` lays it out."""
+    The new state is rejoined from the inputs' last K-1 steps (the real
+    x channels), whole over 'model' as ``decode_state_sharding`` lays it
+    out."""
     di, K = cfg.d_inner, w.shape[0]
     if mesh is None:
         y, new_state = _causal_conv(torch.cat([xv, bc], dim=-1), w, state)
@@ -127,11 +147,16 @@ def _conv_channels(xv, bc, w, state, cfg: ModelConfig, mesh):
     bspec = batch_axes(mesh) if xv.shape[0] % dp_size(mesh) == 0 else None
     whole = P(bspec, None, None)
     bc = constrain(bc, mesh, whole)
-    if cfg.n_ssm_heads % tp == 0:
+    pad = xv.shape[-1] - di
+    if (xv.shape[-1] // cfg.ssm.d_head) % tp == 0:
         w = constrain(w, mesh, P(None, None))
-        yx = _conv_on_shards(mesh, xv, w[:, :di], sx, "model")
+        wx = w[:, :di]
+        if pad:
+            wx = _zero_pad(wx, -1, pad, mesh)
+            sx = None if sx is None else _zero_pad(sx, -1, pad, mesh)
+        yx = _conv_on_shards(mesh, xv, wx, sx, "model")
         ybc = _conv_on_shards(mesh, bc, w[:, di:], sbc, None)
-        u = torch.cat([constrain(xv[:, -(K - 1):], mesh, whole),
+        u = torch.cat([constrain(xv[:, -(K - 1):], mesh, whole)[..., :di],
                        bc[:, -(K - 1):]], dim=-1)
     else:
         u = torch.cat([constrain(xv, mesh, whole), bc], dim=-1)
@@ -244,31 +269,68 @@ def _constrain_inner(t, mesh):
     return constrain(t, mesh, spec)
 
 
-def _scan_on_shards(scan, mesh, xh, dt, A, Bm, C, D, chunk, init):
+def ssd_heads(n_heads: int, tp: int) -> int:
+    """The SSD heads the scan runs on over ``tp`` model ranks: ``n_heads``
+    padded with zero heads to a multiple of ``tp`` (the reference pads
+    uneven head counts on 'model'), so each rank holds ``ssd_heads / tp``
+    whole heads, at least one."""
+    return -(-n_heads // tp) * tp
+
+
+def _pad_heads(p: SSMLayerParams, cfg: ModelConfig, Hp: int,
+               mesh) -> SSMLayerParams:
+    """``p`` with ``Hp - H`` zero heads after the ``H`` real ones in every
+    head-indexed leaf but the conv (which :func:`_conv_channels` pads where
+    its weight lies whole): the columns of ``w_z``, ``w_x`` and ``w_dt``,
+    ``A_log``, ``D``, ``dt_bias``, ``norm_w`` and the rows of ``w_out``,
+    each on even, head-aligned model shards.  The leaves are padded inside
+    the forward from their stored layouts (a few MB a layer move where a
+    (B, S, d_inner) activation would), so gradients reach them through the
+    pad.  A padded head sees x = 0 and D = 0: its output and its state are
+    zero, and it adds zeros to the out-projection's partial sums."""
+    n = Hp - cfg.n_ssm_heads
+    nc = n * cfg.ssm.d_head
+    cols, rows, heads = P(None, "model"), P("model", None), P("model")
+    return p._replace(
+        w_z=_zero_pad(p.w_z, -1, nc, mesh, cols),
+        w_x=_zero_pad(p.w_x, -1, nc, mesh, cols),
+        w_dt=_zero_pad(p.w_dt, -1, n, mesh, cols),
+        A_log=_zero_pad(p.A_log, 0, n, mesh, heads),
+        D=_zero_pad(p.D, 0, n, mesh, heads),
+        dt_bias=_zero_pad(p.dt_bias, 0, n, mesh, heads),
+        norm_w=_zero_pad(p.norm_w, 0, nc, mesh, heads),
+        w_out=_zero_pad(p.w_out, 0, nc, mesh, rows))
+
+
+def _scan_on_shards(scan, mesh, xh, dt, A, Bm, C, D, chunk, init,
+                    n_heads: int):
     """``scan`` on each rank's local heads and batch rows (the reference's
     Pallas call under ``jit`` on a mesh): x/dt/init sharded on heads over
     'model' and on the batch over the data axes when they divide it, A/D on
     heads, Bm/C (one group in every config) whole on each model rank.
-    Uneven head counts split as ``torch.chunk`` does; the scan is per head,
-    so each head's values are those of the one-device scan."""
+    The model axis divides the heads (padded by :func:`ssd_heads` where
+    the model's do not divide it); the scan is per head, so each head's
+    values are those of the one-device scan.  The final state keeps the
+    ``n_heads`` real heads, split over 'model' as ``torch.chunk`` splits
+    them: each rank drops its padded heads' (zero) states."""
     Bsz, S, H, Pd = xh.shape
     N = Bm.shape[-1]
     bspec = batch_axes(mesh) if Bsz % dp_size(mesh) == 0 else None
     heads = P(bspec, None, "model", None)
     state = P(bspec, "model", None, None)
+    local = H // tp_size(mesh)
+    keep = min(local, max(0, n_heads - mesh.get_local_rank("model") * local))
 
     def body(x, dt, A, Bm, C, D, init):
-        if x.shape[2] == 0:      # a rank past the last head holds none
-            return (x.new_empty(x.shape),
-                    x.new_empty((x.shape[0], 0, Pd, N), dtype=torch.float32))
-        return scan(x, dt, A, Bm, C, D, chunk, init)
+        y, st = scan(x, dt, A, Bm, C, D, chunk, init)
+        return y, st[:, :keep]
 
     fn = shard_map(body, mesh,
                    (heads, P(bspec, None, "model"), P("model"),
                     P(bspec, None, None, None), P(bspec, None, None, None),
                     P("model"), None if init is None else state),
                    [heads, state],
-                   out_shapes=[(Bsz, S, H, Pd), (Bsz, H, Pd, N)])
+                   out_shapes=[None, (Bsz, n_heads, Pd, N)])
     return fn(xh, dt, A, Bm, C, D, init)
 
 
@@ -283,10 +345,16 @@ def ssm_block(x: torch.Tensor, p: SSMLayerParams, cfg: ModelConfig,
     writer).  ``True`` takes the kernel's entry point on any device (on the
     CPU that is the kernel's plain version), ``False`` the oracle.
     ``mesh``: the device mesh x and p lie on as DTensors; the scan then
-    runs on each rank's local shards."""
+    runs on each rank's local shards, on :func:`ssd_heads` heads (the
+    real ones and, where the model axis does not divide them, zero heads
+    padded after them, :func:`_pad_heads`).  The final state holds the
+    real heads."""
     s = cfg.ssm
     B, S, _ = x.shape
     H, Pd = cfg.n_ssm_heads, s.d_head
+    Hp = H if mesh is None else ssd_heads(H, tp_size(mesh))
+    if Hp != H:
+        p = _pad_heads(p, cfg, Hp, mesh)
     z, xv, bc, dt = _project_in(x, p)
     xi, BC, conv_state = _conv_channels(
         xv, bc, p.conv, None if state is None else state.conv, cfg, mesh)
@@ -297,7 +365,7 @@ def ssm_block(x: torch.Tensor, p: SSMLayerParams, cfg: ModelConfig,
     Cm = BC[..., gn:].reshape(B, S, s.n_groups, s.d_state)
     dt = F.softplus(dt.to(torch.float32) + p.dt_bias)
     A = -torch.exp(p.A_log)
-    xh = heads_view(xi, (B, S, H, Pd), H, mesh)
+    xh = xi.reshape(B, S, Hp, Pd)       # whole heads on each model rank
     if mesh is not None and perf.FLAGS.ssd_constraint:
         # pin the SSD head layout so the chunked scan is never resharded or
         # partial-summed across ranks
@@ -307,6 +375,8 @@ def ssm_block(x: torch.Tensor, p: SSMLayerParams, cfg: ModelConfig,
     if use_kernel is None:
         use_kernel = x.is_cuda
     init = None if state is None else state.ssd
+    if init is not None and Hp != H:
+        init = _zero_pad(init, 1, Hp - H, mesh)
     if use_kernel:
         from repro_torch.kernels.ssd_scan.ops import ssd_chunked_kernel
         scan = ssd_chunked_kernel
@@ -314,12 +384,20 @@ def ssm_block(x: torch.Tensor, p: SSMLayerParams, cfg: ModelConfig,
         scan = ssd_chunked
     if mesh is not None:
         y, ssd_state = _scan_on_shards(scan, mesh, xh, dt, A, Bm, Cm, p.D,
-                                       s.chunk, init)
+                                       s.chunk, init, H)
     else:
         y, ssd_state = scan(xh, dt, A, Bm, Cm, p.D, s.chunk, init)
-    y = heads_view(y, (B, S, cfg.d_inner), H, mesh)
-    y = rmsnorm(y * F.silu(z.to(torch.float32)).to(y.dtype), p.norm_w)
+    y = y.reshape(B, S, Hp * Pd)
+    # the mean over the d_inner real channels (the padded ones are zeros)
+    y = rmsnorm(y * F.silu(z.to(torch.float32)).to(y.dtype), p.norm_w,
+                n=None if Hp == H else cfg.d_inner)
     out = torch.matmul(y, p.w_out)
+    if Hp != H and cfg.d_inner % tp_size(mesh):
+        # w_out's rule leaves it whole here, so its product is whole too:
+        # the padded rows' partial sums are reduced here, where DTensor
+        # could split the batch rows unevenly over 'model'
+        bspec = batch_axes(mesh) if B % dp_size(mesh) == 0 else None
+        out = constrain(out, mesh, P(bspec, None, None))
     return out, SSMState(ssd=ssd_state, conv=conv_state)
 
 

@@ -462,7 +462,7 @@ def test_ssm_prefill_on_mesh_matches_one_device(tmp_path, arch):
     parameters placed by ``param_sharding``) == the one-device prefill
     within 1e-5 of its max |logit|.  Three model ranks do not divide the 8
     SSD heads (nor hymba's 4 attention and 2 kv heads): the scan runs on
-    uneven local head shards, as ``torch.chunk`` cuts them.  Then one
+    the heads padded to 9, 3 a rank.  Then one
     ``make_decode_step(mesh=)`` from a state placed by
     ``decode_state_shardings``: logits and the new state within 1e-5 of
     the one-device step's."""

@@ -2,26 +2,34 @@
 the reference and the reference's dry-run.
 
 ``ssm_block`` and ``ssm_decode`` convolve the x channels and the B/C
-channels apart (``ssm._conv_channels``): where the SSD heads divide the
-model axis the x channels stay on ``w_x``'s model-sharded layout from the
-projection to the scan, and no (B, S, .) activation is gathered for the
-conv.  Three small f32 configs whose conv weight's shard boundaries (160
-channels, 40 a rank on model 4) do not fall on d_inner = 128: mamba2's
-smoke config (8 heads, on shards), the same 80 wide (10 heads that
-model 4 does not divide, 3, 3, 3 and 1 a rank: the conv runs on the
-weight's own shards, 48 of 192 channels a rank against d_inner = 160)
-and hymba's (the SSM half beside attention).  On 2x4 gloo ranks (the
-helpers of ``test_torch_distributed.py``) the prefill, six decode steps
-and the loss and gradients of the train step equal ``mesh=None``'s
-within 1e-5 of each max |value|, the conv states too and the first
-layer's bit for bit (a copy of inputs that later layers receive with the
-partial sums of the layers before reordered); the prefill also equals the reference's within 1e-5 of its max |logit| (the
-LM tests' f32 tolerance), the weights carried over by ``params_from_jax``.
-On a one-rank mesh every one of them is ``mesh=None``'s bit for bit
-(``mesh=None`` convolves the two parts as one, as before).
+channels apart (``ssm._conv_channels``): the x channels stay on ``w_x``'s
+model-sharded layout from the projection to the scan, and no (B, S, .)
+activation is gathered for the conv.  Where the model axis does not
+divide the SSD heads, ``ssm_block`` pads them with zero heads to a
+multiple of it (``ssm.ssd_heads``, ``ssm._pad_heads``), as the reference
+does.  Five small f32 configs whose conv weight's shard boundaries do not
+fall on d_inner: mamba2's smoke config (8 heads on model 4, 160 conv
+channels, 40 a rank against d_inner = 128), the same 80 wide (10 heads,
+padded to 12: 3 a rank), the same with heads of 64 (2 heads, padded to
+4: one a rank, where unpadded ranks 2 and 3 would hold none), hymba's
+(the SSM half beside attention, 8 heads) and hymba's 80 wide (10 heads).
+On 2x4 gloo ranks (the helpers of ``test_torch_distributed.py``) the
+prefill, six decode steps and the loss and gradients of the train step
+equal ``mesh=None``'s within 1e-5 of each max |value|, the conv states
+too and the first layer's bit for bit (a copy of inputs that later
+layers receive with the partial sums of the layers before reordered);
+the prefill also equals the reference's within 1e-5 of its max |logit|
+(the LM tests' f32 tolerance), the weights carried over by
+``params_from_jax``.  On a one-rank mesh every one of them is
+``mesh=None``'s bit for bit (``mesh=None`` convolves the two parts as
+one, as before; one rank pads no head).  The padding alone, for 2, 10
+and 50 heads over 4 and 16 ranks: at least one head a rank, zero outputs
+and states in the padded heads, the real heads' block output that of the
+unpadded block.
 
-The dry-run: mamba2-1.3b prefill_32k cut to 2 layers on a fake (16, 16)
-mesh all-gathers at most the reference's bytes a rank
+The dry-run, per rank on a fake (16, 16) mesh, cut to 2 layers:
+mamba2-1.3b prefill_32k and hymba-1.5b train_4k (50 heads padded to 64)
+all-gather at most the reference's bytes a rank
 (``scripts/dryrun_parity.py --reference-only`` in a subprocess), and no
 all-gather site in ``models/ssm.py`` moves as much as one rank's (B_l, S,
 d_inner / 16) bf16 x activation.
@@ -48,29 +56,42 @@ from repro_torch.configs import get_config, get_shape
 from repro_torch.launch import dryrun as D
 from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models import ssm
+from repro_torch.models.common import rmsnorm
 from repro_torch.models.params import params_from_jax
 
 from test_torch_distributed import REPO, _run_ranks
 
-# (case, arch, d_model or None for the smoke config's)
-CASES = (("mamba2", "mamba2-1.3b", None),
-         ("mamba2-uneven-heads", "mamba2-1.3b", 80),
-         ("hymba", "hymba-1.5b", None))
+# (case, arch, d_model or None for the smoke config's, SSD head width or
+# None for the smoke config's)
+CASES = (("mamba2", "mamba2-1.3b", None, None),
+         ("mamba2-uneven-heads", "mamba2-1.3b", 80, None),
+         ("mamba2-two-heads", "mamba2-1.3b", None, 64),
+         ("hymba", "hymba-1.5b", None, None),
+         ("hymba-uneven-heads", "hymba-1.5b", 80, None))
 B, S = 2, 64
 DRY_LAYERS = 2
+# the reference's dry-run cells the tests below hold the port's to
+DRY_CELLS = ("mamba2-1.3b:prefill_32k", "hymba-1.5b:train_4k")
 
 
-def _cfg(get, arch: str, d_model):
-    """The f32 smoke config, ``d_model`` wide if given."""
+def _cfg(get, arch: str, d_model, d_head=None):
+    """The f32 smoke config, ``d_model`` wide and with SSD heads
+    ``d_head`` wide if given."""
     import dataclasses
     c = dataclasses.replace(get(arch).smoke(), dtype="float32")
-    return c if d_model is None else dataclasses.replace(c, d_model=d_model)
+    if d_model is not None:
+        c = dataclasses.replace(c, d_model=d_model)
+    if d_head is not None:
+        c = dataclasses.replace(c, ssm=dataclasses.replace(c.ssm,
+                                                           d_head=d_head))
+    return c
 
 
-def _inputs(arch: str, d_model, seed: int = 0):
+def _inputs(arch: str, d_model, d_head=None, seed: int = 0):
     """(port config, port params carried from the reference's, tokens,
     labels, the reference's f32 logits)."""
-    jc, tc = _cfg(j_get_config, arch, d_model), _cfg(get_config, arch, d_model)
+    jc = _cfg(j_get_config, arch, d_model, d_head)
+    tc = _cfg(get_config, arch, d_model, d_head)
     jp = j_init(jc, jax.random.PRNGKey(seed), max_seq=S)
     params = params_from_jax({k: np.asarray(v) for k, v in jp.items()}, tc,
                              "cpu")
@@ -82,13 +103,12 @@ def _inputs(arch: str, d_model, seed: int = 0):
             torch.from_numpy(np.array(want)))
 
 
-def _run(params, toks, labels, cfg, mesh=None, train: bool = True):
+def _run(params, toks, labels, cfg, mesh=None):
     """-> (prefill logits, prefill conv states (L, B, K-1, conv_dim), the
-    decode steps' logits, the last decode state, and unless ``train`` is
-    False the loss and the gradients), the inputs
-    placed on ``mesh`` if given (the parameters by the sharding rules, the
-    decode state by ``decode_state_shardings``).  Self-contained: the rank
-    processes run its source."""
+    decode steps' logits, the last decode state, the loss and the
+    gradients), the inputs placed on ``mesh`` if given (the parameters by
+    the sharding rules, the decode state by ``decode_state_shardings``).
+    Self-contained: the rank processes run its source."""
     import torch
     from repro_torch.models import transformer
     from repro_torch.runtime import model_api, serve
@@ -114,8 +134,6 @@ def _run(params, toks, labels, cfg, mesh=None, train: bool = True):
             out, state = model_api.decode_step(
                 params, batch["tokens"][:, t:t + 1], state, cfg, mesh=mesh)
             steps.append(out)
-    if not train:
-        return logits, st.conv, steps, state, None, None
     with mesh_scope(mesh):          # as the train step runs it
         metrics, grads = _grads_of(params, batch, cfg, remat=False,
                                    mesh=mesh)
@@ -130,18 +148,18 @@ def _full(t):
 
 # -- 2x4 gloo ranks ---------------------------------------------------------------
 
-@pytest.mark.parametrize("case,arch,d_model", CASES,
+@pytest.mark.parametrize("case,arch,d_model,d_head", CASES,
                          ids=[c[0] for c in CASES])
-def test_ssm_on_2x4_ranks_matches_one_device(tmp_path, case, arch, d_model):
+def test_ssm_on_2x4_ranks_matches_one_device(tmp_path, case, arch, d_model,
+                                             d_head):
     """The mesh prefill, six decode steps and the train step's loss and
     gradients within 1e-5 of ``mesh=None``'s max |value|; the conv states
     (prefill and decode) too, the first layer's bit for bit; the prefill
     logits within 1e-5 of the reference's max |logit|."""
-    cfg, params, toks, labels, ref = _inputs(arch, d_model)
+    cfg, params, toks, labels, ref = _inputs(arch, d_model, d_head)
     conv_dim = cfg.d_inner + 2 * cfg.ssm.n_groups * cfg.ssm.d_state
     assert conv_dim % 4 == 0 and cfg.d_inner % (conv_dim // 4)
-    train = d_model is None
-    want = _run(params, toks, labels, cfg, train=train)
+    want = _run(params, toks, labels, cfg)
     err = float((want[0] - ref).abs().max())
     assert err <= 1e-5 * float(ref.abs().max()), err
     g = torch.Generator().manual_seed(5)
@@ -163,10 +181,9 @@ def test_ssm_on_2x4_ranks_matches_one_device(tmp_path, case, arch, d_model):
         from repro_torch.configs import get_config
         from repro_torch.launch.mesh import compat_make_mesh
         d = torch.load(os.path.join(DATA, "in.pt"), weights_only=False)
-        cfg = _cfg(get_config, {arch!r}, {d_model!r})
+        cfg = _cfg(get_config, {arch!r}, {d_model!r}, {d_head!r})
         mesh = compat_make_mesh((2, 4), ("data", "model"))
-        got = _run(d["params"], d["toks"], d["labels"], cfg, mesh,
-                   train={train!r})
+        got = _run(d["params"], d["toks"], d["labels"], cfg, mesh)
         want = d["want"]
 
         def close(g, w, what):
@@ -180,12 +197,11 @@ def test_ssm_on_2x4_ranks_matches_one_device(tmp_path, case, arch, d_model):
             close(g, w, ("decode", t))
         close(got[3].ssm_conv, want[3].ssm_conv, "decode conv state")
         close(got[3].ssm_ssd, want[3].ssm_ssd, "ssd state")
-        if {train!r}:
-            close(got[4], want[4], "loss")
-            for k, w in want[5].items():
-                g = _full(got[5][k])
-                err = float((g - w).abs().max())
-                assert err <= 1e-5 * float(w.abs().max()) + 1e-12, (k, err)
+        close(got[4], want[4], "loss")
+        for k, w in want[5].items():
+            g = _full(got[5][k])
+            err = float((g - w).abs().max())
+            assert err <= 1e-5 * float(w.abs().max()) + 1e-12, (k, err)
         # the conv alone, on the same inputs: its new state (a copy of its
         # inputs) is the one-device one bit for bit, its outputs within 1e-6
         # of their max (the CPU's vectorised silu rounds an element by its
@@ -224,12 +240,13 @@ def one_rank_mesh():
         dist.destroy_process_group()
 
 
-@pytest.mark.parametrize("case,arch,d_model", CASES,
+@pytest.mark.parametrize("case,arch,d_model,d_head", CASES,
                          ids=[c[0] for c in CASES])
-def test_ssm_on_one_rank_is_bit_for_bit(one_rank_mesh, case, arch, d_model):
+def test_ssm_on_one_rank_is_bit_for_bit(one_rank_mesh, case, arch, d_model,
+                                        d_head):
     """At (1, 1) the prefill, its conv states, the decode steps and state,
     and the loss and every gradient equal ``mesh=None``'s bit for bit."""
-    cfg, params, toks, labels, _ = _inputs(arch, d_model, seed=2)
+    cfg, params, toks, labels, _ = _inputs(arch, d_model, d_head, seed=2)
     want = _run(params, toks, labels, cfg)
     got = _run(params, toks, labels, cfg, one_rank_mesh)
     assert torch.equal(_full(got[0]), want[0])
@@ -258,33 +275,120 @@ def test_conv_state_is_the_convs_own(steps, with_state):
     assert torch.equal(ssm._conv_state(u, state, K), want)
 
 
+@pytest.mark.parametrize("tp", [4, 16])
+@pytest.mark.parametrize("n_heads", [2, 10, 50])
+def test_padded_heads_are_zero_and_leave_the_real_ones(n_heads, tp):
+    """``ssd_heads`` gives every one of ``tp`` model ranks the same number
+    of whole heads, at least one; ``_pad_heads`` appends zero heads to
+    every head-indexed leaf.  Through the block's steps (projections, the
+    x conv with its columns padded as ``_conv_channels`` pads them, the
+    scan, the gated norm over the d_inner real channels, the
+    out-projection) the padded heads' x, outputs and final states are
+    exactly zero, the real heads' outputs and states those of the
+    unpadded block within 1e-6 of their max, and the block's output too."""
+    Hp = ssm.ssd_heads(n_heads, tp)
+    assert Hp % tp == 0 and Hp // tp >= 1 and 0 <= Hp - n_heads < tp
+    Pd, N, K = 4, 8, 4
+    base = get_config("mamba2-1.3b").smoke()
+    cfg = dataclasses.replace(
+        base, dtype="float32", d_model=n_heads * Pd // 2,
+        ssm=dataclasses.replace(base.ssm, d_head=Pd, d_state=N, chunk=8,
+                                d_conv=K))
+    d, di, H = cfg.d_model, cfg.d_inner, n_heads
+    assert cfg.n_ssm_heads == H
+    g = torch.Generator().manual_seed(H * tp)
+
+    def rnd(*shape, scale=0.5):
+        return scale * torch.randn(*shape, generator=g)
+
+    p = ssm.SSMLayerParams(
+        w_z=rnd(d, di), w_x=rnd(d, di), w_bc=rnd(d, 2 * N), w_dt=rnd(d, H),
+        conv=rnd(K, di + 2 * N), A_log=rnd(H), D=rnd(H), dt_bias=rnd(H),
+        norm_w=1 + rnd(di), w_out=rnd(di, d))
+    pp = ssm._pad_heads(p, cfg, Hp, None)
+    pad = (Hp - H) * Pd
+    for name, dim, n in (("w_z", 1, di), ("w_x", 1, di), ("w_dt", 1, H),
+                         ("A_log", 0, H), ("D", 0, H), ("dt_bias", 0, H),
+                         ("norm_w", 0, di), ("w_out", 0, di)):
+        got, leaf = getattr(pp, name), getattr(p, name)
+        assert got.shape[dim] == n + (pad if n == di else Hp - H), name
+        assert torch.equal(got.narrow(dim, 0, n), leaf), name
+        assert not got.narrow(dim, n, got.shape[dim] - n).any(), name
+    x = rnd(2, 20, d, scale=1.0)
+
+    def block(q, heads, n_real):
+        """ssm_block's steps on ``heads`` heads, ``n_real`` of them real."""
+        z, xv, bc, dt = ssm._project_in(x, q)
+        wx = q.conv[:, :di]
+        if heads * Pd > di:
+            wx = ssm._zero_pad(wx, -1, heads * Pd - di, None)
+        xi = ssm._causal_conv(xv, wx)[0]
+        BC = ssm._causal_conv(bc, q.conv[:, di:])[0]
+        dt = torch.nn.functional.softplus(dt + q.dt_bias)
+        y, st = ssm.ssd_chunked(xi.reshape(2, 20, heads, Pd), dt,
+                                -torch.exp(q.A_log),
+                                BC[..., :N].reshape(2, 20, 1, N),
+                                BC[..., N:].reshape(2, 20, 1, N), q.D, 8)
+        yf = y.reshape(2, 20, heads * Pd)
+        out = rmsnorm(yf * torch.nn.functional.silu(z), q.norm_w,
+                      n=None if heads == n_real else di) @ q.w_out
+        return xi, y, st, out
+
+    xi0, y0, st0, out0 = block(p, H, H)
+    xi1, y1, st1, out1 = block(pp, Hp, H)
+    assert not xi1[..., di:].any()
+    assert not y1[:, :, H:].any() and not st1[:, H:].any()
+
+    def close(a, b):
+        assert float((a - b).abs().max()) <= 1e-6 * float(b.abs().max())
+
+    close(y1[:, :, :H], y0)
+    close(st1[:, :H], st0)
+    close(out1, out0)
+
+
 # -- the dry-run against the reference's -----------------------------------------
 
 @pytest.fixture(scope="module")
 def reference_dryrun():
-    """The reference's mamba2 prefill_32k cut to 2 layers, compiled in a
-    subprocess started when the first test asks for it."""
+    """The reference's :data:`DRY_CELLS` cut to 2 layers, each compiled in
+    a subprocess of its own, all started when the first test asks for
+    one: ``get(arch)`` waits for that arch's."""
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
                JAX_PLATFORMS="cpu")
-    proc = subprocess.Popen(
+    procs = {cell.split(":")[0]: subprocess.Popen(
         [sys.executable, os.path.join(REPO, "scripts", "dryrun_parity.py"),
-         "--reference-only", "--layers", str(DRY_LAYERS),
-         "--cell=mamba2-1.3b:prefill_32k"],
+         "--reference-only", "--layers", str(DRY_LAYERS), f"--cell={cell}"],
         env=env, text=True, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        for cell in DRY_CELLS}
     result = {}
 
-    def get():
-        if not result:
+    def get(arch: str):
+        if arch not in result:
+            proc = procs[arch]
             out, err = proc.communicate(timeout=300)
             lines = [ln for ln in out.splitlines() if ln.startswith("REF ")]
             assert proc.returncode == 0 and lines, err[-4000:]
             result.update(json.loads(lines[-1][4:]))
-        return result
+        return result[arch]
 
     yield get
-    if proc.poll() is None:
-        proc.kill()
-        proc.wait()
+    for proc in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def _ssm_gathers(traced, shape, cfg):
+    """The all-gather sites in ``models/ssm.py`` of a trace made with
+    every site kept, each checked to move (per call) less than a rank's
+    (B_l, S, d_inner / 16) bf16 x activation."""
+    x_shard = shape.global_batch // 16 * shape.seq_len * cfg.d_inner // 16 * 2
+    sites = [s for s in traced["sites"]
+             if s["op"] == "all-gather" and "models/ssm.py" in s["site"]]
+    for s in sites:
+        assert s["wire_bytes"] / s["count"] < x_shard, s
+    return sites
 
 
 def test_mamba2_prefill_gathers_at_most_the_reference(reference_dryrun):
@@ -294,11 +398,35 @@ def test_mamba2_prefill_gathers_at_most_the_reference(reference_dryrun):
     rank's (B_l, S, d_inner / 16) bf16 x activation."""
     cfg = dataclasses.replace(get_config("mamba2-1.3b"), n_layers=DRY_LAYERS)
     shape = get_shape("prefill_32k")
-    traced = D.trace_cell(cfg, shape, (16, 16))
+    traced = D.trace_cell(cfg, shape, (16, 16), n_sites=None)
     got = traced["collective"].bytes_by_op.get("all-gather", 0.0)
-    ref = reference_dryrun()["mamba2-1.3b"]["all_gather"]
+    ref = reference_dryrun("mamba2-1.3b")["all_gather"]
     assert got <= ref, (got, ref)
-    x_shard = shape.global_batch // 16 * shape.seq_len * cfg.d_inner // 16 * 2
-    for s in traced["sites"]:
-        if s["op"] == "all-gather" and "models/ssm.py" in s["site"]:
-            assert s["wire_bytes"] / s["count"] < x_shard, s
+    _ssm_gathers(traced, shape, cfg)
+
+
+def test_hymba_train_pads_heads_and_gathers_at_most_the_reference(
+        reference_dryrun, monkeypatch):
+    """hymba-1.5b train_4k at 2 layers on a fake (16, 16) mesh: its 50 SSD
+    heads padded to 64, the traced rank's scans each run on 4 heads; the
+    port's all-gather wire bytes a rank are at most the reference's, and
+    no all-gather site in ``models/ssm.py`` moves (per call) as much as a
+    rank's x activation."""
+    cfg = dataclasses.replace(get_config("hymba-1.5b"), n_layers=DRY_LAYERS)
+    shape = get_shape("train_4k")
+    assert ssm.ssd_heads(cfg.n_ssm_heads, 16) == 64
+    heads = []
+    scan = ssm.ssd_chunked
+
+    def counted(x, *args, **kwargs):
+        heads.append(x.shape[2])
+        return scan(x, *args, **kwargs)
+
+    monkeypatch.setattr(ssm, "ssd_chunked", counted)
+    traced = D.trace_cell(cfg, shape, (16, 16), n_sites=None)
+    # each layer's forward, and again in its backward (remat)
+    assert heads == [4] * (2 * DRY_LAYERS), heads
+    got = traced["collective"].bytes_by_op.get("all-gather", 0.0)
+    ref = reference_dryrun("hymba-1.5b")["all_gather"]
+    assert got <= ref, (got, ref)
+    assert _ssm_gathers(traced, shape, cfg)
