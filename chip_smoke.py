@@ -225,20 +225,22 @@ Phases, each of which raises (and exits non-zero) on failure:
       train_4k on 16x16, mixtral-8x7b x decode_32k on 2x16x16), each
       report's line with ``trace_s`` and its collective counts by op, its
       per-rank peak, all-gather and all wire bytes beside the port's
-      before its SSD heads were padded over 'model' and the reference's
-      dry-run (``DRYRUN_BEFORE``, ``DRYRUN_REFERENCE``), and the sites of
-      its largest collectives; hymba's train_4k (50 SSD heads, padded to
-      64) must give every model rank 4 heads and gather no x activation
-      in ``models/ssm.py``; and, on a one-rank fake
-      mesh, phase q's train step and the mamba2 bf16 prefill, their
-      roofline ``step_s`` and bound beside the seconds this run measured
-      for them and ``model_flops / (measured_s * 989e12)``, the measured
-      share of the bf16 peak.  It fails if a job fails, a cell counts no
-      collective, a term is not finite, qwen1.5-0.5b x train_4k's peak a
-      rank exceeds the card's memory, mamba2's prefill_32k or mixtral's
-      decode_32k all-gathers more than the reference a rank, mixtral's
-      wire bytes a rank exceed 250 MB, or hymba's train_4k fails its
-      head or gather gate;
+      before its attention's q heads were padded over 'model' and the
+      reference's dry-run (``DRYRUN_BEFORE``, ``DRYRUN_REFERENCE``), and
+      the sites of its largest collectives; hymba's train_4k (50 SSD
+      heads, padded to 64; 25 q heads, padded to 32) must give every
+      model rank 4 SSD heads and 2 q heads, gather no x activation in
+      ``models/ssm.py`` and no q activation in ``models/attention.py``;
+      and, on a one-rank fake mesh, phase q's train step and the mamba2
+      bf16 prefill, their roofline ``step_s`` and bound beside the seconds
+      this run measured for them and ``model_flops / (measured_s *
+      989e12)``, the measured share of the bf16 peak.  It fails if a job
+      fails, a cell counts no collective, a term is not finite,
+      qwen1.5-0.5b's or hymba-1.5b's train_4k peak a rank exceeds the
+      card's memory, mamba2's prefill_32k or mixtral's decode_32k
+      all-gathers more than the reference a rank, mixtral's wire bytes a
+      rank exceed 250 MB, or hymba's train_4k fails a head or gather
+      gate;
 6. times — each kernel and mode, its plain version and the nearest PyTorch
    library call at the main paths' batch-8 shapes: device time per call
    from the profiler's CUDA activity (and the per-call time of back-to-back
@@ -3089,10 +3091,8 @@ DRYRUN_CELLS = (("qwen1.5-0.5b", "train_4k", False),
                 ("hymba-1.5b", "train_4k", False))
 DRYRUN_TIMEOUT_S = 900
 # Per rank, for each of DRYRUN_CELLS: (peak bytes, all-gather wire bytes,
-# all wire bytes) of the port before its SSD heads were padded over
-# 'model' (phase t on the card, torch 2.11; None where that trace raised:
-# hymba's train_4k, whose backward DTensor refused to view on uneven head
-# shards), and (argument + temp bytes,
+# all wire bytes) of the port before its attention's q heads were padded
+# over 'model' (phase t on the card, torch 2.11), and (argument + temp bytes,
 # all-gather wire bytes) of the reference's dry-run at full depth
 # (``repro.launch.dryrun``, ``scripts/dryrun_parity.py --reference-only
 # --layers 0`` for the first four, ``--layers 32`` for hymba's train_4k:
@@ -3102,7 +3102,7 @@ DRYRUN_BEFORE = {"qwen1.5-0.5b train_4k": (8.558e9, 3251.3e6, 45.6656e9),
                  "mamba2-1.3b prefill_32k": (2.771e9, 1513.7e6, 26.1998e9),
                  "mixtral-8x7b decode_32k": (6.243e9, 2.5e6, 0.0148e9),
                  "hymba-1.5b long_500k": (0.239e9, 19.7e6, 0.0203e9),
-                 "hymba-1.5b train_4k": None}
+                 "hymba-1.5b train_4k": (111.099e9, 21803.1e6, 297.8912e9)}
 DRYRUN_REFERENCE = {"qwen1.5-0.5b train_4k": (14.55e9, 58.1e6),
                     "mamba2-1.3b prefill_32k": (1.73e9, 3019.9e6),
                     "mixtral-8x7b decode_32k": (18.30e9, 138.4e6),
@@ -3111,7 +3111,12 @@ DRYRUN_REFERENCE = {"qwen1.5-0.5b train_4k": (14.55e9, 58.1e6),
 # cells whose SSD heads the model axis does not divide: the heads a model
 # rank must scan once they are padded (hymba's 50 heads, 64 over 16 ranks)
 DRYRUN_PADDED_HEADS = {"hymba-1.5b train_4k": 4}
-DRYRUN_FIT_CELL = "qwen1.5-0.5b train_4k"    # must fit one card's memory
+# cells whose q heads the model axis neither divides nor fits under: the q
+# heads a model rank must score once they are padded (hymba's 25, 32 over
+# 16 ranks)
+DRYRUN_PADDED_Q_HEADS = {"hymba-1.5b train_4k": 2}
+# cells whose peak a rank must fit one card's memory
+DRYRUN_FIT_CELLS = ("qwen1.5-0.5b train_4k", "hymba-1.5b train_4k")
 # cells whose all-gather wire bytes a rank must not exceed the reference's
 DRYRUN_GATHER_CELLS = ("mamba2-1.3b prefill_32k", "mixtral-8x7b decode_32k")
 # cells whose wire bytes a rank must stay under a bound: mixtral's decode
@@ -3182,23 +3187,30 @@ def dryrun_job(job: str) -> dict:
                 "lower_s": traced["lower_s"], "trace_s": traced["trace_s"],
                 "ops": traced["ops"], "extra": extra}
     else:
-        from repro_torch.models import ssm
+        from repro_torch.models import attention, ssm
         arch, shape, multi_pod = job.split()
         heads, scan = [], ssm.ssd_chunked
+        q_heads, attend = [], attention.attend
 
         def counted(x, *args, **kwargs):
             # the SSD heads each scan runs on, on the traced rank
             heads.append(x.shape[2])
             return scan(x, *args, **kwargs)
 
-        ssm.ssd_chunked = counted
+        def counted_attend(q, *args, **kwargs):
+            # the q heads each attention core scores, on the traced rank
+            q_heads.append(q.shape[2])
+            return attend(q, *args, **kwargs)
+
+        ssm.ssd_chunked, attention.attend = counted, counted_attend
         try:
             info = dryrun.run_cell(arch, shape, multi_pod=multi_pod == "1",
                                    out_dir=str(ROOT / "build" / "chip_smoke"
                                                / "dryrun"), n_sites=None)
         finally:
-            ssm.ssd_chunked = scan
+            ssm.ssd_chunked, attention.attend = scan, attend
         info["ssd_local_heads"] = heads
+        info["attn_local_heads"] = q_heads
     info["job"] = job
     info["launches"] = _read_counts()
     return info
@@ -3218,6 +3230,34 @@ def _finite_terms(name: str, r: dict) -> None:
             raise AssertionError(f"phase t {name}: {k} = {r[k]}")
 
 
+def _gather_gate(name: str, r: dict, where: str, limit: float,
+                 what: str) -> None:
+    """Fails if an all-gather site whose frames name ``where`` moves, per
+    call, ``limit`` bytes or more (``what``: the tensor that size is)."""
+    per_call = [(c["wire_bytes"] / c["count"], c)
+                for c in r["collective_sites"] if c["op"] == "all-gather"
+                and where in c["site"]]
+    largest = max((b for b, _ in per_call), default=0.0)
+    log(f"phase t {name}: largest {where} all-gather a call "
+        f"{largest / 1e6:.2f} MB against {what} {limit / 1e6:.2f} MB")
+    over = [c for b, c in per_call if b >= limit]
+    if over:
+        raise AssertionError(f"phase t {name}: {where} all-gathers {what}: "
+                             f"{over}")
+
+
+def _heads_gate(name: str, kind: str, per_rank: list, seen: list,
+                want: int) -> None:
+    """Fails unless every model rank holds ``want`` padded heads and every
+    call the traced rank made (``seen``, at least one) ran on ``want``."""
+    if per_rank != [want] * len(per_rank) or set(seen) != {want}:
+        raise AssertionError(f"phase t {name}: {kind} heads a model rank "
+                             f"{per_rank}, calls on the traced rank {seen}; "
+                             f"want {want} on each")
+    log(f"phase t {name}: {want} {kind} heads on each of {len(per_rank)} "
+        f"model ranks ({len(seen)} calls on the traced rank)")
+
+
 def _padded_heads_gate(name: str, r: dict, cfg, shape, mesh_shape,
                        want: int) -> None:
     """Phase t's gates on a cell whose SSD heads the model axis does not
@@ -3226,28 +3266,34 @@ def _padded_heads_gate(name: str, r: dict, cfg, shape, mesh_shape,
     ``models/ssm.py`` moves, per call, as much as a rank's (B_l, S,
     d_inner / tp) bf16 x activation."""
     import math
-    from repro_torch.models.ssm import ssd_heads
+    from repro_torch.sharding import padded_heads
     tp = mesh_shape[-1]
-    per_rank = [ssd_heads(cfg.n_ssm_heads, tp) // tp] * tp
-    seen = r["ssd_local_heads"]
-    if per_rank != [want] * tp or set(seen) != {want}:
-        raise AssertionError(f"phase t {name}: SSD heads a model rank "
-                             f"{per_rank}, scans on the traced rank {seen}; "
-                             f"want {want} on each")
+    _heads_gate(name, "SSD", [padded_heads(cfg.n_ssm_heads, tp) // tp] * tp,
+                r["ssd_local_heads"], want)
     x_shard = (shape.global_batch // math.prod(mesh_shape[:-1])
                * shape.seq_len * (cfg.d_inner // tp) * 2)
-    per_call = [(c["wire_bytes"] / c["count"], c)
-                for c in r["collective_sites"] if c["op"] == "all-gather"
-                and "models/ssm.py" in c["site"]]
-    largest = max((b for b, _ in per_call), default=0.0)
-    log(f"phase t {name}: {want} SSD heads on each of {tp} model ranks "
-        f"({len(seen)} scans on the traced rank); largest models/ssm.py "
-        f"all-gather a call {largest / 1e6:.2f} MB against a rank's x "
-        f"activation {x_shard / 1e6:.2f} MB")
-    over = [c for b, c in per_call if b >= x_shard]
-    if over:
-        raise AssertionError(f"phase t {name}: models/ssm.py all-gathers an "
-                             f"x activation: {over}")
+    _gather_gate(name, r, "models/ssm.py", x_shard, "a rank's x activation")
+
+
+def _padded_q_heads_gate(name: str, r: dict, cfg, shape, mesh_shape,
+                         want: int) -> None:
+    """Phase t's gates on a cell whose q heads the model axis neither
+    divides nor fits under: every model rank scores ``want`` q heads (the
+    padded layout, and each attention core the traced rank ran), and no
+    all-gather site in ``models/attention.py`` moves, per call, as much as
+    a rank's (B_l, S, H * Dh) bf16 q activation."""
+    import math
+    import types
+    from repro_torch.models.attention import q_heads
+    tp = mesh_shape[-1]
+    mesh = types.SimpleNamespace(shape={"data": 1, "model": tp},
+                                 axis_names=("data", "model"))
+    _heads_gate(name, "q", [q_heads(cfg, mesh) // tp] * tp,
+                r["attn_local_heads"], want)
+    q_act = (shape.global_batch // math.prod(mesh_shape[:-1])
+             * shape.seq_len * cfg.q_dim * 2)
+    _gather_gate(name, r, "models/attention.py", q_act,
+                 "a rank's q activation")
 
 
 def dryrun_path(card: str, paths: list, capacity: int) -> dict:
@@ -3262,13 +3308,17 @@ def dryrun_path(card: str, paths: list, capacity: int) -> dict:
     one-rank mesh, whose roofline ``step_s`` is printed beside the seconds
     this run measured for them and the measured share of the bf16 peak.
     Fails if a job fails, a cell's collective counts are empty, a term is
-    not finite, :data:`DRYRUN_FIT_CELL`'s peak a rank exceeds ``capacity``
-    bytes (the card's memory), a cell of :data:`DRYRUN_GATHER_CELLS`
-    all-gathers more than the reference a rank, a cell's wire bytes a
-    rank exceed its :data:`DRYRUN_WIRE_BOUND`, or a cell of
-    :data:`DRYRUN_PADDED_HEADS` gives a model rank another SSD head count
-    or has an all-gather site in ``models/ssm.py`` that moves, per call,
-    as much as a rank's (B_l, S, d_inner / 16) bf16 x activation."""
+    not finite, a peak a rank of :data:`DRYRUN_FIT_CELLS` exceeds
+    ``capacity`` bytes (the card's memory), a cell of
+    :data:`DRYRUN_GATHER_CELLS` all-gathers more than the reference a
+    rank, a cell's wire bytes a rank exceed its :data:`DRYRUN_WIRE_BOUND`,
+    a cell of :data:`DRYRUN_PADDED_HEADS` gives a model rank another SSD
+    head count or has an all-gather site in ``models/ssm.py`` that moves,
+    per call, as much as a rank's (B_l, S, d_inner / 16) bf16 x
+    activation, or a cell of :data:`DRYRUN_PADDED_Q_HEADS` gives a model
+    rank another q head count or has an all-gather site in
+    ``models/attention.py`` that moves, per call, as much as a rank's (B_l,
+    S, H * Dh) bf16 q activation."""
     import statistics
     from repro_torch.configs import get_config, get_shape
     from repro_torch.launch.dryrun import N_SITES, PRODUCTION_MESHES
@@ -3324,10 +3374,9 @@ def dryrun_path(card: str, paths: list, capacity: int) -> dict:
         wire = r["collective_wire_bytes"]
         j_mem, j_ag = DRYRUN_REFERENCE[key]
         b_peak, b_ag, b_wire = (
-            (f"{v / u:.{d}f} {n}" for v, u, d, n in zip(
+            f"{v / u:.{d}f} {n}" for v, u, d, n in zip(
                 DRYRUN_BEFORE[key], (1e9, 1e6, 1e9), (3, 1, 4),
                 ("GB", "MB", "GB")))
-            if DRYRUN_BEFORE[key] else ["the trace raised"] * 3)
         log(f"phase t {name} per rank [{card}]: peak "
             f"{mem['peak_bytes'] / 1e9:.3f} GB (before {b_peak};"
             f" reference args + temps {j_mem / 1e9:.2f} GB, XLA's CPU buffer "
@@ -3338,11 +3387,12 @@ def dryrun_path(card: str, paths: list, capacity: int) -> dict:
             f"{c['op']} at {c['site']} ({c['count']}, "
             f"{c['wire_bytes'] / 1e6:.2f})"
             for c in r["collective_sites"][:N_SITES]))
-        if key in DRYRUN_PADDED_HEADS:
-            _padded_heads_gate(name, r, get_config(arch), get_shape(shape),
-                               PRODUCTION_MESHES[r["mesh"]],
-                               DRYRUN_PADDED_HEADS[key])
-        if key == DRYRUN_FIT_CELL and mem["peak_bytes"] > capacity:
+        for gate, wants in ((_padded_heads_gate, DRYRUN_PADDED_HEADS),
+                            (_padded_q_heads_gate, DRYRUN_PADDED_Q_HEADS)):
+            if key in wants:
+                gate(name, r, get_config(arch), get_shape(shape),
+                     PRODUCTION_MESHES[r["mesh"]], wants[key])
+        if key in DRYRUN_FIT_CELLS and mem["peak_bytes"] > capacity:
             raise AssertionError(f"phase t {name}: peak {mem['peak_bytes']} "
                                  f"B a rank over the card's {capacity} B")
         if key in DRYRUN_GATHER_CELLS and gathered > j_ag:

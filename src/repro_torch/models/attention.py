@@ -28,16 +28,19 @@ reference's ``_constrain_heads``), and the attention core (scores, mask,
 softmax, values, the cache update) runs under
 :func:`repro_torch.sharding.shard_map` on each rank's whole kv-head groups
 and batch rows, so the d_head contraction is never split.  DTensor cannot
-cut a head dim the model axis does not divide the way JAX pads it: such
-heads (and a flat projection that would split inside a head) are
-replicated over 'model' instead, and the core runs whole on each model
-rank there.  A decode cache whose slots are sharded over the data axes
-(``launch.specs.decode_state_sharding`` for a batch they do not divide)
-is attended on each rank's own slots, the softmax completed by
-all-reduces (:func:`_decode_on_seq_shards`), as GSPMD partitions the
-reference's decode over such a cache; one whose flat kv dim the model
-axis splits inside each kv head is attended on each rank's own dims of
-its head, the scores summed over the head's ranks
+cut a head dim the model axis does not divide the way JAX pads it.  Where
+the reference pins such q heads, :func:`attention` pads them with zero
+heads to a multiple of the model axis (:func:`q_heads`,
+:func:`_pad_q_heads`) and runs the core on each rank's own q heads, each
+with its kv head (:func:`_on_q_shards`); such kv heads (and elsewhere a
+flat projection that would split inside a head, as in the one-token
+decode) are replicated over 'model'.  A decode cache whose slots are
+sharded over the data axes (``launch.specs.decode_state_sharding`` for a
+batch they do not divide) is attended on each rank's own slots, the
+softmax completed by all-reduces (:func:`_decode_on_seq_shards`), as
+GSPMD partitions the reference's decode over such a cache; one whose flat
+kv dim the model axis splits inside each kv head is attended on each
+rank's own dims of its head, the scores summed over the head's ranks
 (:func:`_decode_on_split_heads`).
 """
 from __future__ import annotations
@@ -50,8 +53,8 @@ from repro_torch import perf
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import apply_rope, rope_angles
 from repro_torch.sharding import (P, axis_names, batch_axes, constrain,
-                                  dp_size, heads_view, mesh_shape, shard_map,
-                                  tp_size)
+                                  dp_size, heads_view, mesh_shape,
+                                  padded_heads, shard_map, tp_size, zero_pad)
 
 Q_CHUNK = 1024  # query-block size for chunked attention
 PAD_POS = -10 ** 9     # position of the keys padded in front of a band
@@ -77,29 +80,68 @@ def _constrain_heads(x, mesh, batch_sharded: bool = True):
     return constrain(x, mesh, P(dp, None, heads, None))
 
 
+def _pins_heads(cfg: ModelConfig, mesh) -> bool:
+    """The reference's gate for pinning q/k/v head-sharded: on a mesh,
+    with ``FLAGS.attn_head_constraint``, where the q heads neither divide
+    nor fit under the model axis (divisible counts propagate fine, and H <
+    tp would leave more slots than heads)."""
+    if mesh is None or not perf.FLAGS.attn_head_constraint:
+        return False
+    tp = tp_size(mesh)
+    return cfg.n_heads % tp != 0 and cfg.n_heads > tp
+
+
+def q_heads(cfg: ModelConfig, mesh=None) -> int:
+    """The q heads :func:`attention` runs on: where the reference pins
+    them (:func:`_pins_heads`) and GSPMD pads the uneven ones, the q heads
+    padded with zero heads to a multiple of the model axis
+    (:func:`repro_torch.sharding.padded_heads`: hymba's and granite's 25
+    and 24 heads to 32 at model 16, 2 a rank); else ``cfg.n_heads``."""
+    if _pins_heads(cfg, mesh):
+        return padded_heads(cfg.n_heads, tp_size(mesh))
+    return cfg.n_heads
+
+
+def _pad_q_heads(p: LayerAttnParams, cfg: ModelConfig, Hp: int,
+                 mesh) -> LayerAttnParams:
+    """``p`` with ``Hp - H`` zero q heads after the ``H`` real ones: zero
+    columns of ``wq`` (and ``bq``) and zero rows of ``wo``, each on even,
+    head-aligned model shards.  The leaves are padded inside the forward
+    from their stored layouts (a few MB a layer), so gradients reach them
+    through the pad.  A padded head's q is zero, so its softmax is uniform
+    and its output nonzero; but that output meets ``wo``'s zero rows, so
+    it adds exact zeros to the out-projection's partial sums, and its
+    gradient into k and v is exactly zero."""
+    n = (Hp - cfg.n_heads) * cfg.head_dim
+    return p._replace(
+        wq=zero_pad(p.wq, -1, n, mesh, P(None, "model")),
+        bq=None if p.bq is None else zero_pad(p.bq, 0, n, mesh, P("model")),
+        wo=zero_pad(p.wo, 0, n, mesh, P("model", None)))
+
+
 def _proj_qkv(x: torch.Tensor, p: LayerAttnParams, cfg: ModelConfig,
               mesh=None):
+    """q (B, S, Hq, Dh), k and v (B, S, Hkv, Dh): Hq is ``cfg.n_heads``, or
+    the padded count when ``p`` holds :func:`_pad_q_heads`' weights."""
     B, S, _ = x.shape
     q = torch.matmul(x, p.wq)
     k = torch.matmul(x, p.wk)
     v = torch.matmul(x, p.wv)
     if p.bq is not None:
         q, k, v = q + p.bq, k + p.bk, v + p.bv
-    q = heads_view(q, (B, S, cfg.n_heads, cfg.head_dim), cfg.n_heads, mesh)
+    Hq = q.shape[-1] // cfg.head_dim
+    q = heads_view(q, (B, S, Hq, cfg.head_dim), Hq, mesh)
     k = heads_view(k, (B, S, cfg.n_kv_heads, cfg.head_dim), cfg.n_kv_heads,
                    mesh)
     v = heads_view(v, (B, S, cfg.n_kv_heads, cfg.head_dim), cfg.n_kv_heads,
                    mesh)
-    # Pin head-sharded layouts only where the q heads neither divide nor fit
-    # under the model axis (the reference's gate: divisible counts propagate
-    # fine, and H < tp would leave more slots than heads).  The decision
-    # follows the q-head count and applies to k/v too.
-    if mesh is not None and perf.FLAGS.attn_head_constraint:
-        tp = tp_size(mesh)
-        if cfg.n_heads % tp != 0 and cfg.n_heads > tp:
-            q = _constrain_heads(q, mesh)
-            k = _constrain_heads(k, mesh)
-            v = _constrain_heads(v, mesh)
+    # The decision follows the q-head count and applies to k/v too: padded
+    # q heads lie on even head shards, k/v heads the model axis does not
+    # divide stay whole over it.
+    if _pins_heads(cfg, mesh):
+        q = _constrain_heads(q, mesh)
+        k = _constrain_heads(k, mesh)
+        v = _constrain_heads(v, mesh)
     return q, k, v
 
 
@@ -247,6 +289,36 @@ def _on_kv_groups(core, mesh, q, k, v, *extra, extra_specs=(),
     return (outs[0].reshape(B, S, H, Dh),) + tuple(outs[1:])
 
 
+def _on_q_shards(core, mesh, q, k, v, n_heads: int):
+    """``core(q, k, v)`` -> out (B,S,Hp,Dh) on each rank's own q heads: q
+    (B,S,Hp,Dh) padded by :func:`q_heads` on even head shards over
+    'model', k/v (B,Sk,Hkv,Dh) whole over it; the batch over the data axes
+    where they divide it.  For each of its Hp / tp q heads, by global index
+    j, a rank takes kv head ``min(j // G, Hkv - 1)`` (G = n_heads / Hkv; a
+    padded head takes the last), so its heads may belong to two kv groups,
+    and ``core`` runs with as many kv heads as q heads (the per-head path
+    of :func:`_sdpa_chunk`): no rank scores more than Hp / tp q heads, and
+    k and v are not repeated whole."""
+    B, Hp, Hkv = q.shape[0], q.shape[2], k.shape[2]
+    local = Hp // tp_size(mesh)
+    bspec = batch_axes(mesh) if B % dp_size(mesh) == 0 else None
+    qspec, kvspec = P(bspec, None, "model", None), P(bspec, None, None, None)
+
+    def body(q, k, v):
+        kv = _kv_heads_of(mesh.get_local_rank("model"), local, n_heads, Hkv)
+        return core(q, k[:, :, kv], v[:, :, kv])
+
+    return shard_map(body, mesh, (qspec, kvspec, kvspec), qspec)(q, k, v)
+
+
+def _kv_heads_of(rank: int, local: int, n_heads: int, n_kv: int) -> list:
+    """The kv head of each of model rank ``rank``'s ``local`` q heads
+    (global indices ``rank * local`` on): ``min(j // G, n_kv - 1)``."""
+    G = n_heads // n_kv
+    return [min(j // G, n_kv - 1)
+            for j in range(rank * local, (rank + 1) * local)]
+
+
 def attention(x: torch.Tensor, p: LayerAttnParams, cfg: ModelConfig, *,
               positions: Optional[torch.Tensor] = None, causal: bool = True,
               kv_override=None, mesh=None):
@@ -255,8 +327,13 @@ def attention(x: torch.Tensor, p: LayerAttnParams, cfg: ModelConfig, *,
     kv_override: (k, v, kpos) for cross-attention (q from x, kv precomputed).
     Returns (out (B,S,d), k, v) — k/v returned for cache population at
     prefill (after RoPE).  ``mesh``: the device mesh x and p lie on as
-    DTensors (the head pins of :func:`_proj_qkv`)."""
+    DTensors (the head pins of :func:`_proj_qkv`); where those pins pad
+    the q heads (:func:`q_heads`), the core runs on each rank's own q
+    heads (:func:`_on_q_shards`), else on its kv-head groups."""
     B, S, _ = x.shape
+    Hq = q_heads(cfg, mesh)
+    if Hq != cfg.n_heads:
+        p = _pad_q_heads(p, cfg, Hq, mesh)
     q, k, v = _proj_qkv(x, p, cfg, mesh)
     if positions is None:
         positions = torch.arange(S, device=x.device)
@@ -269,14 +346,24 @@ def attention(x: torch.Tensor, p: LayerAttnParams, cfg: ModelConfig, *,
             k = apply_rope(k, cos, sin)
         kpos = positions
     cross = kv_override is not None
+
+    def core(q, k, v):
+        return attend(q, k, v, positions, kpos, cfg, causal, cross)
+
     if mesh is None:
-        out = attend(q, k, v, positions, kpos, cfg, causal, cross)
+        out = core(q, k, v)
+    elif Hq != cfg.n_heads:
+        out = _on_q_shards(core, mesh, q, k, v, cfg.n_heads)
     else:
-        out = _on_kv_groups(
-            lambda q, k, v: attend(q, k, v, positions, kpos, cfg, causal,
-                                   cross), mesh, q, k, v)
-    out = out.reshape(B, S, cfg.q_dim)
-    return torch.matmul(out, p.wo), k, v
+        out = _on_kv_groups(core, mesh, q, k, v)
+    out = torch.matmul(out.reshape(B, S, Hq * cfg.head_dim), p.wo)
+    if Hq != cfg.n_heads and cfg.q_dim % tp_size(mesh):
+        # wo's rule leaves it whole here, so its product is whole too: the
+        # padded rows' partial sums are reduced here, where DTensor could
+        # split the batch rows unevenly over 'model'
+        bspec = batch_axes(mesh) if B % dp_size(mesh) == 0 else None
+        out = constrain(out, mesh, P(bspec, None, None))
+    return out, k, v
 
 
 def cache_size(cfg: ModelConfig, seq_len: int) -> int:

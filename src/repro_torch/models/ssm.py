@@ -32,8 +32,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike
 from repro_torch.models.common import rmsnorm
 from repro_torch.sharding import (P, batch_axes, constrain, dp_size,
-                                  gather_axis, heads_view, shard_map,
+                                  heads_view, padded_heads, shard_map,
                                   tp_size)
+from repro_torch.sharding import zero_pad as _zero_pad
 
 
 class SSMLayerParams(NamedTuple):
@@ -97,19 +98,6 @@ def _conv_state(u, state, K: int):
                         device=u.device)
             if state is None else state.to(u.dtype))
     return torch.cat([prev, u], dim=1)[:, -(K - 1):, :]
-
-
-def _zero_pad(t, dim: int, n: int, mesh, spec=None):
-    """``t`` with ``n`` zeros appended along ``dim``, laid out as ``spec``
-    if given.  A DTensor is made whole over 'model' first (a weight or a
-    state: DTensor cannot append to an uneven or a misaligned shard)."""
-    from torch.distributed.tensor import DTensor
-    if isinstance(t, DTensor):
-        t = gather_axis(t, mesh, "model")
-    shape = list(t.shape)
-    shape[dim] = n
-    out = torch.cat([t, t.new_zeros(shape)], dim=dim)
-    return out if spec is None else constrain(out, mesh, spec)
 
 
 def _conv_channels(xv, bc, w, state, cfg: ModelConfig, mesh):
@@ -270,11 +258,9 @@ def _constrain_inner(t, mesh):
 
 
 def ssd_heads(n_heads: int, tp: int) -> int:
-    """The SSD heads the scan runs on over ``tp`` model ranks: ``n_heads``
-    padded with zero heads to a multiple of ``tp`` (the reference pads
-    uneven head counts on 'model'), so each rank holds ``ssd_heads / tp``
-    whole heads, at least one."""
-    return -(-n_heads // tp) * tp
+    """The SSD heads the scan runs on over ``tp`` model ranks
+    (:func:`repro_torch.sharding.padded_heads`)."""
+    return padded_heads(n_heads, tp)
 
 
 def _pad_heads(p: SSMLayerParams, cfg: ModelConfig, Hp: int,

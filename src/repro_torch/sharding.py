@@ -259,6 +259,26 @@ def gather_axis(x, mesh, axis: str):
                                  for n, p in zip(names, x.placements)])
 
 
+def padded_heads(n_heads: int, tp: int) -> int:
+    """``n_heads`` padded with zero heads to a multiple of ``tp`` (the
+    reference pads uneven head counts on 'model'), so each of ``tp`` model
+    ranks holds the same number of whole heads, at least one."""
+    return -(-n_heads // tp) * tp
+
+
+def zero_pad(t, dim: int, n: int, mesh, spec=None):
+    """``t`` with ``n`` zeros appended along ``dim``, laid out as ``spec``
+    if given.  A DTensor is made whole over 'model' first (a weight or a
+    state: DTensor cannot append to an uneven or a misaligned shard)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(t, DTensor):
+        t = gather_axis(t, mesh, "model")
+    shape = list(t.shape)
+    shape[dim] = n
+    out = torch.cat([t, t.new_zeros(shape)], dim=dim)
+    return out if spec is None else constrain(out, mesh, spec)
+
+
 # ---------------------------------------------------------------------------
 # Parameter sharding rules.
 #
