@@ -215,32 +215,42 @@ Phases, each of which raises (and exits non-zero) on failure:
       ``"torch"`` target's bit for bit, then requests/s of both targets.
       On the one rank the prefill, the train step and the decode must
       equal ``mesh=None``'s bit for bit;
-   t. the dry-run (:func:`dryrun_path`, after the times below), each job
-      in a process of its own (``--dryrun JOB``; the fake process group
-      is that process's default group), all started together: the
-      counters' known answers (a sharded MLP's 2^38 FLOPs a rank on a fake
-      (16, 16) mesh, one all-reduce's ring wire bytes); five production
-      cells through ``launch.dryrun.run_cell`` (qwen1.5-0.5b x train_4k,
-      mamba2-1.3b x prefill_32k, hymba-1.5b x long_500k and hymba-1.5b x
-      train_4k on 16x16, mixtral-8x7b x decode_32k on 2x16x16), each
-      report's line with ``trace_s`` and its collective counts by op, its
-      per-rank peak, all-gather and all wire bytes beside the port's
-      before its attention's q heads were padded over 'model' and the
-      reference's dry-run (``DRYRUN_BEFORE``, ``DRYRUN_REFERENCE``), and
-      the sites of its largest collectives; hymba's train_4k (50 SSD
-      heads, padded to 64; 25 q heads, padded to 32) must give every
-      model rank 4 SSD heads and 2 q heads, gather no x activation in
-      ``models/ssm.py`` and no q activation in ``models/attention.py``;
-      and, on a one-rank fake mesh, phase q's train step and the mamba2
-      bf16 prefill, their roofline ``step_s`` and bound beside the seconds
-      this run measured for them and ``model_flops / (measured_s *
-      989e12)``, the measured share of the bf16 peak.  It fails if a job
-      fails, a cell counts no collective, a term is not finite,
-      qwen1.5-0.5b's or hymba-1.5b's train_4k peak a rank exceeds the
-      card's memory, mamba2's prefill_32k or mixtral's decode_32k
-      all-gathers more than the reference a rank, mixtral's wire bytes a
-      rank exceed 250 MB, or hymba's train_4k fails a head or gather
-      gate;
+   t. the dry-run (:func:`dryrun_path`, after the times below), its jobs
+      in a pool of ``min(os.cpu_count(), 16)`` worker processes, each job
+      on a fake process group of its own, its worker's default group:
+      the counters' known answers (a sharded MLP's 2^38 FLOPs a
+      rank on a fake (16, 16) mesh, one all-reduce's ring wire bytes);
+      five production cells at full depth through ``launch.dryrun.run_cell``
+      (qwen1.5-0.5b x train_4k, mamba2-1.3b x prefill_32k, hymba-1.5b x
+      long_500k and hymba-1.5b x train_4k on 16x16, mixtral-8x7b x
+      decode_32k on 2x16x16), each report's line with ``trace_s`` and its
+      collective counts by op, its per-rank peak, all-gather and all wire
+      bytes beside the port's before its residual stream and cotangents
+      were pinned and the reference's dry-run (``DRYRUN_BEFORE``,
+      ``DRYRUN_REFERENCE``), and the sites of its largest collectives;
+      hymba's train_4k (50 SSD heads, padded to 64; 25 q heads, padded to
+      32) must give every model rank 4 SSD heads and 2 q heads, gather no
+      x activation in ``models/ssm.py`` and no q activation in
+      ``models/attention.py``; on a one-rank fake mesh, phase q's train
+      step and the mamba2 bf16 prefill, their roofline ``step_s`` and
+      bound beside the seconds this run measured for them and
+      ``model_flops / (measured_s * 989e12)``, the measured share of the
+      bf16 peak; and the sweep of the reference's ``--all --both-meshes``
+      (:func:`dryrun_pairs`: every shape of every arch on 16x16 and
+      2x16x16, 68 pairs), each pair cut to ``DRYRUN_SWEEP_LAYERS`` (2)
+      layers, whisper's encoder too, through ``launch.dryrun.trace_cell``,
+      one line a pair (``trace_s``, peak, all-gather and wire bytes a
+      rank, counts by op) and the sweep's wall time.  It fails if a job
+      fails, a cell or a pair counts no collective, a term is not finite,
+      a cell's peak, all-gather or wire bytes a rank rise above its
+      ``DRYRUN_BEFORE``, a pair's above its ``DRYRUN_SWEEP_BEFORE`` (the
+      card's torch 2.11 figures; on another torch the pairs are not so
+      gated), qwen1.5-0.5b's or hymba-1.5b's train_4k peak a
+      rank exceeds the card's memory, mamba2's prefill_32k or mixtral's
+      decode_32k all-gathers more than the reference a rank, mixtral's
+      wire bytes a rank exceed 250 MB, or hymba's train_4k fails a head or
+      gather gate.  The sweep alone rehearses on a host without a card
+      (the dry-run needs none): ``chip_smoke.dryrun_sweep("cpu")``;
 6. times — each kernel and mode, its plain version and the nearest PyTorch
    library call at the main paths' batch-8 shapes: device time per call
    from the profiler's CUDA activity (and the per-call time of back-to-back
@@ -291,11 +301,6 @@ Its details go to ``build/chip_smoke/conv2d_stream.json``.
 
 runs only phase q's restart check and prints its ``train_restart:`` line
 (phase q starts it so, in a process of its own).
-
-    python3 chip_smoke.py --dryrun JOB
-
-runs one job of phase t and prints its ``dryrun:`` line (phase t starts
-each so).
 """
 from __future__ import annotations
 
@@ -3091,18 +3096,21 @@ DRYRUN_CELLS = (("qwen1.5-0.5b", "train_4k", False),
                 ("hymba-1.5b", "train_4k", False))
 DRYRUN_TIMEOUT_S = 900
 # Per rank, for each of DRYRUN_CELLS: (peak bytes, all-gather wire bytes,
-# all wire bytes) of the port before its attention's q heads were padded
-# over 'model' (phase t on the card, torch 2.11), and (argument + temp bytes,
+# all wire bytes) of the port before its residual stream and cotangents
+# were pinned (phase t on the card, torch 2.11), and (argument + temp bytes,
 # all-gather wire bytes) of the reference's dry-run at full depth
 # (``repro.launch.dryrun``, ``scripts/dryrun_parity.py --reference-only
 # --layers 0`` for the first four, ``--layers 32`` for hymba's train_4k:
 # XLA's CPU-backend buffer assignment, computed on a host CPU, not a
-# device figure), printed beside this run's.
+# device figure), printed beside this run's.  A cell's figures may not
+# rise above its DRYRUN_BEFORE ones (to the digits given there).
 DRYRUN_BEFORE = {"qwen1.5-0.5b train_4k": (8.558e9, 3251.3e6, 45.6656e9),
                  "mamba2-1.3b prefill_32k": (2.771e9, 1513.7e6, 26.1998e9),
                  "mixtral-8x7b decode_32k": (6.243e9, 2.5e6, 0.0148e9),
                  "hymba-1.5b long_500k": (0.239e9, 19.7e6, 0.0203e9),
-                 "hymba-1.5b train_4k": (111.099e9, 21803.1e6, 297.8912e9)}
+                 "hymba-1.5b train_4k": (21.596e9, 10074.2e6, 291.6434e9)}
+# (unit, decimals) each DRYRUN_BEFORE figure is given to
+DRYRUN_BEFORE_DIGITS = ((1e9, 3), (1e6, 1), (1e9, 4))
 DRYRUN_REFERENCE = {"qwen1.5-0.5b train_4k": (14.55e9, 58.1e6),
                     "mamba2-1.3b prefill_32k": (1.73e9, 3019.9e6),
                     "mixtral-8x7b decode_32k": (18.30e9, 138.4e6),
@@ -3122,6 +3130,97 @@ DRYRUN_GATHER_CELLS = ("mamba2-1.3b prefill_32k", "mixtral-8x7b decode_32k")
 # cells whose wire bytes a rank must stay under a bound: mixtral's decode
 # sums its split heads' scores over the 2 ranks of a head, not all 16
 DRYRUN_WIRE_BOUND = {"mixtral-8x7b decode_32k": 250e6}
+# the sweep: every (arch, shape) of the reference's ``--all`` on both
+# production meshes, each cut to this many layers (whisper's encoder too)
+DRYRUN_SWEEP_LAYERS = 2
+# Per rank, for each pair of the sweep ("arch shape mesh"): (peak bytes,
+# all-gather wire bytes, all wire bytes) of phase t on the card (torch
+# 2.11, at DRYRUN_SWEEP_LAYERS layers), to DRYRUN_BEFORE_DIGITS.  A pair's
+# figures may not rise above them where the dry-run runs on the torch they
+# were taken on, DRYRUN_SWEEP_TORCH: another torch lays out otherwise.
+DRYRUN_SWEEP_TORCH = "2.11."
+DRYRUN_SWEEP_BEFORE = {
+    "granite-moe-3b-a800m train_4k 16x16": (10.525e9, 595.0e6, 5.6737e9),
+    "granite-moe-3b-a800m train_4k 2x16x16": (5.299e9, 343.4e6, 3.0089e9),
+    "mixtral-8x7b train_4k 16x16": (137.660e9, 3453.8e6, 16.4621e9),
+    "mixtral-8x7b train_4k 2x16x16": (69.357e9, 1943.9e6, 9.3683e9),
+    "whisper-base train_4k 16x16": (35.824e9, 1994.9e6, 5.3534e9),
+    "whisper-base train_4k 2x16x16": (17.936e9, 1009.6e6, 2.7481e9),
+    "hymba-1.5b train_4k 16x16": (14.557e9, 641.0e6, 19.0041e9),
+    "hymba-1.5b train_4k 2x16x16": (8.163e9, 475.1e6, 10.0166e9),
+    "phi3-mini-3.8b train_4k 16x16": (13.681e9, 934.5e6, 13.1148e9),
+    "phi3-mini-3.8b train_4k 2x16x16": (6.914e9, 557.0e6, 7.0664e9),
+    "h2o-danube-3-4b train_4k 16x16": (136.387e9, 3099.0e6, 19.3890e9),
+    "h2o-danube-3-4b train_4k 2x16x16": (68.313e9, 1683.5e6, 10.4573e9),
+    "codeqwen1.5-7b train_4k 16x16": (17.405e9, 1419.2e6, 19.3642e9),
+    "codeqwen1.5-7b train_4k 2x16x16": (8.945e9, 915.9e6, 10.8409e9),
+    "qwen1.5-0.5b train_4k 16x16": (5.480e9, 287.7e6, 4.3220e9),
+    "qwen1.5-0.5b train_4k 2x16x16": (2.819e9, 161.8e6, 2.2589e9),
+    "phi-3-vision-4.2b train_4k 16x16": (13.761e9, 952.2e6, 13.2740e9),
+    "phi-3-vision-4.2b train_4k 2x16x16": (6.966e9, 574.7e6, 7.1914e9),
+    "mamba2-1.3b train_4k 16x16": (9.034e9, 209.1e6, 16.1360e9),
+    "mamba2-1.3b train_4k 2x16x16": (5.383e9, 129.7e6, 8.2086e9),
+    "granite-moe-3b-a800m prefill_32k 16x16": (1.915e9, 269.4e6, 2.1568e9),
+    "granite-moe-3b-a800m prefill_32k 2x16x16": (0.975e9, 143.5e6, 1.0872e9),
+    "mixtral-8x7b prefill_32k 16x16": (5.473e9, 1509.9e6, 6.5431e9),
+    "mixtral-8x7b prefill_32k 2x16x16": (2.935e9, 755.0e6, 3.2716e9),
+    "whisper-base prefill_32k 16x16": (3.846e9, 783.8e6, 1.6876e9),
+    "whisper-base prefill_32k 2x16x16": (1.962e9, 391.9e6, 0.8438e9),
+    "hymba-1.5b prefill_32k 16x16": (2.744e9, 242.1e6, 2.2092e9),
+    "hymba-1.5b prefill_32k 2x16x16": (1.821e9, 159.5e6, 1.1430e9),
+    "phi3-mini-3.8b prefill_32k 16x16": (3.376e9, 0.0e6, 3.7749e9),
+    "phi3-mini-3.8b prefill_32k 2x16x16": (1.715e9, 0.0e6, 1.8874e9),
+    "h2o-danube-3-4b prefill_32k 16x16": (4.955e9, 1415.6e6, 6.1342e9),
+    "h2o-danube-3-4b prefill_32k 2x16x16": (2.513e9, 707.8e6, 3.0671e9),
+    "codeqwen1.5-7b prefill_32k 16x16": (4.583e9, 0.0e6, 5.0332e9),
+    "codeqwen1.5-7b prefill_32k 2x16x16": (2.368e9, 0.0e6, 2.5166e9),
+    "qwen1.5-0.5b prefill_32k 16x16": (1.554e9, 0.0e6, 1.2583e9),
+    "qwen1.5-0.5b prefill_32k 2x16x16": (0.789e9, 0.0e6, 0.6291e9),
+    "phi-3-vision-4.2b prefill_32k 16x16": (3.402e9, 0.0e6, 3.7749e9),
+    "phi-3-vision-4.2b prefill_32k 2x16x16": (1.737e9, 0.0e6, 1.8874e9),
+    "mamba2-1.3b prefill_32k 16x16": (2.611e9, 63.1e6, 1.5740e9),
+    "mamba2-1.3b prefill_32k 2x16x16": (1.752e9, 31.6e6, 0.7870e9),
+    "granite-moe-3b-a800m decode_32k 16x16": (0.236e9, 0.1e6, 0.0066e9),
+    "granite-moe-3b-a800m decode_32k 2x16x16": (0.136e9, 0.1e6, 0.0033e9),
+    "mixtral-8x7b decode_32k 16x16": (0.446e9, 0.3e6, 0.0020e9),
+    "mixtral-8x7b decode_32k 2x16x16": (0.547e9, 0.2e6, 0.0010e9),
+    "mixtral-8x7b long_500k 16x16": (0.400e9, 2.0e6, 0.0021e9),
+    "mixtral-8x7b long_500k 2x16x16": (0.398e9, 1.0e6, 0.0011e9),
+    "whisper-base decode_32k 16x16": (0.294e9, 0.1e6, 0.0023e9),
+    "whisper-base decode_32k 2x16x16": (0.169e9, 0.1e6, 0.0012e9),
+    "hymba-1.5b decode_32k 16x16": (0.137e9, 46.7e6, 0.0469e9),
+    "hymba-1.5b decode_32k 2x16x16": (0.081e9, 23.4e6, 0.0235e9),
+    "hymba-1.5b long_500k 16x16": (0.027e9, 1.2e6, 0.0013e9),
+    "hymba-1.5b long_500k 2x16x16": (0.027e9, 1.1e6, 0.0011e9),
+    "phi3-mini-3.8b decode_32k 16x16": (1.264e9, 0.0e6, 0.0005e9),
+    "phi3-mini-3.8b decode_32k 2x16x16": (0.659e9, 0.0e6, 0.0002e9),
+    "h2o-danube-3-4b decode_32k 16x16": (0.117e9, 0.3e6, 0.0019e9),
+    "h2o-danube-3-4b decode_32k 2x16x16": (0.203e9, 0.1e6, 0.0010e9),
+    "h2o-danube-3-4b long_500k 16x16": (0.074e9, 1.9e6, 0.0020e9),
+    "h2o-danube-3-4b long_500k 2x16x16": (0.072e9, 0.9e6, 0.0011e9),
+    "codeqwen1.5-7b decode_32k 16x16": (1.766e9, 0.0e6, 0.0006e9),
+    "codeqwen1.5-7b decode_32k 2x16x16": (0.960e9, 0.0e6, 0.0003e9),
+    "qwen1.5-0.5b decode_32k 16x16": (0.426e9, 0.0e6, 0.0002e9),
+    "qwen1.5-0.5b decode_32k 2x16x16": (0.224e9, 0.0e6, 0.0001e9),
+    "phi-3-vision-4.2b decode_32k 16x16": (1.283e9, 0.0e6, 0.0005e9),
+    "phi-3-vision-4.2b decode_32k 2x16x16": (0.677e9, 0.0e6, 0.0002e9),
+    "mamba2-1.3b decode_32k 16x16": (0.028e9, 0.2e6, 0.0004e9),
+    "mamba2-1.3b decode_32k 2x16x16": (0.024e9, 0.1e6, 0.0002e9),
+    "mamba2-1.3b long_500k 16x16": (0.021e9, 0.1e6, 0.0001e9),
+    "mamba2-1.3b long_500k 2x16x16": (0.021e9, 0.1e6, 0.0001e9),
+}
+
+
+def dryrun_pairs() -> list:
+    """The reference's ``launch/dryrun.py --all --both-meshes``: (arch,
+    shape, mesh name) for every shape of ``shapes_for`` of every arch of
+    ``ARCH_IDS``, on 16x16 and 2x16x16 (68 pairs)."""
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.configs.base import shapes_for
+    from repro_torch.launch.dryrun import PRODUCTION_MESHES
+    return [(arch, shape.name, mesh) for arch in ARCH_IDS
+            for shape in shapes_for(get_config(arch))
+            for mesh in PRODUCTION_MESHES]
 
 
 def _calibration(which: str):
@@ -3172,13 +3271,19 @@ def _counter_check() -> dict:
 
 def dryrun_job(job: str) -> dict:
     """One job of phase t, in the process that runs it: ``counters``, the
-    counters' known answers; ``calibrate train|prefill``, a card step
-    traced on a one-rank fake mesh; else ``arch shape multi_pod``, one
+    counters' known answers; ``pair arch shape mesh``, one pair of the
+    sweep (``dryrun.trace_pair``); ``calibrate train|prefill``, a card
+    step traced on a one-rank fake mesh; else ``arch shape multi_pod``, one
     production cell through ``dryrun.run_cell``."""
     from repro_torch.launch import dryrun
     _zero_counts()
     if job == "counters":
         info = _counter_check()
+    elif job.startswith("pair "):
+        _, arch, shape, mesh = job.split()
+        info = {"arch": arch, "shape": shape, "mesh": mesh,
+                "layers": DRYRUN_SWEEP_LAYERS,
+                **dryrun.trace_pair(arch, shape, mesh, DRYRUN_SWEEP_LAYERS)}
     elif job.startswith("calibrate "):
         cfg, shape, extra = _calibration(job.split()[1])
         traced = dryrun.trace_cell(cfg, shape, (1, 1), extra=extra)
@@ -3214,11 +3319,6 @@ def dryrun_job(job: str) -> dict:
     info["job"] = job
     info["launches"] = _read_counts()
     return info
-
-
-def dryrun_main(job: str) -> int:
-    log("dryrun: " + json.dumps(dryrun_job(job)))
-    return 0
 
 
 def _finite_terms(name: str, r: dict) -> None:
@@ -3296,65 +3396,166 @@ def _padded_q_heads_gate(name: str, r: dict, cfg, shape, mesh_shape,
                  "a rank's q activation")
 
 
+def _worker_init(out_dir: str) -> None:
+    """A phase t worker's output (torch's warnings) goes to a log of its
+    own under ``out_dir``."""
+    fd = os.open(os.path.join(out_dir, f"worker{os.getpid()}.log"),
+                 os.O_WRONLY | os.O_CREAT | os.O_TRUNC)
+    os.dup2(fd, 1)
+    os.dup2(fd, 2)
+    os.close(fd)
+
+
+def _pool_job(job: str):
+    """:func:`dryrun_job` in a worker -> (job, result or None, the error's
+    traceback or None, the job's seconds in the worker)."""
+    import traceback
+    t0 = time.perf_counter()
+    try:
+        return job, dryrun_job(job), None, time.perf_counter() - t0
+    except Exception:  # noqa: BLE001 -- every job is reported
+        return (job, None, traceback.format_exc()[-4000:],
+                time.perf_counter() - t0)
+
+
+def _run_jobs(jobs: list, workers: int, out_dir: Path):
+    """Phase t's jobs in a pool of ``workers`` processes (``spawn``), each
+    taking the next job when it is done, in the order given; each job
+    makes its own fake process group, its worker's default group, and
+    destroys it.  -> ({job: result}, {job: why it failed}, {job: seconds
+    in its worker}).  Jobs not done within :data:`DRYRUN_TIMEOUT_S` fail,
+    and the pool is stopped."""
+    import multiprocessing
+    results, failures, seconds = {}, {}, {}
+    deadline = time.perf_counter() + DRYRUN_TIMEOUT_S
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(workers, _worker_init, (str(out_dir),)) as pool:
+        pending = [(job, pool.apply_async(_pool_job, (job,)))
+                   for job in jobs]
+        for job, res in pending:
+            try:
+                _, info, err, secs = res.get(
+                    max(0.0, deadline - time.perf_counter()))
+            except multiprocessing.TimeoutError:
+                failures[job] = f"not done within {DRYRUN_TIMEOUT_S} s"
+                continue
+            seconds[job] = secs
+            if err is None:
+                results[job] = info
+            else:
+                failures[job] = err
+    return results, failures, seconds
+
+
+def _rises(name: str, now, before) -> list:
+    """The figures of ``now`` (peak, all-gather and wire bytes a rank) that
+    rise above ``before``'s, each to its :data:`DRYRUN_BEFORE_DIGITS`."""
+    return [f"phase t {name}: {what} {n} B a rank above its "
+            f"{b / u:.{d}f} x {u:g} B before"
+            for what, n, b, (u, d) in zip(("peak", "all-gather", "wire"),
+                                          now, before, DRYRUN_BEFORE_DIGITS)
+            if round(n / u, d) > round(b / u, d)]
+
+
+def dryrun_sweep(card: str, jobs: tuple = ()) -> tuple:
+    """Phase t's pool (:func:`_run_jobs`, ``min(os.cpu_count(), 16)``
+    workers): ``jobs``, phase t's own, then the
+    sweep, a ``pair`` job for each pair of :func:`dryrun_pairs` cut to
+    :data:`DRYRUN_SWEEP_LAYERS` layers, the train steps first (the longest
+    traces).  Prints one line a pair and the sweep's wall time -> ({job:
+    result} for ``jobs``, the sweep's {pairs, wall_s}).  Fails if a job of
+    ``jobs`` fails, a pair raises or counts no collective, or, on
+    :data:`DRYRUN_SWEEP_TORCH`, a pair's peak, all-gather or wire bytes a
+    rank rise above its :data:`DRYRUN_SWEEP_BEFORE`.  With no ``jobs`` it
+    is the sweep alone: a rehearsal on a host without a card (the dry-run
+    needs none)."""
+    import torch
+    from repro_torch.configs import get_shape
+    workers = min(os.cpu_count(), 16)
+    out_dir = ROOT / "build" / "chip_smoke" / "dryrun"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    order = {"train": 0, "prefill": 1}
+    pairs = sorted(dryrun_pairs(),
+                   key=lambda p: order.get(get_shape(p[1]).kind, 2))
+    sweep_jobs = [f"pair {a} {s} {m}" for a, s, m in pairs]
+    t0 = time.perf_counter()
+    results, failures, seconds = _run_jobs(list(jobs) + sweep_jobs, workers,
+                                           out_dir)
+    wall = time.perf_counter() - t0
+    own = {j: failures[j] for j in jobs if j in failures}
+    if own:
+        raise AssertionError("phase t " + "\n".join(
+            f"{job}: {why}" for job, why in own.items()))
+    gated = torch.__version__.startswith(DRYRUN_SWEEP_TORCH)
+    rows, bad = [], {j: failures[j] for j in sweep_jobs if j in failures}
+    for job in sweep_jobs:
+        if job in bad:
+            continue
+        r = {**results[job], "job_s": seconds[job]}
+        log(f"phase t pair {r['arch']} x {r['shape']} x {r['mesh']} "
+            f"({r['layers']} layers) per rank [{card}]: "
+            f"trace_s={r['trace_s']:.2f} peak {r['peak_bytes'] / 1e9:.3f} GB "
+            f"all-gather {r['all_gather'] / 1e6:.1f} MB wire "
+            f"{r['wire_bytes'] / 1e9:.4f} GB "
+            f"collectives={json.dumps(r['counts'], sort_keys=True)}")
+        if not sum(r["counts"].values()) > 0:
+            bad[job] = "no collective counted"
+        key = f"{r['arch']} {r['shape']} {r['mesh']}"
+        if gated and key in DRYRUN_SWEEP_BEFORE:
+            rises = _rises(f"pair {key}", (r["peak_bytes"], r["all_gather"],
+                                            r["wire_bytes"]),
+                           DRYRUN_SWEEP_BEFORE[key])
+            if rises:
+                bad[job] = "; ".join(rises)
+        rows.append(r)
+    gate = ("each held to DRYRUN_SWEEP_BEFORE" if gated else
+            f"no-rise gate off on torch {torch.__version__}")
+    log(f"phase t sweep: {len(sweep_jobs) - len(bad)} of {len(sweep_jobs)} "
+        f"pairs passed ({gate}) by {workers} worker processes, "
+        f"{wall:.1f} s of wall time, "
+        f"{sum(seconds.get(j, 0.0) for j in sweep_jobs):.1f} s in the "
+        f"pairs' jobs")
+    if bad:
+        raise AssertionError("phase t sweep: " + "\n".join(
+            f"{job}: {why}" for job, why in bad.items()))
+    return ({j: results[j] for j in jobs},
+            {"pairs": rows, "wall_s": wall})
+
+
 def dryrun_path(card: str, paths: list, capacity: int) -> dict:
     """Phase t: the dry-run (``repro_torch.launch.dryrun``) on fake meshes,
-    each job in a process of its own (the fake process group is that
-    process's default group), all started together: the counters' known
-    answers, the five :data:`DRYRUN_CELLS` on the 16x16 and 2x16x16 meshes
-    (each cell's per-rank peak, all-gather and all wire bytes printed
-    beside :data:`DRYRUN_BEFORE` and :data:`DRYRUN_REFERENCE`, with the
-    card's name and power limit, and its largest collective sites), and
-    the card's own train step (phase q) and mamba2 prefill traced on a
-    one-rank mesh, whose roofline ``step_s`` is printed beside the seconds
-    this run measured for them and the measured share of the bf16 peak.
-    Fails if a job fails, a cell's collective counts are empty, a term is
-    not finite, a peak a rank of :data:`DRYRUN_FIT_CELLS` exceeds
-    ``capacity`` bytes (the card's memory), a cell of
-    :data:`DRYRUN_GATHER_CELLS` all-gathers more than the reference a
-    rank, a cell's wire bytes a rank exceed its :data:`DRYRUN_WIRE_BOUND`,
-    a cell of :data:`DRYRUN_PADDED_HEADS` gives a model rank another SSD
-    head count or has an all-gather site in ``models/ssm.py`` that moves,
-    per call, as much as a rank's (B_l, S, d_inner / 16) bf16 x
-    activation, or a cell of :data:`DRYRUN_PADDED_Q_HEADS` gives a model
-    rank another q head count or has an all-gather site in
-    ``models/attention.py`` that moves, per call, as much as a rank's (B_l,
-    S, H * Dh) bf16 q activation."""
+    its jobs in the pool of :func:`dryrun_sweep`, before the sweep's: the
+    counters' known answers, the five
+    :data:`DRYRUN_CELLS` on the 16x16 and 2x16x16 meshes (each cell's
+    per-rank peak, all-gather and all wire bytes printed beside
+    :data:`DRYRUN_BEFORE` and :data:`DRYRUN_REFERENCE`, with the card's
+    name and power limit, and its largest collective sites), the card's
+    own train step (phase q) and mamba2 prefill traced on a one-rank mesh,
+    whose roofline ``step_s`` is printed beside the seconds this run
+    measured for them and the measured share of the bf16 peak.  Fails
+    where :func:`dryrun_sweep` fails, if a cell's collective counts are
+    empty, a term is not finite, a cell's peak, all-gather or wire bytes a
+    rank rise above its :data:`DRYRUN_BEFORE`, a peak a rank of
+    :data:`DRYRUN_FIT_CELLS` exceeds ``capacity`` bytes (the card's
+    memory), a cell of :data:`DRYRUN_GATHER_CELLS` all-gathers more than
+    the reference a rank, a cell's wire bytes a rank exceed its
+    :data:`DRYRUN_WIRE_BOUND`, a cell of :data:`DRYRUN_PADDED_HEADS` gives
+    a model rank another SSD head count or has an all-gather site in
+    ``models/ssm.py`` that moves, per call, as much as a rank's (B_l, S,
+    d_inner / 16) bf16 x activation, or a cell of
+    :data:`DRYRUN_PADDED_Q_HEADS` gives a model rank another q head count
+    or has an all-gather site in ``models/attention.py`` that moves, per
+    call, as much as a rank's (B_l, S, H * Dh) bf16 q activation."""
     import statistics
     from repro_torch.configs import get_config, get_shape
     from repro_torch.launch.dryrun import N_SITES, PRODUCTION_MESHES
     from repro_torch.launch.roofline import PEAK_FLOPS_BF16
     t0 = time.perf_counter()
-    out_dir = ROOT / "build" / "chip_smoke" / "dryrun"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    jobs = (["counters"] + [f"{a} {s} {int(mp)}" for a, s, mp in DRYRUN_CELLS]
-            + ["calibrate train", "calibrate prefill"])
-    procs = []
-    for i, job in enumerate(jobs):
-        logf = open(out_dir / f"job{i}.log", "w")
-        procs.append((job, logf, subprocess.Popen(
-            [sys.executable, str(ROOT / "chip_smoke.py"), "--dryrun", job,
-             "--src", str(SRC)], stdout=logf, stderr=subprocess.STDOUT,
-            text=True)))
-    results = {}
-    try:
-        for job, logf, proc in procs:
-            rc = proc.wait(timeout=DRYRUN_TIMEOUT_S)
-            logf.close()
-            text = Path(logf.name).read_text()
-            lines = [ln for ln in text.splitlines()
-                     if ln.startswith("dryrun: ")]
-            if rc != 0 or not lines:
-                raise AssertionError(f"phase t {job}: rc {rc}\n"
-                                     f"{text[-4000:]}")
-            results[job] = json.loads(lines[-1][len("dryrun: "):])
-    finally:
-        for _, logf, proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            logf.close()
+    jobs = ([f"{a} {s} {int(mp)}" for a, s, mp in DRYRUN_CELLS]
+            + ["calibrate train", "calibrate prefill", "counters"])
+    results, sweep = dryrun_sweep(card, jobs)
     log("phase t counters: " + json.dumps(results["counters"]))
-    cells = []
+    cells, rises = [], []
     for arch, shape, mp in DRYRUN_CELLS:
         r = results[f"{arch} {shape} {int(mp)}"]
         name = f"{arch} x {shape} x {r['mesh']}"
@@ -3374,9 +3575,10 @@ def dryrun_path(card: str, paths: list, capacity: int) -> dict:
         wire = r["collective_wire_bytes"]
         j_mem, j_ag = DRYRUN_REFERENCE[key]
         b_peak, b_ag, b_wire = (
-            f"{v / u:.{d}f} {n}" for v, u, d, n in zip(
-                DRYRUN_BEFORE[key], (1e9, 1e6, 1e9), (3, 1, 4),
-                ("GB", "MB", "GB")))
+            f"{v / u:.{d}f} {n}" for v, (u, d), n in zip(
+                DRYRUN_BEFORE[key], DRYRUN_BEFORE_DIGITS, ("GB", "MB", "GB")))
+        rises += _rises(name, (mem["peak_bytes"], gathered, wire),
+                        DRYRUN_BEFORE[key])
         log(f"phase t {name} per rank [{card}]: peak "
             f"{mem['peak_bytes'] / 1e9:.3f} GB (before {b_peak};"
             f" reference args + temps {j_mem / 1e9:.2f} GB, XLA's CPU buffer "
@@ -3422,10 +3624,12 @@ def dryrun_path(card: str, paths: list, capacity: int) -> dict:
             f"measured share of the bf16 peak {share:.4g} "
             f"(roofline mfu {r['mfu']:.4g}); trace_s={r['trace_s']:.1f} "
             f"[{card}]")
+    if rises:
+        raise AssertionError("\n".join(rises))
     wall = time.perf_counter() - t0
-    log(f"phase t: {len(jobs)} processes, {wall:.1f} s")
+    log(f"phase t: {len(jobs) + len(sweep['pairs'])} jobs, {wall:.1f} s")
     return {"counters": results["counters"], "cells": cells,
-            "calibration": calib, "phase_s": wall}
+            "calibration": calib, "sweep": sweep, "phase_s": wall}
 
 
 # -- times ----------------------------------------------------------------------
@@ -4076,9 +4280,6 @@ def main(argv=None) -> int:
     ap.add_argument("--train-restart", action="store_true",
                     help="only the restart check of phase q (run by phase q "
                          "itself in a process of its own)")
-    ap.add_argument("--dryrun", default=None, metavar="JOB",
-                    help="only one job of phase t (run by phase t itself, "
-                         "each job in a process of its own)")
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the src/ directory whose repro_torch to run (for "
                          "example a parent commit's, unpacked with git "
@@ -4103,8 +4304,6 @@ def main(argv=None) -> int:
         return conv2d_stream_main()
     if args.train_restart:
         return train_restart_main()
-    if args.dryrun:
-        return dryrun_main(args.dryrun)
     # a fresh tile cache of this run's own, which the autotune phase fills
     # and every later phase (and its second process) reads
     cache = ROOT / "build" / "chip_smoke" / "autotune.json"

@@ -12,8 +12,8 @@ on the host, not a device figure; its collectives are
 ``parse_collectives`` of the compiled HLO, the layers unrolled.  The port
 (``repro_torch.launch.dryrun.trace_cell``) traces the same cut cell on
 fake tensors over a fake process group.  Both are per rank.  ``--layers``
-cuts the depth (2 by default; 0 keeps the config's, whose compile takes
-the reference minutes and several GB).
+cuts the depth, an encoder's too (2 by default; 0 keeps the config's,
+whose compile takes the reference minutes and several GB).
 
 Prints one line a figure and a last JSON line ``{"reference": {...},
 "port": {...}}``.  ``--reference-only`` prints the reference's JSON line
@@ -47,7 +47,8 @@ def reference_cells(cells, layers: int, multi_pod: bool) -> dict:
     for arch, shape in cells:
         cfg = get_config(arch)
         if layers:
-            cfg = dataclasses.replace(cfg, n_layers=layers)
+            enc = {"enc_layers": layers} if cfg.enc_layers else {}
+            cfg = dataclasses.replace(cfg, n_layers=layers, **enc)
         compiled = J._lower_cell(cfg, get_shape(shape),
                                  make_production_mesh(multi_pod=multi_pod),
                                  unroll=True).compile()
@@ -82,19 +83,9 @@ def reference_in_subprocess(cells, layers: int, multi_pod: bool) -> dict:
 
 def port_cell(arch: str, shape: str, layers: int, multi_pod: bool) -> dict:
     """The port's cut cell, per rank."""
-    from repro_torch.configs import get_config, get_shape
     from repro_torch.launch import dryrun as D
-    cfg = get_config(arch)
-    if layers:
-        cfg = dataclasses.replace(cfg, n_layers=layers)
-    mesh = D.PRODUCTION_MESHES["2x16x16" if multi_pod else "16x16"]
-    traced = D.trace_cell(cfg, get_shape(shape), mesh)
-    coll = traced["collective"]
-    return {"peak_bytes": traced["memory"]["peak_bytes"],
-            "argument_bytes": traced["memory"]["argument_bytes"],
-            "all_gather": float(coll.bytes_by_op.get("all-gather", 0.0)),
-            "wire_bytes": float(coll.wire_bytes),
-            "counts": dict(coll.counts), "trace_s": traced["trace_s"]}
+    return D.trace_pair(arch, shape, "2x16x16" if multi_pod else "16x16",
+                        layers)
 
 
 def main(argv=None) -> int:

@@ -520,6 +520,13 @@ def _build_step(cfg: ModelConfig, shape: ShapeConfig, mesh, *, remat: bool,
         p_sh, S.batch_sharding({"tokens": toks}, mesh)["tokens"], st_sh)
 
 
+def cut_layers(cfg: ModelConfig, layers: int) -> ModelConfig:
+    """``cfg`` cut to ``layers`` layers, and as many encoder layers where
+    it has an encoder: the depth of a cut dry-run."""
+    enc = {"enc_layers": layers} if cfg.enc_layers else {}
+    return dataclasses.replace(cfg, n_layers=layers, **enc)
+
+
 def trace_cell(cfg: ModelConfig, shape: ShapeConfig,
                mesh_shape: Sequence[int], *, remat: bool = True,
                grad_compress: bool = False,
@@ -552,6 +559,25 @@ def trace_cell(cfg: ModelConfig, shape: ShapeConfig,
             "collective": counter.collective,
             "sites": counter.top_sites(n_sites), "memory": memory,
             "ops": counter.ops, "lower_s": lower_s, "trace_s": trace_s}
+
+
+def trace_pair(arch: str, shape_name: str, mesh_name: str,
+               layers: int = 0) -> Dict:
+    """``arch`` x ``shape_name`` on the production mesh ``mesh_name``, cut
+    to ``layers`` layers (0: the config's depth), traced -> one rank's
+    {peak_bytes, argument_bytes, all_gather, wire_bytes, counts,
+    trace_s}."""
+    cfg = get_config(arch)
+    if layers:
+        cfg = cut_layers(cfg, layers)
+    traced = trace_cell(cfg, get_shape(shape_name),
+                        PRODUCTION_MESHES[mesh_name])
+    coll = traced["collective"]
+    return {"peak_bytes": traced["memory"]["peak_bytes"],
+            "argument_bytes": traced["memory"]["argument_bytes"],
+            "all_gather": float(coll.bytes_by_op.get("all-gather", 0.0)),
+            "wire_bytes": float(coll.wire_bytes),
+            "counts": dict(coll.counts), "trace_s": traced["trace_s"]}
 
 
 def report_for(arch: str, shape: ShapeConfig, mesh_name: str, chips: int,

@@ -54,7 +54,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import apply_rope, rope_angles
 from repro_torch.sharding import (P, axis_names, batch_axes, constrain,
                                   dp_size, heads_view, mesh_shape,
-                                  padded_heads, shard_map, tp_size, zero_pad)
+                                  padded_heads, pin_residual, shard_map,
+                                  tp_size, zero_pad)
 
 Q_CHUNK = 1024  # query-block size for chunked attention
 PAD_POS = -10 ** 9     # position of the keys padded in front of a band
@@ -361,8 +362,7 @@ def attention(x: torch.Tensor, p: LayerAttnParams, cfg: ModelConfig, *,
         # wo's rule leaves it whole here, so its product is whole too: the
         # padded rows' partial sums are reduced here, where DTensor could
         # split the batch rows unevenly over 'model'
-        bspec = batch_axes(mesh) if B % dp_size(mesh) == 0 else None
-        out = constrain(out, mesh, P(bspec, None, None))
+        out = pin_residual(out, mesh)
     return out, k, v
 
 

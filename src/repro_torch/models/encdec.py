@@ -23,7 +23,7 @@ from repro_torch.models.attention import attention, decode_attention
 from repro_torch.models.common import embed_lookup, norm, unembed
 from repro_torch.models.transformer import (_attn_params, _layer, _mlp,
                                             layer_tree, run_layer)
-from repro_torch.sharding import mesh_scope
+from repro_torch.sharding import heads_view, mesh_scope, pin_residual
 
 
 def encode(params: Dict[str, torch.Tensor], frames: torch.Tensor,
@@ -46,8 +46,9 @@ def _encode(params, frames, cfg: ModelConfig, remat: bool, mesh):
         xn = norm(x, lp["attn_norm/w"], cfg.norm)
         a, _, _ = attention(xn, _attn_params(lp), cfg, positions=positions,
                             causal=False, mesh=mesh)
-        x = x + a
-        return x + _mlp(norm(x, lp["mlp_norm/w"], cfg.norm), lp, cfg)
+        x = pin_residual(x + a, mesh)
+        return pin_residual(
+            x + _mlp(norm(x, lp["mlp_norm/w"], cfg.norm), lp, cfg), mesh)
 
     for i in range(cfg.enc_layers):
         x = run_layer(layer, remat, x, _layer(lt, i))
@@ -55,12 +56,13 @@ def _encode(params, frames, cfg: ModelConfig, remat: bool, mesh):
 
 
 def _cross_kv(enc_out: torch.Tensor, lp: Dict[str, torch.Tensor],
-              cfg: ModelConfig):
+              cfg: ModelConfig, mesh=None):
     B, Se, _ = enc_out.shape
+    shape = (B, Se, cfg.n_kv_heads, cfg.head_dim)
     k = torch.matmul(enc_out, lp["cross/wk"])
     v = torch.matmul(enc_out, lp["cross/wv"])
-    return (k.reshape(B, Se, cfg.n_kv_heads, cfg.head_dim),
-            v.reshape(B, Se, cfg.n_kv_heads, cfg.head_dim))
+    return (heads_view(k, shape, cfg.n_kv_heads, mesh),
+            heads_view(v, shape, cfg.n_kv_heads, mesh))
 
 
 def forward(params: Dict[str, torch.Tensor], tokens: torch.Tensor,
@@ -91,14 +93,15 @@ def _forward(params, tokens, frames, cfg: ModelConfig, mesh, remat,
         xn = norm(x, lp["attn_norm/w"], cfg.norm)
         a, k, v = attention(xn, _attn_params(lp), cfg, positions=positions,
                             mesh=mesh)
-        x = x + a
-        ck, cv = _cross_kv(enc_out, lp, cfg)
+        x = pin_residual(x + a, mesh)
+        ck, cv = _cross_kv(enc_out, lp, cfg, mesh)
         xn = norm(x, lp["cross_norm/w"], cfg.norm)
         c, _, _ = attention(xn, _attn_params(lp, "cross"), cfg,
                             positions=positions, causal=False,
                             kv_override=(ck, cv, enc_pos), mesh=mesh)
-        x = x + c
-        x = x + _mlp(norm(x, lp["mlp_norm/w"], cfg.norm), lp, cfg)
+        x = pin_residual(x + c, mesh)
+        x = pin_residual(
+            x + _mlp(norm(x, lp["mlp_norm/w"], cfg.norm), lp, cfg), mesh)
         return x, (k, v, ck, cv)
 
     caches = []

@@ -32,8 +32,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike
 from repro_torch.models.common import rmsnorm
 from repro_torch.sharding import (P, batch_axes, constrain, dp_size,
-                                  heads_view, padded_heads, shard_map,
-                                  tp_size)
+                                  heads_view, padded_heads, pin, pin_residual,
+                                  shard_map, tp_size)
 from repro_torch.sharding import zero_pad as _zero_pad
 
 
@@ -248,13 +248,14 @@ def ssd_decode_step(x, dt, A, Bm, C, D, state):
 
 
 def _constrain_inner(t, mesh):
-    """(B, S, d_inner-like) -> last dim over 'model' (divisible by design)."""
+    """(B, S, d_inner-like) -> last dim over 'model' (divisible by design),
+    the cotangent too, as the reference's constraint holds its transpose."""
     if mesh is None or not perf.FLAGS.ssd_constraint:
         return t
     bspec = batch_axes(mesh) if t.shape[0] % 2 == 0 else None
     spec = P(bspec, None, "model") if t.shape[-1] % tp_size(mesh) == 0 \
         else P(bspec, None, None)
-    return constrain(t, mesh, spec)
+    return pin(t, mesh, spec)
 
 
 def ssd_heads(n_heads: int, tp: int) -> int:
@@ -382,8 +383,7 @@ def ssm_block(x: torch.Tensor, p: SSMLayerParams, cfg: ModelConfig,
         # w_out's rule leaves it whole here, so its product is whole too:
         # the padded rows' partial sums are reduced here, where DTensor
         # could split the batch rows unevenly over 'model'
-        bspec = batch_axes(mesh) if B % dp_size(mesh) == 0 else None
-        out = constrain(out, mesh, P(bspec, None, None))
+        out = pin_residual(out, mesh)
     return out, SSMState(ssd=ssd_state, conv=conv_state)
 
 

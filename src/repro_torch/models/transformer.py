@@ -29,7 +29,8 @@ from repro_torch.models.attention import (LayerAttnParams, attention,
 from repro_torch.models.common import embed_lookup, gelu, norm, swiglu, unembed
 from repro_torch.models.moe import MoELayerParams, moe_block
 from repro_torch.models.ssm import SSMLayerParams, SSMState, init_ssm_state
-from repro_torch.sharding import heads_view, mesh_scope
+from repro_torch.sharding import (heads_view, mesh_scope, pin, pin_residual,
+                                  residual_spec)
 
 LAYER_PREFIX = "layers/"
 
@@ -119,6 +120,8 @@ def embed_inputs(params, cfg: ModelConfig, tokens, patch_embeds=None,
     x = embed_lookup(params["embed/table"], tokens, mesh)
     if cfg.n_patches and patch_embeds is not None:
         pe = torch.matmul(patch_embeds.to(x.dtype), params["vision_proj/w"])
+        if mesh is not None:
+            pe = pin(pe, mesh, residual_spec(pe.shape[0], mesh))
         x = torch.cat([pe, x[:, cfg.n_patches:, :]], dim=1)
     return x
 
@@ -160,10 +163,10 @@ def _forward(params, tokens, cfg: ModelConfig, mesh, tp_total, patch_embeds,
 
     def layer(x, lb, z, lp):
         dx, cache = _token_mixer(x, lp, cfg, positions, ssd_kernel, mesh)
-        x = x + dx
+        x = pin_residual(x + dx, mesh)
         dx, moe_aux = _channel_mixer(x, lp, cfg, mesh, tp_total)
         if dx is not None:
-            x = x + dx
+            x = pin_residual(x + dx, mesh)
         if moe_aux is not None:
             lb = lb + moe_aux[0]
             z = z + moe_aux[1]

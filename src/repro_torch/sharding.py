@@ -137,6 +137,47 @@ def constrain(x, mesh, spec: Sequence):
     return x.redistribute(mesh, placements)
 
 
+class _Pin(torch.autograd.Function):
+    """:func:`constrain` forward, and on the gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, spec):
+        ctx.mesh, ctx.spec = mesh, spec
+        y = constrain(x, mesh, spec)
+        return x.view_as(x) if y is x else y
+
+    @staticmethod
+    def backward(ctx, g):
+        return constrain(g, ctx.mesh, ctx.spec), None, None
+
+
+def pin(x, mesh, spec: Sequence):
+    """:func:`constrain` that also holds the cotangent to ``spec``, as JAX
+    constrains the transpose of a ``with_sharding_constraint`` (identity
+    without a mesh or on a plain tensor)."""
+    from torch.distributed.tensor import DTensor
+    if mesh is None or not isinstance(x, DTensor):
+        return x
+    return _Pin.apply(x, mesh, spec)
+
+
+def residual_spec(batch: int, mesh) -> P:
+    """A (B, S, d) activation as the reference's compiled program keeps the
+    residual stream: the batch over the data axes (where they divide it),
+    whole over 'model'."""
+    return P(batch_axes(mesh) if batch % dp_size(mesh) == 0 else None,
+             None, None)
+
+
+def pin_residual(x, mesh):
+    """A residual-stream activation constrained to :func:`residual_spec`
+    (a row-parallel product's partial sums reduced here).  Identity without
+    a mesh or on a plain tensor."""
+    if mesh is None:
+        return x
+    return constrain(x, mesh, residual_spec(x.shape[0], mesh))
+
+
 def _placements(spec, mesh) -> tuple:
     """A spec, or a tuple of DTensor placements passed through as they are
     (for a ``Partial`` output, which a spec cannot name)."""
