@@ -220,10 +220,11 @@ Phases, each of which raises (and exits non-zero) on failure:
       on a fake process group of its own, its worker's default group:
       the counters' known answers (a sharded MLP's 2^38 FLOPs a
       rank on a fake (16, 16) mesh, one all-reduce's ring wire bytes);
-      five production cells at full depth through ``launch.dryrun.run_cell``
+      six production cells at full depth through ``launch.dryrun.run_cell``
       (qwen1.5-0.5b x train_4k, mamba2-1.3b x prefill_32k, hymba-1.5b x
-      long_500k and hymba-1.5b x train_4k on 16x16, mixtral-8x7b x
-      decode_32k on 2x16x16), each report's line with ``trace_s`` and its
+      long_500k, hymba-1.5b x train_4k and mixtral-8x7b x train_4k on
+      16x16, mixtral-8x7b x decode_32k on 2x16x16), each report's line
+      with ``trace_s`` and its
       collective counts by op, its per-rank peak, all-gather and all wire
       bytes beside the port's before its residual stream and cotangents
       were pinned and the reference's dry-run (``DRYRUN_BEFORE``,
@@ -231,7 +232,9 @@ Phases, each of which raises (and exits non-zero) on failure:
       hymba's train_4k (50 SSD heads, padded to 64; 25 q heads, padded to
       32) must give every model rank 4 SSD heads and 2 q heads, gather no
       x activation in ``models/ssm.py`` and no q activation in
-      ``models/attention.py``; on a one-rank fake mesh, phase q's train
+      ``models/attention.py``, and mixtral's train_4k (32 q heads, 8 kv
+      heads) 2 q heads and no such q gather; on a one-rank fake mesh,
+      phase q's train
       step and the mamba2 bf16 prefill, their roofline ``step_s`` and
       bound beside the seconds this run measured for them and
       ``model_flops / (measured_s * 989e12)``, the measured share of the
@@ -243,13 +246,14 @@ Phases, each of which raises (and exits non-zero) on failure:
       rank, counts by op) and the sweep's wall time.  It fails if a job
       fails, a cell or a pair counts no collective, a term is not finite,
       a cell's peak, all-gather or wire bytes a rank rise above its
-      ``DRYRUN_BEFORE``, a pair's above its ``DRYRUN_SWEEP_BEFORE`` (the
-      card's torch 2.11 figures; on another torch the pairs are not so
-      gated), qwen1.5-0.5b's or hymba-1.5b's train_4k peak a
-      rank exceeds the card's memory, mamba2's prefill_32k or mixtral's
-      decode_32k all-gathers more than the reference a rank, mixtral's
-      wire bytes a rank exceed 250 MB, or hymba's train_4k fails a head or
-      gather gate.  The sweep alone rehearses on a host without a card
+      ``DRYRUN_BEFORE``, a pair's above its ``DRYRUN_SWEEP_BEFORE`` or its
+      peak a rank above the card's memory (the card's torch 2.11 figures;
+      on another torch the pairs are not so gated), qwen1.5-0.5b's,
+      hymba-1.5b's or mixtral-8x7b's train_4k peak a rank exceeds the
+      card's memory, mamba2's prefill_32k or mixtral's decode_32k
+      all-gathers more than the reference a rank, mixtral's decode wire
+      bytes a rank exceed 250 MB, or hymba's or mixtral's train_4k fails a
+      head or gather gate.  The sweep alone rehearses on a host without a card
       (the dry-run needs none): ``chip_smoke.dryrun_sweep("cpu")``;
 6. times — each kernel and mode, its plain version and the nearest PyTorch
    library call at the main paths' batch-8 shapes: device time per call
@@ -3093,38 +3097,44 @@ DRYRUN_CELLS = (("qwen1.5-0.5b", "train_4k", False),
                 ("mamba2-1.3b", "prefill_32k", False),
                 ("mixtral-8x7b", "decode_32k", True),
                 ("hymba-1.5b", "long_500k", False),
-                ("hymba-1.5b", "train_4k", False))
+                ("hymba-1.5b", "train_4k", False),
+                ("mixtral-8x7b", "train_4k", False))
 DRYRUN_TIMEOUT_S = 900
 # Per rank, for each of DRYRUN_CELLS: (peak bytes, all-gather wire bytes,
 # all wire bytes) of the port before its residual stream and cotangents
-# were pinned (phase t on the card, torch 2.11), and (argument + temp bytes,
-# all-gather wire bytes) of the reference's dry-run at full depth
-# (``repro.launch.dryrun``, ``scripts/dryrun_parity.py --reference-only
-# --layers 0`` for the first four, ``--layers 32`` for hymba's train_4k:
-# XLA's CPU-backend buffer assignment, computed on a host CPU, not a
-# device figure), printed beside this run's.  A cell's figures may not
-# rise above its DRYRUN_BEFORE ones (to the digits given there).
+# were pinned (phase t on the card, torch 2.11; mixtral's train_4k: its
+# first run, with the core on each rank's own q heads), and (argument +
+# temp bytes, all-gather wire bytes) of the reference's dry-run at full
+# depth (``repro.launch.dryrun``, ``scripts/dryrun_parity.py
+# --reference-only --layers 0`` for the first four, ``--layers 32`` for
+# hymba's train_4k: XLA's CPU-backend buffer assignment, computed on a host
+# CPU, not a device figure; None: not computed), printed beside this
+# run's.  A cell's figures may not rise above its DRYRUN_BEFORE ones (to
+# the digits given there).
 DRYRUN_BEFORE = {"qwen1.5-0.5b train_4k": (8.558e9, 3251.3e6, 45.6656e9),
                  "mamba2-1.3b prefill_32k": (2.771e9, 1513.7e6, 26.1998e9),
                  "mixtral-8x7b decode_32k": (6.243e9, 2.5e6, 0.0148e9),
                  "hymba-1.5b long_500k": (0.239e9, 19.7e6, 0.0203e9),
-                 "hymba-1.5b train_4k": (21.596e9, 10074.2e6, 291.6434e9)}
+                 "hymba-1.5b train_4k": (21.596e9, 10074.2e6, 291.6434e9),
+                 "mixtral-8x7b train_4k": (47.854e9, 38694.2e6, 207.5707e9)}
 # (unit, decimals) each DRYRUN_BEFORE figure is given to
 DRYRUN_BEFORE_DIGITS = ((1e9, 3), (1e6, 1), (1e9, 4))
 DRYRUN_REFERENCE = {"qwen1.5-0.5b train_4k": (14.55e9, 58.1e6),
                     "mamba2-1.3b prefill_32k": (1.73e9, 3019.9e6),
                     "mixtral-8x7b decode_32k": (18.30e9, 138.4e6),
                     "hymba-1.5b long_500k": (0.60e9, 13.4e6),
-                    "hymba-1.5b train_4k": (277.70e9, 68665.1e6)}
+                    "hymba-1.5b train_4k": (277.70e9, 68665.1e6),
+                    "mixtral-8x7b train_4k": None}
 # cells whose SSD heads the model axis does not divide: the heads a model
 # rank must scan once they are padded (hymba's 50 heads, 64 over 16 ranks)
 DRYRUN_PADDED_HEADS = {"hymba-1.5b train_4k": 4}
-# cells whose q heads the model axis neither divides nor fits under: the q
-# heads a model rank must score once they are padded (hymba's 25, 32 over
-# 16 ranks)
-DRYRUN_PADDED_Q_HEADS = {"hymba-1.5b train_4k": 2}
+# cells whose attention core runs on each rank's own q heads: the q heads
+# a model rank must score (hymba's 25 padded to 32 over 16 ranks;
+# mixtral's 32, which 16 ranks divide and its 8 kv heads do not)
+DRYRUN_OWN_Q_HEADS = {"hymba-1.5b train_4k": 2, "mixtral-8x7b train_4k": 2}
 # cells whose peak a rank must fit one card's memory
-DRYRUN_FIT_CELLS = ("qwen1.5-0.5b train_4k", "hymba-1.5b train_4k")
+DRYRUN_FIT_CELLS = ("qwen1.5-0.5b train_4k", "hymba-1.5b train_4k",
+                    "mixtral-8x7b train_4k")
 # cells whose all-gather wire bytes a rank must not exceed the reference's
 DRYRUN_GATHER_CELLS = ("mamba2-1.3b prefill_32k", "mixtral-8x7b decode_32k")
 # cells whose wire bytes a rank must stay under a bound: mixtral's decode
@@ -3135,23 +3145,25 @@ DRYRUN_WIRE_BOUND = {"mixtral-8x7b decode_32k": 250e6}
 DRYRUN_SWEEP_LAYERS = 2
 # Per rank, for each pair of the sweep ("arch shape mesh"): (peak bytes,
 # all-gather wire bytes, all wire bytes) of phase t on the card (torch
-# 2.11, at DRYRUN_SWEEP_LAYERS layers), to DRYRUN_BEFORE_DIGITS.  A pair's
+# 2.11, at DRYRUN_SWEEP_LAYERS layers; mixtral's and h2o-danube-3's
+# train_4k and prefill_32k with the attention core on each rank's own q
+# heads), to DRYRUN_BEFORE_DIGITS.  A pair's
 # figures may not rise above them where the dry-run runs on the torch they
 # were taken on, DRYRUN_SWEEP_TORCH: another torch lays out otherwise.
 DRYRUN_SWEEP_TORCH = "2.11."
 DRYRUN_SWEEP_BEFORE = {
     "granite-moe-3b-a800m train_4k 16x16": (10.525e9, 595.0e6, 5.6737e9),
     "granite-moe-3b-a800m train_4k 2x16x16": (5.299e9, 343.4e6, 3.0089e9),
-    "mixtral-8x7b train_4k 16x16": (137.660e9, 3453.8e6, 16.4621e9),
-    "mixtral-8x7b train_4k 2x16x16": (69.357e9, 1943.9e6, 9.3683e9),
+    "mixtral-8x7b train_4k 16x16": (18.665e9, 2447.2e6, 14.9521e9),
+    "mixtral-8x7b train_4k 2x16x16": (9.755e9, 1440.6e6, 8.6133e9),
     "whisper-base train_4k 16x16": (35.824e9, 1994.9e6, 5.3534e9),
     "whisper-base train_4k 2x16x16": (17.936e9, 1009.6e6, 2.7481e9),
     "hymba-1.5b train_4k 16x16": (14.557e9, 641.0e6, 19.0041e9),
     "hymba-1.5b train_4k 2x16x16": (8.163e9, 475.1e6, 10.0166e9),
     "phi3-mini-3.8b train_4k 16x16": (13.681e9, 934.5e6, 13.1148e9),
     "phi3-mini-3.8b train_4k 2x16x16": (6.914e9, 557.0e6, 7.0664e9),
-    "h2o-danube-3-4b train_4k 16x16": (136.387e9, 3099.0e6, 19.3890e9),
-    "h2o-danube-3-4b train_4k 2x16x16": (68.313e9, 1683.5e6, 10.4573e9),
+    "h2o-danube-3-4b train_4k 16x16": (15.773e9, 2155.3e6, 17.9734e9),
+    "h2o-danube-3-4b train_4k 2x16x16": (7.987e9, 1211.6e6, 9.7495e9),
     "codeqwen1.5-7b train_4k 16x16": (17.405e9, 1419.2e6, 19.3642e9),
     "codeqwen1.5-7b train_4k 2x16x16": (8.945e9, 915.9e6, 10.8409e9),
     "qwen1.5-0.5b train_4k 16x16": (5.480e9, 287.7e6, 4.3220e9),
@@ -3162,16 +3174,16 @@ DRYRUN_SWEEP_BEFORE = {
     "mamba2-1.3b train_4k 2x16x16": (5.383e9, 129.7e6, 8.2086e9),
     "granite-moe-3b-a800m prefill_32k 16x16": (1.915e9, 269.4e6, 2.1568e9),
     "granite-moe-3b-a800m prefill_32k 2x16x16": (0.975e9, 143.5e6, 1.0872e9),
-    "mixtral-8x7b prefill_32k 16x16": (5.473e9, 1509.9e6, 6.5431e9),
-    "mixtral-8x7b prefill_32k 2x16x16": (2.935e9, 755.0e6, 3.2716e9),
+    "mixtral-8x7b prefill_32k 16x16": (5.228e9, 503.3e6, 5.5365e9),
+    "mixtral-8x7b prefill_32k 2x16x16": (2.812e9, 251.7e6, 2.7682e9),
     "whisper-base prefill_32k 16x16": (3.846e9, 783.8e6, 1.6876e9),
     "whisper-base prefill_32k 2x16x16": (1.962e9, 391.9e6, 0.8438e9),
     "hymba-1.5b prefill_32k 16x16": (2.744e9, 242.1e6, 2.2092e9),
     "hymba-1.5b prefill_32k 2x16x16": (1.821e9, 159.5e6, 1.1430e9),
     "phi3-mini-3.8b prefill_32k 16x16": (3.376e9, 0.0e6, 3.7749e9),
     "phi3-mini-3.8b prefill_32k 2x16x16": (1.715e9, 0.0e6, 1.8874e9),
-    "h2o-danube-3-4b prefill_32k 16x16": (4.955e9, 1415.6e6, 6.1342e9),
-    "h2o-danube-3-4b prefill_32k 2x16x16": (2.513e9, 707.8e6, 3.0671e9),
+    "h2o-danube-3-4b prefill_32k 16x16": (4.600e9, 471.9e6, 5.1905e9),
+    "h2o-danube-3-4b prefill_32k 2x16x16": (2.335e9, 235.9e6, 2.5952e9),
     "codeqwen1.5-7b prefill_32k 16x16": (4.583e9, 0.0e6, 5.0332e9),
     "codeqwen1.5-7b prefill_32k 2x16x16": (2.368e9, 0.0e6, 2.5166e9),
     "qwen1.5-0.5b prefill_32k 16x16": (1.554e9, 0.0e6, 1.2583e9),
@@ -3375,13 +3387,14 @@ def _padded_heads_gate(name: str, r: dict, cfg, shape, mesh_shape,
     _gather_gate(name, r, "models/ssm.py", x_shard, "a rank's x activation")
 
 
-def _padded_q_heads_gate(name: str, r: dict, cfg, shape, mesh_shape,
-                         want: int) -> None:
-    """Phase t's gates on a cell whose q heads the model axis neither
-    divides nor fits under: every model rank scores ``want`` q heads (the
-    padded layout, and each attention core the traced rank ran), and no
-    all-gather site in ``models/attention.py`` moves, per call, as much as
-    a rank's (B_l, S, H * Dh) bf16 q activation."""
+def _own_q_heads_gate(name: str, r: dict, cfg, shape, mesh_shape,
+                      want: int) -> None:
+    """Phase t's gates on a cell whose attention core runs on each rank's
+    own q heads (padded where the model axis neither divides nor fits
+    under them): every model rank scores ``want`` q heads (the layout, and
+    each attention core the traced rank ran), and no all-gather site in
+    ``models/attention.py`` moves, per call, as much as a rank's (B_l, S,
+    H * Dh) bf16 q activation."""
     import math
     import types
     from repro_torch.models.attention import q_heads
@@ -3457,7 +3470,8 @@ def _rises(name: str, now, before) -> list:
             if round(n / u, d) > round(b / u, d)]
 
 
-def dryrun_sweep(card: str, jobs: tuple = ()) -> tuple:
+def dryrun_sweep(card: str, jobs: tuple = (),
+                 capacity: int | None = None) -> tuple:
     """Phase t's pool (:func:`_run_jobs`, ``min(os.cpu_count(), 16)``
     workers): ``jobs``, phase t's own, then the
     sweep, a ``pair`` job for each pair of :func:`dryrun_pairs` cut to
@@ -3466,9 +3480,10 @@ def dryrun_sweep(card: str, jobs: tuple = ()) -> tuple:
     result} for ``jobs``, the sweep's {pairs, wall_s}).  Fails if a job of
     ``jobs`` fails, a pair raises or counts no collective, or, on
     :data:`DRYRUN_SWEEP_TORCH`, a pair's peak, all-gather or wire bytes a
-    rank rise above its :data:`DRYRUN_SWEEP_BEFORE`.  With no ``jobs`` it
-    is the sweep alone: a rehearsal on a host without a card (the dry-run
-    needs none)."""
+    rank rise above its :data:`DRYRUN_SWEEP_BEFORE` or its peak a rank
+    exceeds ``capacity`` bytes (the card's memory, where given).  With no
+    ``jobs`` it is the sweep alone: a rehearsal on a host without a card
+    (the dry-run needs none)."""
     import torch
     from repro_torch.configs import get_shape
     workers = min(os.cpu_count(), 16)
@@ -3507,9 +3522,13 @@ def dryrun_sweep(card: str, jobs: tuple = ()) -> tuple:
                            DRYRUN_SWEEP_BEFORE[key])
             if rises:
                 bad[job] = "; ".join(rises)
+        if gated and capacity is not None and r["peak_bytes"] > capacity:
+            bad[job] = (f"peak {r['peak_bytes']} B a rank over the card's "
+                        f"{capacity} B")
         rows.append(r)
-    gate = ("each held to DRYRUN_SWEEP_BEFORE" if gated else
-            f"no-rise gate off on torch {torch.__version__}")
+    gate = ("each held to DRYRUN_SWEEP_BEFORE"
+            + ("" if capacity is None else " and under the card's memory")
+            if gated else f"no-rise gate off on torch {torch.__version__}")
     log(f"phase t sweep: {len(sweep_jobs) - len(bad)} of {len(sweep_jobs)} "
         f"pairs passed ({gate}) by {workers} worker processes, "
         f"{wall:.1f} s of wall time, "
@@ -3525,7 +3544,7 @@ def dryrun_sweep(card: str, jobs: tuple = ()) -> tuple:
 def dryrun_path(card: str, paths: list, capacity: int) -> dict:
     """Phase t: the dry-run (``repro_torch.launch.dryrun``) on fake meshes,
     its jobs in the pool of :func:`dryrun_sweep`, before the sweep's: the
-    counters' known answers, the five
+    counters' known answers, the six
     :data:`DRYRUN_CELLS` on the 16x16 and 2x16x16 meshes (each cell's
     per-rank peak, all-gather and all wire bytes printed beside
     :data:`DRYRUN_BEFORE` and :data:`DRYRUN_REFERENCE`, with the card's
@@ -3533,7 +3552,8 @@ def dryrun_path(card: str, paths: list, capacity: int) -> dict:
     own train step (phase q) and mamba2 prefill traced on a one-rank mesh,
     whose roofline ``step_s`` is printed beside the seconds this run
     measured for them and the measured share of the bf16 peak.  Fails
-    where :func:`dryrun_sweep` fails, if a cell's collective counts are
+    where :func:`dryrun_sweep` fails (a pair's peak a rank over
+    ``capacity`` among them), if a cell's collective counts are
     empty, a term is not finite, a cell's peak, all-gather or wire bytes a
     rank rise above its :data:`DRYRUN_BEFORE`, a peak a rank of
     :data:`DRYRUN_FIT_CELLS` exceeds ``capacity`` bytes (the card's
@@ -3543,7 +3563,7 @@ def dryrun_path(card: str, paths: list, capacity: int) -> dict:
     a model rank another SSD head count or has an all-gather site in
     ``models/ssm.py`` that moves, per call, as much as a rank's (B_l, S,
     d_inner / 16) bf16 x activation, or a cell of
-    :data:`DRYRUN_PADDED_Q_HEADS` gives a model rank another q head count
+    :data:`DRYRUN_OWN_Q_HEADS` gives a model rank another q head count
     or has an all-gather site in ``models/attention.py`` that moves, per
     call, as much as a rank's (B_l, S, H * Dh) bf16 q activation."""
     import statistics
@@ -3553,7 +3573,7 @@ def dryrun_path(card: str, paths: list, capacity: int) -> dict:
     t0 = time.perf_counter()
     jobs = ([f"{a} {s} {int(mp)}" for a, s, mp in DRYRUN_CELLS]
             + ["calibrate train", "calibrate prefill", "counters"])
-    results, sweep = dryrun_sweep(card, jobs)
+    results, sweep = dryrun_sweep(card, jobs, capacity)
     log("phase t counters: " + json.dumps(results["counters"]))
     cells, rises = [], []
     for arch, shape, mp in DRYRUN_CELLS:
@@ -3573,33 +3593,35 @@ def dryrun_path(card: str, paths: list, capacity: int) -> dict:
         key = f"{arch} {shape}"
         gathered = r["collective_bytes_by_op"].get("all-gather", 0.0)
         wire = r["collective_wire_bytes"]
-        j_mem, j_ag = DRYRUN_REFERENCE[key]
+        ref = DRYRUN_REFERENCE[key]
         b_peak, b_ag, b_wire = (
             f"{v / u:.{d}f} {n}" for v, (u, d), n in zip(
                 DRYRUN_BEFORE[key], DRYRUN_BEFORE_DIGITS, ("GB", "MB", "GB")))
         rises += _rises(name, (mem["peak_bytes"], gathered, wire),
                         DRYRUN_BEFORE[key])
+        j_mem, j_ag = (("not computed",) * 2 if ref is None else
+                       (f"{ref[0] / 1e9:.2f} GB", f"{ref[1] / 1e6:.1f} MB"))
         log(f"phase t {name} per rank [{card}]: peak "
             f"{mem['peak_bytes'] / 1e9:.3f} GB (before {b_peak};"
-            f" reference args + temps {j_mem / 1e9:.2f} GB, XLA's CPU buffer "
+            f" reference args + temps {j_mem}, XLA's CPU buffer "
             f"assignment on a host), all-gather {gathered / 1e6:.1f} MB "
-            f"(before {b_ag}; reference {j_ag / 1e6:.1f} MB), "
+            f"(before {b_ag}; reference {j_ag}), "
             f"wire {wire / 1e9:.4f} GB (before {b_wire})")
         log(f"phase t {name} collective sites (count, wire MB): " + "; ".join(
             f"{c['op']} at {c['site']} ({c['count']}, "
             f"{c['wire_bytes'] / 1e6:.2f})"
             for c in r["collective_sites"][:N_SITES]))
         for gate, wants in ((_padded_heads_gate, DRYRUN_PADDED_HEADS),
-                            (_padded_q_heads_gate, DRYRUN_PADDED_Q_HEADS)):
+                            (_own_q_heads_gate, DRYRUN_OWN_Q_HEADS)):
             if key in wants:
                 gate(name, r, get_config(arch), get_shape(shape),
                      PRODUCTION_MESHES[r["mesh"]], wants[key])
         if key in DRYRUN_FIT_CELLS and mem["peak_bytes"] > capacity:
             raise AssertionError(f"phase t {name}: peak {mem['peak_bytes']} "
                                  f"B a rank over the card's {capacity} B")
-        if key in DRYRUN_GATHER_CELLS and gathered > j_ag:
+        if key in DRYRUN_GATHER_CELLS and gathered > ref[1]:
             raise AssertionError(f"phase t {name}: all-gathers {gathered} B "
-                                 f"a rank over the reference's {j_ag} B")
+                                 f"a rank over the reference's {ref[1]} B")
         if wire > DRYRUN_WIRE_BOUND.get(key, float("inf")):
             raise AssertionError(f"phase t {name}: wire bytes {wire} a rank "
                                  f"over {DRYRUN_WIRE_BOUND[key]}")

@@ -32,11 +32,14 @@ cut a head dim the model axis does not divide the way JAX pads it.  Where
 the reference pins such q heads, :func:`attention` pads them with zero
 heads to a multiple of the model axis (:func:`q_heads`,
 :func:`_pad_q_heads`) and runs the core on each rank's own q heads, each
-with its kv head (:func:`_on_q_shards`); such kv heads (and elsewhere a
-flat projection that would split inside a head, as in the one-token
-decode) are replicated over 'model'.  A decode cache whose slots are
-sharded over the data axes (``launch.specs.decode_state_sharding`` for a
-batch they do not divide) is attended on each rank's own slots, the
+with its kv head (:func:`_on_q_shards`).  It runs there too, unpadded,
+where the model axis divides the q heads but not the kv heads
+(:func:`_on_own_q_heads`: 32 q and 8 kv heads on model 16), as GSPMD
+keeps such q heads on their shards.  The kv heads of either route (and
+elsewhere a flat projection that would split inside a head, as in the
+one-token decode) are replicated over 'model'.  A decode cache whose
+slots are sharded over the data axes (``launch.specs.decode_state_sharding``
+for a batch they do not divide) is attended on each rank's own slots, the
 softmax completed by all-reduces (:func:`_decode_on_seq_shards`), as
 GSPMD partitions the reference's decode over such a cache; one whose flat
 kv dim the model axis splits inside each kv head is attended on each
@@ -101,6 +104,19 @@ def q_heads(cfg: ModelConfig, mesh=None) -> int:
     if _pins_heads(cfg, mesh):
         return padded_heads(cfg.n_heads, tp_size(mesh))
     return cfg.n_heads
+
+
+def _on_own_q_heads(cfg: ModelConfig, mesh) -> bool:
+    """Whether :func:`attention` runs the core unpadded on each rank's own
+    q heads (:func:`_on_q_shards`): on a mesh whose model axis divides the
+    q heads but not the kv heads (mixtral-8x7b's and h2o-danube-3-4b's 32
+    q and 8 kv heads on model 16).  Whole kv heads cannot be split over
+    'model', so :func:`_on_kv_groups` would score every head on every
+    model rank; whole q heads can, each rank scoring its own H / tp."""
+    if mesh is None:
+        return False
+    tp = tp_size(mesh)
+    return cfg.n_heads % tp == 0 and cfg.n_kv_heads % tp != 0
 
 
 def _pad_q_heads(p: LayerAttnParams, cfg: ModelConfig, Hp: int,
@@ -292,14 +308,15 @@ def _on_kv_groups(core, mesh, q, k, v, *extra, extra_specs=(),
 
 def _on_q_shards(core, mesh, q, k, v, n_heads: int):
     """``core(q, k, v)`` -> out (B,S,Hp,Dh) on each rank's own q heads: q
-    (B,S,Hp,Dh) padded by :func:`q_heads` on even head shards over
-    'model', k/v (B,Sk,Hkv,Dh) whole over it; the batch over the data axes
-    where they divide it.  For each of its Hp / tp q heads, by global index
-    j, a rank takes kv head ``min(j // G, Hkv - 1)`` (G = n_heads / Hkv; a
-    padded head takes the last), so its heads may belong to two kv groups,
-    and ``core`` runs with as many kv heads as q heads (the per-head path
-    of :func:`_sdpa_chunk`): no rank scores more than Hp / tp q heads, and
-    k and v are not repeated whole."""
+    (B,S,Hp,Dh) on even head shards over 'model' (padded by :func:`q_heads`,
+    or Hp = n_heads where the model axis divides them,
+    :func:`_on_own_q_heads`), k/v (B,Sk,Hkv,Dh) whole over it; the batch
+    over the data axes where they divide it.  For each of its Hp / tp q
+    heads, by global index j, a rank takes kv head ``min(j // G, Hkv - 1)``
+    (G = n_heads / Hkv; a padded head takes the last), so its heads may
+    belong to two kv groups, and ``core`` runs with as many kv heads as q
+    heads (the per-head path of :func:`_sdpa_chunk`): no rank scores more
+    than Hp / tp q heads, and k and v are not repeated whole."""
     B, Hp, Hkv = q.shape[0], q.shape[2], k.shape[2]
     local = Hp // tp_size(mesh)
     bspec = batch_axes(mesh) if B % dp_size(mesh) == 0 else None
@@ -329,8 +346,10 @@ def attention(x: torch.Tensor, p: LayerAttnParams, cfg: ModelConfig, *,
     Returns (out (B,S,d), k, v) — k/v returned for cache population at
     prefill (after RoPE).  ``mesh``: the device mesh x and p lie on as
     DTensors (the head pins of :func:`_proj_qkv`); where those pins pad
-    the q heads (:func:`q_heads`), the core runs on each rank's own q
-    heads (:func:`_on_q_shards`), else on its kv-head groups."""
+    the q heads (:func:`q_heads`), or the model axis divides the q heads
+    but not the kv heads (:func:`_on_own_q_heads`), the core runs on each
+    rank's own q heads (:func:`_on_q_shards`), else on its kv-head
+    groups."""
     B, S, _ = x.shape
     Hq = q_heads(cfg, mesh)
     if Hq != cfg.n_heads:
@@ -353,7 +372,7 @@ def attention(x: torch.Tensor, p: LayerAttnParams, cfg: ModelConfig, *,
 
     if mesh is None:
         out = core(q, k, v)
-    elif Hq != cfg.n_heads:
+    elif Hq != cfg.n_heads or _on_own_q_heads(cfg, mesh):
         out = _on_q_shards(core, mesh, q, k, v, cfg.n_heads)
     else:
         out = _on_kv_groups(core, mesh, q, k, v)

@@ -1,5 +1,7 @@
-"""Attention's q heads padded over 'model' where the reference pins them,
-against ``mesh=None``, the reference and the reference's dry-run.
+"""Attention's core on each rank's own q heads: q heads padded over 'model'
+where the reference pins them, and unpadded where the model axis divides
+the q heads but not the kv heads; against ``mesh=None``, the reference and
+the reference's dry-run.
 
 Where the q heads neither divide nor fit under the model axis (hymba's 25
 and granite's 24 on model 16), the reference pins q, k and v head-sharded
@@ -8,21 +10,26 @@ alone with zero heads to a multiple of the model axis
 (``attention.q_heads``, ``attention._pad_q_heads``: zero columns of
 ``wq`` and ``bq``, zero rows of ``wo``, inside the forward), keeps k and v
 whole over 'model', and runs the core on each rank's own q heads, each
-with its kv head (``attention._on_q_shards``).
+with its kv head (``attention._on_q_shards``).  Where the model axis
+divides the q heads but not the kv heads (mixtral's and h2o-danube-3's 32
+q and 8 kv heads on model 16, ``attention._on_own_q_heads``), nothing
+pads and the core runs on the same route: rank m scores q heads 2m and
+2m + 1, both against kv head m // 2.
 
-On 2x4 gloo ranks (the helpers of ``test_torch_distributed.py``) two
-small f32 configs take that path: hymba's smoke config with 10 q heads
+On 2x4 gloo ranks (the helpers of ``test_torch_distributed.py``) three
+small f32 configs take that route: hymba's smoke config with 10 q heads
 and 2 kv heads (groups of 5, padded to 12, so rank 1 holds heads of both
-groups) 80 wide (its 10 SSD heads pad too), and qwen's with 6 q heads and
-2 kv heads (groups of 3, padded to 8) and its q/k/v biases.  The prefill
-logits and caches, six decode steps, the loss and every gradient are
-within 1e-5 of ``mesh=None``'s max |value|, the prefill within 1e-5 of
-the reference's max |logit| (the LM tests' f32 tolerance), the weights
-carried over by ``params_from_jax``.  The smoke sequences take the
-unchunked route; one attention layer of 10 q heads and 2 kv heads at B =
-2, S = 2048 takes the chunked route and, with a window of 1024, the
-banded one, its output and gradients within 1e-5 of ``mesh=None``'s.  On
-a one-rank mesh nothing pads, and the two configs' results are
+groups) 80 wide (its 10 SSD heads pad too), qwen's with 6 q heads and 2
+kv heads (groups of 3, padded to 8) and its q/k/v biases, and qwen's with
+8 q heads and 2 kv heads (2 a rank, unpadded).  The prefill logits and
+caches, six decode steps, the loss and every gradient are within 1e-5 of
+``mesh=None``'s max |value|, the prefill within 1e-5 of the reference's
+max |logit| (the LM tests' f32 tolerance), the weights carried over by
+``params_from_jax``.  The smoke sequences take the unchunked route; one
+attention layer of 10 q heads and 2 kv heads at B = 2, S = 2048 takes the
+chunked route and, with a window of 1024, the banded one, its output and
+gradients within 1e-5 of ``mesh=None``'s.  On a one-rank mesh nothing
+pads nor leaves the kv-head groups, and the three configs' results are
 ``mesh=None``'s bit for bit.
 
 The dry-run: hymba-1.5b train_4k cut to 2 layers on a fake (16, 16) mesh
@@ -50,7 +57,7 @@ from repro.configs import get_config as j_get_config
 from repro.models.params import init_params as j_init
 from repro.runtime import model_api as j_api
 
-from repro_torch.configs import get_config, get_shape
+from repro_torch.configs import ARCH_IDS, get_config, get_shape
 from repro_torch.launch import dryrun as D
 from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models import attention
@@ -59,9 +66,11 @@ from repro_torch.sharding import padded_heads
 
 from test_torch_distributed import REPO, _run_ranks
 
-# (case, arch, q heads, kv heads, d_model or None for the smoke config's)
+# (case, arch, q heads, kv heads, d_model or None for the smoke config's):
+# q heads padded over model 4, and q heads model 4 divides but kv heads not
 CASES = (("hymba-10-2", "hymba-1.5b", 10, 2, 80),
          ("qwen-6-2", "qwen1.5-0.5b", 6, 2, None))
+OWN_CASES = (("qwen-8-2", "qwen1.5-0.5b", 8, 2, None),)
 LAYER_CASES = (("chunked", None), ("banded", 1024))
 B, S = 2, 64
 LAYER_B, LAYER_S = 2, 2048
@@ -239,11 +248,12 @@ if RANK == 0:
 @pytest.fixture(scope="module")
 def ranks_2x4(tmp_path_factory):
     """Rank 0's log of one run on 2x4 gloo ranks of every 2x4 check below:
-    each of :data:`CASES` (prefill, caches, decode, loss and gradients)
-    and the layer on both routes, against ``mesh=None``'s results made
-    here.  One run, so the ranks start once."""
+    each of :data:`CASES` and :data:`OWN_CASES` (prefill, caches, decode,
+    loss and gradients) and the layer on both routes, against
+    ``mesh=None``'s results made here.  One run, so the ranks start
+    once."""
     models = {}
-    for case, arch, n_heads, n_kv, d_model in CASES:
+    for case, arch, n_heads, n_kv, d_model in CASES + OWN_CASES:
         cfg, params, toks, labels, _ = _inputs(arch, n_heads, n_kv, d_model)
         models[case] = {"cfg": (arch, n_heads, n_kv, d_model),
                         "params": params, "toks": toks, "labels": labels,
@@ -277,6 +287,25 @@ def test_padded_q_heads_on_2x4_ranks_match_one_device(ranks_2x4, case, arch,
     assert f"OK {case}\n" in ranks_2x4
 
 
+@pytest.mark.parametrize("case,arch,n_heads,n_kv,d_model", OWN_CASES,
+                         ids=[c[0] for c in OWN_CASES])
+def test_own_q_heads_on_2x4_ranks_match_one_device(ranks_2x4, case, arch,
+                                                   n_heads, n_kv, d_model):
+    """8 q heads and 2 kv heads on model 4: nothing pads, and every
+    attention core of the prefill and the train step runs on the rank's
+    own 2 q heads; the mesh prefill's logits and caches, six decode steps,
+    the train step's loss and every gradient within 1e-5 of
+    ``mesh=None``'s max |value|; ``mesh=None``'s prefill within 1e-5 of
+    the reference's max |logit|."""
+    cfg, params, toks, labels, ref = _inputs(arch, n_heads, n_kv, d_model)
+    mesh = types.SimpleNamespace(shape={"data": 2, "model": 4},
+                                 axis_names=("data", "model"))
+    assert attention.q_heads(cfg, mesh) == n_heads
+    assert attention._on_own_q_heads(cfg, mesh)
+    _close(_run(params, toks, labels, cfg)[0], ref, "reference")
+    assert f"OK {case}\n" in ranks_2x4
+
+
 @pytest.mark.parametrize("route,window", LAYER_CASES,
                          ids=[c[0] for c in LAYER_CASES])
 def test_padded_q_heads_layer_on_2x4_ranks(ranks_2x4, route, window):
@@ -299,15 +328,16 @@ def one_rank_mesh():
         dist.destroy_process_group()
 
 
-@pytest.mark.parametrize("case,arch,n_heads,n_kv,d_model", CASES,
-                         ids=[c[0] for c in CASES])
+@pytest.mark.parametrize("case,arch,n_heads,n_kv,d_model", CASES + OWN_CASES,
+                         ids=[c[0] for c in CASES + OWN_CASES])
 def test_one_rank_is_bit_for_bit(one_rank_mesh, case, arch, n_heads, n_kv,
                                  d_model):
-    """At (1, 1) no q head pads: the prefill, its caches, the decode steps
-    and state, the loss and every gradient equal ``mesh=None``'s bit for
-    bit."""
+    """At (1, 1) no q head pads nor leaves its kv-head group: the prefill,
+    its caches, the decode steps and state, the loss and every gradient
+    equal ``mesh=None``'s bit for bit."""
     cfg, params, toks, labels, _ = _inputs(arch, n_heads, n_kv, d_model)
     assert attention.q_heads(cfg, one_rank_mesh) == n_heads
+    assert not attention._on_own_q_heads(cfg, one_rank_mesh)
     want = _run(params, toks, labels, cfg)
     got = _run(params, toks, labels, cfg, one_rank_mesh)
     for i in range(3):
@@ -380,6 +410,38 @@ def test_padded_heads_meet_their_kv_heads(n_heads, n_kv, tp):
     base = want.reshape(2, Sq, cfg.q_dim) @ p.wo
     assert float((flat @ pp.wo - base).abs().max()) <= \
         1e-6 * float(base.abs().max())
+
+
+# -- the unpadded route's heads ----------------------------------------------------
+
+def test_kv_heads_of_eight_kv_heads_on_model_16():
+    """32 q heads and 8 kv heads on model 16 (mixtral, h2o-danube-3): rank
+    m holds q heads 2m and 2m + 1, both of kv head m // 2."""
+    for m in range(16):
+        assert attention._kv_heads_of(m, 2, 32, 8) == [m // 2] * 2, m
+
+
+# the archs whose attention runs unpadded on each rank's own q heads on
+# model 16
+OWN_Q_ARCHS = ("mixtral-8x7b", "h2o-danube-3-4b")
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_own_q_heads_route_on_model_16(arch):
+    """On model 16 the unpadded own-q-heads route takes mixtral-8x7b and
+    h2o-danube-3-4b (32 q heads, 8 kv heads) and no other arch: heads the
+    axis divides, whisper's 8 q heads and the padded 25 and 24 stay off
+    it; on one rank and without a mesh no arch takes it."""
+    cfg = get_config(arch)
+    mesh = types.SimpleNamespace(shape={"data": 16, "model": 16},
+                                 axis_names=("data", "model"))
+    one = types.SimpleNamespace(shape={"data": 1, "model": 1},
+                                axis_names=("data", "model"))
+    assert attention._on_own_q_heads(cfg, mesh) == (arch in OWN_Q_ARCHS)
+    assert not attention._on_own_q_heads(cfg, one)
+    assert not attention._on_own_q_heads(cfg, None)
+    if arch in OWN_Q_ARCHS:
+        assert attention.q_heads(cfg, mesh) == cfg.n_heads == 32
 
 
 # -- the dry-run against the reference's -----------------------------------------

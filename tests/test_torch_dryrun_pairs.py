@@ -18,10 +18,11 @@ HLO of the same cut cells, XLA's CPU buffer assignment on the host).
   under the reference's; mamba2's all-gathers too, phi-3-vision's peak
   (its all-gathers, the dense train step's of ROADMAP Queue 3 item 1, are
   not held here).
-* mixtral-8x7b train_4k on 16x16 still traces: pinning every
-  ``constrain``'s cotangent would break its heads view of the q gradient.
-  Wire bytes at or under the reference's (its peak and all-gathers, the
-  8 kv heads replicated over 'model', ROADMAP Queue 3 item 2, are not).
+* mixtral-8x7b train_4k on 16x16: its 32 q heads and 8 kv heads run the
+  attention core on each rank's own 2 q heads (``attention._on_own_q_heads``),
+  with no q activation gathered in ``models/attention.py``.  Wire bytes
+  and the peak a rank at or under the reference's (its all-gathers, k and
+  v made whole over all 16 model ranks, are not).
 
 Each pair must count at least one collective and a finite peak a rank.
 """
@@ -33,7 +34,9 @@ import sys
 
 import pytest
 
+from repro_torch.configs import get_config, get_shape
 from repro_torch.launch import dryrun as D
+from repro_torch.models import attention
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LAYERS = 1
@@ -127,10 +130,34 @@ def test_train_step_traces_on_two_pods(reference, arch):
         assert traced[k] <= want, (k, traced, ref)
 
 
-def test_eight_kv_head_train_step_still_traces(reference):
-    """mixtral-8x7b train_4k on 16x16, whose q gradient's heads view a
-    pinned cotangent would break: its wire bytes a rank at or under the
-    reference's."""
-    traced = _trace("mixtral-8x7b", "train_4k", "16x16")
+def test_eight_kv_head_train_step_still_traces(reference, monkeypatch):
+    """mixtral-8x7b train_4k on 16x16 (32 q heads, 8 kv heads): every
+    attention core on the traced rank scores its own 2 q heads; no
+    all-gather site in ``models/attention.py`` moves (per call) as much as
+    a rank's (B_l, S, H * Dh) bf16 q activation; its wire bytes and peak a
+    rank at or under the reference's wire and argument + temp bytes."""
+    heads = []
+    attend = attention.attend
+
+    def counted(q, *args, **kwargs):
+        heads.append(q.shape[2])
+        return attend(q, *args, **kwargs)
+
+    monkeypatch.setattr(attention, "attend", counted)
+    cfg = D.cut_layers(get_config("mixtral-8x7b"), LAYERS)
+    shape = get_shape("train_4k")
+    traced = D.trace_cell(cfg, shape, D.PRODUCTION_MESHES["16x16"],
+                          n_sites=None)
+    coll = traced["collective"]
+    assert sum(coll.counts.values()) > 0, coll.counts
+    # each layer's forward, and again in its backward (remat)
+    assert heads == [2] * (2 * LAYERS), heads
+    q_act = shape.global_batch // 16 * shape.seq_len * cfg.q_dim * 2
+    sites = [s for s in traced["sites"] if s["op"] == "all-gather"
+             and "models/attention.py" in s["site"]]
+    for s in sites:
+        assert s["wire_bytes"] / s["count"] < q_act, s
     ref = reference("16x16")["mixtral-8x7b"]
-    assert traced["wire_bytes"] <= ref["wire_bytes"], (traced, ref)
+    assert coll.wire_bytes <= ref["wire_bytes"], (coll.wire_bytes, ref)
+    peak = traced["memory"]["peak_bytes"]
+    assert peak <= ref["args_temps"], (peak, ref)
