@@ -226,9 +226,9 @@ Phases, each of which raises (and exits non-zero) on failure:
       16x16, mixtral-8x7b x decode_32k on 2x16x16), each report's line
       with ``trace_s`` and its
       collective counts by op, its per-rank peak, all-gather and all wire
-      bytes beside the port's before its residual stream and cotangents
-      were pinned and the reference's dry-run (``DRYRUN_BEFORE``,
-      ``DRYRUN_REFERENCE``), and the sites of its largest collectives;
+      bytes beside the card's last accepted figures and the reference's
+      dry-run (``DRYRUN_BEFORE``, ``DRYRUN_REFERENCE``), and the sites of
+      its largest collectives;
       hymba's train_4k (50 SSD heads, padded to 64; 25 q heads, padded to
       32) must give every model rank 4 SSD heads and 2 q heads, gather no
       x activation in ``models/ssm.py`` and no q activation in
@@ -250,8 +250,8 @@ Phases, each of which raises (and exits non-zero) on failure:
       peak a rank above the card's memory (the card's torch 2.11 figures;
       on another torch the pairs are not so gated), qwen1.5-0.5b's,
       hymba-1.5b's or mixtral-8x7b's train_4k peak a rank exceeds the
-      card's memory, mamba2's prefill_32k or mixtral's decode_32k
-      all-gathers more than the reference a rank, mixtral's decode wire
+      card's memory, mamba2's prefill_32k, mixtral's decode_32k or qwen's
+      train_4k all-gathers more than the reference a rank, mixtral's decode wire
       bytes a rank exceed 250 MB, or hymba's or mixtral's train_4k fails a
       head or gather gate.  The sweep alone rehearses on a host without a card
       (the dry-run needs none): ``chip_smoke.dryrun_sweep("cpu")``;
@@ -3101,9 +3101,9 @@ DRYRUN_CELLS = (("qwen1.5-0.5b", "train_4k", False),
                 ("mixtral-8x7b", "train_4k", False))
 DRYRUN_TIMEOUT_S = 900
 # Per rank, for each of DRYRUN_CELLS: (peak bytes, all-gather wire bytes,
-# all wire bytes) of the port before its residual stream and cotangents
-# were pinned (phase t on the card, torch 2.11; mixtral's train_4k: its
-# first run, with the core on each rank's own q heads), and (argument +
+# all wire bytes) of the port on the card (phase t, torch 2.11: the
+# forward-only cells as PR 30 left them; the three train_4k cells with the
+# residual's cotangent held, PR 33's run), and (argument +
 # temp bytes, all-gather wire bytes) of the reference's dry-run at full
 # depth (``repro.launch.dryrun``, ``scripts/dryrun_parity.py
 # --reference-only --layers 0`` for the first four, ``--layers 32`` for
@@ -3111,12 +3111,12 @@ DRYRUN_TIMEOUT_S = 900
 # CPU, not a device figure; None: not computed), printed beside this
 # run's.  A cell's figures may not rise above its DRYRUN_BEFORE ones (to
 # the digits given there).
-DRYRUN_BEFORE = {"qwen1.5-0.5b train_4k": (8.558e9, 3251.3e6, 45.6656e9),
+DRYRUN_BEFORE = {"qwen1.5-0.5b train_4k": (8.267e9, 54.5e6, 30.8713e9),
                  "mamba2-1.3b prefill_32k": (2.771e9, 1513.7e6, 26.1998e9),
                  "mixtral-8x7b decode_32k": (6.243e9, 2.5e6, 0.0148e9),
                  "hymba-1.5b long_500k": (0.239e9, 19.7e6, 0.0203e9),
-                 "hymba-1.5b train_4k": (21.596e9, 10074.2e6, 291.6434e9),
-                 "mixtral-8x7b train_4k": (47.854e9, 38694.2e6, 207.5707e9)}
+                 "hymba-1.5b train_4k": (20.045e9, 9545.4e6, 156.4525e9),
+                 "mixtral-8x7b train_4k": (46.311e9, 21581.4e6, 203.6700e9)}
 # (unit, decimals) each DRYRUN_BEFORE figure is given to
 DRYRUN_BEFORE_DIGITS = ((1e9, 3), (1e6, 1), (1e9, 4))
 DRYRUN_REFERENCE = {"qwen1.5-0.5b train_4k": (14.55e9, 58.1e6),
@@ -3136,7 +3136,9 @@ DRYRUN_OWN_Q_HEADS = {"hymba-1.5b train_4k": 2, "mixtral-8x7b train_4k": 2}
 DRYRUN_FIT_CELLS = ("qwen1.5-0.5b train_4k", "hymba-1.5b train_4k",
                     "mixtral-8x7b train_4k")
 # cells whose all-gather wire bytes a rank must not exceed the reference's
-DRYRUN_GATHER_CELLS = ("mamba2-1.3b prefill_32k", "mixtral-8x7b decode_32k")
+# (qwen's train_4k since its residual pins hold their cotangents)
+DRYRUN_GATHER_CELLS = ("mamba2-1.3b prefill_32k", "mixtral-8x7b decode_32k",
+                       "qwen1.5-0.5b train_4k")
 # cells whose wire bytes a rank must stay under a bound: mixtral's decode
 # sums its split heads' scores over the 2 ranks of a head, not all 16
 DRYRUN_WIRE_BOUND = {"mixtral-8x7b decode_32k": 250e6}
@@ -3145,33 +3147,33 @@ DRYRUN_WIRE_BOUND = {"mixtral-8x7b decode_32k": 250e6}
 DRYRUN_SWEEP_LAYERS = 2
 # Per rank, for each pair of the sweep ("arch shape mesh"): (peak bytes,
 # all-gather wire bytes, all wire bytes) of phase t on the card (torch
-# 2.11, at DRYRUN_SWEEP_LAYERS layers; mixtral's and h2o-danube-3's
-# train_4k and prefill_32k with the attention core on each rank's own q
-# heads), to DRYRUN_BEFORE_DIGITS.  A pair's
+# 2.11, at DRYRUN_SWEEP_LAYERS layers; the prefill, decode and long_500k
+# pairs PR 32's run, the train_4k pairs PR 33's, with the residual's
+# cotangent held), to DRYRUN_BEFORE_DIGITS.  A pair's
 # figures may not rise above them where the dry-run runs on the torch they
 # were taken on, DRYRUN_SWEEP_TORCH: another torch lays out otherwise.
 DRYRUN_SWEEP_TORCH = "2.11."
 DRYRUN_SWEEP_BEFORE = {
-    "granite-moe-3b-a800m train_4k 16x16": (10.525e9, 595.0e6, 5.6737e9),
-    "granite-moe-3b-a800m train_4k 2x16x16": (5.299e9, 343.4e6, 3.0089e9),
-    "mixtral-8x7b train_4k 16x16": (18.665e9, 2447.2e6, 14.9521e9),
-    "mixtral-8x7b train_4k 2x16x16": (9.755e9, 1440.6e6, 8.6133e9),
-    "whisper-base train_4k 16x16": (35.824e9, 1994.9e6, 5.3534e9),
-    "whisper-base train_4k 2x16x16": (17.936e9, 1009.6e6, 2.7481e9),
-    "hymba-1.5b train_4k 16x16": (14.557e9, 641.0e6, 19.0041e9),
-    "hymba-1.5b train_4k 2x16x16": (8.163e9, 475.1e6, 10.0166e9),
-    "phi3-mini-3.8b train_4k 16x16": (13.681e9, 934.5e6, 13.1148e9),
-    "phi3-mini-3.8b train_4k 2x16x16": (6.914e9, 557.0e6, 7.0664e9),
-    "h2o-danube-3-4b train_4k 16x16": (15.773e9, 2155.3e6, 17.9734e9),
-    "h2o-danube-3-4b train_4k 2x16x16": (7.987e9, 1211.6e6, 9.7495e9),
-    "codeqwen1.5-7b train_4k 16x16": (17.405e9, 1419.2e6, 19.3642e9),
-    "codeqwen1.5-7b train_4k 2x16x16": (8.945e9, 915.9e6, 10.8409e9),
-    "qwen1.5-0.5b train_4k 16x16": (5.480e9, 287.7e6, 4.3220e9),
-    "qwen1.5-0.5b train_4k 2x16x16": (2.819e9, 161.8e6, 2.2589e9),
-    "phi-3-vision-4.2b train_4k 16x16": (13.761e9, 952.2e6, 13.2740e9),
-    "phi-3-vision-4.2b train_4k 2x16x16": (6.966e9, 574.7e6, 7.1914e9),
-    "mamba2-1.3b train_4k 16x16": (9.034e9, 209.1e6, 16.1360e9),
-    "mamba2-1.3b train_4k 2x16x16": (5.383e9, 129.7e6, 8.2086e9),
+    "granite-moe-3b-a800m train_4k 16x16": (10.324e9, 595.0e6, 5.4929e9),
+    "granite-moe-3b-a800m train_4k 2x16x16": (5.198e9, 343.4e6, 2.9067e9),
+    "mixtral-8x7b train_4k 16x16": (18.128e9, 1377.6e6, 14.7083e9),
+    "mixtral-8x7b train_4k 2x16x16": (9.424e9, 874.3e6, 8.3066e9),
+    "whisper-base train_4k 16x16": (35.822e9, 1990.0e6, 3.6086e9),
+    "whisper-base train_4k 2x16x16": (17.934e9, 1004.6e6, 1.8472e9),
+    "hymba-1.5b train_4k 16x16": (13.522e9, 607.9e6, 10.5547e9),
+    "hymba-1.5b train_4k 2x16x16": (7.631e9, 442.0e6, 5.6580e9),
+    "phi3-mini-3.8b train_4k 16x16": (13.103e9, 49.8e6, 9.2145e9),
+    "phi3-mini-3.8b train_4k 2x16x16": (6.605e9, 49.8e6, 4.7351e9),
+    "h2o-danube-3-4b train_4k 16x16": (15.038e9, 1008.8e6, 12.9410e9),
+    "h2o-danube-3-4b train_4k 2x16x16": (7.587e9, 537.0e6, 6.6377e9),
+    "codeqwen1.5-7b train_4k 16x16": (15.816e9, 143.2e6, 12.5147e9),
+    "codeqwen1.5-7b train_4k 2x16x16": (8.047e9, 143.2e6, 6.6249e9),
+    "qwen1.5-0.5b train_4k 16x16": (5.270e9, 21.3e6, 3.0891e9),
+    "qwen1.5-0.5b train_4k 2x16x16": (2.819e9, 21.3e6, 1.5992e9),
+    "phi-3-vision-4.2b train_4k 16x16": (13.183e9, 67.5e6, 9.2676e9),
+    "phi-3-vision-4.2b train_4k 2x16x16": (6.657e9, 67.5e6, 4.8071e9),
+    "mamba2-1.3b train_4k 16x16": (8.012e9, 177.6e6, 9.4080e9),
+    "mamba2-1.3b train_4k 2x16x16": (4.864e9, 98.2e6, 4.7522e9),
     "granite-moe-3b-a800m prefill_32k 16x16": (1.915e9, 269.4e6, 2.1568e9),
     "granite-moe-3b-a800m prefill_32k 2x16x16": (0.975e9, 143.5e6, 1.0872e9),
     "mixtral-8x7b prefill_32k 16x16": (5.228e9, 503.3e6, 5.5365e9),

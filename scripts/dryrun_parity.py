@@ -37,8 +37,9 @@ SRC = os.path.join(os.path.dirname(HERE), "src")
 
 def reference_cells(cells, layers: int, multi_pod: bool) -> dict:
     """{arch: {args_temps, argument_bytes, temp_bytes, all_gather,
-    wire_bytes, counts}} of the reference's cut cells (in this process:
-    run it in one of its own)."""
+    wire_bytes, counts}} of the reference's cut cells, each also under
+    ``"arch:shape"`` (two cells of one arch: ``arch`` holds the last), in
+    this process: run it in one of its own."""
     from repro.launch import dryrun as J            # forces the host devices
     from repro.configs import get_config, get_shape
     from repro.launch.mesh import make_production_mesh
@@ -54,14 +55,14 @@ def reference_cells(cells, layers: int, multi_pod: bool) -> dict:
                                  unroll=True).compile()
         ma = compiled.memory_analysis()
         st = parse_collectives(compiled.as_text())
-        out[arch] = {"argument_bytes": int(ma.argument_size_in_bytes),
-                     "temp_bytes": int(ma.temp_size_in_bytes),
-                     "args_temps": int(ma.argument_size_in_bytes
-                                       + ma.temp_size_in_bytes),
-                     "all_gather": float(st.bytes_by_op.get("all-gather",
-                                                            0.0)),
-                     "wire_bytes": float(st.wire_bytes),
-                     "counts": dict(st.counts)}
+        out[arch] = out[f"{arch}:{shape}"] = {
+            "argument_bytes": int(ma.argument_size_in_bytes),
+            "temp_bytes": int(ma.temp_size_in_bytes),
+            "args_temps": int(ma.argument_size_in_bytes
+                              + ma.temp_size_in_bytes),
+            "all_gather": float(st.bytes_by_op.get("all-gather", 0.0)),
+            "wire_bytes": float(st.wire_bytes),
+            "counts": dict(st.counts)}
     return out
 
 

@@ -44,7 +44,11 @@ softmax completed by all-reduces (:func:`_decode_on_seq_shards`), as
 GSPMD partitions the reference's decode over such a cache; one whose flat
 kv dim the model axis splits inside each kv head is attended on each
 rank's own dims of its head, the scores summed over the head's ranks
-(:func:`_decode_on_split_heads`).
+(:func:`_decode_on_split_heads`).  Where the q heads lie whole on every
+model rank (whisper-base's 8 on model 16), a step that autograd records
+takes ``wo`` whole over 'model' for the out-projection: the residual's
+held cotangent then comes back whole, where against ``wo``'s row shards
+it would be cut inside a head.
 """
 from __future__ import annotations
 
@@ -376,7 +380,15 @@ def attention(x: torch.Tensor, p: LayerAttnParams, cfg: ModelConfig, *,
         out = _on_q_shards(core, mesh, q, k, v, cfg.n_heads)
     else:
         out = _on_kv_groups(core, mesh, q, k, v)
-    out = torch.matmul(out.reshape(B, S, Hq * cfg.head_dim), p.wo)
+    wo = p.wo
+    if mesh is not None and Hq % tp_size(mesh) and out.requires_grad:
+        # heads whole on every model rank: against wo's row shards the held
+        # residual cotangent would come back cut inside a head, which the
+        # heads view's backward cannot take.  wo whole (0.5 MB a layer at
+        # whisper-base's width) keeps it whole; a forward without autograd
+        # keeps the row shards.
+        wo = constrain(wo, mesh, P(None, None))
+    out = torch.matmul(out.reshape(B, S, Hq * cfg.head_dim), wo)
     if Hq != cfg.n_heads and cfg.q_dim % tp_size(mesh):
         # wo's rule leaves it whole here, so its product is whole too: the
         # padded rows' partial sums are reduced here, where DTensor could

@@ -20,6 +20,13 @@ The rules read only a mesh's axis names and sizes (:func:`mesh_shape`): a
 sharded the way ``torch.chunk`` splits it (the last ranks hold less), where
 JAX pads every shard to the same size; the explicit rules below shard only
 divisible dims, so only the layout pins inside the models meet that case.
+
+The layout pins: :func:`constrain` redistributes an activation in the
+forward only; :func:`pin` also holds its cotangent to the same layout,
+as JAX transposes a ``with_sharding_constraint``.  The residual stream is
+pinned after every residual add (:func:`pin_residual`) and holds its
+cotangent too, so each layer's backward starts from the residual's
+layout, batch-sharded and whole over 'model'.
 """
 from __future__ import annotations
 
@@ -170,12 +177,16 @@ def residual_spec(batch: int, mesh) -> P:
 
 
 def pin_residual(x, mesh):
-    """A residual-stream activation constrained to :func:`residual_spec`
-    (a row-parallel product's partial sums reduced here).  Identity without
-    a mesh or on a plain tensor."""
+    """A residual-stream activation pinned to :func:`residual_spec` (a
+    row-parallel product's partial sums reduced here), its cotangent too
+    (:func:`pin`): the gradient leaves each residual add batch-sharded and
+    whole over 'model', as JAX transposes the reference's constraint,
+    where DTensor would pass on the layout it came in and reduce-scatter
+    and re-gather it in the layer below.  Identity without a mesh or on a
+    plain tensor."""
     if mesh is None:
         return x
-    return constrain(x, mesh, residual_spec(x.shape[0], mesh))
+    return pin(x, mesh, residual_spec(x.shape[0], mesh))
 
 
 def _placements(spec, mesh) -> tuple:

@@ -21,7 +21,11 @@ small f32 configs take that route: hymba's smoke config with 10 q heads
 and 2 kv heads (groups of 5, padded to 12, so rank 1 holds heads of both
 groups) 80 wide (its 10 SSD heads pad too), qwen's with 6 q heads and 2
 kv heads (groups of 3, padded to 8) and its q/k/v biases, and qwen's with
-8 q heads and 2 kv heads (2 a rank, unpadded).  The prefill logits and
+8 q heads and 2 kv heads (2 a rank, unpadded).  A fourth, qwen's with 2 q
+and 2 kv heads, keeps whisper-base's route on model 16: heads whole on
+every model rank, the core on the kv-head groups, and ``wo`` taken whole
+over 'model' in the train step, where the held residual cotangent would
+otherwise come back cut inside a head.  The prefill logits and
 caches, six decode steps, the loss and every gradient are within 1e-5 of
 ``mesh=None``'s max |value|, the prefill within 1e-5 of the reference's
 max |logit| (the LM tests' f32 tolerance), the weights carried over by
@@ -71,6 +75,9 @@ from test_torch_distributed import REPO, _run_ranks
 CASES = (("hymba-10-2", "hymba-1.5b", 10, 2, 80),
          ("qwen-6-2", "qwen1.5-0.5b", 6, 2, None))
 OWN_CASES = (("qwen-8-2", "qwen1.5-0.5b", 8, 2, None),)
+# q heads whole on every rank of model 4 (whisper-base's 8 on model 16):
+# the core on the kv-head groups, ``wo`` taken whole in the train step
+WHOLE_CASES = (("qwen-2-2", "qwen1.5-0.5b", 2, 2, None),)
 LAYER_CASES = (("chunked", None), ("banded", 1024))
 B, S = 2, 64
 LAYER_B, LAYER_S = 2, 2048
@@ -215,8 +222,8 @@ for case, c in d["models"].items():
     cfg = _cfg(get_config, *c["cfg"])
     n = len(calls)
     got = _run(c["params"], c["toks"], c["labels"], cfg, mesh)
-    # each layer's prefill and its train step's forward
-    assert len(calls) - n == 2 * cfg.n_layers, calls
+    # each layer's prefill and its train step's forward, on own q heads
+    assert len(calls) - n == 2 * cfg.n_layers * c["q_shards"], calls
     want = c["want"]
     for i, what in enumerate(("prefill", "cache k", "cache v")):
         _close(got[i], want[i], (case, what))
@@ -248,14 +255,18 @@ if RANK == 0:
 @pytest.fixture(scope="module")
 def ranks_2x4(tmp_path_factory):
     """Rank 0's log of one run on 2x4 gloo ranks of every 2x4 check below:
-    each of :data:`CASES` and :data:`OWN_CASES` (prefill, caches, decode,
+    each of :data:`CASES`, :data:`OWN_CASES` and :data:`WHOLE_CASES`
+    (prefill, caches, decode,
     loss and gradients) and the layer on both routes, against
     ``mesh=None``'s results made here.  One run, so the ranks start
     once."""
     models = {}
-    for case, arch, n_heads, n_kv, d_model in CASES + OWN_CASES:
+    for case, arch, n_heads, n_kv, d_model in (CASES + OWN_CASES
+                                               + WHOLE_CASES):
         cfg, params, toks, labels, _ = _inputs(arch, n_heads, n_kv, d_model)
         models[case] = {"cfg": (arch, n_heads, n_kv, d_model),
+                        "q_shards": int((case, arch, n_heads, n_kv, d_model)
+                                        not in WHOLE_CASES),
                         "params": params, "toks": toks, "labels": labels,
                         "want": _run(params, toks, labels, cfg)}
     layers = []
@@ -306,6 +317,26 @@ def test_own_q_heads_on_2x4_ranks_match_one_device(ranks_2x4, case, arch,
     assert f"OK {case}\n" in ranks_2x4
 
 
+@pytest.mark.parametrize("case,arch,n_heads,n_kv,d_model", WHOLE_CASES,
+                         ids=[c[0] for c in WHOLE_CASES])
+def test_whole_q_heads_on_2x4_ranks_match_one_device(ranks_2x4, case, arch,
+                                                     n_heads, n_kv, d_model):
+    """2 q heads and 2 kv heads on model 4, whole on every model rank (the
+    route of whisper-base's 8 heads on model 16): nothing pads, the core
+    runs on the kv-head groups, and the train step takes ``wo`` whole over
+    'model' under the held residual cotangent; the mesh prefill's logits
+    and caches, six decode steps, the train step's loss and every
+    gradient within 1e-5 of ``mesh=None``'s max |value|; ``mesh=None``'s
+    prefill within 1e-5 of the reference's max |logit|."""
+    cfg, params, toks, labels, ref = _inputs(arch, n_heads, n_kv, d_model)
+    mesh = types.SimpleNamespace(shape={"data": 2, "model": 4},
+                                 axis_names=("data", "model"))
+    assert attention.q_heads(cfg, mesh) == n_heads
+    assert not attention._on_own_q_heads(cfg, mesh)
+    _close(_run(params, toks, labels, cfg)[0], ref, "reference")
+    assert f"OK {case}\n" in ranks_2x4
+
+
 @pytest.mark.parametrize("route,window", LAYER_CASES,
                          ids=[c[0] for c in LAYER_CASES])
 def test_padded_q_heads_layer_on_2x4_ranks(ranks_2x4, route, window):
@@ -328,8 +359,9 @@ def one_rank_mesh():
         dist.destroy_process_group()
 
 
-@pytest.mark.parametrize("case,arch,n_heads,n_kv,d_model", CASES + OWN_CASES,
-                         ids=[c[0] for c in CASES + OWN_CASES])
+@pytest.mark.parametrize("case,arch,n_heads,n_kv,d_model",
+                         CASES + OWN_CASES + WHOLE_CASES,
+                         ids=[c[0] for c in CASES + OWN_CASES + WHOLE_CASES])
 def test_one_rank_is_bit_for_bit(one_rank_mesh, case, arch, n_heads, n_kv,
                                  d_model):
     """At (1, 1) no q head pads nor leaves its kv-head group: the prefill,

@@ -10,8 +10,11 @@ cotangent came in (``constrain`` passes it on as it comes where the
 layout already matched).  ``pin_residual`` lays a (B, S, d) residual out
 batch-sharded over the data axes (where they divide the batch) and whole
 over 'model'.  Both are the identity without a mesh and on a plain
-tensor.  On a one-rank gloo mesh the forward and the gradient equal the
-plain tensor's bit for bit.
+tensor.  ``pin_residual`` holds its cotangent as ``pin`` does: the
+gradient reaching its input is batch-sharded and whole over 'model'
+whatever layout the cotangent came in.  On a one-rank gloo mesh the
+forward and the gradient of both pins equal the plain tensor's bit for
+bit.
 """
 import pytest
 import torch
@@ -102,6 +105,22 @@ def test_pin_residual_shards_the_batch_where_the_data_axis_divides_it(
         tuple(_placements(want))
 
 
+@pytest.mark.parametrize("grad_layout", LAYOUTS)
+@pytest.mark.parametrize("layout", ["batch", "partial"])
+def test_pin_residual_holds_the_cotangent(fake_mesh, layout, grad_layout):
+    """The gradient reaching ``pin_residual``'s input (a residual add's
+    sum, or a row-parallel product's partial sums) has
+    ``residual_spec``'s placements, batch-sharded and whole over 'model',
+    whatever layout the cotangent comes in."""
+    from repro_torch.sharding import residual_spec, to_placements
+    want = to_placements(residual_spec(4, fake_mesh), fake_mesh)
+    assert want == _placements("batch")
+    x = _fake_dtensor(fake_mesh, layout, requires_grad=True)
+    g = _fake_dtensor(fake_mesh, grad_layout)
+    (gx,) = torch.autograd.grad(pin_residual(x, fake_mesh), x, g)
+    assert tuple(gx.placements) == want
+
+
 def test_pins_are_the_identity_without_a_mesh_and_on_a_plain_tensor():
     t = torch.randn(2, 3, 4, requires_grad=True)
     assert pin(t, None, P("data", None, "model")) is t
@@ -139,3 +158,8 @@ def test_pins_on_one_rank_are_bit_for_bit(one_rank_mesh, dtype):
         assert torch.equal(d.grad.full_tensor(), x.grad)
         part = DTensor.from_local(a, mesh, (Shard(0), Partial()))
         assert torch.equal(pin_residual(part, mesh).full_tensor(), a)
+        r = place(a, mesh, P("data", None, None)).requires_grad_(True)
+        y = pin_residual(r * r, mesh)
+        assert torch.equal(y.full_tensor(), a * a)
+        (y * place(w, mesh, P("data", None, None))).sum().backward()
+        assert torch.equal(r.grad.full_tensor(), x.grad)
