@@ -252,8 +252,15 @@ Phases, each of which raises (and exits non-zero) on failure:
       hymba-1.5b's or mixtral-8x7b's train_4k peak a rank exceeds the
       card's memory, mamba2's prefill_32k, mixtral's decode_32k or qwen's
       train_4k all-gathers more than the reference a rank, mixtral's decode wire
-      bytes a rank exceed 250 MB, or hymba's or mixtral's train_4k fails a
-      head or gather gate.  The sweep alone rehearses on a host without a card
+      bytes a rank exceed 250 MB, hymba's or mixtral's train_4k fails a
+      head or gather gate, a pair of ``DRYRUN_SWEEP_GATHER`` (whisper's
+      train_4k on both meshes, mixtral's and h2o-danube-3's train_4k and
+      prefill_32k on 16x16, the pairs whose attention exchanges q/k/v
+      among a head's model ranks) all-gathers more than the reference's
+      pair a rank, or an attention core of whisper's train_4k on 16x16
+      scores another count of heads or rows than one head of half of the
+      rank's rows (``DRYRUN_SWEEP_HEAD_ROWS``).  The sweep alone
+      rehearses on a host without a card
       (the dry-run needs none): ``chip_smoke.dryrun_sweep("cpu")``;
 6. times — each kernel and mode, its plain version and the nearest PyTorch
    library call at the main paths' batch-8 shapes: device time per call
@@ -3101,9 +3108,8 @@ DRYRUN_CELLS = (("qwen1.5-0.5b", "train_4k", False),
                 ("mixtral-8x7b", "train_4k", False))
 DRYRUN_TIMEOUT_S = 900
 # Per rank, for each of DRYRUN_CELLS: (peak bytes, all-gather wire bytes,
-# all wire bytes) of the port on the card (phase t, torch 2.11: the
-# forward-only cells as PR 30 left them; the three train_4k cells with the
-# residual's cotangent held, PR 33's run), and (argument +
+# all wire bytes) of the port on the card (phase t, torch 2.11: each from
+# the last card run that moved it), and (argument +
 # temp bytes, all-gather wire bytes) of the reference's dry-run at full
 # depth (``repro.launch.dryrun``, ``scripts/dryrun_parity.py
 # --reference-only --layers 0`` for the first four, ``--layers 32`` for
@@ -3116,7 +3122,7 @@ DRYRUN_BEFORE = {"qwen1.5-0.5b train_4k": (8.267e9, 54.5e6, 30.8713e9),
                  "mixtral-8x7b decode_32k": (6.243e9, 2.5e6, 0.0148e9),
                  "hymba-1.5b long_500k": (0.239e9, 19.7e6, 0.0203e9),
                  "hymba-1.5b train_4k": (20.045e9, 9545.4e6, 156.4525e9),
-                 "mixtral-8x7b train_4k": (46.311e9, 21581.4e6, 203.6700e9)}
+                 "mixtral-8x7b train_4k": (46.067e9, 6549.0e6, 181.1214e9)}
 # (unit, decimals) each DRYRUN_BEFORE figure is given to
 DRYRUN_BEFORE_DIGITS = ((1e9, 3), (1e6, 1), (1e9, 4))
 DRYRUN_REFERENCE = {"qwen1.5-0.5b train_4k": (14.55e9, 58.1e6),
@@ -3147,25 +3153,24 @@ DRYRUN_WIRE_BOUND = {"mixtral-8x7b decode_32k": 250e6}
 DRYRUN_SWEEP_LAYERS = 2
 # Per rank, for each pair of the sweep ("arch shape mesh"): (peak bytes,
 # all-gather wire bytes, all wire bytes) of phase t on the card (torch
-# 2.11, at DRYRUN_SWEEP_LAYERS layers; the prefill, decode and long_500k
-# pairs PR 32's run, the train_4k pairs PR 33's, with the residual's
-# cotangent held), to DRYRUN_BEFORE_DIGITS.  A pair's
-# figures may not rise above them where the dry-run runs on the torch they
-# were taken on, DRYRUN_SWEEP_TORCH: another torch lays out otherwise.
+# 2.11, at DRYRUN_SWEEP_LAYERS layers), each from the last card run that
+# moved it, to DRYRUN_BEFORE_DIGITS.  A pair's figures may not rise above
+# them where the dry-run runs on the torch they were taken on,
+# DRYRUN_SWEEP_TORCH: another torch lays out otherwise.
 DRYRUN_SWEEP_TORCH = "2.11."
 DRYRUN_SWEEP_BEFORE = {
     "granite-moe-3b-a800m train_4k 16x16": (10.324e9, 595.0e6, 5.4929e9),
     "granite-moe-3b-a800m train_4k 2x16x16": (5.198e9, 343.4e6, 2.9067e9),
-    "mixtral-8x7b train_4k 16x16": (18.128e9, 1377.6e6, 14.7083e9),
-    "mixtral-8x7b train_4k 2x16x16": (9.424e9, 874.3e6, 8.3066e9),
-    "whisper-base train_4k 16x16": (35.822e9, 1990.0e6, 3.6086e9),
-    "whisper-base train_4k 2x16x16": (17.934e9, 1004.6e6, 1.8472e9),
+    "mixtral-8x7b train_4k 16x16": (17.885e9, 438.1e6, 13.2990e9),
+    "mixtral-8x7b train_4k 2x16x16": (9.302e9, 404.6e6, 7.6019e9),
+    "whisper-base train_4k 16x16": (4.161e9, 13.4e6, 2.9205e9),
+    "whisper-base train_4k 2x16x16": (2.102e9, 13.4e6, 1.4945e9),
     "hymba-1.5b train_4k 16x16": (13.522e9, 607.9e6, 10.5547e9),
     "hymba-1.5b train_4k 2x16x16": (7.631e9, 442.0e6, 5.6580e9),
     "phi3-mini-3.8b train_4k 16x16": (13.103e9, 49.8e6, 9.2145e9),
     "phi3-mini-3.8b train_4k 2x16x16": (6.605e9, 49.8e6, 4.7351e9),
-    "h2o-danube-3-4b train_4k 16x16": (15.038e9, 1008.8e6, 12.9410e9),
-    "h2o-danube-3-4b train_4k 2x16x16": (7.587e9, 537.0e6, 6.6377e9),
+    "h2o-danube-3-4b train_4k 16x16": (15.038e9, 128.0e6, 11.6198e9),
+    "h2o-danube-3-4b train_4k 2x16x16": (7.587e9, 96.6e6, 5.9771e9),
     "codeqwen1.5-7b train_4k 16x16": (15.816e9, 143.2e6, 12.5147e9),
     "codeqwen1.5-7b train_4k 2x16x16": (8.047e9, 143.2e6, 6.6249e9),
     "qwen1.5-0.5b train_4k 16x16": (5.270e9, 21.3e6, 3.0891e9),
@@ -3176,16 +3181,16 @@ DRYRUN_SWEEP_BEFORE = {
     "mamba2-1.3b train_4k 2x16x16": (4.864e9, 98.2e6, 4.7522e9),
     "granite-moe-3b-a800m prefill_32k 16x16": (1.915e9, 269.4e6, 2.1568e9),
     "granite-moe-3b-a800m prefill_32k 2x16x16": (0.975e9, 143.5e6, 1.0872e9),
-    "mixtral-8x7b prefill_32k 16x16": (5.228e9, 503.3e6, 5.5365e9),
-    "mixtral-8x7b prefill_32k 2x16x16": (2.812e9, 251.7e6, 2.7682e9),
-    "whisper-base prefill_32k 16x16": (3.846e9, 783.8e6, 1.6876e9),
-    "whisper-base prefill_32k 2x16x16": (1.962e9, 391.9e6, 0.8438e9),
+    "mixtral-8x7b prefill_32k 16x16": (4.742e9, 33.6e6, 5.0667e9),
+    "mixtral-8x7b prefill_32k 2x16x16": (2.569e9, 16.8e6, 2.5334e9),
+    "whisper-base prefill_32k 16x16": (0.807e9, 0.0e6, 0.9302e9),
+    "whisper-base prefill_32k 2x16x16": (1.959e9, 391.9e6, 0.8438e9),
     "hymba-1.5b prefill_32k 16x16": (2.744e9, 242.1e6, 2.2092e9),
     "hymba-1.5b prefill_32k 2x16x16": (1.821e9, 159.5e6, 1.1430e9),
     "phi3-mini-3.8b prefill_32k 16x16": (3.376e9, 0.0e6, 3.7749e9),
     "phi3-mini-3.8b prefill_32k 2x16x16": (1.715e9, 0.0e6, 1.8874e9),
-    "h2o-danube-3-4b prefill_32k 16x16": (4.600e9, 471.9e6, 5.1905e9),
-    "h2o-danube-3-4b prefill_32k 2x16x16": (2.335e9, 235.9e6, 2.5952e9),
+    "h2o-danube-3-4b prefill_32k 16x16": (4.144e9, 31.5e6, 4.7500e9),
+    "h2o-danube-3-4b prefill_32k 2x16x16": (2.107e9, 15.7e6, 2.3750e9),
     "codeqwen1.5-7b prefill_32k 16x16": (4.583e9, 0.0e6, 5.0332e9),
     "codeqwen1.5-7b prefill_32k 2x16x16": (2.368e9, 0.0e6, 2.5166e9),
     "qwen1.5-0.5b prefill_32k 16x16": (1.554e9, 0.0e6, 1.2583e9),
@@ -3223,6 +3228,25 @@ DRYRUN_SWEEP_BEFORE = {
     "mamba2-1.3b long_500k 16x16": (0.021e9, 0.1e6, 0.0001e9),
     "mamba2-1.3b long_500k 2x16x16": (0.021e9, 0.1e6, 0.0001e9),
 }
+# Per rank, the reference's all-gather wire bytes of the sweep's pairs whose
+# attention exchanges q, k and v only among the model ranks of a head, at
+# DRYRUN_SWEEP_LAYERS layers (``scripts/dryrun_parity.py --reference-only
+# --layers 2 [--multi-pod]``: the reference's compiled HLO, computed on a
+# host CPU with jax 0.9.0); the port's pair may not all-gather more, on any
+# torch.
+DRYRUN_SWEEP_GATHER = {
+    "whisper-base train_4k 16x16": 14249984.0,
+    "whisper-base train_4k 2x16x16": 14249984.0,
+    "mixtral-8x7b train_4k 16x16": 538353664.0,
+    "h2o-danube-3-4b train_4k 16x16": 203159040.0,
+    "mixtral-8x7b prefill_32k 16x16": 335544320.0,
+    "h2o-danube-3-4b prefill_32k 16x16": 314572800.0,
+}
+# pairs whose attention scores each head on one of the model ranks that
+# hold its dims (``attention.row_exchange``): (q heads, batch rows) every
+# attention core on the traced rank must score (whisper-base's 8 heads on
+# model 16: one head of half of the 16 rows a data rank holds)
+DRYRUN_SWEEP_HEAD_ROWS = {"whisper-base train_4k 16x16": (1, 8)}
 
 
 def dryrun_pairs() -> list:
@@ -3294,10 +3318,25 @@ def dryrun_job(job: str) -> dict:
     if job == "counters":
         info = _counter_check()
     elif job.startswith("pair "):
+        from repro_torch.models import attention
         _, arch, shape, mesh = job.split()
+        cores, attend = [], attention.attend
+
+        def counted_attend(q, *args, **kwargs):
+            # (q heads, batch rows) each attention core scores, on the
+            # traced rank
+            cores.append((q.shape[2], q.shape[0]))
+            return attend(q, *args, **kwargs)
+
+        attention.attend = counted_attend
+        try:
+            traced = dryrun.trace_pair(arch, shape, mesh,
+                                       DRYRUN_SWEEP_LAYERS)
+        finally:
+            attention.attend = attend
         info = {"arch": arch, "shape": shape, "mesh": mesh,
-                "layers": DRYRUN_SWEEP_LAYERS,
-                **dryrun.trace_pair(arch, shape, mesh, DRYRUN_SWEEP_LAYERS)}
+                "layers": DRYRUN_SWEEP_LAYERS, **traced,
+                "attn_cores": sorted(set(cores))}
     elif job.startswith("calibrate "):
         cfg, shape, extra = _calibration(job.split()[1])
         traced = dryrun.trace_cell(cfg, shape, (1, 1), extra=extra)
@@ -3483,7 +3522,10 @@ def dryrun_sweep(card: str, jobs: tuple = (),
     ``jobs`` fails, a pair raises or counts no collective, or, on
     :data:`DRYRUN_SWEEP_TORCH`, a pair's peak, all-gather or wire bytes a
     rank rise above its :data:`DRYRUN_SWEEP_BEFORE` or its peak a rank
-    exceeds ``capacity`` bytes (the card's memory, where given).  With no
+    exceeds ``capacity`` bytes (the card's memory, where given), a pair of
+    :data:`DRYRUN_SWEEP_GATHER` all-gathers more than the reference's, or
+    a pair of :data:`DRYRUN_SWEEP_HEAD_ROWS` runs an attention core on
+    other (heads, rows) than its own.  With no
     ``jobs`` it is the sweep alone: a rehearsal on a host without a card
     (the dry-run needs none)."""
     import torch
@@ -3518,12 +3560,24 @@ def dryrun_sweep(card: str, jobs: tuple = (),
         if not sum(r["counts"].values()) > 0:
             bad[job] = "no collective counted"
         key = f"{r['arch']} {r['shape']} {r['mesh']}"
+        if key in DRYRUN_SWEEP_GATHER:
+            log(f"phase t pair {key}: all-gather "
+                f"{r['all_gather'] / 1e6:.1f} MB a rank against the "
+                f"reference's {DRYRUN_SWEEP_GATHER[key] / 1e6:.1f} MB; "
+                f"attention cores on (q heads, rows) {r['attn_cores']}")
         if gated and key in DRYRUN_SWEEP_BEFORE:
             rises = _rises(f"pair {key}", (r["peak_bytes"], r["all_gather"],
                                             r["wire_bytes"]),
                            DRYRUN_SWEEP_BEFORE[key])
             if rises:
                 bad[job] = "; ".join(rises)
+        if r["all_gather"] > DRYRUN_SWEEP_GATHER.get(key, float("inf")):
+            bad[job] = (f"all-gathers {r['all_gather']} B a rank over the "
+                        f"reference's {DRYRUN_SWEEP_GATHER[key]} B")
+        if key in DRYRUN_SWEEP_HEAD_ROWS and \
+                r["attn_cores"] != [DRYRUN_SWEEP_HEAD_ROWS[key]]:
+            bad[job] = (f"attention cores on (heads, rows) {r['attn_cores']}"
+                        f", want {DRYRUN_SWEEP_HEAD_ROWS[key]} each")
         if gated and capacity is not None and r["peak_bytes"] > capacity:
             bad[job] = (f"peak {r['peak_bytes']} B a rank over the card's "
                         f"{capacity} B")

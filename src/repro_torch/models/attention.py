@@ -32,23 +32,39 @@ cut a head dim the model axis does not divide the way JAX pads it.  Where
 the reference pins such q heads, :func:`attention` pads them with zero
 heads to a multiple of the model axis (:func:`q_heads`,
 :func:`_pad_q_heads`) and runs the core on each rank's own q heads, each
-with its kv head (:func:`_on_q_shards`).  It runs there too, unpadded,
-where the model axis divides the q heads but not the kv heads
-(:func:`_on_own_q_heads`: 32 q and 8 kv heads on model 16), as GSPMD
-keeps such q heads on their shards.  The kv heads of either route (and
+with its kv head (:func:`_on_q_shards`); the kv heads of that route (and
 elsewhere a flat projection that would split inside a head, as in the
-one-token decode) are replicated over 'model'.  A decode cache whose
-slots are sharded over the data axes (``launch.specs.decode_state_sharding``
-for a batch they do not divide) is attended on each rank's own slots, the
-softmax completed by all-reduces (:func:`_decode_on_seq_shards`), as
+one-token decode) are replicated over 'model'.  Where the model axis
+divides the q heads and is a multiple of the kv heads
+(:func:`_on_own_q_heads`: 32 q and 8 kv heads on model 16, r = tp / Hkv =
+2), nothing pads: each rank scores its own q heads, as GSPMD keeps them on
+their shards, against the one kv head that the r model ranks of its group
+hold, k and v gathered over those r ranks only and k rotated after that
+gather (:func:`_on_kv_head_group`).  Where the model axis is a multiple of
+the heads (whisper-base's 8 on model 16, r = 2 ranks a head;
+:func:`row_exchange`), q, k and v stay on their own flat shards and an
+all-to-all over the head's r ranks trades batch rows for head dims, so each
+rank scores one whole head for 1/r of its rows (:func:`_on_head_rows`).
+The reference there splits d_head over the head's ranks and all-reduces the
+f32 scores; trading rows keeps each head's dot products whole on one rank,
+the one-device math for every row.  The head-group exchanges are
+autograd-recorded collectives over process groups of r ranks
+(:func:`_head_group`, ``sharding.group_all_to_all``,
+``sharding.group_gather``).  Any other head count runs the core on the
+kv-head groups (:func:`_on_kv_groups`).
+
+A decode cache whose slots are sharded over the data axes
+(``launch.specs.decode_state_sharding`` for a batch they do not divide)
+is attended on each rank's own slots, the softmax completed by
+all-reduces (:func:`_decode_on_seq_shards`), as
 GSPMD partitions the reference's decode over such a cache; one whose flat
 kv dim the model axis splits inside each kv head is attended on each
 rank's own dims of its head, the scores summed over the head's ranks
 (:func:`_decode_on_split_heads`).  Where the q heads lie whole on every
-model rank (whisper-base's 8 on model 16), a step that autograd records
-takes ``wo`` whole over 'model' for the out-projection: the residual's
-held cotangent then comes back whole, where against ``wo``'s row shards
-it would be cut inside a head.
+model rank instead (a local batch the head's ranks do not divide), a step
+that autograd records takes ``wo`` whole over 'model' for the
+out-projection: the residual's held cotangent then comes back whole, where
+against ``wo``'s row shards it would be cut inside a head.
 """
 from __future__ import annotations
 
@@ -60,9 +76,9 @@ from repro_torch import perf
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import apply_rope, rope_angles
 from repro_torch.sharding import (P, axis_names, batch_axes, constrain,
-                                  dp_size, heads_view, mesh_shape,
-                                  padded_heads, pin_residual, shard_map,
-                                  tp_size, zero_pad)
+                                  dp_size, group_all_to_all, group_gather,
+                                  heads_view, mesh_shape, padded_heads,
+                                  pin_residual, shard_map, tp_size, zero_pad)
 
 Q_CHUNK = 1024  # query-block size for chunked attention
 PAD_POS = -10 ** 9     # position of the keys padded in front of a band
@@ -112,15 +128,18 @@ def q_heads(cfg: ModelConfig, mesh=None) -> int:
 
 def _on_own_q_heads(cfg: ModelConfig, mesh) -> bool:
     """Whether :func:`attention` runs the core unpadded on each rank's own
-    q heads (:func:`_on_q_shards`): on a mesh whose model axis divides the
-    q heads but not the kv heads (mixtral-8x7b's and h2o-danube-3-4b's 32
-    q and 8 kv heads on model 16).  Whole kv heads cannot be split over
+    q heads against the kv head that the r = tp / Hkv model ranks of its
+    group hold (:func:`_on_kv_head_group`): on a mesh whose model axis
+    divides the q heads and is a multiple of the kv heads, more than one
+    rank a kv head (mixtral-8x7b's and h2o-danube-3-4b's 32 q and 8 kv
+    heads on model 16, r = 2).  Whole kv heads cannot be split over
     'model', so :func:`_on_kv_groups` would score every head on every
-    model rank; whole q heads can, each rank scoring its own H / tp."""
+    model rank; whole q heads can, each rank scoring its own H / tp, all
+    of one kv head."""
     if mesh is None:
         return False
-    tp = tp_size(mesh)
-    return cfg.n_heads % tp == 0 and cfg.n_kv_heads % tp != 0
+    tp, Hkv = tp_size(mesh), cfg.n_kv_heads
+    return cfg.n_heads % tp == 0 and Hkv < tp and tp % Hkv == 0
 
 
 def _pad_q_heads(p: LayerAttnParams, cfg: ModelConfig, Hp: int,
@@ -140,16 +159,42 @@ def _pad_q_heads(p: LayerAttnParams, cfg: ModelConfig, Hp: int,
         wo=zero_pad(p.wo, 0, n, mesh, P("model", None)))
 
 
-def _proj_qkv(x: torch.Tensor, p: LayerAttnParams, cfg: ModelConfig,
-              mesh=None):
-    """q (B, S, Hq, Dh), k and v (B, S, Hkv, Dh): Hq is ``cfg.n_heads``, or
-    the padded count when ``p`` holds :func:`_pad_q_heads`' weights."""
-    B, S, _ = x.shape
+def row_exchange(cfg: ModelConfig, mesh, batch: int) -> int:
+    """r = tp / H where :func:`attention` scores each q head on the r model
+    ranks that hold its dims by trading batch rows for head dims
+    (:func:`_on_head_rows`), else 0: on a mesh whose model axis is a
+    multiple of the q heads, H < tp, with as many kv heads as q heads, no
+    RoPE, and r dividing the local batch (B / dp where the data axes divide
+    the batch, else B): whisper-base's 8 heads on model 16, r = 2."""
+    if mesh is None:
+        return 0
+    tp, H = tp_size(mesh), cfg.n_heads
+    if H >= tp or tp % H or cfg.n_kv_heads != H or cfg.rope_theta > 0:
+        return 0
+    r = tp // H
+    dp = dp_size(mesh)
+    local = batch // dp if batch % dp == 0 else batch
+    return r if local % r == 0 else 0
+
+
+def _proj_flat(x: torch.Tensor, p: LayerAttnParams):
+    """The flat projections q (B, S, Hq*Dh), k and v (B, S, Hkv*Dh), with
+    their biases; on a mesh each on its model shards of the weights'
+    columns."""
     q = torch.matmul(x, p.wq)
     k = torch.matmul(x, p.wk)
     v = torch.matmul(x, p.wv)
     if p.bq is not None:
         q, k, v = q + p.bq, k + p.bk, v + p.bv
+    return q, k, v
+
+
+def _proj_qkv(x: torch.Tensor, p: LayerAttnParams, cfg: ModelConfig,
+              mesh=None):
+    """q (B, S, Hq, Dh), k and v (B, S, Hkv, Dh): Hq is ``cfg.n_heads``, or
+    the padded count when ``p`` holds :func:`_pad_q_heads`' weights."""
+    B, S, _ = x.shape
+    q, k, v = _proj_flat(x, p)
     Hq = q.shape[-1] // cfg.head_dim
     q = heads_view(q, (B, S, Hq, cfg.head_dim), Hq, mesh)
     k = heads_view(k, (B, S, cfg.n_kv_heads, cfg.head_dim), cfg.n_kv_heads,
@@ -312,9 +357,8 @@ def _on_kv_groups(core, mesh, q, k, v, *extra, extra_specs=(),
 
 def _on_q_shards(core, mesh, q, k, v, n_heads: int):
     """``core(q, k, v)`` -> out (B,S,Hp,Dh) on each rank's own q heads: q
-    (B,S,Hp,Dh) on even head shards over 'model' (padded by :func:`q_heads`,
-    or Hp = n_heads where the model axis divides them,
-    :func:`_on_own_q_heads`), k/v (B,Sk,Hkv,Dh) whole over it; the batch
+    (B,S,Hp,Dh) on even head shards over 'model' (padded by
+    :func:`q_heads`), k/v (B,Sk,Hkv,Dh) whole over it; the batch
     over the data axes where they divide it.  For each of its Hp / tp q
     heads, by global index j, a rank takes kv head ``min(j // G, Hkv - 1)``
     (G = n_heads / Hkv; a padded head takes the last), so its heads may
@@ -333,6 +377,63 @@ def _on_q_shards(core, mesh, q, k, v, n_heads: int):
     return shard_map(body, mesh, (qspec, kvspec, kvspec), qspec)(q, k, v)
 
 
+def _flat_spec(mesh, batch: int) -> P:
+    """A flat (B, S, n*Dh) projection on its own model shards, the batch
+    over the data axes where they divide it."""
+    return P(batch_axes(mesh) if batch % dp_size(mesh) == 0 else None, None,
+             "model")
+
+
+def _on_head_rows(core, mesh, q, k, v, r: int):
+    """``core(q, k, v)`` on whole heads, each scored by one of the r model
+    ranks that hold its dims (:func:`row_exchange`): q (B,S,H*Dh) and k/v
+    (B,Sk,H*Dh) flat on their own model shards, so model rank m holds dims
+    [(m % r) * Dh/r, +Dh/r) of head m // r.  Inside the body an all-to-all
+    over the head's r ranks (:func:`_head_group`) trades batch rows for
+    head dims: each rank takes its head whole, (B_l / r, S, 1, Dh), for its
+    own 1/r of the local batch rows, ``core`` scores it, and a second
+    all-to-all returns the output to (B_l, S, Dh/r) on the rank's own dims,
+    which are ``wo``'s row shard.  Per row the math is the one-device
+    core's; nothing is gathered."""
+    spec = _flat_spec(mesh, q.shape[0])
+    part = _head_group(mesh, r)
+
+    def body(q, k, v):
+        q, k, v = (group_all_to_all(t, part, 0, -1).unsqueeze(2)
+                   for t in (q, k, v))
+        return group_all_to_all(core(q, k, v).squeeze(2), part, -1, 0)
+
+    return shard_map(body, mesh, (spec, spec, spec), spec)(q, k, v)
+
+
+def _on_kv_head_group(core, mesh, q, k, v, r: int, rope=None):
+    """``core(q, k, v)`` -> (out (B,S,H,Dh), k after RoPE) on each rank's own
+    q heads, against the kv head that the r model ranks of its group hold
+    (:func:`_on_own_q_heads`): q (B,S,H,Dh) on whole-head shards over 'model'
+    (after RoPE), k/v (B,S,Hkv*Dh) flat on their own model shards (before
+    RoPE).  k and v are gathered over the group's r ranks only
+    (:func:`_head_group`), to the one kv head (B_l, S, 1, Dh); RoPE
+    (``rope``: cos and sin, or None) rotates k there, since it pairs dims i
+    and i + Dh/2 that lie on different ranks of the group.  The rotated k
+    comes back on the rank's own flat shard, as the decode cache splits it
+    inside its kv heads (:func:`_split_in_head`)."""
+    Dh = q.shape[3]
+    flat = _flat_spec(mesh, q.shape[0])
+    qspec = P(flat[0], None, "model", None)
+    part = _head_group(mesh, r)
+    dl = Dh // r
+
+    def body(q, k, v):
+        kh, vh = (group_gather(t, part, -1).unflatten(-1, (1, Dh))
+                  for t in (k, v))
+        if rope is not None:
+            kh = apply_rope(kh, *rope)
+        d0 = (mesh.get_local_rank("model") % r) * dl
+        return core(q, kh, vh), kh[..., d0:d0 + dl].flatten(2)
+
+    return shard_map(body, mesh, (qspec, flat, flat), [qspec, flat])(q, k, v)
+
+
 def _kv_heads_of(rank: int, local: int, n_heads: int, n_kv: int) -> list:
     """The kv head of each of model rank ``rank``'s ``local`` q heads
     (global indices ``rank * local`` on): ``min(j // G, n_kv - 1)``."""
@@ -346,47 +447,74 @@ def attention(x: torch.Tensor, p: LayerAttnParams, cfg: ModelConfig, *,
               kv_override=None, mesh=None):
     """Full-sequence attention (prefill / encoder).
 
-    kv_override: (k, v, kpos) for cross-attention (q from x, kv precomputed).
-    Returns (out (B,S,d), k, v) — k/v returned for cache population at
-    prefill (after RoPE).  ``mesh``: the device mesh x and p lie on as
-    DTensors (the head pins of :func:`_proj_qkv`); where those pins pad
-    the q heads (:func:`q_heads`), or the model axis divides the q heads
-    but not the kv heads (:func:`_on_own_q_heads`), the core runs on each
-    rank's own q heads (:func:`_on_q_shards`), else on its kv-head
-    groups."""
+    kv_override: (k, v, kpos) for cross-attention (q from x, k and v
+    precomputed flat, (B,Sk,Hkv*Dh), on their own model shards on a mesh).
+    Returns (out (B,S,d), k, v) — k/v (B,S,Hkv*Dh) returned for cache
+    population at prefill (after RoPE), flat as the decode cache holds
+    them and, on a mesh, on their own model shards wherever the route
+    keeps them so.  ``mesh``: the device mesh x and p lie on as DTensors.
+    Where the model axis is a multiple of the heads (:func:`row_exchange`),
+    each head is scored whole on one of the ranks that hold its dims, for
+    its share of the batch rows (:func:`_on_head_rows`).  Where it divides
+    the q heads and is a multiple of the kv heads
+    (:func:`_on_own_q_heads`, not cross-attention), the core runs on each
+    rank's own q heads against the one kv head its group gathers
+    (:func:`_on_kv_head_group`).  Where the pins pad the q heads
+    (:func:`q_heads`), it runs on each rank's own padded q heads
+    (:func:`_on_q_shards`), else on the kv-head groups, q, k and v in
+    heads views (:func:`_proj_qkv`)."""
     B, S, _ = x.shape
-    Hq = q_heads(cfg, mesh)
-    if Hq != cfg.n_heads:
-        p = _pad_q_heads(p, cfg, Hq, mesh)
-    q, k, v = _proj_qkv(x, p, cfg, mesh)
     if positions is None:
         positions = torch.arange(S, device=x.device)
-    if kv_override is not None:
-        k, v, kpos = kv_override
-    else:
-        if cfg.rope_theta > 0:
-            cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
-            q = apply_rope(q, cos, sin)
-            k = apply_rope(k, cos, sin)
-        kpos = positions
     cross = kv_override is not None
+    kpos = kv_override[2] if cross else positions
+    rope = (rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+            if cfg.rope_theta > 0 and not cross else None)
 
     def core(q, k, v):
         return attend(q, k, v, positions, kpos, cfg, causal, cross)
 
+    r = row_exchange(cfg, mesh, B)
+    if r:
+        q, k, v = _proj_flat(x, p)
+        if cross:
+            k, v = kv_override[:2]
+        out = _on_head_rows(core, mesh, q, k, v, r)
+        return torch.matmul(out, p.wo), k, v
+    if not cross and _on_own_q_heads(cfg, mesh):
+        q, k, v = _proj_flat(x, p)
+        q = q.reshape(B, S, cfg.n_heads, cfg.head_dim)  # whole-head shards
+        if rope is not None:
+            q = apply_rope(q, *rope)
+        out, k = _on_kv_head_group(core, mesh, q, k, v,
+                                   tp_size(mesh) // cfg.n_kv_heads, rope)
+        return torch.matmul(out.reshape(B, S, cfg.q_dim), p.wo), k, v
+    Hq = q_heads(cfg, mesh)
+    if Hq != cfg.n_heads:
+        p = _pad_q_heads(p, cfg, Hq, mesh)
+    q, k, v = _proj_qkv(x, p, cfg, mesh)
+    if cross:
+        Hkv, Sk = cfg.n_kv_heads, kv_override[0].shape[1]
+        k, v = (heads_view(t, (B, Sk, Hkv, cfg.head_dim), Hkv, mesh)
+                for t in kv_override[:2])
+    elif rope is not None:
+        q = apply_rope(q, *rope)
+        k = apply_rope(k, *rope)
+
     if mesh is None:
         out = core(q, k, v)
-    elif Hq != cfg.n_heads or _on_own_q_heads(cfg, mesh):
+    elif Hq != cfg.n_heads:
         out = _on_q_shards(core, mesh, q, k, v, cfg.n_heads)
     else:
         out = _on_kv_groups(core, mesh, q, k, v)
     wo = p.wo
     if mesh is not None and Hq % tp_size(mesh) and out.requires_grad:
-        # heads whole on every model rank: against wo's row shards the held
-        # residual cotangent would come back cut inside a head, which the
-        # heads view's backward cannot take.  wo whole (0.5 MB a layer at
-        # whisper-base's width) keeps it whole; a forward without autograd
-        # keeps the row shards.
+        # heads whole on every model rank (a local batch that
+        # :func:`row_exchange`'s r does not divide): against wo's row
+        # shards the held residual cotangent would come back cut inside a
+        # head, which the heads view's backward cannot take.  wo whole
+        # (0.5 MB a layer at whisper-base's width) keeps it whole; a
+        # forward without autograd keeps the row shards.
         wo = constrain(wo, mesh, P(None, None))
     out = torch.matmul(out.reshape(B, S, Hq * cfg.head_dim), wo)
     if Hq != cfg.n_heads and cfg.q_dim % tp_size(mesh):
@@ -394,7 +522,7 @@ def attention(x: torch.Tensor, p: LayerAttnParams, cfg: ModelConfig, *,
         # padded rows' partial sums are reduced here, where DTensor could
         # split the batch rows unevenly over 'model'
         out = pin_residual(out, mesh)
-    return out, k, v
+    return out, k.flatten(2), v.flatten(2)
 
 
 def cache_size(cfg: ModelConfig, seq_len: int) -> int:
@@ -565,9 +693,10 @@ def _split_in_head(cache, mesh, n_kv: int) -> bool:
 def _head_group(mesh, r: int):
     """The process group of the ``r`` consecutive model ranks that hold
     this rank's kv head.  Every rank creates every such group, in the same
-    order, when they all reach their first split-head decode on ``mesh``;
-    the groups are kept on the mesh.  The mesh's rank layout is host
-    bookkeeping, read outside any tensor mode (the dry-run's fake one)."""
+    order, when they all reach their first head-group attention or
+    split-head decode on ``mesh``; the groups are kept on the mesh.  The
+    mesh's rank layout is host bookkeeping, read outside any tensor mode
+    (the dry-run's fake one)."""
     groups = mesh.__dict__.setdefault("_repro_kv_head_groups", {})
     if r not in groups:
         import torch.distributed as dist

@@ -55,14 +55,12 @@ def _encode(params, frames, cfg: ModelConfig, remat: bool, mesh):
     return norm(x, params["enc_final_norm/w"], cfg.norm)
 
 
-def _cross_kv(enc_out: torch.Tensor, lp: Dict[str, torch.Tensor],
-              cfg: ModelConfig, mesh=None):
-    B, Se, _ = enc_out.shape
-    shape = (B, Se, cfg.n_kv_heads, cfg.head_dim)
-    k = torch.matmul(enc_out, lp["cross/wk"])
-    v = torch.matmul(enc_out, lp["cross/wv"])
-    return (heads_view(k, shape, cfg.n_kv_heads, mesh),
-            heads_view(v, shape, cfg.n_kv_heads, mesh))
+def _cross_kv(enc_out: torch.Tensor, lp: Dict[str, torch.Tensor]):
+    """The cross-attention's k and v, flat (B, enc_seq, Hkv*Dh): on a mesh
+    on their own model shards, which ``attention.attention`` takes as its
+    route needs them."""
+    return (torch.matmul(enc_out, lp["cross/wk"]),
+            torch.matmul(enc_out, lp["cross/wv"]))
 
 
 def forward(params: Dict[str, torch.Tensor], tokens: torch.Tensor,
@@ -71,7 +69,9 @@ def forward(params: Dict[str, torch.Tensor], tokens: torch.Tensor,
             collect_cache: bool = False):
     """Teacher-forced decode pass.  tokens: (B, S); frames: (B, enc_seq, d)
     -> (logits (B, S, Vp), aux); with ``collect_cache`` also the stacked
-    per-layer (k, v, cross_k, cross_v), each (L, B, S or enc_seq, Hkv, Dh).
+    per-layer (k, v, cross_k, cross_v) in :class:`EncDecDecodeState`'s
+    layouts: k and v flat (L, B, S, Hkv*Dh), cross k and v (L, B, enc_seq,
+    Hkv, Dh).
     ``remat`` checkpoints every encoder and decoder layer."""
     del tp_total          # no MoE in the encoder-decoder
     with mesh_scope(mesh):
@@ -94,7 +94,7 @@ def _forward(params, tokens, frames, cfg: ModelConfig, mesh, remat,
         a, k, v = attention(xn, _attn_params(lp), cfg, positions=positions,
                             mesh=mesh)
         x = pin_residual(x + a, mesh)
-        ck, cv = _cross_kv(enc_out, lp, cfg, mesh)
+        ck, cv = _cross_kv(enc_out, lp)
         xn = norm(x, lp["cross_norm/w"], cfg.norm)
         c, _, _ = attention(xn, _attn_params(lp, "cross"), cfg,
                             positions=positions, causal=False,
@@ -114,7 +114,11 @@ def _forward(params, tokens, frames, cfg: ModelConfig, mesh, remat,
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     aux = {"lb_loss": zero, "z_loss": zero}
     if collect_cache:
-        return logits, aux, tuple(torch.stack(t) for t in zip(*caches))
+        k, v, ck, cv = (torch.stack(t) for t in zip(*caches))
+        shape = ck.shape[:3] + (cfg.n_kv_heads, cfg.head_dim)
+        ck, cv = (heads_view(t, shape, cfg.n_kv_heads, mesh)
+                  for t in (ck, cv))
+        return logits, aux, (k, v, ck, cv)
     return logits, aux
 
 
@@ -133,13 +137,15 @@ def init_decode_state(params: Dict[str, torch.Tensor], frames: torch.Tensor,
     """Runs the encoder and precomputes per-layer cross k/v."""
     enc_out = encode(params, frames, cfg)
     lt = layer_tree(params)
-    ck, cv = zip(*(_cross_kv(enc_out, _layer(lt, i), cfg)
+    heads = (cfg.n_kv_heads, cfg.head_dim)
+    ck, cv = zip(*(_cross_kv(enc_out, _layer(lt, i))
                    for i in range(cfg.n_layers)))
     k = torch.zeros((cfg.n_layers, batch, seq_len, cfg.kv_dim), dtype=dtype,
                     device=enc_out.device)
     return EncDecDecodeState(k, torch.zeros_like(k),
-                             torch.stack(ck).to(dtype),
-                             torch.stack(cv).to(dtype), 0)
+                             torch.stack(ck).unflatten(-1, heads).to(dtype),
+                             torch.stack(cv).unflatten(-1, heads).to(dtype),
+                             0)
 
 
 def abstract_decode_state(cfg: ModelConfig, batch: int, seq_len: int,

@@ -139,10 +139,11 @@ def forward(params: Dict[str, torch.Tensor], tokens: torch.Tensor,
     """tokens: (B, S) -> (logits (B, S, Vp), aux dict).
 
     With ``collect_cache`` also returns the stacked per-layer (k, v,
-    ssm_state) for the prefill->decode handoff: k and v (L,B,S,Hkv,Dh)
-    after RoPE, or None for the ssm family; SSMState(ssd (L,B,H,P,N), conv
-    (L,B,K-1,conv_dim)), or None for the dense family.  ``aux`` holds the
-    MoE losses averaged over the layers (zeros without MoE).
+    ssm_state) for the prefill->decode handoff: k and v flat
+    (L,B,S,Hkv*Dh), the decode cache's layout, after RoPE, or None for the
+    ssm family; SSMState(ssd (L,B,H,P,N), conv (L,B,K-1,conv_dim)), or None
+    for the dense family.  ``aux`` holds the MoE losses averaged over the
+    layers (zeros without MoE).
 
     ``remat`` runs each layer under ``torch.utils.checkpoint`` (the
     reference's ``jax.checkpoint`` of its scanned layer): backward

@@ -27,6 +27,10 @@ as JAX transposes a ``with_sharding_constraint``.  The residual stream is
 pinned after every residual add (:func:`pin_residual`) and holds its
 cotangent too, so each layer's backward starts from the residual's
 layout, batch-sharded and whole over 'model'.
+
+:func:`group_all_to_all` and :func:`group_gather` exchange a rank's local
+tensor with the few ranks of a process group (the model ranks that hold
+one head) where autograd records it, inside a :func:`shard_map` body.
 """
 from __future__ import annotations
 
@@ -309,6 +313,74 @@ def gather_axis(x, mesh, axis: str):
     names = axis_names(mesh)
     return x.redistribute(mesh, [Replicate() if n == axis else p
                                  for n, p in zip(names, x.placements)])
+
+
+def _c10d():
+    return torch.ops._c10d_functional
+
+
+def _all_to_all(t, group, split_dim: int, cat_dim: int):
+    """``t`` cut into the group's size of equal chunks along ``split_dim``,
+    chunk i sent to group rank i; the chunks received joined along
+    ``cat_dim`` in group-rank order."""
+    import torch.distributed as dist
+    r = dist.get_world_size(group)
+    x = torch.stack(t.chunk(r, split_dim)).contiguous()
+    y = _c10d().wait_tensor(_c10d().all_to_all_single(
+        x, [1] * r, [1] * r, group.group_name))
+    return torch.cat(y.unbind(0), dim=cat_dim)
+
+
+class _GroupAllToAll(torch.autograd.Function):
+    """:func:`_all_to_all`; its backward the inverse exchange."""
+
+    @staticmethod
+    def forward(ctx, t, group, split_dim, cat_dim):
+        ctx.group, ctx.dims = group, (split_dim, cat_dim)
+        return _all_to_all(t, group, split_dim, cat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, cat_dim = ctx.dims
+        return _all_to_all(g, ctx.group, cat_dim, split_dim), None, None, None
+
+
+def group_all_to_all(t, group, split_dim: int, cat_dim: int):
+    """An all-to-all over a process group of ``t`` (a rank's local tensor)
+    that autograd records: ``t`` cut into the group's size of chunks along
+    ``split_dim``, chunk i to group rank i, and the chunks each rank
+    receives joined along ``cat_dim`` in group-rank order.  The gradient
+    runs the inverse exchange."""
+    return _GroupAllToAll.apply(t, group, split_dim, cat_dim)
+
+
+class _GroupGather(torch.autograd.Function):
+    """All-gather along ``dim`` over a process group; its backward the
+    reduce-scatter (sum) of the gradient along ``dim``."""
+
+    @staticmethod
+    def forward(ctx, t, group, dim):
+        import torch.distributed as dist
+        r = dist.get_world_size(group)
+        ctx.group, ctx.dim, ctx.r = group, dim, r
+        y = _c10d().wait_tensor(_c10d().all_gather_into_tensor(
+            t.contiguous(), r, group.group_name))
+        return torch.cat(y.chunk(r, 0), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        x = torch.cat(g.chunk(ctx.r, ctx.dim), dim=0).contiguous()
+        y = _c10d().wait_tensor(_c10d().reduce_scatter_tensor(
+            x, "sum", ctx.r, ctx.group.group_name))
+        return y, None, None
+
+
+def group_gather(t, group, dim: int):
+    """``t`` (a rank's local tensor) all-gathered along ``dim`` over a
+    process group, in group-rank order, where autograd records it: each
+    rank's gradient is the group's sum of the gathered gradients at its
+    own part (a reduce-scatter)."""
+    return _GroupGather.apply(t, group, dim)
 
 
 def padded_heads(n_heads: int, tp: int) -> int:

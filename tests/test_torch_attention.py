@@ -71,6 +71,13 @@ def _rel(a, b):
     return float(np.abs(a - b).max()) / float(np.abs(b).max())
 
 
+def _flat(t):
+    """The reference's k or v (B, S, Hkv, Dh) as the port returns it, flat
+    (B, S, Hkv*Dh)."""
+    t = _np(t)
+    return t.reshape(t.shape[:2] + (-1,))
+
+
 @pytest.fixture
 def small_chunks(monkeypatch):
     """Q_CHUNK = 8 in both packages, so S = 32 takes the chunked and banded
@@ -109,9 +116,11 @@ def test_attention_matches_reference(small_chunks, monkeypatch, S, window,
     oj, kj, vj = j_attn.attention(xj, jp, jc)
     ot, kt, vt = attention.attention(xt, tp, tc)
     assert ot.dtype == TDT[dtype] and ot.shape == oj.shape
-    assert kt.shape == kj.shape == (2, S, 2, 16)
+    # the port returns k/v flat, as the decode cache holds them
+    assert kj.shape == (2, S, 2, 16) and kt.shape == vt.shape == (2, S, 32)
     assert _rel(ot, oj) < TOL[dtype]
-    assert _rel(kt, kj) < TOL[dtype] and _rel(vt, vj) < TOL[dtype]
+    assert _rel(kt, _flat(kj)) < TOL[dtype]
+    assert _rel(vt, _flat(vj)) < TOL[dtype]
 
 
 @pytest.mark.parametrize("flag", ["gqa_grouped", "swa_banded",
@@ -144,14 +153,15 @@ def test_qkv_bias_and_head_groupings(bias, kv):
     xj, xt = _x((2, 12, jc.d_model), "float32", seed=5)
     oj, kj, _ = j_attn.attention(xj, jp, jc)
     ot, kt, _ = attention.attention(xt, tp, tc)
-    assert kt.shape == (2, 12, kv, 16)
-    assert _rel(ot, oj) < 1e-5 and _rel(kt, kj) < 1e-5
+    assert kt.shape == (2, 12, kv * 16)
+    assert _rel(ot, oj) < 1e-5 and _rel(kt, _flat(kj)) < 1e-5
 
 
 @pytest.mark.parametrize("S", [12, 32])
 def test_attention_kv_override(small_chunks, S):
-    """Cross-attention: q from x (no RoPE), k, v and their positions given;
-    non-causal, unchunked (S = 12) and chunked (S = 32, never banded)."""
+    """Cross-attention: q from x (no RoPE), k, v and their positions given
+    (to the port flat, as ``encdec`` projects them); non-causal, unchunked
+    (S = 12) and chunked (S = 32, never banded)."""
     jc, tc = _cfgs(None, bias=True)
     assert attention.prefill_route(tc, S, causal=False, cross=True) == (
         "unchunked" if S == 12 else "chunked")
@@ -166,9 +176,9 @@ def test_attention_kv_override(small_chunks, S):
         kv_override=(jnp.asarray(k), jnp.asarray(v), jnp.asarray(kpos)))
     ot, kt, _ = attention.attention(
         xt, tp, tc, causal=False,
-        kv_override=(torch.from_numpy(k), torch.from_numpy(v),
-                     torch.from_numpy(kpos)))
-    assert np.array_equal(kt.numpy(), k)
+        kv_override=(torch.from_numpy(k).flatten(2),
+                     torch.from_numpy(v).flatten(2), torch.from_numpy(kpos)))
+    assert np.array_equal(kt.numpy(), _flat(k))
     assert _rel(ot, oj) < 1e-5
 
 

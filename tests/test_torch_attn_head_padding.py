@@ -21,11 +21,18 @@ small f32 configs take that route: hymba's smoke config with 10 q heads
 and 2 kv heads (groups of 5, padded to 12, so rank 1 holds heads of both
 groups) 80 wide (its 10 SSD heads pad too), qwen's with 6 q heads and 2
 kv heads (groups of 3, padded to 8) and its q/k/v biases, and qwen's with
-8 q heads and 2 kv heads (2 a rank, unpadded).  A fourth, qwen's with 2 q
-and 2 kv heads, keeps whisper-base's route on model 16: heads whole on
-every model rank, the core on the kv-head groups, and ``wo`` taken whole
-over 'model' in the train step, where the held residual cotangent would
-otherwise come back cut inside a head.  The prefill logits and
+8 q heads and 2 kv heads (2 a rank, unpadded).  The last gathers k and v
+only over the 2 model ranks that hold its kv head
+(``attention._on_kv_head_group``), each gather one kv head wide, and
+returns its prefill caches on their own flat shards.  qwen's with 2 q and
+2 kv heads takes whisper-base's route on model 16 (r = 2 model ranks a
+head): at B = 4 (2 rows a data rank, which r divides) each head is scored
+whole by one rank for half of the rank's rows
+(``attention._on_head_rows``, one q head in every core), and at B = 2 (1
+row a data rank) the heads stay whole on every model rank, the core on
+the kv-head groups, with ``wo`` taken whole over 'model' in the train
+step, where the held residual cotangent would otherwise come back cut
+inside a head.  The prefill logits and
 caches, six decode steps, the loss and every gradient are within 1e-5 of
 ``mesh=None``'s max |value|, the prefill within 1e-5 of the reference's
 max |logit| (the LM tests' f32 tolerance), the weights carried over by
@@ -33,7 +40,7 @@ max |logit| (the LM tests' f32 tolerance), the weights carried over by
 attention layer of 10 q heads and 2 kv heads at B = 2, S = 2048 takes the
 chunked route and, with a window of 1024, the banded one, its output and
 gradients within 1e-5 of ``mesh=None``'s.  On a one-rank mesh nothing
-pads nor leaves the kv-head groups, and the three configs' results are
+pads nor leaves the kv-head groups, and the configs' results are
 ``mesh=None``'s bit for bit.
 
 The dry-run: hymba-1.5b train_4k cut to 2 layers on a fake (16, 16) mesh
@@ -70,37 +77,56 @@ from repro_torch.sharding import padded_heads
 
 from test_torch_distributed import REPO, _run_ranks
 
-# (case, arch, q heads, kv heads, d_model or None for the smoke config's):
-# q heads padded over model 4, and q heads model 4 divides but kv heads not
-CASES = (("hymba-10-2", "hymba-1.5b", 10, 2, 80),
-         ("qwen-6-2", "qwen1.5-0.5b", 6, 2, None))
-OWN_CASES = (("qwen-8-2", "qwen1.5-0.5b", 8, 2, None),)
-# q heads whole on every rank of model 4 (whisper-base's 8 on model 16):
-# the core on the kv-head groups, ``wo`` taken whole in the train step
-WHOLE_CASES = (("qwen-2-2", "qwen1.5-0.5b", 2, 2, None),)
+# (case, arch, q heads, kv heads, d_model or None for the smoke config's,
+# batch): q heads padded over model 4, and q heads model 4 divides but kv
+# heads not
+CASES = (("hymba-10-2", "hymba-1.5b", 10, 2, 80, 2),
+         ("qwen-6-2", "qwen1.5-0.5b", 6, 2, None, 2))
+OWN_CASES = (("qwen-8-2", "qwen1.5-0.5b", 8, 2, None, 2),)
+# 2 q heads on model 4 (whisper-base's 8 on model 16), 2 model ranks a
+# head: each head scored whole on one rank for half of its rows where they
+# divide the rows (B = 4, without RoPE and q/k/v biases, as
+# whisper-base), else whole on
+# every model rank, the core on the kv-head groups, ``wo`` taken whole in
+# the train step (B = 2, with qwen's RoPE)
+WHOLE_CASES = (("qwen-2-2", "qwen1.5-0.5b", 2, 2, None, 4),
+               ("qwen-2-2-b2", "qwen1.5-0.5b", 2, 2, None, 2))
+# the attention route each case of the 2x4 run takes
+ROUTES = {"hymba-10-2": "_on_q_shards", "qwen-6-2": "_on_q_shards",
+          "qwen-8-2": "_on_kv_head_group", "qwen-2-2": "_on_head_rows",
+          "qwen-2-2-b2": "_on_kv_groups"}
+# the cases run as whisper-base's attention: without RoPE (rope_theta 0)
+# and q/k/v biases
+NO_ROPE = ("qwen-2-2",)
 LAYER_CASES = (("chunked", None), ("banded", 1024))
-B, S = 2, 64
+S = 64
 LAYER_B, LAYER_S = 2, 2048
 DRY_LAYERS = 2
 
 
-def _cfg(get, arch: str, n_heads: int, n_kv: int, d_model):
+def _cfg(get, arch: str, n_heads: int, n_kv: int, d_model,
+         rope: bool = True):
     """The f32 smoke config with ``n_heads`` q heads and ``n_kv`` kv heads
-    (head dim 16), ``d_model`` wide if given."""
+    (head dim 16), ``d_model`` wide if given, without RoPE and q/k/v biases
+    unless ``rope`` (whisper-base's attention: without RoPE, k's bias
+    would only shift each row's scores, and its gradient is zero)."""
     import dataclasses
     c = dataclasses.replace(get(arch).smoke(), dtype="float32",
                             n_heads=n_heads, n_kv_heads=n_kv)
     if d_model is not None:
         c = dataclasses.replace(c, d_model=d_model)
+    if not rope:
+        c = dataclasses.replace(c, rope_theta=0.0, qkv_bias=False)
     return c
 
 
 @functools.lru_cache(maxsize=None)
-def _inputs(arch, n_heads, n_kv, d_model, seed: int = 0):
+def _inputs(arch, n_heads, n_kv, d_model, B, rope: bool = True,
+            seed: int = 0):
     """(port config, port params carried from the reference's, tokens,
     labels, the reference's f32 logits), made once a case."""
-    jc = _cfg(j_get_config, arch, n_heads, n_kv, d_model)
-    tc = _cfg(get_config, arch, n_heads, n_kv, d_model)
+    jc = _cfg(j_get_config, arch, n_heads, n_kv, d_model, rope)
+    tc = _cfg(get_config, arch, n_heads, n_kv, d_model, rope)
     jp = j_init(jc, jax.random.PRNGKey(seed), max_seq=S)
     params = params_from_jax({k: np.asarray(v) for k, v in jp.items()}, tc,
                              "cpu")
@@ -208,22 +234,52 @@ import dataclasses
 from repro_torch.configs import get_config
 from repro_torch.launch.mesh import compat_make_mesh
 from repro_torch.models import attention
-calls = []
-on_q = attention._on_q_shards
+calls, heads, gathers = [], [], []
 
-def counted(*a, **k):
-    calls.append(1)
-    return on_q(*a, **k)
 
-attention._on_q_shards = counted
+def counting(name):
+    route = getattr(attention, name)
+
+    def counted(*a, **k):
+        calls.append(name)
+        return route(*a, **k)
+    return counted
+
+
+for name in ("_on_q_shards", "_on_kv_head_group", "_on_head_rows",
+             "_on_kv_groups"):
+    setattr(attention, name, counting(name))
+attend, gather = attention.attend, attention.group_gather
+
+
+def counted_attend(q, *a, **k):
+    heads.append(q.shape[2])
+    return attend(q, *a, **k)
+
+
+def counted_gather(t, group, dim):
+    out = gather(t, group, dim)
+    gathers.append((dist.get_world_size(group), out.shape[-1]))
+    return out
+
+
+attention.attend, attention.group_gather = counted_attend, counted_gather
 mesh = compat_make_mesh((2, 4), ("data", "model"))
 d = torch.load(os.path.join(DATA, "in.pt"), weights_only=False)
 for case, c in d["models"].items():
     cfg = _cfg(get_config, *c["cfg"])
-    n = len(calls)
+    n, nh, ng = len(calls), len(heads), len(gathers)
     got = _run(c["params"], c["toks"], c["labels"], cfg, mesh)
-    # each layer's prefill and its train step's forward, on own q heads
-    assert len(calls) - n == 2 * cfg.n_layers * c["q_shards"], calls
+    # each layer's prefill and its train step's forward on the case's
+    # route (the decode steps' cores on split heads)
+    assert calls[n:] == [c["route"]] * (2 * cfg.n_layers), calls[n:]
+    if c["route"] == "_on_head_rows":      # one whole head a core
+        assert set(heads[nh:]) == {1}, heads[nh:]
+    if c["route"] == "_on_kv_head_group":  # one kv head, over its 2 ranks
+        assert gathers[ng:] and set(gathers[ng:]) == {(2, cfg.head_dim)}, \
+            gathers[ng:]
+    else:
+        assert len(gathers) == ng, gathers[ng:]
     want = c["want"]
     for i, what in enumerate(("prefill", "cache k", "cache v")):
         _close(got[i], want[i], (case, what))
@@ -242,7 +298,7 @@ for c in d["layers"]:
                               sliding_window=c["window"])
     n = len(calls)
     got = _layer(cfg, c["w"], c["x"], c["dout"], mesh)
-    assert len(calls) - n == 1, calls
+    assert calls[n:] == ["_on_q_shards"], calls[n:]
     for i, what in enumerate(("out", "k", "v")):
         _close(got[i], c["want"][i], (c["window"], what))
     for i, (g, w) in enumerate(zip(got[3], c["want"][3])):
@@ -261,12 +317,13 @@ def ranks_2x4(tmp_path_factory):
     ``mesh=None``'s results made here.  One run, so the ranks start
     once."""
     models = {}
-    for case, arch, n_heads, n_kv, d_model in (CASES + OWN_CASES
-                                               + WHOLE_CASES):
-        cfg, params, toks, labels, _ = _inputs(arch, n_heads, n_kv, d_model)
-        models[case] = {"cfg": (arch, n_heads, n_kv, d_model),
-                        "q_shards": int((case, arch, n_heads, n_kv, d_model)
-                                        not in WHOLE_CASES),
+    for case, arch, n_heads, n_kv, d_model, batch in (CASES + OWN_CASES
+                                                      + WHOLE_CASES):
+        rope = case not in NO_ROPE
+        cfg, params, toks, labels, _ = _inputs(arch, n_heads, n_kv, d_model,
+                                               batch, rope)
+        models[case] = {"cfg": (arch, n_heads, n_kv, d_model, rope),
+                        "route": ROUTES[case],
                         "params": params, "toks": toks, "labels": labels,
                         "want": _run(params, toks, labels, cfg)}
     layers = []
@@ -281,16 +338,18 @@ def ranks_2x4(tmp_path_factory):
     return _run_ranks(tmp, 8, helpers + RANK_BODY)
 
 
-@pytest.mark.parametrize("case,arch,n_heads,n_kv,d_model", CASES,
+@pytest.mark.parametrize("case,arch,n_heads,n_kv,d_model,batch", CASES,
                          ids=[c[0] for c in CASES])
 def test_padded_q_heads_on_2x4_ranks_match_one_device(ranks_2x4, case, arch,
-                                                      n_heads, n_kv, d_model):
+                                                      n_heads, n_kv, d_model,
+                                                      batch):
     """The mesh prefill's logits and caches, six decode steps, the train
     step's loss and every gradient within 1e-5 of ``mesh=None``'s max
     |value|, every attention core of the prefill and the train step on
     the rank's own q heads (q padded over model 4); ``mesh=None``'s
     prefill within 1e-5 of the reference's max |logit|."""
-    cfg, params, toks, labels, ref = _inputs(arch, n_heads, n_kv, d_model)
+    cfg, params, toks, labels, ref = _inputs(arch, n_heads, n_kv, d_model,
+                                             batch)
     mesh = types.SimpleNamespace(shape={"data": 2, "model": 4},
                                  axis_names=("data", "model"))
     assert attention.q_heads(cfg, mesh) == padded_heads(n_heads, 4) > n_heads
@@ -298,17 +357,20 @@ def test_padded_q_heads_on_2x4_ranks_match_one_device(ranks_2x4, case, arch,
     assert f"OK {case}\n" in ranks_2x4
 
 
-@pytest.mark.parametrize("case,arch,n_heads,n_kv,d_model", OWN_CASES,
+@pytest.mark.parametrize("case,arch,n_heads,n_kv,d_model,batch", OWN_CASES,
                          ids=[c[0] for c in OWN_CASES])
 def test_own_q_heads_on_2x4_ranks_match_one_device(ranks_2x4, case, arch,
-                                                   n_heads, n_kv, d_model):
+                                                   n_heads, n_kv, d_model,
+                                                   batch):
     """8 q heads and 2 kv heads on model 4: nothing pads, and every
     attention core of the prefill and the train step runs on the rank's
-    own 2 q heads; the mesh prefill's logits and caches, six decode steps,
+    own 2 q heads, against the one kv head gathered over the 2 model ranks
+    that hold it; the mesh prefill's logits and caches, six decode steps,
     the train step's loss and every gradient within 1e-5 of
     ``mesh=None``'s max |value|; ``mesh=None``'s prefill within 1e-5 of
     the reference's max |logit|."""
-    cfg, params, toks, labels, ref = _inputs(arch, n_heads, n_kv, d_model)
+    cfg, params, toks, labels, ref = _inputs(arch, n_heads, n_kv, d_model,
+                                             batch)
     mesh = types.SimpleNamespace(shape={"data": 2, "model": 4},
                                  axis_names=("data", "model"))
     assert attention.q_heads(cfg, mesh) == n_heads
@@ -317,22 +379,29 @@ def test_own_q_heads_on_2x4_ranks_match_one_device(ranks_2x4, case, arch,
     assert f"OK {case}\n" in ranks_2x4
 
 
-@pytest.mark.parametrize("case,arch,n_heads,n_kv,d_model", WHOLE_CASES,
+@pytest.mark.parametrize("case,arch,n_heads,n_kv,d_model,batch", WHOLE_CASES,
                          ids=[c[0] for c in WHOLE_CASES])
 def test_whole_q_heads_on_2x4_ranks_match_one_device(ranks_2x4, case, arch,
-                                                     n_heads, n_kv, d_model):
-    """2 q heads and 2 kv heads on model 4, whole on every model rank (the
-    route of whisper-base's 8 heads on model 16): nothing pads, the core
-    runs on the kv-head groups, and the train step takes ``wo`` whole over
-    'model' under the held residual cotangent; the mesh prefill's logits
-    and caches, six decode steps, the train step's loss and every
-    gradient within 1e-5 of ``mesh=None``'s max |value|; ``mesh=None``'s
-    prefill within 1e-5 of the reference's max |logit|."""
-    cfg, params, toks, labels, ref = _inputs(arch, n_heads, n_kv, d_model)
+                                                     n_heads, n_kv, d_model,
+                                                     batch):
+    """2 q heads and 2 kv heads on model 4, 2 model ranks a head (the
+    route of whisper-base's 8 heads on model 16): nothing pads.  At B = 4
+    each core scores one head whole for half of the rank's rows, q, k and
+    v traded over the head's 2 ranks; at B = 2 the heads stay whole on
+    every model rank, the core runs on the kv-head groups, and the train
+    step takes ``wo`` whole over 'model' under the held residual
+    cotangent.  The mesh prefill's logits and caches, six decode steps,
+    the train step's loss and every gradient within 1e-5 of
+    ``mesh=None``'s max |value|; ``mesh=None``'s prefill within 1e-5 of
+    the reference's max |logit|."""
+    cfg, params, toks, labels, ref = _inputs(arch, n_heads, n_kv, d_model,
+                                             batch, case not in NO_ROPE)
     mesh = types.SimpleNamespace(shape={"data": 2, "model": 4},
                                  axis_names=("data", "model"))
     assert attention.q_heads(cfg, mesh) == n_heads
     assert not attention._on_own_q_heads(cfg, mesh)
+    assert attention.row_exchange(cfg, mesh, batch) == (2 if batch == 4
+                                                        else 0)
     _close(_run(params, toks, labels, cfg)[0], ref, "reference")
     assert f"OK {case}\n" in ranks_2x4
 
@@ -359,17 +428,19 @@ def one_rank_mesh():
         dist.destroy_process_group()
 
 
-@pytest.mark.parametrize("case,arch,n_heads,n_kv,d_model",
+@pytest.mark.parametrize("case,arch,n_heads,n_kv,d_model,batch",
                          CASES + OWN_CASES + WHOLE_CASES,
                          ids=[c[0] for c in CASES + OWN_CASES + WHOLE_CASES])
 def test_one_rank_is_bit_for_bit(one_rank_mesh, case, arch, n_heads, n_kv,
-                                 d_model):
+                                 d_model, batch):
     """At (1, 1) no q head pads nor leaves its kv-head group: the prefill,
     its caches, the decode steps and state, the loss and every gradient
     equal ``mesh=None``'s bit for bit."""
-    cfg, params, toks, labels, _ = _inputs(arch, n_heads, n_kv, d_model)
+    cfg, params, toks, labels, _ = _inputs(arch, n_heads, n_kv, d_model,
+                                           batch, case not in NO_ROPE)
     assert attention.q_heads(cfg, one_rank_mesh) == n_heads
     assert not attention._on_own_q_heads(cfg, one_rank_mesh)
+    assert not attention.row_exchange(cfg, one_rank_mesh, batch)
     want = _run(params, toks, labels, cfg)
     got = _run(params, toks, labels, cfg, one_rank_mesh)
     for i in range(3):

@@ -7,21 +7,20 @@ HLO of the same cut cells, XLA's CPU buffer assignment on the host).
 * qwen1.5-0.5b prefill_32k on 16x16 counts the reference's collectives op
   for op: the residual stays batch-sharded and whole over 'model', one
   all-reduce a row-parallel product.
-* whisper-base prefill_32k on 16x16: the cross k/v's heads view gathers
-  the 8 kv heads that 16 model ranks cannot split.  No more all-reduces
-  than the reference's, wire bytes and peak at or under its.  Its
-  all-gathers (the self-attention's 8 heads gathered over 16 model ranks,
-  ROADMAP Queue 3 item 1) are above the reference's and not held here.
+* whisper-base prefill_32k on 16x16: its 8 heads on model 16 (2 ranks a
+  head, 2 rows a data rank) are scored each on one rank of its head for
+  one row, q, k and v and the cross k/v traded over the head's 2 ranks
+  (``attention.row_exchange``).  No more all-reduces than the
+  reference's, wire bytes and peak at or under its.
 * qwen1.5-0.5b train_4k on 16x16: the residual pins hold their
   cotangents (``sharding.pin_residual``), so the backward's gradients
   keep the residual's layout and are not reduce-scattered and gathered
   again in the layer below.  All-gathers and wire bytes a rank at or
   under the reference's.
-* whisper-base train_4k on 16x16 and 2x16x16: its 8 q heads lie whole on
-  every model rank, and under the held residual cotangent the
-  out-projection's input gradient would come back cut inside a head;
-  ``attention`` takes ``wo`` whole over 'model' where autograd records
-  the product, and the step traces.
+* whisper-base train_4k on 16x16 and 2x16x16: every attention core on
+  the traced rank scores one head of half of the rank's rows (the same
+  trade); all-gathers and the peak a rank at or under the reference's
+  all-gathers and argument + temp bytes.
 * mamba2-1.3b and phi-3-vision-4.2b train_4k on 2x16x16: the cotangents of
   the SSM's inner activations and of the projected patches are pinned, as
   the reference's constraints pin their transposes.  Wire bytes at or
@@ -29,9 +28,11 @@ HLO of the same cut cells, XLA's CPU buffer assignment on the host).
   and all-gathers.
 * mixtral-8x7b train_4k on 16x16: its 32 q heads and 8 kv heads run the
   attention core on each rank's own 2 q heads (``attention._on_own_q_heads``),
-  with no q activation gathered in ``models/attention.py``.  Wire bytes
-  and the peak a rank at or under the reference's (its all-gathers, k and
-  v made whole over all 16 model ranks, are not).
+  with no q activation gathered in ``models/attention.py``, against the
+  one kv head gathered over its 2 model ranks
+  (``attention._on_kv_head_group``).
+  All-gathers, wire bytes and the peak a rank at or under the
+  reference's.
 
 Each pair must count at least one collective and a finite peak a rank.
 """
@@ -53,9 +54,11 @@ LAYERS = 1
 REFERENCE_CELLS = {"16x16": ("qwen1.5-0.5b:prefill_32k",
                              "qwen1.5-0.5b:train_4k",
                              "whisper-base:prefill_32k",
+                             "whisper-base:train_4k",
                              "mixtral-8x7b:train_4k"),
                    "2x16x16": ("mamba2-1.3b:train_4k",
-                               "phi-3-vision-4.2b:train_4k")}
+                               "phi-3-vision-4.2b:train_4k",
+                               "whisper-base:train_4k")}
 
 
 @pytest.fixture(scope="module")
@@ -134,13 +137,37 @@ def test_dense_train_step_gathers_no_more_than_the_reference(reference):
     assert traced["wire_bytes"] <= ref["wire_bytes"], (traced, ref)
 
 
+def _counted_attend(monkeypatch) -> list:
+    """(rows, q heads) of every attention core run from here on, on the
+    traced rank."""
+    seen = []
+    attend = attention.attend
+
+    def counted(q, *args, **kwargs):
+        seen.append((q.shape[0], q.shape[2]))
+        return attend(q, *args, **kwargs)
+
+    monkeypatch.setattr(attention, "attend", counted)
+    return seen
+
+
 @pytest.mark.parametrize("mesh", ["16x16", "2x16x16"])
-def test_whisper_train_step_traces(mesh):
-    """whisper-base train_4k (8 q heads, whole on every rank of model 16):
-    under the held residual cotangent the out-projection takes ``wo``
-    whole, so the gradient of its input is not cut inside a head, and
-    the step traces on both production meshes."""
-    _trace("whisper-base", "train_4k", mesh)
+def test_whisper_train_step_traces(reference, monkeypatch, mesh):
+    """whisper-base train_4k (8 heads, 2 ranks a head on model 16): every
+    attention core on the traced rank (the encoder's, the decoder's self-
+    and cross-attention, forward and remat) scores one head of half of
+    the rank's rows; all-gathers and the peak a rank at or under the
+    reference's all-gathers and argument + temp bytes."""
+    seen = _counted_attend(monkeypatch)
+    traced = _trace("whisper-base", "train_4k", mesh)
+    rows = get_shape("train_4k").global_batch // math.prod(
+        D.PRODUCTION_MESHES[mesh][:-1]) // 2
+    # the encoder's layer, the decoder's self- and cross-attention, each
+    # in the forward and again in its backward (remat)
+    assert seen == [(rows, 1)] * (2 * 3 * LAYERS), seen
+    ref = reference(mesh)["whisper-base:train_4k"]
+    assert traced["all_gather"] <= ref["all_gather"], (traced, ref)
+    assert traced["peak_bytes"] <= ref["args_temps"], (traced, ref)
 
 
 # the figures a rank of a train step on 2x16x16 held at or under the
@@ -164,16 +191,10 @@ def test_eight_kv_head_train_step_still_traces(reference, monkeypatch):
     """mixtral-8x7b train_4k on 16x16 (32 q heads, 8 kv heads): every
     attention core on the traced rank scores its own 2 q heads; no
     all-gather site in ``models/attention.py`` moves (per call) as much as
-    a rank's (B_l, S, H * Dh) bf16 q activation; its wire bytes and peak a
-    rank at or under the reference's wire and argument + temp bytes."""
-    heads = []
-    attend = attention.attend
-
-    def counted(q, *args, **kwargs):
-        heads.append(q.shape[2])
-        return attend(q, *args, **kwargs)
-
-    monkeypatch.setattr(attention, "attend", counted)
+    a rank's (B_l, S, H * Dh) bf16 q activation; its all-gathers, wire
+    bytes and peak a rank at or under the reference's all-gathers, wire
+    and argument + temp bytes."""
+    seen = _counted_attend(monkeypatch)
     cfg = D.cut_layers(get_config("mixtral-8x7b"), LAYERS)
     shape = get_shape("train_4k")
     traced = D.trace_cell(cfg, shape, D.PRODUCTION_MESHES["16x16"],
@@ -181,6 +202,7 @@ def test_eight_kv_head_train_step_still_traces(reference, monkeypatch):
     coll = traced["collective"]
     assert sum(coll.counts.values()) > 0, coll.counts
     # each layer's forward, and again in its backward (remat)
+    heads = [h for _, h in seen]
     assert heads == [2] * (2 * LAYERS), heads
     q_act = shape.global_batch // 16 * shape.seq_len * cfg.q_dim * 2
     sites = [s for s in traced["sites"] if s["op"] == "all-gather"
@@ -188,6 +210,8 @@ def test_eight_kv_head_train_step_still_traces(reference, monkeypatch):
     for s in sites:
         assert s["wire_bytes"] / s["count"] < q_act, s
     ref = reference("16x16")["mixtral-8x7b:train_4k"]
+    gathered = coll.bytes_by_op.get("all-gather", 0.0)
+    assert gathered <= ref["all_gather"], (gathered, ref)
     assert coll.wire_bytes <= ref["wire_bytes"], (coll.wire_bytes, ref)
     peak = traced["memory"]["peak_bytes"]
     assert peak <= ref["args_temps"], (peak, ref)

@@ -326,12 +326,12 @@ def test_collect_cache_equals_the_decode_state(arch):
     logits, _, (k, v, ssm_st) = transformer.forward(tp, toks, tc,
                                                     collect_cache=True)
     L = tc.n_layers
-    assert k.shape == v.shape == (L, B, S, tc.n_kv_heads, tc.head_dim)
+    assert k.shape == v.shape == (L, B, S, tc.kv_dim)   # the cache's layout
     st = model_api.init_decode_state(tp, {}, tc, B, S, dtype=torch.float32)
     for t in range(S):
         _, st = model_api.decode_step(tp, toks[:, t:t + 1], st, tc)
-    assert _rel(k.reshape(L, B, S, tc.kv_dim), st.cache_k) < 1e-5
-    assert _rel(v.reshape(L, B, S, tc.kv_dim), st.cache_v) < 1e-5
+    assert _rel(k, st.cache_k) < 1e-5
+    assert _rel(v, st.cache_v) < 1e-5
     if tc.hybrid:
         H, P, N = tc.n_ssm_heads, tc.ssm.d_head, tc.ssm.d_state
         assert _rel(ssm_st.ssd, st.ssm_ssd.reshape(L, B, H, P, N)) < 1e-5
@@ -355,15 +355,15 @@ def test_encdec_collect_cache_equals_the_decode_state():
     logits, _, (k, v, ck, cv) = encdec.forward(tp, toks, batch["frames"], tc,
                                                collect_cache=True)
     L = tc.n_layers
-    assert k.shape == v.shape == (L, B, S, tc.n_kv_heads, tc.head_dim)
+    assert k.shape == v.shape == (L, B, S, tc.kv_dim)   # the cache's layout
     assert ck.shape == cv.shape == (L, B, tc.enc_seq, tc.n_kv_heads,
                                     tc.head_dim)
     st = model_api.init_decode_state(tp, batch, tc, B, S, dtype=torch.float32)
     assert _rel(ck, st.cross_k) < 1e-5 and _rel(cv, st.cross_v) < 1e-5
     for t in range(S):
         _, st = model_api.decode_step(tp, toks[:, t:t + 1], st, tc)
-    assert _rel(k.reshape(L, B, S, tc.kv_dim), st.cache_k) < 1e-5
-    assert _rel(v.reshape(L, B, S, tc.kv_dim), st.cache_v) < 1e-5
+    assert _rel(k, st.cache_k) < 1e-5
+    assert _rel(v, st.cache_v) < 1e-5
     assert torch.equal(serve.make_prefill_step(tc)(tp, batch), logits)
 
 
