@@ -257,9 +257,13 @@ Phases, each of which raises (and exits non-zero) on failure:
       train_4k on both meshes, mixtral's and h2o-danube-3's train_4k and
       prefill_32k on 16x16, the pairs whose attention exchanges q/k/v
       among a head's model ranks) all-gathers more than the reference's
-      pair a rank, or an attention core of whisper's train_4k on 16x16
-      scores another count of heads or rows than one head of half of the
-      rank's rows (``DRYRUN_SWEEP_HEAD_ROWS``).  The sweep alone
+      pair a rank, a pair of ``DRYRUN_SWEEP_WIRE`` (whisper's prefill_32k
+      on 2x16x16, whose query positions are traded over a head's ranks)
+      moves more wire bytes than the reference's pair a rank, or an
+      attention core of whisper's train_4k on 16x16 or its prefill_32k on
+      2x16x16 scores another count of heads or rows than one head of half
+      of the rank's rows, or of its one row (``DRYRUN_SWEEP_HEAD_ROWS``).
+      The sweep alone
       rehearses on a host without a card
       (the dry-run needs none): ``chip_smoke.dryrun_sweep("cpu")``;
 6. times — each kernel and mode, its plain version and the nearest PyTorch
@@ -3184,7 +3188,7 @@ DRYRUN_SWEEP_BEFORE = {
     "mixtral-8x7b prefill_32k 16x16": (4.742e9, 33.6e6, 5.0667e9),
     "mixtral-8x7b prefill_32k 2x16x16": (2.569e9, 16.8e6, 2.5334e9),
     "whisper-base prefill_32k 16x16": (0.807e9, 0.0e6, 0.9302e9),
-    "whisper-base prefill_32k 2x16x16": (1.959e9, 391.9e6, 0.8438e9),
+    "whisper-base prefill_32k 2x16x16": (0.425e9, 9.2e6, 0.4697e9),
     "hymba-1.5b prefill_32k 16x16": (2.744e9, 242.1e6, 2.2092e9),
     "hymba-1.5b prefill_32k 2x16x16": (1.821e9, 159.5e6, 1.1430e9),
     "phi3-mini-3.8b prefill_32k 16x16": (3.376e9, 0.0e6, 3.7749e9),
@@ -3242,11 +3246,21 @@ DRYRUN_SWEEP_GATHER = {
     "mixtral-8x7b prefill_32k 16x16": 335544320.0,
     "h2o-danube-3-4b prefill_32k 16x16": 314572800.0,
 }
+# Per rank, the reference's wire bytes of the sweep's pairs whose attention
+# trades query positions over the model ranks of a head
+# (``attention.query_exchange``), at DRYRUN_SWEEP_LAYERS layers (as
+# DRYRUN_SWEEP_GATHER's): the reference all-gathers nothing there (it
+# splits d_head and all-reduces the f32 scores) and the port gathers one
+# head's k and v over its 2 ranks, so the pair is held to the reference's
+# wire bytes instead; the port's pair may not move more, on any torch.
+DRYRUN_SWEEP_WIRE = {"whisper-base prefill_32k 2x16x16": 9904994432.0}
 # pairs whose attention scores each head on one of the model ranks that
-# hold its dims (``attention.row_exchange``): (q heads, batch rows) every
-# attention core on the traced rank must score (whisper-base's 8 heads on
-# model 16: one head of half of the 16 rows a data rank holds)
-DRYRUN_SWEEP_HEAD_ROWS = {"whisper-base train_4k 16x16": (1, 8)}
+# hold its dims (``attention.row_exchange``, ``query_exchange``): (q heads,
+# batch rows) every attention core on the traced rank must score
+# (whisper-base's 8 heads on model 16: one head of half of the 16 rows a
+# data rank holds; one head of the one row, for half of the queries)
+DRYRUN_SWEEP_HEAD_ROWS = {"whisper-base train_4k 16x16": (1, 8),
+                          "whisper-base prefill_32k 2x16x16": (1, 1)}
 
 
 def dryrun_pairs() -> list:
@@ -3523,9 +3537,10 @@ def dryrun_sweep(card: str, jobs: tuple = (),
     :data:`DRYRUN_SWEEP_TORCH`, a pair's peak, all-gather or wire bytes a
     rank rise above its :data:`DRYRUN_SWEEP_BEFORE` or its peak a rank
     exceeds ``capacity`` bytes (the card's memory, where given), a pair of
-    :data:`DRYRUN_SWEEP_GATHER` all-gathers more than the reference's, or
-    a pair of :data:`DRYRUN_SWEEP_HEAD_ROWS` runs an attention core on
-    other (heads, rows) than its own.  With no
+    :data:`DRYRUN_SWEEP_GATHER` all-gathers more than the reference's, a
+    pair of :data:`DRYRUN_SWEEP_WIRE` moves more wire bytes than the
+    reference's, or a pair of :data:`DRYRUN_SWEEP_HEAD_ROWS` runs an
+    attention core on other (heads, rows) than its own.  With no
     ``jobs`` it is the sweep alone: a rehearsal on a host without a card
     (the dry-run needs none)."""
     import torch
@@ -3574,6 +3589,15 @@ def dryrun_sweep(card: str, jobs: tuple = (),
         if r["all_gather"] > DRYRUN_SWEEP_GATHER.get(key, float("inf")):
             bad[job] = (f"all-gathers {r['all_gather']} B a rank over the "
                         f"reference's {DRYRUN_SWEEP_GATHER[key]} B")
+        if key in DRYRUN_SWEEP_WIRE:
+            log(f"phase t pair {key}: wire {r['wire_bytes'] / 1e9:.4f} GB "
+                f"a rank against the reference's "
+                f"{DRYRUN_SWEEP_WIRE[key] / 1e9:.4f} GB; all-gather "
+                f"{r['all_gather'] / 1e6:.1f} MB; attention cores on "
+                f"(q heads, rows) {r['attn_cores']}")
+            if r["wire_bytes"] > DRYRUN_SWEEP_WIRE[key]:
+                bad[job] = (f"wire {r['wire_bytes']} B a rank over the "
+                            f"reference's {DRYRUN_SWEEP_WIRE[key]} B")
         if key in DRYRUN_SWEEP_HEAD_ROWS and \
                 r["attn_cores"] != [DRYRUN_SWEEP_HEAD_ROWS[key]]:
             bad[job] = (f"attention cores on (heads, rows) {r['attn_cores']}"

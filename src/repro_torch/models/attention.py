@@ -44,10 +44,14 @@ gather (:func:`_on_kv_head_group`).  Where the model axis is a multiple of
 the heads (whisper-base's 8 on model 16, r = 2 ranks a head;
 :func:`row_exchange`), q, k and v stay on their own flat shards and an
 all-to-all over the head's r ranks trades batch rows for head dims, so each
-rank scores one whole head for 1/r of its rows (:func:`_on_head_rows`).
+rank scores one whole head for 1/r of its rows (:func:`_on_head_rows`);
+where r does not divide the local batch (1 row a data rank), the
+all-to-all trades query positions instead and k and v are gathered one
+head wide over the same r ranks, so each rank scores its head whole for
+1/r of the queries (:func:`query_exchange`, :func:`_on_head_queries`).
 The reference there splits d_head over the head's ranks and all-reduces the
-f32 scores; trading rows keeps each head's dot products whole on one rank,
-the one-device math for every row.  The head-group exchanges are
+f32 scores; trading rows or queries keeps each head's dot products whole on
+one rank, the one-device math for every row.  The head-group exchanges are
 autograd-recorded collectives over process groups of r ranks
 (:func:`_head_group`, ``sharding.group_all_to_all``,
 ``sharding.group_gather``).  Any other head count runs the core on the
@@ -61,10 +65,11 @@ GSPMD partitions the reference's decode over such a cache; one whose flat
 kv dim the model axis splits inside each kv head is attended on each
 rank's own dims of its head, the scores summed over the head's ranks
 (:func:`_decode_on_split_heads`).  Where the q heads lie whole on every
-model rank instead (a local batch the head's ranks do not divide), a step
-that autograd records takes ``wo`` whole over 'model' for the
-out-projection: the residual's held cotangent then comes back whole, where
-against ``wo``'s row shards it would be cut inside a head.
+model rank instead (neither the local batch nor the queries split over the
+head's ranks), a step that autograd records takes ``wo`` whole over
+'model' for the out-projection: the residual's held cotangent then comes
+back whole, where against ``wo``'s row shards it would be cut inside a
+head.
 """
 from __future__ import annotations
 
@@ -159,22 +164,47 @@ def _pad_q_heads(p: LayerAttnParams, cfg: ModelConfig, Hp: int,
         wo=zero_pad(p.wo, 0, n, mesh, P("model", None)))
 
 
-def row_exchange(cfg: ModelConfig, mesh, batch: int) -> int:
-    """r = tp / H where :func:`attention` scores each q head on the r model
-    ranks that hold its dims by trading batch rows for head dims
-    (:func:`_on_head_rows`), else 0: on a mesh whose model axis is a
-    multiple of the q heads, H < tp, with as many kv heads as q heads, no
-    RoPE, and r dividing the local batch (B / dp where the data axes divide
-    the batch, else B): whisper-base's 8 heads on model 16, r = 2."""
+def _head_ranks(cfg: ModelConfig, mesh) -> int:
+    """r = tp / H where the model axis splits each whole q head over r
+    ranks: on a mesh whose model axis is a multiple of the q heads, H < tp,
+    with as many kv heads as q heads and no RoPE; else 0."""
     if mesh is None:
         return 0
     tp, H = tp_size(mesh), cfg.n_heads
     if H >= tp or tp % H or cfg.n_kv_heads != H or cfg.rope_theta > 0:
         return 0
-    r = tp // H
+    return tp // H
+
+
+def _local_batch(mesh, batch: int) -> int:
+    """The rows a data rank holds: B / dp where the data axes divide the
+    batch, else B."""
     dp = dp_size(mesh)
-    local = batch // dp if batch % dp == 0 else batch
-    return r if local % r == 0 else 0
+    return batch // dp if batch % dp == 0 else batch
+
+
+def row_exchange(cfg: ModelConfig, mesh, batch: int) -> int:
+    """r = tp / H where :func:`attention` scores each q head on the r model
+    ranks that hold its dims by trading batch rows for head dims
+    (:func:`_on_head_rows`), else 0: where the model axis splits the heads
+    (:func:`_head_ranks`) and r divides the local batch
+    (:func:`_local_batch`): whisper-base's 8 heads on model 16, r = 2."""
+    r = _head_ranks(cfg, mesh)
+    return r if r and _local_batch(mesh, batch) % r == 0 else 0
+
+
+def query_exchange(cfg: ModelConfig, mesh, batch: int, seq: int) -> int:
+    """r = tp / H where :func:`attention` scores each q head on the r model
+    ranks that hold its dims by trading query positions for head dims
+    (:func:`_on_head_queries`), else 0: where the model axis splits the
+    heads (:func:`_head_ranks`) but r does not divide the local batch, so
+    :func:`row_exchange` cannot apply, and r divides the ``seq`` query
+    positions: whisper-base's prefill_32k on 2x16x16, 1 row a data rank,
+    r = 2."""
+    r = _head_ranks(cfg, mesh)
+    if not r or _local_batch(mesh, batch) % r == 0:
+        return 0
+    return r if seq % r == 0 else 0
 
 
 def _proj_flat(x: torch.Tensor, p: LayerAttnParams):
@@ -283,10 +313,12 @@ def prefill_route(cfg: ModelConfig, S: int, causal: bool = True,
 
 
 def attend(q, k, v, positions, kpos, cfg: ModelConfig, causal: bool = True,
-           cross: bool = False) -> torch.Tensor:
+           cross: bool = False, q0: int = 0) -> torch.Tensor:
     """Scores, mask, softmax and the value product for the whole sequence:
     q (B,S,H,Dh), k/v (B,Sk,Hkv,Dh) after RoPE -> (B,S,H,Dh), on the
-    schedule :func:`prefill_route` picks."""
+    schedule :func:`prefill_route` picks.  ``positions`` are q's own; q's
+    first query is key ``q0`` (a rank's share of the queries,
+    :func:`_on_head_queries`), where the band starts."""
     S = q.shape[1]
     scale = cfg.head_dim ** -0.5
     grouped = perf.FLAGS.gqa_grouped
@@ -306,10 +338,11 @@ def attend(q, k, v, positions, kpos, cfg: ModelConfig, causal: bool = True,
         vp = torch.nn.functional.pad(v, (0, 0, 0, 0, pad, 0))
         kpos_p = torch.nn.functional.pad(kpos, (pad, 0), value=PAD_POS)
         for start in range(0, S, qc):     # band ends at chunk end
+            kb = slice(q0 + start, q0 + start + band)
             outs.append(_sdpa_chunk(
-                q[:, start:start + qc], kp[:, start:start + band],
-                vp[:, start:start + band], positions[start:start + qc],
-                kpos_p[start:start + band], win, causal, scale, grouped))
+                q[:, start:start + qc], kp[:, kb], vp[:, kb],
+                positions[start:start + qc], kpos_p[kb], win, causal, scale,
+                grouped))
     else:
         for start in range(0, S, qc):
             sl = slice(start, start + qc)
@@ -406,6 +439,38 @@ def _on_head_rows(core, mesh, q, k, v, r: int):
     return shard_map(body, mesh, (spec, spec, spec), spec)(q, k, v)
 
 
+def _on_head_queries(core, mesh, q, k, v, r: int):
+    """``core(q, k, v, q0)`` on whole heads, each scored by the r model
+    ranks that hold its dims for 1/r of the query positions each
+    (:func:`query_exchange`): q (B,S,H*Dh) and k/v (B,Sk,H*Dh) flat on
+    their own model shards, as :func:`_on_head_rows` takes them.  Inside
+    the body an all-to-all over the head's r ranks (:func:`_head_group`)
+    trades query positions for head dims, so group rank j takes its head
+    whole, (B_l, S/r, 1, Dh), for queries [q0, q0 + S/r), q0 = j * S/r;
+    k and v are gathered whole for the head over the same ranks, (B_l,
+    Sk, 1, Dh); ``core`` scores the rank's queries against every key, the
+    causal mask and any band offset by q0; a second all-to-all returns
+    the output to (B_l, S, Dh/r) on the rank's own dims, which are
+    ``wo``'s row shard.  Per query row the math is the one-device core's.
+    Raises where S or a head's dims do not split evenly over r ranks."""
+    S, width = q.shape[1], q.shape[2]
+    if S % r or width % tp_size(mesh):
+        raise ValueError(f"query exchange over {r} ranks: {S} queries or "
+                         f"{width} q dims over {tp_size(mesh)} model ranks "
+                         f"do not split evenly")
+    spec = _flat_spec(mesh, q.shape[0])
+    part = _head_group(mesh, r)
+    n = S // r
+
+    def body(q, k, v):
+        k, v = (group_gather(t, part, -1).unsqueeze(2) for t in (k, v))
+        q = group_all_to_all(q, part, 1, -1).unsqueeze(2)
+        q0 = (mesh.get_local_rank("model") % r) * n
+        return group_all_to_all(core(q, k, v, q0).squeeze(2), part, -1, 1)
+
+    return shard_map(body, mesh, (spec, spec, spec), spec)(q, k, v)
+
+
 def _on_kv_head_group(core, mesh, q, k, v, r: int, rope=None):
     """``core(q, k, v)`` -> (out (B,S,H,Dh), k after RoPE) on each rank's own
     q heads, against the kv head that the r model ranks of its group hold
@@ -453,16 +518,31 @@ def attention(x: torch.Tensor, p: LayerAttnParams, cfg: ModelConfig, *,
     population at prefill (after RoPE), flat as the decode cache holds
     them and, on a mesh, on their own model shards wherever the route
     keeps them so.  ``mesh``: the device mesh x and p lie on as DTensors.
-    Where the model axis is a multiple of the heads (:func:`row_exchange`),
-    each head is scored whole on one of the ranks that hold its dims, for
-    its share of the batch rows (:func:`_on_head_rows`).  Where it divides
-    the q heads and is a multiple of the kv heads
-    (:func:`_on_own_q_heads`, not cross-attention), the core runs on each
-    rank's own q heads against the one kv head its group gathers
-    (:func:`_on_kv_head_group`).  Where the pins pad the q heads
-    (:func:`q_heads`), it runs on each rank's own padded q heads
-    (:func:`_on_q_shards`), else on the kv-head groups, q, k and v in
-    heads views (:func:`_proj_qkv`)."""
+
+    The core (scores, mask, softmax, values) runs on the whole tensors
+    without a mesh; on a mesh on the first of five routes that applies:
+
+    1. :func:`_on_head_rows` where the model axis is a multiple of the q
+       heads, with as many kv heads and no RoPE, and r = tp / H divides
+       the local batch (:func:`row_exchange`): each head scored whole on
+       one of its r ranks for 1/r of the rows (whisper-base on 16x16).
+    2. :func:`_on_head_queries` where the same heads meet a local batch r
+       does not divide and r divides the S queries
+       (:func:`query_exchange`): each head scored whole on one of its r
+       ranks for 1/r of the query positions (whisper-base's prefill_32k
+       on 2x16x16, 1 row a data rank).
+    3. :func:`_on_kv_head_group` where the model axis divides the q heads
+       and is a multiple of the kv heads (:func:`_on_own_q_heads`, not
+       cross-attention): each rank's own q heads against the one kv head
+       its group gathers (mixtral-8x7b, h2o-danube-3-4b).
+    4. :func:`_on_q_shards` where the pins pad the q heads
+       (:func:`q_heads`): each rank's own padded q heads (hymba-1.5b,
+       granite-moe-3b-a800m).
+    5. :func:`_on_kv_groups` otherwise: whole kv-head groups over 'model'
+       where they divide it, else every head on every model rank (routes
+       1-2's heads at an odd S and a local batch r does not divide).
+       Routes 4 and 5 take q, k and v in heads views (:func:`_proj_qkv`).
+    """
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)
@@ -471,15 +551,17 @@ def attention(x: torch.Tensor, p: LayerAttnParams, cfg: ModelConfig, *,
     rope = (rope_angles(positions, cfg.head_dim, cfg.rope_theta)
             if cfg.rope_theta > 0 and not cross else None)
 
-    def core(q, k, v):
-        return attend(q, k, v, positions, kpos, cfg, causal, cross)
+    def core(q, k, v, q0: int = 0):
+        return attend(q, k, v, positions[q0:q0 + q.shape[1]], kpos, cfg,
+                      causal, cross, q0=q0)
 
-    r = row_exchange(cfg, mesh, B)
-    if r:
+    r, rq = row_exchange(cfg, mesh, B), query_exchange(cfg, mesh, B, S)
+    if r or rq:
         q, k, v = _proj_flat(x, p)
         if cross:
             k, v = kv_override[:2]
-        out = _on_head_rows(core, mesh, q, k, v, r)
+        out = (_on_head_rows(core, mesh, q, k, v, r) if r else
+               _on_head_queries(core, mesh, q, k, v, rq))
         return torch.matmul(out, p.wo), k, v
     if not cross and _on_own_q_heads(cfg, mesh):
         q, k, v = _proj_flat(x, p)
@@ -509,10 +591,10 @@ def attention(x: torch.Tensor, p: LayerAttnParams, cfg: ModelConfig, *,
         out = _on_kv_groups(core, mesh, q, k, v)
     wo = p.wo
     if mesh is not None and Hq % tp_size(mesh) and out.requires_grad:
-        # heads whole on every model rank (a local batch that
-        # :func:`row_exchange`'s r does not divide): against wo's row
-        # shards the held residual cotangent would come back cut inside a
-        # head, which the heads view's backward cannot take.  wo whole
+        # heads whole on every model rank (neither the local batch nor S
+        # splits over the r ranks of a head): against wo's row shards the
+        # held residual cotangent would come back cut inside a head, which
+        # the heads view's backward cannot take.  wo whole
         # (0.5 MB a layer at whisper-base's width) keeps it whole; a
         # forward without autograd keeps the row shards.
         wo = constrain(wo, mesh, P(None, None))

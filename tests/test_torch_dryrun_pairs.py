@@ -21,6 +21,12 @@ HLO of the same cut cells, XLA's CPU buffer assignment on the host).
   the traced rank scores one head of half of the rank's rows (the same
   trade); all-gathers and the peak a rank at or under the reference's
   all-gathers and argument + temp bytes.
+* whisper-base prefill_32k on 2x16x16: 1 row a data rank, which the 2
+  ranks of a head cannot split, so they split its query positions
+  (``attention.query_exchange``): every core scores one head of the one
+  row, the only all-gathers are one head's k and v over its 2 ranks, wire
+  bytes and peak at or under the reference's (which gathers nothing and
+  all-reduces the f32 scores).
 * mamba2-1.3b and phi-3-vision-4.2b train_4k on 2x16x16: the cotangents of
   the SSM's inner activations and of the projected patches are pinned, as
   the reference's constraints pin their transposes.  Wire bytes at or
@@ -58,7 +64,8 @@ REFERENCE_CELLS = {"16x16": ("qwen1.5-0.5b:prefill_32k",
                              "mixtral-8x7b:train_4k"),
                    "2x16x16": ("mamba2-1.3b:train_4k",
                                "phi-3-vision-4.2b:train_4k",
-                               "whisper-base:train_4k")}
+                               "whisper-base:train_4k",
+                               "whisper-base:prefill_32k")}
 
 
 @pytest.fixture(scope="module")
@@ -167,6 +174,25 @@ def test_whisper_train_step_traces(reference, monkeypatch, mesh):
     assert seen == [(rows, 1)] * (2 * 3 * LAYERS), seen
     ref = reference(mesh)["whisper-base:train_4k"]
     assert traced["all_gather"] <= ref["all_gather"], (traced, ref)
+    assert traced["peak_bytes"] <= ref["args_temps"], (traced, ref)
+
+
+def test_whisper_prefill_splits_queries_on_two_pods(reference, monkeypatch):
+    """whisper-base prefill_32k on 2x16x16: every attention core on the
+    traced rank (the encoder's, the decoder's self- and cross-attention)
+    scores one head of the one row; the all-gathers are exactly one
+    head's k and v a core over its 2 ranks (half the gathered bytes on
+    the wire); wire bytes and the peak a rank at or under the reference's
+    wire and argument + temp bytes."""
+    seen = _counted_attend(monkeypatch)
+    traced = _trace("whisper-base", "prefill_32k", "2x16x16")
+    assert seen == [(1, 1)] * (3 * LAYERS), seen
+    cfg, S = get_config("whisper-base"), get_shape("prefill_32k").seq_len
+    kv = (2 * S + 4 * cfg.enc_seq) * cfg.head_dim * 2 // 2
+    assert traced["all_gather"] == LAYERS * kv, traced
+    assert traced["counts"]["all-gather"] == 6 * LAYERS, traced["counts"]
+    ref = reference("2x16x16")["whisper-base:prefill_32k"]
+    assert traced["wire_bytes"] <= ref["wire_bytes"], (traced, ref)
     assert traced["peak_bytes"] <= ref["args_temps"], (traced, ref)
 
 

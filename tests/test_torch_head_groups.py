@@ -435,10 +435,12 @@ def test_head_group_route_on_model_16(arch, mesh_name):
 @pytest.mark.parametrize("mesh_name,route", [("16x16", 2), ("2x16x16", 0)])
 def test_whisper_prefill_rows_on_each_mesh(mesh_name, route):
     """whisper-base's prefill_32k: 2 rows a data rank on 16x16, which the
-    2 ranks of a head split; 1 on 2x16x16, which keeps the heads whole on
-    every model rank (the kv-head groups' route)."""
+    2 ranks of a head split; 1 on 2x16x16, which they cannot, so they
+    split its query positions instead (``attention.query_exchange``)."""
     shape = MESHES[mesh_name]
     mesh = types.SimpleNamespace(shape=shape, axis_names=tuple(shape))
-    B = get_shape("prefill_32k").global_batch
-    assert attention.row_exchange(get_config("whisper-base"), mesh,
-                                  B) == route
+    prefill = get_shape("prefill_32k")
+    cfg, B = get_config("whisper-base"), prefill.global_batch
+    assert attention.row_exchange(cfg, mesh, B) == route
+    assert attention.query_exchange(cfg, mesh, B, prefill.seq_len) == (
+        0 if route else 2)
