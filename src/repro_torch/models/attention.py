@@ -64,12 +64,15 @@ all-reduces (:func:`_decode_on_seq_shards`), as
 GSPMD partitions the reference's decode over such a cache; one whose flat
 kv dim the model axis splits inside each kv head is attended on each
 rank's own dims of its head, the scores summed over the head's ranks
-(:func:`_decode_on_split_heads`).  Where the q heads lie whole on every
-model rank instead (neither the local batch nor the queries split over the
-head's ranks), a step that autograd records takes ``wo`` whole over
-'model' for the out-projection: the residual's held cotangent then comes
-back whole, where against ``wo``'s row shards it would be cut inside a
-head.
+(:func:`_decode_on_split_heads`), and on its own dims of its own slots
+where the cache is sharded both ways (mixtral-8x7b's and
+h2o-danube-3-4b's long_500k): the scores summed over the head's ranks,
+the softmax and the value product completed over the data axes.  Where
+the q heads lie whole on every model rank instead (neither the local
+batch nor the queries split over the head's ranks), a step that autograd
+records takes ``wo`` whole over 'model' for the out-projection: the
+residual's held cotangent then comes back whole, where against ``wo``'s
+row shards it would be cut inside a head.
 """
 from __future__ import annotations
 
@@ -685,21 +688,22 @@ def decode_attention(x: torch.Tensor, p: LayerAttnParams, cfg: ModelConfig,
                           softmax)
         return out, cache_k, cache_v
 
-    # On a mesh: a cache whose slots are sharded over the data axes (batch
-    # 1, long_500k) is attended on each rank's own slots; one whose flat kv
-    # dim splits inside a kv head (8 kv heads over model 16: mixtral,
-    # granite, h2o-danube3, whisper's decoder) on each rank's own dims of
-    # its head; else (kv heads that divide the model axis, or whose shards
-    # cross head boundaries, as hymba's 5 heads over 16) on whole kv-head
-    # groups.
+    # On a mesh: a cache whose flat kv dim splits inside a kv head (8 kv
+    # heads over model 16: mixtral, granite, h2o-danube3, whisper's
+    # decoder) is attended on each rank's own dims of its head, and where
+    # its slots are sharded over the data axes too (batch 1, long_500k) on
+    # its own dims of its own slots; one whose slots alone are sharded so
+    # on each rank's own slots (hymba's 5 kv heads over 16, whose shards
+    # cross head boundaries); else (kv heads that divide the model axis)
+    # on whole kv-head groups.
     if mesh is None:
         out, cache_k, cache_v = core(q, k, v, cache_k, cache_v)
-    elif _seq_sharded(cache_k, mesh):
-        out, cache_k, cache_v = _decode_on_seq_shards(core, mesh, q, k, v,
-                                                      cache_k, cache_v)
     elif _split_in_head(cache_k, mesh, k.shape[2]):
         out, cache_k, cache_v = _decode_on_split_heads(
             mesh, q, k, v, cache_k, cache_v, cfg, index, scale)
+    elif _seq_sharded(cache_k, mesh):
+        out, cache_k, cache_v = _decode_on_seq_shards(core, mesh, q, k, v,
+                                                      cache_k, cache_v)
     else:
         _, kvspec = _group_specs(mesh, B, k.shape[2])
         cspec = P(kvspec[0], None, kvspec[2])
@@ -722,6 +726,37 @@ def _seq_sharded(cache, mesh) -> bool:
                for a in batch_axes(mesh))
 
 
+def _data_all_reduce(mesh, t, op: str):
+    """``t`` all-reduced with ``op`` over each data axis of ``mesh`` in
+    turn (inside a :func:`shard_map` body); on one data rank, ``t``."""
+    from torch.distributed import _functional_collectives as funcol
+    names = axis_names(mesh)
+    for a in batch_axes(mesh):
+        t = funcol.all_reduce(t, op, (mesh, names.index(a)))
+    return funcol.wait_tensor(t)
+
+
+def _data_rank(mesh) -> int:
+    """This rank's index over the data axes, the outer axis first: the
+    slot shard it holds of a cache sharded over them."""
+    rank = 0
+    for a in batch_axes(mesh):
+        rank = rank * mesh_shape(mesh)[a] + mesh.get_local_rank(a)
+    return rank
+
+
+def _data_softmax(mesh):
+    """The softmax over scores whose last dim the data axes shard: the
+    max and the sum all-reduced over them (:func:`_data_all_reduce`), each
+    step as :func:`_softmax` runs it.  A rank whose scores are all masked
+    adds exactly 0 to the sum, as to the value product."""
+    def softmax(s):
+        e = torch.exp(s - _data_all_reduce(mesh, s.amax(dim=-1, keepdim=True),
+                                           "max"))
+        return e / _data_all_reduce(mesh, e.sum(dim=-1, keepdim=True), "sum")
+    return softmax
+
+
 def _decode_on_seq_shards(core, mesh, q, k, v, cache_k, cache_v):
     """The decode ``core`` on each rank's own cache slots, the batch
     replicated over the data axes: the rank that holds the slot writes k
@@ -729,28 +764,16 @@ def _decode_on_seq_shards(core, mesh, q, k, v, cache_k, cache_v):
     of the scores' max (B, H), the softmax's sum (B, H) and the output (B,
     H, Dh) complete the softmax and the value product; the cache is never
     gathered.  On one data rank each all-reduce returns its input, so the
-    result is the one-device core's, bit for bit."""
-    from torch.distributed import _functional_collectives as funcol
-    names = axis_names(mesh)
-    dims = [names.index(a) for a in batch_axes(mesh)]
+    result is the one-device core's, bit for bit.  A cache that is also
+    split inside its kv heads takes :func:`_decode_on_split_heads`."""
     smax = cache_k.shape[1]
-
-    def all_reduce(t, op):
-        for d in dims:
-            t = funcol.all_reduce(t, op, (mesh, d))
-        return funcol.wait_tensor(t)
-
-    def softmax(s):
-        e = torch.exp(s - all_reduce(s.amax(dim=-1, keepdim=True), "max"))
-        return e / all_reduce(e.sum(dim=-1, keepdim=True), "sum")
+    softmax = _data_softmax(mesh)
 
     def body(q, k, v, cache_k, cache_v):
-        rank = 0
-        for a in batch_axes(mesh):
-            rank = rank * mesh_shape(mesh)[a] + mesh.get_local_rank(a)
         out, cache_k, cache_v = core(q, k, v, cache_k, cache_v,
-                                     rank * cache_k.shape[1], smax, softmax)
-        return all_reduce(out, "sum"), cache_k, cache_v
+                                     _data_rank(mesh) * cache_k.shape[1],
+                                     smax, softmax)
+        return _data_all_reduce(mesh, out, "sum"), cache_k, cache_v
 
     _, kvspec = _group_specs(mesh, q.shape[0], k.shape[2], batch=False)
     cspec = P(None, batch_axes(mesh), kvspec[2])
@@ -789,6 +812,17 @@ def _head_group(mesh, r: int):
     return groups[r]
 
 
+def _slots_on_data(cache, mesh) -> bool:
+    """Whether a (B, Smax, Hkv*Dh) cache's slots are sharded over any of
+    the data axes, evenly or not (:func:`_seq_sharded` asks for all of
+    them, evenly)."""
+    from torch.distributed.tensor import DTensor, Shard
+    names = axis_names(mesh)
+    return isinstance(cache, DTensor) and any(
+        cache.placements[names.index(a)] == Shard(1)
+        for a in batch_axes(mesh))
+
+
 def _decode_on_split_heads(mesh, q, k, v, cache_k, cache_v,
                            cfg: ModelConfig, index: int, scale: float):
     """The decode core on a cache whose kv heads are each split over r =
@@ -803,7 +837,17 @@ def _decode_on_split_heads(mesh, q, k, v, cache_k, cache_v,
     product.  The (B, H, Dh) output is made whole from the parts; the
     cache is never gathered.  The scores are summed in another order than
     the one-device dot, so they match it within float tolerance; the
-    caches are copies, bit for bit."""
+    caches are copies, bit for bit.
+
+    Where the cache's slots are sharded over the data axes too
+    (:func:`_seq_sharded`: batch 1, long_500k; the batch replicated over
+    them), data rank j holds slots [j * held, +held) of those dims: only
+    the rank that holds the slot writes it, each rank scores its own
+    (held, Dh/r) block, and the softmax and the value product are
+    completed over the data axes as :func:`_decode_on_seq_shards`
+    completes them (all-reduces of the max, the sum and the (B, G, Dh/r)
+    partial output).  Raises where the slots do not split evenly over the
+    data ranks or a head's dims over its r ranks."""
     from torch.distributed import _functional_collectives as funcol
     B, _, H, Dh = q.shape
     Hkv = k.shape[2]
@@ -811,31 +855,44 @@ def _decode_on_split_heads(mesh, q, k, v, cache_k, cache_v,
     r, G = tp // Hkv, H // Hkv
     dl = Dh // r
     smax = cache_k.shape[1]
+    seq = _slots_on_data(cache_k, mesh)
+    if Dh % r or (seq and not _seq_sharded(cache_k, mesh)):
+        raise ValueError(f"split-head decode: {Dh} head dims over {r} model "
+                         f"ranks or {smax} slots over {dp_size(mesh)} data "
+                         f"ranks do not split evenly")
     slot = _slot(cfg, index, smax)
     part = _head_group(mesh, r)
     sdt = torch.bfloat16 if (perf.FLAGS.attn_bf16_scores
                              and q.dtype == torch.bfloat16) else torch.float32
-    valid = torch.arange(smax, device=q.device) <= min(index, smax - 1)
+    softmax = _data_softmax(mesh) if seq else _softmax
 
     def body(q, k, v, cache_k, cache_v):
         m = mesh.get_local_rank("model")
         h, d0 = m // r, (m % r) * dl
-        cache_k, cache_v = cache_k.clone(), cache_v.clone()
-        cache_k[:, slot] = k[:, 0, h, d0:d0 + dl].to(cache_k.dtype)
-        cache_v[:, slot] = v[:, 0, h, d0:d0 + dl].to(cache_v.dtype)
+        held = cache_k.shape[1]
+        first = _data_rank(mesh) * held if seq else 0
+        at = slot - first
+        if 0 <= at < held:
+            cache_k, cache_v = cache_k.clone(), cache_v.clone()
+            cache_k[:, at] = k[:, 0, h, d0:d0 + dl].to(cache_k.dtype)
+            cache_v[:, at] = v[:, 0, h, d0:d0 + dl].to(cache_v.dtype)
         qh = q[:, 0, h * G:(h + 1) * G, d0:d0 + dl]          # (Bl, G, dl)
         s = torch.einsum("bgd,bkd->bgk", qh.float(),
                          cache_k.to(q.dtype).float())
         s = funcol.wait_tensor(funcol.all_reduce(s, "sum", part))
         s = s.to(sdt) * torch.tensor(scale, dtype=sdt, device=q.device)
+        valid = torch.arange(first, first + held, device=q.device) <= min(
+            index, smax - 1)
         s = s.masked_fill(~valid, torch.finfo(sdt).min)
-        prob = _softmax(s).to(v.dtype)
+        prob = softmax(s).to(v.dtype)
         o = torch.einsum("bgk,bkd->bgd", prob, cache_v.to(q.dtype))
+        if seq:
+            o = _data_all_reduce(mesh, o, "sum")
         return o[:, None], cache_k, cache_v                 # (Bl, 1, G, dl)
 
-    bspec = batch_axes(mesh) if B % dp_size(mesh) == 0 else None
+    bspec = batch_axes(mesh) if B % dp_size(mesh) == 0 and not seq else None
     whole = P(bspec, None, None, None)
-    cspec = P(bspec, None, "model")
+    cspec = P(bspec, batch_axes(mesh) if seq else None, "model")
     o, cache_k, cache_v = shard_map(
         body, mesh, (whole, whole, whole, cspec, cspec),
         [P(bspec, "model", None, None), cspec, cspec])(q, k, v, cache_k,

@@ -8,21 +8,32 @@ rank Dh * Hkv / tp consecutive dims of one kv head.  ``decode_attention``
 then runs its core on the cache's own shards
 (``attention._decode_on_split_heads``): partial scores summed over the
 ranks of one head, each rank's dims of the value product, no gather of
-the cache.  A small GQA layer (4 q heads and 2 kv heads of 16 dims, 8
-dims a rank on model 4) decodes eight steps on 2x4 gloo ranks (the
-helpers of ``test_torch_distributed.py``), into a full cache and into a
-ring that wraps: the outputs within 1e-5 of ``mesh=None``'s max in f32
-and within 2^-5 in bf16 (the reference's float tolerances; the partial
-dot products are summed in another order), the caches bit for bit (they
-are copies).  ``mesh=None`` itself is held against the reference's
+the cache; where the cache's slots are sharded over the data axes too
+(batch 1, long_500k: mixtral's and h2o-danube-3's 8 kv heads on model
+16), on each rank's own dims of its own slots, the softmax and the value
+product completed over the data axes.  A small GQA layer (4 q heads and 2
+kv heads of 16 dims, 8 dims a rank on model 4) decodes eight steps on 2x4
+gloo ranks (the helpers of ``test_torch_distributed.py``), at batch 2
+with the cache's batch over 'data' and at batch 1 with its slots over
+'data', each into a full cache and into a ring that wraps: the outputs
+within 1e-5 of ``mesh=None``'s max in f32 and within 2^-5 in bf16 (the
+reference's float tolerances; the partial dot products are summed in
+another order), the caches bit for bit (they are copies; at batch 1 the
+mesh's k/v projection rounds otherwise than ``mesh=None``'s one-row
+product, so they are held bit for bit against the split-head core's with
+the slots replicated over 'data', and within the tolerance of
+``mesh=None``'s).  ``mesh=None`` itself is held against the reference's
 ``decode_attention`` within the same tolerances.  On a one-rank mesh no
 head is split and the decode is ``mesh=None``'s bit for bit.
 
 The dry-run: the families that take the branch take it in every layer on
-a fake mesh and gather no cache shard at the attention; mixtral-8x7b
+a fake mesh and gather no cache shard at the attention, mixtral's and
+h2o-danube-3's at batch 1 on a sequence-sharded cache too; mixtral-8x7b
 decode_32k cut to 2 layers on a fake (2, 16, 16) mesh all-gathers at
 most the reference's bytes a rank and moves at most twice its wire bytes
-(an all-reduce of the whole scores over the 16 model ranks would not).
+(an all-reduce of the whole scores over the 16 model ranks would not),
+and its long_500k at 2 layers there all-gathers at most the reference's
+bytes a rank.
 """
 import dataclasses
 import inspect
@@ -63,21 +74,23 @@ def _cfg(get, window, dtype: str):
                                dtype=dtype, sliding_window=window)
 
 
-def _setup(window, dtype: str, seed: int = 0):
-    """(cfg, f32 weights (wq, wk, wv, wo), xs (STEPS, B, 1, d), smax)."""
+def _setup(window, dtype: str, seed: int = 0, batch: int = B):
+    """(cfg, f32 weights (wq, wk, wv, wo), xs (STEPS, batch, 1, d),
+    smax)."""
     cfg = _cfg(get_config, window, dtype)
     rng = np.random.default_rng(seed)
     d, qd, kd = cfg.d_model, cfg.q_dim, cfg.kv_dim
     w = tuple((0.2 * rng.standard_normal(s)).astype(np.float32)
               for s in ((d, qd), (d, kd), (d, kd), (qd, d)))
-    xs = rng.standard_normal((STEPS, B, 1, d)).astype(np.float32)
+    xs = rng.standard_normal((STEPS, batch, 1, d)).astype(np.float32)
     return cfg, w, xs, attention.cache_size(cfg, SEQ)
 
 
 def _decode(cfg, w, xs, smax, mesh=None, cspec=None):
     """The port's decode steps -> (outputs, cache_k, cache_v); on a mesh
-    the weights by the sharding rules and the caches on ``cspec``.
-    Self-contained: the rank processes run its source."""
+    the weights by the sharding rules, the caches on ``cspec`` and the
+    inputs' batch as the caches'.  Self-contained: the rank processes run
+    its source."""
     import torch
     from repro_torch.models import attention
     from repro_torch.sharding import P, mesh_scope, place
@@ -96,7 +109,7 @@ def _decode(cfg, w, xs, smax, mesh=None, cspec=None):
         for i, x in enumerate(xs):
             x = torch.from_numpy(x).to(dt)
             if mesh is not None:
-                x = place(x, mesh, P("data", None, None))
+                x = place(x, mesh, P(cspec[0], None, None))
             o, ck, cv = attention.decode_attention(x, p, cfg, ck, cv, i,
                                                    mesh=mesh)
             outs.append(o)
@@ -108,7 +121,7 @@ def _reference(window, dtype: str, w, xs, smax):
     cfg = _cfg(j_get_config, window, dtype)
     dt = getattr(jnp, dtype)
     p = j_attn.LayerAttnParams(*(jnp.asarray(a, dt) for a in w))
-    ck = jnp.zeros((B, smax, cfg.kv_dim), dt)
+    ck = jnp.zeros((xs.shape[1], smax, cfg.kv_dim), dt)
     cv = jnp.zeros_like(ck)
     outs = []
     for i, x in enumerate(xs):
@@ -130,21 +143,26 @@ def _close(got, want, tol):
 
 def test_split_head_decode_on_2x4_ranks(tmp_path):
     """Eight steps with a full cache of 8 slots and a ring of 4 that wraps,
-    f32 and bf16: every step's output within the float tolerance of
-    ``mesh=None``'s (itself within it of the reference's), the caches bit
-    for bit and on their layout, and every step through the split-head
-    core."""
+    f32 and bf16, at batch 2 (the cache's batch over 'data') and at batch
+    1 (its slots over 'data', as long_500k lays it out): every step's
+    output within the float tolerance of ``mesh=None``'s (itself within it
+    of the reference's), the caches on their layout and bit for bit
+    (at batch 1 against the same steps with the slots replicated over
+    'data', and within the tolerance of ``mesh=None``'s), and every step
+    through the split-head core, none through the sequence-sharded
+    one."""
     cases = []
-    for window in (None, 4):
-        for dtype in ("float32", "bfloat16"):
-            cfg, w, xs, smax = _setup(window, dtype)
-            outs, ck, cv = _decode(cfg, w, xs, smax)
-            for got, want in zip(outs, _reference(window, dtype, w, xs,
-                                                  smax)):
-                _close(got, want, TOL[dtype])
-            cases.append({"window": window, "dtype": dtype, "w": w,
-                          "xs": xs, "smax": smax, "outs": outs, "ck": ck,
-                          "cv": cv})
+    for batch in (B, 1):
+        for window in (None, 4):
+            for dtype in ("float32", "bfloat16"):
+                cfg, w, xs, smax = _setup(window, dtype, batch=batch)
+                outs, ck, cv = _decode(cfg, w, xs, smax)
+                for got, want in zip(outs, _reference(window, dtype, w, xs,
+                                                      smax)):
+                    _close(got, want, TOL[dtype])
+                cases.append({"window": window, "dtype": dtype, "w": w,
+                              "xs": xs, "smax": smax, "outs": outs,
+                              "ck": ck, "cv": cv})
     torch.save(cases, tmp_path / "in.pt")
     helpers = "".join(textwrap.dedent(inspect.getsource(f)) + "\n"
                       for f in (_cfg, _decode, _close))
@@ -153,27 +171,47 @@ def test_split_head_decode_on_2x4_ranks(tmp_path):
         from repro_torch.launch.mesh import compat_make_mesh
         from repro_torch.models import attention
         from repro_torch.sharding import P, to_placements
-        calls = []
-        split = attention._decode_on_split_heads
+        calls = {{"split": [], "seq": []}}
 
-        def counted(*a, **k):
-            calls.append(1)
-            return split(*a, **k)
+        def counting(name, fn):
+            def counted(*a, **k):
+                calls[name].append(1)
+                return fn(*a, **k)
+            return counted
 
-        attention._decode_on_split_heads = counted
+        attention._decode_on_split_heads = counting(
+            "split", attention._decode_on_split_heads)
+        attention._decode_on_seq_shards = counting(
+            "seq", attention._decode_on_seq_shards)
         mesh = compat_make_mesh((2, 4), ("data", "model"))
-        cspec = P("data", None, "model")
         for c in torch.load(os.path.join(DATA, "in.pt"), weights_only=False):
             cfg = _cfg(get_config, c["window"], c["dtype"])
-            n = len(calls)
+            tol = {TOL!r}[c["dtype"]]
+            seq = c["xs"].shape[1] == 1
+            cspec = P(None, "data", "model") if seq else P("data", None,
+                                                           "model")
+            n = len(calls["split"])
             outs, ck, cv = _decode(cfg, c["w"], c["xs"], c["smax"], mesh,
                                    cspec)
-            assert len(calls) - n == {STEPS}, calls
+            assert len(calls["split"]) - n == {STEPS}, calls
+            assert not calls["seq"], calls
             for g, want in zip(outs, c["outs"]):
-                _close(g.full_tensor(), want, {TOL!r}[c["dtype"]])
-            for g, want in ((ck, c["ck"]), (cv, c["cv"])):
+                _close(g.full_tensor(), want, tol)
+            wants = [(ck, c["ck"]), (cv, c["cv"])]
+            if seq:
+                # at batch 1 the mesh's k/v projection rounds otherwise than
+                # mesh=None's one-row product: the caches are held within
+                # the tolerance of mesh=None's, and bit for bit against the
+                # split-head core's with the slots replicated over 'data'
+                _, rk, rv = _decode(cfg, c["w"], c["xs"], c["smax"], mesh,
+                                    P(None, None, "model"))
+                for g, want in wants:
+                    _close(g.full_tensor(), want, tol)
+                wants = [(ck, rk.full_tensor()), (cv, rv.full_tensor())]
+            for g, want in wants:
                 assert tuple(g.placements) == to_placements(cspec, mesh)
-                assert torch.equal(g.full_tensor(), want), c["window"]
+                assert torch.equal(g.full_tensor(), want), (
+                    c["window"], c["dtype"], tuple(cspec))
         if RANK == 0:
             print("OK split-head decode")
     """))
@@ -208,17 +246,24 @@ def test_one_rank_decode_is_bit_for_bit(one_rank_mesh, window, dtype):
 
 # -- the dry-run -------------------------------------------------------------------
 
-def _trace(cfg, shape, mesh_shape, monkeypatch):
-    """The port's cell on a fake mesh -> (traced, split-head core calls)."""
-    calls = []
-    split = attention._decode_on_split_heads
+def _trace(cfg, shape, mesh_shape, monkeypatch, seq_calls=0):
+    """The port's cell on a fake mesh -> (traced, split-head core calls),
+    asserting ``seq_calls`` calls of the sequence-sharded core."""
+    calls = {"split": 0, "seq": 0}
 
-    def counted(*a, **k):
-        calls.append(1)
-        return split(*a, **k)
+    def counting(name, fn):
+        def counted(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return counted
 
-    monkeypatch.setattr(attention, "_decode_on_split_heads", counted)
-    return D.trace_cell(cfg, shape, mesh_shape), len(calls)
+    for name, fn in (("split", "_decode_on_split_heads"),
+                     ("seq", "_decode_on_seq_shards")):
+        monkeypatch.setattr(attention, fn,
+                            counting(name, getattr(attention, fn)))
+    traced = D.trace_cell(cfg, shape, mesh_shape)
+    assert calls["seq"] == seq_calls, calls
+    return traced, calls["split"]
 
 
 def _cache_sites(traced, B_l, smax, kv_shard, where="models/attention.py"):
@@ -257,24 +302,44 @@ def test_families_take_the_split_head_core(arch, mesh_shape, monkeypatch):
                  where="_decode_on_split_heads")
 
 
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "h2o-danube-3-4b"])
+def test_long_context_decode_takes_the_split_head_core(arch, monkeypatch):
+    """A batch-1 long-context decode step (the cache's slots over 'data',
+    its 2 kv heads split over model 4) of mixtral's and h2o-danube-3's
+    smoke configs on a fake (2, 4) mesh runs the split-head core, not the
+    sequence-sharded one, in every layer and gathers no cache shard
+    there."""
+    cfg = get_config(arch).smoke()
+    shape = ShapeConfig("long_64", 64, 1, "decode")
+    smax = attention.cache_size(cfg, shape.seq_len)
+    assert smax % 2 == 0 and cfg.n_kv_heads == 2
+    traced, calls = _trace(cfg, shape, (2, 4), monkeypatch)
+    assert calls == cfg.n_layers, calls
+    _cache_sites(traced, 1, smax // 2, cfg.kv_dim // 4,
+                 where="_decode_on_split_heads")
+
+
 def test_hymba_keeps_the_group_core_on_model_16(monkeypatch):
     """hymba-1.5b's 5 kv heads over model 16: 20-value shards cross head
-    boundaries, so its long-context decode keeps the other cores."""
+    boundaries, so its long-context decode keeps the sequence-sharded
+    core."""
     cfg = dataclasses.replace(get_config("hymba-1.5b"), n_layers=1)
-    _, calls = _trace(cfg, get_shape("long_500k"), (16, 16), monkeypatch)
+    _, calls = _trace(cfg, get_shape("long_500k"), (16, 16), monkeypatch,
+                      seq_calls=1)
     assert calls == 0
 
 
 @pytest.fixture(scope="module")
 def reference_dryrun():
-    """The reference's mixtral decode_32k cut to 2 layers on the 2x16x16
-    mesh, compiled in a subprocess started when the first test asks."""
+    """The reference's mixtral decode_32k and long_500k cut to 2 layers on
+    the 2x16x16 mesh, compiled in a subprocess started when the first test
+    asks; each cell under ``"arch:shape"``."""
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
                JAX_PLATFORMS="cpu")
     proc = subprocess.Popen(
         [sys.executable, os.path.join(REPO, "scripts", "dryrun_parity.py"),
          "--reference-only", "--layers", str(DRY_LAYERS), "--multi-pod",
-         "--cell=mixtral-8x7b:decode_32k"],
+         "--cell=mixtral-8x7b:decode_32k", "--cell=mixtral-8x7b:long_500k"],
         env=env, text=True, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
     result = {}
 
@@ -314,9 +379,27 @@ def test_mixtral_decode_gathers_at_most_the_reference(reference_dryrun,
     assert calls == DRY_LAYERS
     assert groups.count(2) >= DRY_LAYERS, groups
     coll = traced["collective"]
-    ref = reference_dryrun()["mixtral-8x7b"]
+    ref = reference_dryrun()["mixtral-8x7b:decode_32k"]
     got = coll.bytes_by_op.get("all-gather", 0.0)
     assert got <= ref["all_gather"], (got, ref)
     assert coll.wire_bytes <= 2 * ref["wire_bytes"], (coll.wire_bytes, ref)
     _cache_sites(traced, shape.global_batch // 32,
                  attention.cache_size(cfg, shape.seq_len), cfg.kv_dim // 16)
+
+
+def test_mixtral_long_context_decode_gathers_at_most_the_reference(
+        reference_dryrun, monkeypatch):
+    """mixtral-8x7b long_500k at 2 layers on a fake (2, 16, 16) mesh (batch
+    1, the cache's 4,096 slots over the 32 data ranks and its 8 kv heads
+    over model 16): the split-head core in both layers, all-gather wire
+    bytes a rank at most the reference's, and no all-gather at the
+    attention moves a cache shard."""
+    cfg = dataclasses.replace(get_config("mixtral-8x7b"), n_layers=DRY_LAYERS)
+    shape = get_shape("long_500k")
+    traced, calls = _trace(cfg, shape, (2, 16, 16), monkeypatch)
+    assert calls == DRY_LAYERS
+    ref = reference_dryrun()["mixtral-8x7b:long_500k"]
+    got = traced["collective"].bytes_by_op.get("all-gather", 0.0)
+    assert got <= ref["all_gather"], (got, ref)
+    _cache_sites(traced, 1, attention.cache_size(cfg, shape.seq_len) // 32,
+                 cfg.kv_dim // 16)
