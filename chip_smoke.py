@@ -3126,7 +3126,7 @@ DRYRUN_TIMEOUT_S = 900
 DRYRUN_BEFORE = {"qwen1.5-0.5b train_4k": (8.267e9, 54.5e6, 30.8713e9),
                  "mamba2-1.3b prefill_32k": (2.771e9, 1513.7e6, 26.1998e9),
                  "mixtral-8x7b decode_32k": (6.243e9, 2.5e6, 0.0148e9),
-                 "hymba-1.5b long_500k": (0.239e9, 19.7e6, 0.0203e9),
+                 "hymba-1.5b long_500k": (0.224e9, 5.4e6, 0.0060e9),
                  "hymba-1.5b train_4k": (20.045e9, 9545.4e6, 156.4525e9),
                  "mixtral-8x7b train_4k": (46.067e9, 6549.0e6, 181.1214e9)}
 # (unit, decimals) each DRYRUN_BEFORE figure is given to
@@ -3148,9 +3148,14 @@ DRYRUN_OWN_Q_HEADS = {"hymba-1.5b train_4k": 2, "mixtral-8x7b train_4k": 2}
 DRYRUN_FIT_CELLS = ("qwen1.5-0.5b train_4k", "hymba-1.5b train_4k",
                     "mixtral-8x7b train_4k")
 # cells whose all-gather wire bytes a rank must not exceed the reference's
-# (qwen's train_4k since its residual pins hold their cotangents)
+# (qwen's train_4k since its residual pins hold their cotangents; hymba's
+# long_500k since its SSM decode runs on the state's flat channel shards)
 DRYRUN_GATHER_CELLS = ("mamba2-1.3b prefill_32k", "mixtral-8x7b decode_32k",
-                       "qwen1.5-0.5b train_4k")
+                       "qwen1.5-0.5b train_4k", "hymba-1.5b long_500k")
+# cells that may have no all-gather site whose innermost model frame is one
+# of these functions: hymba's decode keeps its SSD state and the update's
+# output on their flat channel shards (``ssm.decodes_flat``)
+DRYRUN_NO_GATHER_IN = {"hymba-1.5b long_500k": ("ssm_step", "ssm_decode")}
 # cells whose wire bytes a rank must stay under a bound: mixtral's decode
 # sums its split heads' scores over the 2 ranks of a head, not all 16
 DRYRUN_WIRE_BOUND = {"mixtral-8x7b decode_32k": 250e6}
@@ -3213,10 +3218,10 @@ DRYRUN_SWEEP_BEFORE = {
     "mixtral-8x7b long_500k 2x16x16": (0.396e9, 0.0e6, 0.0001e9),
     "whisper-base decode_32k 16x16": (0.294e9, 0.1e6, 0.0023e9),
     "whisper-base decode_32k 2x16x16": (0.169e9, 0.1e6, 0.0012e9),
-    "hymba-1.5b decode_32k 16x16": (0.137e9, 46.7e6, 0.0469e9),
-    "hymba-1.5b decode_32k 2x16x16": (0.081e9, 23.4e6, 0.0235e9),
-    "hymba-1.5b long_500k 16x16": (0.027e9, 1.2e6, 0.0013e9),
-    "hymba-1.5b long_500k 2x16x16": (0.027e9, 1.1e6, 0.0011e9),
+    "hymba-1.5b decode_32k 16x16": (0.136e9, 39.6e6, 0.0398e9),
+    "hymba-1.5b decode_32k 2x16x16": (0.080e9, 19.8e6, 0.0199e9),
+    "hymba-1.5b long_500k 16x16": (0.026e9, 0.3e6, 0.0004e9),
+    "hymba-1.5b long_500k 2x16x16": (0.026e9, 0.2e6, 0.0002e9),
     "phi3-mini-3.8b decode_32k 16x16": (1.264e9, 0.0e6, 0.0005e9),
     "phi3-mini-3.8b decode_32k 2x16x16": (0.659e9, 0.0e6, 0.0002e9),
     "h2o-danube-3-4b decode_32k 16x16": (0.117e9, 0.3e6, 0.0019e9),
@@ -3253,6 +3258,9 @@ DRYRUN_SWEEP_GATHER = {
     "mixtral-8x7b long_500k 2x16x16": 69120.0,
     "h2o-danube-3-4b long_500k 16x16": 128416.0,
     "h2o-danube-3-4b long_500k 2x16x16": 64928.0,
+    # batch 1: the SSD decode state updated on its flat channel shards
+    "hymba-1.5b long_500k 16x16": 835760.0,
+    "hymba-1.5b long_500k 2x16x16": 528560.0,
 }
 # Per rank, the reference's wire bytes of the sweep's pairs whose attention
 # trades query positions over the model ranks of a head
@@ -3646,8 +3654,10 @@ def dryrun_path(card: str, paths: list, capacity: int) -> dict:
     rank rise above its :data:`DRYRUN_BEFORE`, a peak a rank of
     :data:`DRYRUN_FIT_CELLS` exceeds ``capacity`` bytes (the card's
     memory), a cell of :data:`DRYRUN_GATHER_CELLS` all-gathers more than
-    the reference a rank, a cell's wire bytes a rank exceed its
-    :data:`DRYRUN_WIRE_BOUND`, a cell of :data:`DRYRUN_PADDED_HEADS` gives
+    the reference a rank, a cell of :data:`DRYRUN_NO_GATHER_IN` has an
+    all-gather site in a function it names, a cell's wire bytes a rank
+    exceed its :data:`DRYRUN_WIRE_BOUND`, a cell of
+    :data:`DRYRUN_PADDED_HEADS` gives
     a model rank another SSD head count or has an all-gather site in
     ``models/ssm.py`` that moves, per call, as much as a rank's (B_l, S,
     d_inner / 16) bf16 x activation, or a cell of
@@ -3707,6 +3717,11 @@ def dryrun_path(card: str, paths: list, capacity: int) -> dict:
         if key in DRYRUN_FIT_CELLS and mem["peak_bytes"] > capacity:
             raise AssertionError(f"phase t {name}: peak {mem['peak_bytes']} "
                                  f"B a rank over the card's {capacity} B")
+        own = [c for c in r["collective_sites"] if c["op"] == "all-gather"
+               and c["site"].split(" < ")[0].split()[-1]
+               in DRYRUN_NO_GATHER_IN.get(key, ())]
+        if own:
+            raise AssertionError(f"phase t {name}: all-gathers at {own}")
         if key in DRYRUN_GATHER_CELLS and gathered > ref[1]:
             raise AssertionError(f"phase t {name}: all-gathers {gathered} B "
                                  f"a rank over the reference's {ref[1]} B")

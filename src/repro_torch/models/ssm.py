@@ -18,7 +18,10 @@ DTensor.  Where the model axis does not divide the SSD heads,
 :func:`ssm_block` pads them with zero heads to a multiple of it
 (:func:`ssd_heads`, :func:`_pad_heads`), as the reference pads uneven
 head counts on 'model': every rank then holds the same number of whole
-heads.
+heads.  The one-token decode pads nothing there: :func:`ssm_decode`
+updates each rank's own channels of the flat (B, d_inner, N) state, as
+the decode state stores it (:func:`decodes_flat`,
+:func:`_decode_on_channels`), so the state is never gathered.
 """
 from __future__ import annotations
 
@@ -31,9 +34,9 @@ from repro_torch import perf
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike
 from repro_torch.models.common import rmsnorm
-from repro_torch.sharding import (P, batch_axes, constrain, dp_size,
-                                  heads_view, padded_heads, pin, pin_residual,
-                                  shard_map, tp_size)
+from repro_torch.sharding import (P, axis_names, batch_axes, constrain,
+                                  dp_size, heads_view, padded_heads, pin,
+                                  pin_residual, shard_map, tp_size)
 from repro_torch.sharding import zero_pad as _zero_pad
 
 
@@ -51,7 +54,9 @@ class SSMLayerParams(NamedTuple):
 
 
 class SSMState(NamedTuple):
-    ssd: torch.Tensor      # (B, H, P, N) f32
+    ssd: torch.Tensor      # (B, H, P, N) f32; flat (B, H*P, N) through
+    #                        ssm_decode where decodes_flat (a mesh whose
+    #                        model axis does not divide the heads)
     conv: torch.Tensor     # (B, K-1, conv_dim)
 
 
@@ -119,8 +124,11 @@ def _conv_channels(xv, bc, w, state, cfg: ModelConfig, mesh):
       layout.  The B/C channels (2*G*N, small) are whole on each model
       rank, as :func:`_scan_on_shards` takes them.
     * Heads that do not divide it (hymba's one-token decode at model 16):
-      x and B/C are made whole first and the conv runs on the weight's
-      own shards, its output made whole after; the weight never moves.
+      the weight's shards cross d_inner and the heads, so x and B/C are
+      made whole first and the conv runs on the weight's own shards, its
+      output made whole after; the weight never moves.  The decode's
+      flat route (:func:`_decode_on_channels`) then cuts the whole x to
+      the state's channel shards without moving it.
 
     The new state is rejoined from the inputs' last K-1 steps (the real
     x channels), whole over 'model' as ``decode_state_sharding`` lays it
@@ -244,6 +252,25 @@ def ssd_decode_step(x, dt, A, Bm, C, D, state):
     new_state = state * dA[:, :, None, None] + upd                   # (B,H,P,N)
     y = torch.einsum("bhpn,bhn->bhp", new_state, Cx)
     y = y + x.to(torch.float32) * D[None, :, None]
+    return y.to(x.dtype), new_state
+
+
+def ssd_decode_channels(x, dt, A, Bm, C, D, state):
+    """:func:`ssd_decode_step` on flat channels, channel c = h * P + p of
+    head h: x, dt (B, C); A, D (C,) (dt, A and D of each channel's head);
+    Bm/C (B, N), shared by every channel (one group), or (B, C, N), each
+    channel's group's; state (B, C, N) f32.  The same operations in the
+    same order, channel by channel, so any run of channels updates on its
+    own: the new state equals ``ssd_decode_step``'s bit for bit, y within
+    the rounding of the sum over N.  Returns (y (B, C), new_state)."""
+    one = Bm.ndim == 2
+    Bx = (Bm[:, None, :] if one else Bm).to(torch.float32)          # (B,C,N)
+    Cx = C.to(torch.float32)
+    dA = torch.exp(dt * A[None, :])                                  # (B,C)
+    upd = (dt * x.to(torch.float32))[..., None] * Bx
+    new_state = state * dA[..., None] + upd                          # (B,C,N)
+    y = torch.einsum("bcn,bn->bc" if one else "bcn,bcn->bc", new_state, Cx)
+    y = y + x.to(torch.float32) * D[None, :]
     return y.to(x.dtype), new_state
 
 
@@ -389,24 +416,82 @@ def ssm_block(x: torch.Tensor, p: SSMLayerParams, cfg: ModelConfig,
 
 def _decode_on_shards(mesh, xh, dt, A, Bm, C, D, state):
     """``ssd_decode_step`` on each rank's local heads and batch rows, as
-    :func:`_scan_on_shards` runs the scan."""
-    Bsz, H, Pd = xh.shape
-    N = Bm.shape[-1]
-    bspec = batch_axes(mesh) if Bsz % dp_size(mesh) == 0 else None
+    :func:`_scan_on_shards` runs the scan (the model axis divides the
+    heads)."""
+    bspec = batch_axes(mesh) if xh.shape[0] % dp_size(mesh) == 0 else None
     heads = P(bspec, "model", None)
     st = P(bspec, "model", None, None)
     fn = shard_map(ssd_decode_step, mesh,
                    (heads, P(bspec, "model"), P("model"),
                     P(bspec, None, None), P(bspec, None, None), P("model"),
                     st),
-                   [heads, st], out_shapes=[(Bsz, H, Pd), (Bsz, H, Pd, N)])
+                   [heads, st])
     return fn(xh, dt, A, Bm, C, D, state)
+
+
+def decodes_flat(cfg: ModelConfig, mesh) -> bool:
+    """Whether :func:`ssm_decode` runs on flat channels
+    (:func:`_decode_on_channels`): on a mesh whose model axis does not
+    divide the SSD heads (hymba's 50 at model 16), where a head view of a
+    channel-sharded state or output would gather it over 'model'."""
+    return mesh is not None and cfg.n_ssm_heads % tp_size(mesh) != 0
+
+
+def _spread(t, dim: int, n: int):
+    """``t.repeat_interleave(n, dim)`` as an expand and a flatten (views,
+    which DTensor runs on a tensor replicated over 'model' in place)."""
+    t = t.unsqueeze(dim + 1)
+    shape = list(t.shape)
+    shape[dim + 1] = n
+    return t.expand(shape).flatten(dim, dim + 1)
+
+
+def _decode_on_channels(mesh, x, dt, A, Bm, C, D, state, d_head: int):
+    """:func:`ssd_decode_channels` on each rank's own flat channels and
+    batch rows.  x (B, C), the per-head dt (B, H), A and D (H,), and Bm/C
+    (B, G, N) come whole over 'model' (the decode's conv output is whole);
+    dt, A and D are spread over their heads' channels and Bm/C, for G > 1,
+    over their groups' channels, then cut to the state's channel shards,
+    which moves nothing.  The flat state (B, C, N) stays on its own
+    layout: its channels over 'model' (``launch.specs.decode_state_sharding``
+    where 'model' divides C; ``runtime.serve.decode_state_shardings``
+    always, unevenly as ``torch.chunk`` splits them where it does not) or
+    whole; the batch over the data axes where they divide it.  So neither
+    the state nor y is gathered.  Raises ValueError on a state whose
+    channels lie otherwise over 'model' (a shard the route would have to
+    gather)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    Bsz, Cn = x.shape
+    N = state.shape[-1]
+    got = (state.placements[axis_names(mesh).index("model")]
+           if isinstance(state, DTensor) else Replicate())
+    if got not in (Shard(1), Replicate()):
+        raise ValueError(f"flat SSD decode: a state of {Cn} channels laid "
+                         f"out {got} over 'model' cannot update on its own "
+                         f"shards")
+    feat = "model" if got == Shard(1) else None
+    bspec = batch_axes(mesh) if Bsz % dp_size(mesh) == 0 else None
+    ch, st = P(bspec, feat), P(bspec, feat, None)
+    G = Bm.shape[1]
+    if G == 1:
+        Bm, C, bc = Bm[:, 0], C[:, 0], P(bspec, None)
+    else:
+        Bm, C, bc = _spread(Bm, 1, Cn // G), _spread(C, 1, Cn // G), st
+    fn = shard_map(ssd_decode_channels, mesh,
+                   (ch, ch, P(feat), bc, bc, P(feat), st), [ch, st],
+                   out_shapes=[(Bsz, Cn), (Bsz, Cn, N)])
+    return fn(x, _spread(dt, 1, d_head), _spread(A, 0, d_head), Bm, C,
+              _spread(D, 0, d_head), state)
 
 
 def ssm_decode(x: torch.Tensor, p: SSMLayerParams, cfg: ModelConfig,
                state: SSMState, mesh=None):
     """One-token SSM step.  x: (B, 1, d) -> (y (B,1,d), new state).  On a
-    mesh the per-head update runs on each rank's local heads."""
+    mesh the per-head update runs on each rank's local heads; where the
+    model axis does not divide the heads (:func:`decodes_flat`) on each
+    rank's own flat channels, the SSD state taken and returned flat, (B,
+    d_inner, N), as the decode state stores it, and y left on its channel
+    shards through the gate, the norm and the out-projection."""
     s = cfg.ssm
     B = x.shape[0]
     H, Pd = cfg.n_ssm_heads, s.d_head
@@ -417,16 +502,31 @@ def ssm_decode(x: torch.Tensor, p: SSMLayerParams, cfg: ModelConfig,
     gn = s.n_groups * s.d_state
     Bm = BC[..., :gn].reshape(B, s.n_groups, s.d_state)
     Cm = BC[..., gn:].reshape(B, s.n_groups, s.d_state)
+    flat = decodes_flat(cfg, mesh)
+    if flat:
+        # whole over 'model' before the softplus: past the first layer the
+        # product is a partial sum, which DTensor would reduce-scatter onto
+        # uneven head shards
+        dt = constrain(dt, mesh, P(batch_axes(mesh) if B % dp_size(mesh) == 0
+                                   else None, None))
     dt = F.softplus(dt.to(torch.float32) + p.dt_bias)
     A = -torch.exp(p.A_log)
-    xh = heads_view(xi, (B, H, Pd), H, mesh)
-    if mesh is None:
-        yh, ssd_state = ssd_decode_step(xh, dt, A, Bm, Cm, p.D, state.ssd)
+    if flat:
+        yh, ssd_state = _decode_on_channels(mesh, xi, dt, A, Bm, Cm, p.D,
+                                            state.ssd, Pd)
     else:
-        yh, ssd_state = _decode_on_shards(mesh, xh, dt, A, Bm, Cm, p.D,
-                                          state.ssd)
-    yh = heads_view(yh, (B, cfg.d_inner), H, mesh)
-    yh = rmsnorm(yh * F.silu(z.to(torch.float32)).to(yh.dtype), p.norm_w)
+        xh = heads_view(xi, (B, H, Pd), H, mesh)
+        if mesh is None:
+            yh, ssd_state = ssd_decode_step(xh, dt, A, Bm, Cm, p.D,
+                                            state.ssd)
+        else:
+            yh, ssd_state = _decode_on_shards(mesh, xh, dt, A, Bm, Cm, p.D,
+                                              state.ssd)
+        yh = heads_view(yh, (B, cfg.d_inner), H, mesh)
+    # on channel shards the mean is a sum over them (even where torch.chunk
+    # splits them unevenly) divided by d_inner
+    yh = rmsnorm(yh * F.silu(z.to(torch.float32)).to(yh.dtype), p.norm_w,
+                 n=cfg.d_inner if flat else None)
     out = torch.matmul(yh, p.w_out)
     return out[:, None, :], SSMState(ssd=ssd_state, conv=conv_state)
 

@@ -209,7 +209,9 @@ def run_layer(layer, remat: bool, *args):
 class DecodeState(NamedTuple):
     cache_k: Optional[torch.Tensor]   # (L, B, Smax, Hkv*Dh) — kv dim flattened
     cache_v: Optional[torch.Tensor]
-    ssm_ssd: Optional[torch.Tensor]   # (L, B, H*P, N) f32 — head dim flattened
+    ssm_ssd: Optional[torch.Tensor]   # (L, B, H*P, N) f32 — head dim flattened;
+    # kept flat through ssm_decode where ssm.decodes_flat (a mesh whose model
+    # axis does not divide the SSD heads)
     ssm_conv: Optional[torch.Tensor]  # (L, B, K-1, conv_dim)
     index: int                        # tokens already in the state
 
@@ -260,10 +262,16 @@ def _decode_step(params, tokens, state: DecodeState, cfg: ModelConfig, mesh,
 
     def ssm_step(xn, lp, i):
         H, Pd, N = cfg.n_ssm_heads, cfg.ssm.d_head, cfg.ssm.d_state
-        sd = heads_view(state.ssm_ssd[i], (B, H, Pd, N), H, mesh)
+        # the flat state passes through ssm_decode as it is stored where a
+        # head view of its channel shards would gather it over 'model'
+        flat = ssm_mod.decodes_flat(cfg, mesh)
+        sd = state.ssm_ssd[i]
+        if not flat:
+            sd = heads_view(sd, (B, H, Pd, N), H, mesh)
         dx, st = ssm_mod.ssm_decode(xn, _ssm_params(lp), cfg,
                                     SSMState(sd, state.ssm_conv[i]), mesh)
-        new_sd.append(heads_view(st.ssd, (B, cfg.d_inner, N), H, mesh))
+        new_sd.append(st.ssd if flat else
+                      heads_view(st.ssd, (B, cfg.d_inner, N), H, mesh))
         new_sc.append(st.conv)
         return dx
 

@@ -16,7 +16,7 @@ fake (16, 16) mesh, cut to 2 layers, peaks at or under the reference's
 argument + temp bytes (XLA's CPU buffer assignment of the same cut
 program, computed on the host), and no collective moves a tensor the size
 of a rank's full-vocab bf16 logits; hymba-1.5b long_500k, cut to 2 layers,
-all-gathers at most twice the reference's bytes.  The reference's figures
+all-gathers at most the reference's bytes.  The reference's figures
 come from ``scripts/dryrun_parity.py`` in a subprocess:
 ``repro.launch.dryrun`` forces 512 host devices through ``XLA_FLAGS`` when
 it is imported.
@@ -348,16 +348,16 @@ def test_train_cell_fits_under_the_references_memory(reference_dryrun,
     assert peak <= ref["args_temps"], (peak, ref)
 
 
-def test_long_context_decode_gathers_at_most_twice_the_reference(
+def test_long_context_decode_gathers_at_most_the_reference(
         reference_dryrun, monkeypatch):
     """hymba-1.5b long_500k at 2 layers (batch 1, the cache's slots over
-    'data'): the port's all-gather wire bytes a rank are at most twice the
+    'data'): the port's all-gather wire bytes a rank are at most the
     reference's, and the dry-run's sites (``collective_sites``) show no
     gather of the cache's slots at the decode core."""
     traced, _ = _trace("hymba-1.5b", "long_500k", monkeypatch)
     got = traced["collective"].bytes_by_op.get("all-gather", 0.0)
     ref = reference_dryrun()["hymba-1.5b"]["all_gather"]
-    assert got <= 2 * ref, (got, ref)
+    assert got <= ref, (got, ref)
     # no gather at the decode core's entry reaches a layer's k cache (its
     # slots over 16 data ranks are each rank's 1/16)
     cfg = get_config("hymba-1.5b")

@@ -20,8 +20,10 @@ too and the first layer's bit for bit (a copy of inputs that later
 layers receive with the partial sums of the layers before reordered);
 the prefill also equals the reference's within 1e-5 of its max |logit|
 (the LM tests' f32 tolerance), the weights carried over by
-``params_from_jax``.  On a one-rank mesh every one of them is
-``mesh=None``'s bit for bit (``mesh=None`` convolves the two parts as
+``params_from_jax``; the three cases whose heads model 4 does not
+divide decode on flat channel shards (``ssm._decode_on_channels``) in
+every layer, the other two on whole heads.  On a one-rank mesh every one
+of them is ``mesh=None``'s bit for bit (``mesh=None`` convolves the two parts as
 one, as before; one rank pads no head).  The padding alone, for 2, 10
 and 50 heads over 4 and 16 ranks: at least one head a rank, zero outputs
 and states in the padded heads, the real heads' block output that of the
@@ -155,7 +157,10 @@ def test_ssm_on_2x4_ranks_matches_one_device(tmp_path, case, arch, d_model,
     """The mesh prefill, six decode steps and the train step's loss and
     gradients within 1e-5 of ``mesh=None``'s max |value|; the conv states
     (prefill and decode) too, the first layer's bit for bit; the prefill
-    logits within 1e-5 of the reference's max |logit|."""
+    logits within 1e-5 of the reference's max |logit|.  Every decode layer
+    of the cases whose heads model 4 does not divide takes the flat
+    channel route (``ssm._decode_on_channels``), and no layer of the
+    others does."""
     cfg, params, toks, labels, ref = _inputs(arch, d_model, d_head)
     conv_dim = cfg.d_inner + 2 * cfg.ssm.n_groups * cfg.ssm.d_state
     assert conv_dim % 4 == 0 and cfg.d_inner % (conv_dim // 4)
@@ -183,8 +188,18 @@ def test_ssm_on_2x4_ranks_matches_one_device(tmp_path, case, arch, d_model,
         d = torch.load(os.path.join(DATA, "in.pt"), weights_only=False)
         cfg = _cfg(get_config, {arch!r}, {d_model!r}, {d_head!r})
         mesh = compat_make_mesh((2, 4), ("data", "model"))
+        from repro_torch.models import ssm
+        flat, route = [], ssm._decode_on_channels
+
+        def counted(*a, **k):
+            flat.append(1)
+            return route(*a, **k)
+
+        ssm._decode_on_channels = counted
         got = _run(d["params"], d["toks"], d["labels"], cfg, mesh)
         want = d["want"]
+        assert len(flat) == (len(got[2]) * cfg.n_layers
+                             if cfg.n_ssm_heads % 4 else 0), len(flat)
 
         def close(g, w, what):
             g = _full(g)
