@@ -243,7 +243,8 @@ Phases, each of which raises (and exits non-zero) on failure:
       2x16x16, 68 pairs), each pair cut to ``DRYRUN_SWEEP_LAYERS`` (2)
       layers, whisper's encoder too, through ``launch.dryrun.trace_cell``,
       one line a pair (``trace_s``, peak, all-gather and wire bytes a
-      rank, counts by op) and the sweep's wall time.  It fails if a job
+      rank beside the reference's, counts by op) and the sweep's wall
+      time.  It fails if a job
       fails, a cell or a pair counts no collective, a term is not finite,
       a cell's peak, all-gather or wire bytes a rank rise above its
       ``DRYRUN_BEFORE``, a pair's above its ``DRYRUN_SWEEP_BEFORE`` or its
@@ -253,18 +254,20 @@ Phases, each of which raises (and exits non-zero) on failure:
       card's memory, mamba2's prefill_32k, mixtral's decode_32k or qwen's
       train_4k all-gathers more than the reference a rank, mixtral's decode wire
       bytes a rank exceed 250 MB, hymba's or mixtral's train_4k fails a
-      head or gather gate, a pair of ``DRYRUN_SWEEP_GATHER`` (whisper's
-      train_4k on both meshes, mixtral's and h2o-danube-3's train_4k and
-      prefill_32k on 16x16, the pairs whose attention exchanges q/k/v
-      among a head's model ranks; mixtral's and h2o-danube-3's long_500k
-      on both meshes, whose batch-1 decode scores each rank's own dims of
-      its own cache slots) all-gathers more than the reference's
-      pair a rank, a pair of ``DRYRUN_SWEEP_WIRE`` (whisper's prefill_32k
-      on 2x16x16, whose query positions are traded over a head's ranks)
-      moves more wire bytes than the reference's pair a rank, or an
+      head or gather gate, a pair (on any torch) all-gathers more than the
+      reference's pair a rank (``DRYRUN_SWEEP_REFERENCE``; but whisper's
+      prefill_32k on 2x16x16, whose query positions are traded over a
+      head's ranks, and its decode_32k, ``DRYRUN_SWEEP_GATHER_EXEMPT``) or
+      moves more wire bytes, mamba2's prefill_32k peaks a rank above the
+      reference's argument + temp bytes (``DRYRUN_SWEEP_PEAK_HELD``), or an
       attention core of whisper's train_4k on 16x16 or its prefill_32k on
       2x16x16 scores another count of heads or rows than one head of half
-      of the rank's rows, or of its one row (``DRYRUN_SWEEP_HEAD_ROWS``).
+      of the rank's rows, or of its one row (``DRYRUN_SWEEP_HEAD_ROWS``);
+      before the sweep, for mamba2's prefill_32k at full depth and at 2
+      layers on both meshes (``DRYRUN_PEAK_ENTRIES``), one line each on
+      what the memory tracker holds where its total peaks
+      (``dryrun.PeakProbe``: the op and frames, the largest storages, the
+      peak without the tracked arguments and without resize tracking).
       The sweep alone
       rehearses on a host without a card
       (the dry-run needs none): ``chip_smoke.dryrun_sweep("cpu")``;
@@ -3124,10 +3127,10 @@ DRYRUN_TIMEOUT_S = 900
 # run's.  A cell's figures may not rise above its DRYRUN_BEFORE ones (to
 # the digits given there).
 DRYRUN_BEFORE = {"qwen1.5-0.5b train_4k": (8.267e9, 54.5e6, 30.8713e9),
-                 "mamba2-1.3b prefill_32k": (2.771e9, 1513.7e6, 26.1998e9),
+                 "mamba2-1.3b prefill_32k": (1.899e9, 1513.7e6, 26.1998e9),
                  "mixtral-8x7b decode_32k": (6.243e9, 2.5e6, 0.0148e9),
                  "hymba-1.5b long_500k": (0.224e9, 5.4e6, 0.0060e9),
-                 "hymba-1.5b train_4k": (20.045e9, 9545.4e6, 156.4525e9),
+                 "hymba-1.5b train_4k": (18.367e9, 9545.4e6, 156.4525e9),
                  "mixtral-8x7b train_4k": (46.067e9, 6549.0e6, 181.1214e9)}
 # (unit, decimals) each DRYRUN_BEFORE figure is given to
 DRYRUN_BEFORE_DIGITS = ((1e9, 3), (1e6, 1), (1e9, 4))
@@ -3176,8 +3179,8 @@ DRYRUN_SWEEP_BEFORE = {
     "mixtral-8x7b train_4k 2x16x16": (9.302e9, 404.6e6, 7.6019e9),
     "whisper-base train_4k 16x16": (4.161e9, 13.4e6, 2.9205e9),
     "whisper-base train_4k 2x16x16": (2.102e9, 13.4e6, 1.4945e9),
-    "hymba-1.5b train_4k 16x16": (13.522e9, 607.9e6, 10.5547e9),
-    "hymba-1.5b train_4k 2x16x16": (7.631e9, 442.0e6, 5.6580e9),
+    "hymba-1.5b train_4k 16x16": (11.844e9, 607.9e6, 10.5547e9),
+    "hymba-1.5b train_4k 2x16x16": (5.953e9, 442.0e6, 5.6580e9),
     "phi3-mini-3.8b train_4k 16x16": (13.103e9, 49.8e6, 9.2145e9),
     "phi3-mini-3.8b train_4k 2x16x16": (6.605e9, 49.8e6, 4.7351e9),
     "h2o-danube-3-4b train_4k 16x16": (15.038e9, 128.0e6, 11.6198e9),
@@ -3188,16 +3191,16 @@ DRYRUN_SWEEP_BEFORE = {
     "qwen1.5-0.5b train_4k 2x16x16": (2.819e9, 21.3e6, 1.5992e9),
     "phi-3-vision-4.2b train_4k 16x16": (13.183e9, 67.5e6, 9.2676e9),
     "phi-3-vision-4.2b train_4k 2x16x16": (6.657e9, 67.5e6, 4.8071e9),
-    "mamba2-1.3b train_4k 16x16": (8.012e9, 177.6e6, 9.4080e9),
-    "mamba2-1.3b train_4k 2x16x16": (4.864e9, 98.2e6, 4.7522e9),
+    "mamba2-1.3b train_4k 16x16": (6.334e9, 177.6e6, 9.4080e9),
+    "mamba2-1.3b train_4k 2x16x16": (3.187e9, 98.2e6, 4.7522e9),
     "granite-moe-3b-a800m prefill_32k 16x16": (1.915e9, 269.4e6, 2.1568e9),
     "granite-moe-3b-a800m prefill_32k 2x16x16": (0.975e9, 143.5e6, 1.0872e9),
     "mixtral-8x7b prefill_32k 16x16": (4.742e9, 33.6e6, 5.0667e9),
     "mixtral-8x7b prefill_32k 2x16x16": (2.569e9, 16.8e6, 2.5334e9),
     "whisper-base prefill_32k 16x16": (0.807e9, 0.0e6, 0.9302e9),
     "whisper-base prefill_32k 2x16x16": (0.425e9, 9.2e6, 0.4697e9),
-    "hymba-1.5b prefill_32k 16x16": (2.744e9, 242.1e6, 2.2092e9),
-    "hymba-1.5b prefill_32k 2x16x16": (1.821e9, 159.5e6, 1.1430e9),
+    "hymba-1.5b prefill_32k 16x16": (1.872e9, 242.1e6, 2.2092e9),
+    "hymba-1.5b prefill_32k 2x16x16": (0.949e9, 159.5e6, 1.1430e9),
     "phi3-mini-3.8b prefill_32k 16x16": (3.376e9, 0.0e6, 3.7749e9),
     "phi3-mini-3.8b prefill_32k 2x16x16": (1.715e9, 0.0e6, 1.8874e9),
     "h2o-danube-3-4b prefill_32k 16x16": (4.144e9, 31.5e6, 4.7500e9),
@@ -3208,8 +3211,8 @@ DRYRUN_SWEEP_BEFORE = {
     "qwen1.5-0.5b prefill_32k 2x16x16": (0.789e9, 0.0e6, 0.6291e9),
     "phi-3-vision-4.2b prefill_32k 16x16": (3.402e9, 0.0e6, 3.7749e9),
     "phi-3-vision-4.2b prefill_32k 2x16x16": (1.737e9, 0.0e6, 1.8874e9),
-    "mamba2-1.3b prefill_32k 16x16": (2.611e9, 63.1e6, 1.5740e9),
-    "mamba2-1.3b prefill_32k 2x16x16": (1.752e9, 31.6e6, 0.7870e9),
+    "mamba2-1.3b prefill_32k 16x16": (1.739e9, 63.1e6, 1.5740e9),
+    "mamba2-1.3b prefill_32k 2x16x16": (0.879e9, 31.6e6, 0.7870e9),
     "granite-moe-3b-a800m decode_32k 16x16": (0.236e9, 0.1e6, 0.0066e9),
     "granite-moe-3b-a800m decode_32k 2x16x16": (0.136e9, 0.1e6, 0.0033e9),
     "mixtral-8x7b decode_32k 16x16": (0.446e9, 0.3e6, 0.0020e9),
@@ -3218,7 +3221,7 @@ DRYRUN_SWEEP_BEFORE = {
     "mixtral-8x7b long_500k 2x16x16": (0.396e9, 0.0e6, 0.0001e9),
     "whisper-base decode_32k 16x16": (0.294e9, 0.1e6, 0.0023e9),
     "whisper-base decode_32k 2x16x16": (0.169e9, 0.1e6, 0.0012e9),
-    "hymba-1.5b decode_32k 16x16": (0.136e9, 39.6e6, 0.0398e9),
+    "hymba-1.5b decode_32k 16x16": (0.135e9, 39.6e6, 0.0398e9),
     "hymba-1.5b decode_32k 2x16x16": (0.080e9, 19.8e6, 0.0199e9),
     "hymba-1.5b long_500k 16x16": (0.026e9, 0.3e6, 0.0004e9),
     "hymba-1.5b long_500k 2x16x16": (0.026e9, 0.2e6, 0.0002e9),
@@ -3239,37 +3242,102 @@ DRYRUN_SWEEP_BEFORE = {
     "mamba2-1.3b long_500k 16x16": (0.021e9, 0.1e6, 0.0001e9),
     "mamba2-1.3b long_500k 2x16x16": (0.021e9, 0.1e6, 0.0001e9),
 }
-# Per rank, the reference's all-gather wire bytes of the sweep's pairs whose
-# attention exchanges q, k and v only among the model ranks of a head, at
-# DRYRUN_SWEEP_LAYERS layers (``scripts/dryrun_parity.py --reference-only
-# --layers 2 [--multi-pod]``: the reference's compiled HLO, computed on a
-# host CPU with jax 0.9.0); the port's pair may not all-gather more, on any
-# torch.
-DRYRUN_SWEEP_GATHER = {
-    "whisper-base train_4k 16x16": 14249984.0,
-    "whisper-base train_4k 2x16x16": 14249984.0,
-    "mixtral-8x7b train_4k 16x16": 538353664.0,
-    "h2o-danube-3-4b train_4k 16x16": 203159040.0,
-    "mixtral-8x7b prefill_32k 16x16": 335544320.0,
-    "h2o-danube-3-4b prefill_32k 16x16": 314572800.0,
-    # batch 1: the decode cache sharded over its slots and inside its kv
-    # heads, scored on each rank's own dims of its own slots
-    "mixtral-8x7b long_500k 16x16": 136704.0,
-    "mixtral-8x7b long_500k 2x16x16": 69120.0,
-    "h2o-danube-3-4b long_500k 16x16": 128416.0,
-    "h2o-danube-3-4b long_500k 2x16x16": 64928.0,
-    # batch 1: the SSD decode state updated on its flat channel shards
-    "hymba-1.5b long_500k 16x16": 835760.0,
-    "hymba-1.5b long_500k 2x16x16": 528560.0,
+# Per rank, the reference's (argument + temp bytes, all-gather wire bytes,
+# all wire bytes) of every pair of the sweep at DRYRUN_SWEEP_LAYERS layers
+# (``scripts/dryrun_parity.py --reference-only --layers 2 [--multi-pod]``
+# with every ``--cell`` of the sweep: the reference's compiled HLO and
+# XLA's CPU buffer assignment, computed on a host CPU with jax 0.9.0, not
+# device figures).  On any torch, a pair may not all-gather more than its
+# reference (but those of DRYRUN_SWEEP_GATHER_EXEMPT) nor move more wire
+# bytes; the pairs of DRYRUN_SWEEP_PEAK_HELD may not peak above its
+# argument + temp bytes.
+DRYRUN_SWEEP_REFERENCE = {
+    "granite-moe-3b-a800m train_4k 16x16": (22586489732, 9111387136, 26782842270),
+    "granite-moe-3b-a800m train_4k 2x16x16": (11183794700, 4573150208, 13448617219),
+    "granite-moe-3b-a800m prefill_32k 16x16": (52874625664, 1962934272, 6241124352),
+    "granite-moe-3b-a800m prefill_32k 2x16x16": (26490225280, 981467136, 3120562176),
+    "granite-moe-3b-a800m decode_32k 16x16": (372297076, 71475200, 72083456),
+    "granite-moe-3b-a800m decode_32k 2x16x16": (190850916, 35737600, 36041728),
+    "mixtral-8x7b train_4k 16x16": (30335636444, 538353664, 38310615209.5),
+    "mixtral-8x7b train_4k 2x16x16": (15832961804, 471244800, 19757636747),
+    "mixtral-8x7b prefill_32k 16x16": (9793877200, 335544320, 10468982784),
+    "mixtral-8x7b prefill_32k 2x16x16": (5429048528, 167772160, 5234491392),
+    "mixtral-8x7b decode_32k 16x16": (1215609332, 17302528, 18547712),
+    "mixtral-8x7b decode_32k 2x16x16": (1181856228, 8651776, 9274368),
+    "mixtral-8x7b long_500k 16x16": (1146299416, 136704, 295712),
+    "mixtral-8x7b long_500k 2x16x16": (1146168344, 69120, 228256),
+    "whisper-base train_4k 16x16": (9336762540, 14249984, 16905720071),
+    "whisper-base train_4k 2x16x16": (4875926988, 14249984, 8475073736),
+    "whisper-base prefill_32k 16x16": (17153219784, 0, 19809988864),
+    "whisper-base prefill_32k 2x16x16": (8602986696, 0, 9904994432),
+    "whisper-base decode_32k 16x16": (335635624, 0, 2408192),
+    "whisper-base decode_32k 2x16x16": (192074904, 0, 1204096),
+    "hymba-1.5b train_4k 16x16": (20580734596, 4303666400, 33447470746.5),
+    "hymba-1.5b train_4k 2x16x16": (10319556020, 2164504160, 16764066473.5),
+    "hymba-1.5b prefill_32k 16x16": (9492112560, 1536163840, 9535553536),
+    "hymba-1.5b prefill_32k 2x16x16": (4775404720, 768081920, 4767776768),
+    "hymba-1.5b decode_32k 16x16": (119839580, 80548480, 81238584),
+    "hymba-1.5b decode_32k 2x16x16": (89332300, 40274240, 40619292),
+    "hymba-1.5b long_500k 16x16": (26027136, 835760, 938295),
+    "hymba-1.5b long_500k 2x16x16": (25823616, 528560, 631095),
+    "phi3-mini-3.8b train_4k 16x16": (21258390300, 53114880, 27341457527.5),
+    "phi3-mini-3.8b train_4k 2x16x16": (10701302652, 53114880, 13756262488),
+    "phi3-mini-3.8b prefill_32k 16x16": (35343071424, 0, 7549747200),
+    "phi3-mini-3.8b prefill_32k 2x16x16": (17735252160, 0, 3774873600),
+    "phi3-mini-3.8b decode_32k 16x16": (1508505896, 0, 921600),
+    "phi3-mini-3.8b decode_32k 2x16x16": (803813656, 0, 460800),
+    "h2o-danube-3-4b train_4k 16x16": (23963382748, 203159040, 35011407479.5),
+    "h2o-danube-3-4b train_4k 2x16x16": (12069683260, 140244480, 17621552728),
+    "h2o-danube-3-4b prefill_32k 16x16": (6623701264, 314572800, 9814671360),
+    "h2o-danube-3-4b prefill_32k 2x16x16": (3397888272, 157286400, 4907335680),
+    "h2o-danube-3-4b decode_32k 16x16": (235113524, 16253888, 17421248),
+    "h2o-danube-3-4b decode_32k 2x16x16": (203592868, 8127424, 8711104),
+    "h2o-danube-3-4b long_500k 16x16": (69974424, 128416, 277488),
+    "h2o-danube-3-4b long_500k 2x16x16": (69728664, 64928, 214120),
+    "codeqwen1.5-7b train_4k 16x16": (24976935428, 152739840, 37318424718),
+    "codeqwen1.5-7b train_4k 2x16x16": (13584927228, 152739840, 18597443694.5),
+    "codeqwen1.5-7b prefill_32k 16x16": (35331681536, 0, 10066329600),
+    "codeqwen1.5-7b prefill_32k 2x16x16": (17841302784, 0, 5033164800),
+    "codeqwen1.5-7b decode_32k 16x16": (1963773288, 0, 1228800),
+    "codeqwen1.5-7b decode_32k 2x16x16": (1157348696, 0, 614400),
+    "qwen1.5-0.5b train_4k 16x16": (15075821252, 22685696, 9336700546.5),
+    "qwen1.5-0.5b train_4k 2x16x16": (7594231420, 22685696, 4642840166.5),
+    "qwen1.5-0.5b prefill_32k 16x16": (17272548224, 0, 2516582400),
+    "qwen1.5-0.5b prefill_32k 2x16x16": (8669899648, 0, 1258291200),
+    "qwen1.5-0.5b decode_32k 16x16": (533804008, 0, 307200),
+    "qwen1.5-0.5b decode_32k 2x16x16": (298921944, 0, 153600),
+    "phi-3-vision-4.2b train_4k 16x16": (21345684316, 71989248, 27365050491.5),
+    "phi-3-vision-4.2b train_4k 2x16x16": (10750454652, 71989248, 13779855452),
+    "phi-3-vision-4.2b prefill_32k 16x16": (35369023680, 0, 7549747200),
+    "phi-3-vision-4.2b prefill_32k 2x16x16": (17757665472, 0, 3774873600),
+    "phi-3-vision-4.2b decode_32k 16x16": (1508505896, 0, 921600),
+    "phi-3-vision-4.2b decode_32k 2x16x16": (803813656, 0, 460800),
+    "mamba2-1.3b train_4k 16x16": (10264186556, 271712256, 14272670422.5),
+    "mamba2-1.3b train_4k 2x16x16": (5176805268, 145797120, 7181798081.5),
+    "mamba2-1.3b prefill_32k 16x16": (1945979088, 125829120, 3686727680),
+    "mamba2-1.3b prefill_32k 2x16x16": (995838160, 62914560, 1843363840),
+    "mamba2-1.3b decode_32k 16x16": (61509176, 1059840, 1461880),
+    "mamba2-1.3b decode_32k 2x16x16": (60008040, 529920, 730940),
+    "mamba2-1.3b long_500k 16x16": (20597340, 132480, 182735),
+    "mamba2-1.3b long_500k 2x16x16": (20597340, 132480, 182735),
 }
-# Per rank, the reference's wire bytes of the sweep's pairs whose attention
-# trades query positions over the model ranks of a head
-# (``attention.query_exchange``), at DRYRUN_SWEEP_LAYERS layers (as
-# DRYRUN_SWEEP_GATHER's): the reference all-gathers nothing there (it
-# splits d_head and all-reduces the f32 scores) and the port gathers one
-# head's k and v over its 2 ranks, so the pair is held to the reference's
-# wire bytes instead; the port's pair may not move more, on any torch.
-DRYRUN_SWEEP_WIRE = {"whisper-base prefill_32k 2x16x16": 9904994432.0}
+# pairs whose all-gathers are not held to the reference's (their wire is),
+# and why
+DRYRUN_SWEEP_GATHER_EXEMPT = {
+    "whisper-base prefill_32k 2x16x16":
+        "query positions traded over a head's 2 model ranks "
+        "(attention.query_exchange): one head's k and v gathered, where the "
+        "reference splits d_head and all-reduces f32 scores",
+    "whisper-base decode_32k 16x16":
+        "q, k and v of the one new token gathered over 'model' at "
+        "attention._proj_flat (0.1 MB a rank on torch 2.11)",
+    "whisper-base decode_32k 2x16x16":
+        "as on 16x16 (0.1 MB a rank on torch 2.11)"}
+# pairs whose peak a rank may not exceed the reference's argument + temp
+# bytes (mamba2's prefill: every output it holds is the logits', which the
+# reference's argument + temp bytes leave out)
+DRYRUN_SWEEP_PEAK_HELD = ("mamba2-1.3b prefill_32k 16x16",
+                          "mamba2-1.3b prefill_32k 2x16x16")
 # pairs whose attention scores each head on one of the model ranks that
 # hold its dims (``attention.row_exchange``, ``query_exchange``): (q heads,
 # batch rows) every attention core on the traced rank must score
@@ -3277,6 +3345,15 @@ DRYRUN_SWEEP_WIRE = {"whisper-base prefill_32k 2x16x16": 9904994432.0}
 # data rank holds; one head of the one row, for half of the queries)
 DRYRUN_SWEEP_HEAD_ROWS = {"whisper-base train_4k 16x16": (1, 8),
                           "whisper-base prefill_32k 2x16x16": (1, 1)}
+# the entries whose memory tracker's peak phase t reports in detail
+# (``dryrun.PeakProbe``): (arch, shape, mesh, layers; 0: full depth), each
+# traced once as the sweep traces it and, cut to layers, once more for each
+# of the tracker's own trackings left out
+DRYRUN_PEAK_ENTRIES = (("mamba2-1.3b", "prefill_32k", "16x16", 0),
+                       ("mamba2-1.3b", "prefill_32k", "16x16", 2),
+                       ("mamba2-1.3b", "prefill_32k", "2x16x16", 2))
+DRYRUN_PEAK_VARIANTS = {"as-traced": {}, "no-external": {"external": False},
+                        "no-resize": {"resize": False}}
 
 
 def dryrun_pairs() -> list:
@@ -3337,6 +3414,53 @@ def _counter_check() -> dict:
     return out
 
 
+def mem_tracker_dispatch() -> dict:
+    """This torch's ``MemTracker.__torch_dispatch__``: whether it leaves
+    out the ops of a fake mode other than its entry's (torch 2.13's
+    ``_fake_mode_on_entry``), and its source."""
+    import inspect
+    from torch.distributed._tools.mem_tracker import MemTracker
+    src = inspect.getsource(MemTracker.__torch_dispatch__)
+    return {"fake_mode_filter": "_fake_mode_on_entry" in src, "source": src}
+
+
+def peak_report(results: dict, card: str) -> list:
+    """One line a :data:`DRYRUN_PEAK_ENTRIES` entry from its ``peak`` jobs'
+    ``results``: the peak a rank as traced, without the tracked arguments
+    and without resize tracking; the op and frames where the tracker's
+    total first reaches it; what it holds there by fake mode and device;
+    its largest storages -> the entries' records."""
+    import torch
+    out = []
+    for arch, shape, mesh, n in DRYRUN_PEAK_ENTRIES:
+        runs = {v: results[f"peak {arch} {shape} {mesh} {n} {v}"]
+                for v in DRYRUN_PEAK_VARIANTS
+                if f"peak {arch} {shape} {mesh} {n} {v}" in results}
+        if not runs:
+            continue
+        r = runs["as-traced"]
+        at = r["memory"]["peak_detail"]
+        held = "; ".join(
+            f"{h['bytes']} B {h.get('dtype', '?')}{h.get('shape', '')} "
+            f"{h.get('mode', '?')} {h['op']} at {h.get('site', '?')}"
+            for h in at["held"])
+        log(f"phase t peak {arch} x {shape} x {mesh} "
+            f"({n or 'all'} layers) per rank [{card}, torch "
+            f"{torch.__version__}]: "
+            + ", ".join(f"{v} {x['peak_bytes']} B" for v, x in runs.items())
+            + f"; by device {json.dumps(at['by_device'])}; outputs "
+            f"{r['memory']['output_bytes']} B; first reached at {at['op']} "
+            f"at {at['site']} (under the step's fake mode: "
+            f"{at['under_step_mode']}); "
+            f"held by kind {json.dumps(at['by_kind'], sort_keys=True)}; "
+            f"largest held: {held}")
+        out.append({"arch": arch, "shape": shape, "mesh": mesh, "layers": n,
+                    "peak_bytes": {v: x["peak_bytes"] for v, x in
+                                   runs.items()},
+                    "output_bytes": r["memory"]["output_bytes"], "at": at})
+    return out
+
+
 def dryrun_job(job: str) -> dict:
     """One job of phase t, in the process that runs it: ``counters``, the
     counters' known answers; ``pair arch shape mesh``, one pair of the
@@ -3367,6 +3491,10 @@ def dryrun_job(job: str) -> dict:
         info = {"arch": arch, "shape": shape, "mesh": mesh,
                 "layers": DRYRUN_SWEEP_LAYERS, **traced,
                 "attn_cores": sorted(set(cores))}
+    elif job.startswith("peak "):
+        _, arch, shape, mesh, layers, variant = job.split()
+        probe = dryrun.PeakProbe(**DRYRUN_PEAK_VARIANTS[variant])
+        info = dryrun.trace_pair(arch, shape, mesh, int(layers), probe=probe)
     elif job.startswith("calibrate "):
         cfg, shape, extra = _calibration(job.split()[1])
         traced = dryrun.trace_cell(cfg, shape, (1, 1), extra=extra)
@@ -3552,10 +3680,12 @@ def dryrun_sweep(card: str, jobs: tuple = (),
     ``jobs`` fails, a pair raises or counts no collective, or, on
     :data:`DRYRUN_SWEEP_TORCH`, a pair's peak, all-gather or wire bytes a
     rank rise above its :data:`DRYRUN_SWEEP_BEFORE` or its peak a rank
-    exceeds ``capacity`` bytes (the card's memory, where given), a pair of
-    :data:`DRYRUN_SWEEP_GATHER` all-gathers more than the reference's, a
-    pair of :data:`DRYRUN_SWEEP_WIRE` moves more wire bytes than the
-    reference's, or a pair of :data:`DRYRUN_SWEEP_HEAD_ROWS` runs an
+    exceeds ``capacity`` bytes (the card's memory, where given); or, on
+    any torch, a pair all-gathers more than its
+    :data:`DRYRUN_SWEEP_REFERENCE` (but the pairs of
+    :data:`DRYRUN_SWEEP_GATHER_EXEMPT`) or moves more wire bytes, a pair of
+    :data:`DRYRUN_SWEEP_PEAK_HELD` peaks above the reference's argument +
+    temp bytes, or a pair of :data:`DRYRUN_SWEEP_HEAD_ROWS` runs an
     attention core on other (heads, rows) than its own.  With no
     ``jobs`` it is the sweep alone: a rehearsal on a host without a card
     (the dry-run needs none)."""
@@ -3578,48 +3708,50 @@ def dryrun_sweep(card: str, jobs: tuple = (),
             f"{job}: {why}" for job, why in own.items()))
     gated = torch.__version__.startswith(DRYRUN_SWEEP_TORCH)
     rows, bad = [], {j: failures[j] for j in sweep_jobs if j in failures}
+
+    def fail(job: str, why: str) -> None:
+        bad[job] = f"{bad[job]}; {why}" if job in bad else why
+
     for job in sweep_jobs:
         if job in bad:
             continue
         r = {**results[job], "job_s": seconds[job]}
+        key = f"{r['arch']} {r['shape']} {r['mesh']}"
+        ref_mem, ref_ag, ref_wire = DRYRUN_SWEEP_REFERENCE[key]
         log(f"phase t pair {r['arch']} x {r['shape']} x {r['mesh']} "
             f"({r['layers']} layers) per rank [{card}]: "
             f"trace_s={r['trace_s']:.2f} peak {r['peak_bytes'] / 1e9:.3f} GB "
-            f"all-gather {r['all_gather'] / 1e6:.1f} MB wire "
-            f"{r['wire_bytes'] / 1e9:.4f} GB "
+            f"(reference args + temps {ref_mem / 1e9:.3f}) all-gather "
+            f"{r['all_gather'] / 1e6:.1f} MB ({ref_ag / 1e6:.1f}) wire "
+            f"{r['wire_bytes'] / 1e9:.4f} GB ({ref_wire / 1e9:.4f}) "
             f"collectives={json.dumps(r['counts'], sort_keys=True)}")
         if not sum(r["counts"].values()) > 0:
-            bad[job] = "no collective counted"
-        key = f"{r['arch']} {r['shape']} {r['mesh']}"
-        if key in DRYRUN_SWEEP_GATHER:
-            log(f"phase t pair {key}: all-gather "
-                f"{r['all_gather'] / 1e6:.1f} MB a rank against the "
-                f"reference's {DRYRUN_SWEEP_GATHER[key] / 1e6:.1f} MB; "
-                f"attention cores on (q heads, rows) {r['attn_cores']}")
+            fail(job, "no collective counted")
         if gated and key in DRYRUN_SWEEP_BEFORE:
             rises = _rises(f"pair {key}", (r["peak_bytes"], r["all_gather"],
                                             r["wire_bytes"]),
                            DRYRUN_SWEEP_BEFORE[key])
             if rises:
-                bad[job] = "; ".join(rises)
-        if r["all_gather"] > DRYRUN_SWEEP_GATHER.get(key, float("inf")):
-            bad[job] = (f"all-gathers {r['all_gather']} B a rank over the "
-                        f"reference's {DRYRUN_SWEEP_GATHER[key]} B")
-        if key in DRYRUN_SWEEP_WIRE:
-            log(f"phase t pair {key}: wire {r['wire_bytes'] / 1e9:.4f} GB "
-                f"a rank against the reference's "
-                f"{DRYRUN_SWEEP_WIRE[key] / 1e9:.4f} GB; all-gather "
-                f"{r['all_gather'] / 1e6:.1f} MB; attention cores on "
-                f"(q heads, rows) {r['attn_cores']}")
-            if r["wire_bytes"] > DRYRUN_SWEEP_WIRE[key]:
-                bad[job] = (f"wire {r['wire_bytes']} B a rank over the "
-                            f"reference's {DRYRUN_SWEEP_WIRE[key]} B")
+                fail(job, "; ".join(rises))
+        if key in DRYRUN_SWEEP_GATHER_EXEMPT:
+            log(f"phase t pair {key}: all-gathers not held to the "
+                f"reference's: {DRYRUN_SWEEP_GATHER_EXEMPT[key]}; attention "
+                f"cores on (q heads, rows) {r['attn_cores']}")
+        elif r["all_gather"] > ref_ag:
+            fail(job, f"all-gathers {r['all_gather']} B a rank over the "
+                        f"reference's {ref_ag} B")
+        if r["wire_bytes"] > ref_wire:
+            fail(job, f"wire {r['wire_bytes']} B a rank over the "
+                        f"reference's {ref_wire} B")
+        if key in DRYRUN_SWEEP_PEAK_HELD and r["peak_bytes"] > ref_mem:
+            fail(job, f"peak {r['peak_bytes']} B a rank over the "
+                        f"reference's argument + temp {ref_mem} B")
         if key in DRYRUN_SWEEP_HEAD_ROWS and \
                 r["attn_cores"] != [DRYRUN_SWEEP_HEAD_ROWS[key]]:
-            bad[job] = (f"attention cores on (heads, rows) {r['attn_cores']}"
+            fail(job, f"attention cores on (heads, rows) {r['attn_cores']}"
                         f", want {DRYRUN_SWEEP_HEAD_ROWS[key]} each")
         if gated and capacity is not None and r["peak_bytes"] > capacity:
-            bad[job] = (f"peak {r['peak_bytes']} B a rank over the card's "
+            fail(job, f"peak {r['peak_bytes']} B a rank over the card's "
                         f"{capacity} B")
         rows.append(r)
     gate = ("each held to DRYRUN_SWEEP_BEFORE"
@@ -3647,7 +3779,10 @@ def dryrun_path(card: str, paths: list, capacity: int) -> dict:
     name and power limit, and its largest collective sites), the card's
     own train step (phase q) and mamba2 prefill traced on a one-rank mesh,
     whose roofline ``step_s`` is printed beside the seconds this run
-    measured for them and the measured share of the bf16 peak.  Fails
+    measured for them and the measured share of the bf16 peak, and the
+    ``peak`` jobs of :data:`DRYRUN_PEAK_ENTRIES` (:func:`peak_report`,
+    beside whether this torch's ``MemTracker`` leaves out another fake
+    mode's ops).  Fails
     where :func:`dryrun_sweep` fails (a pair's peak a rank over
     ``capacity`` among them), if a cell's collective counts are
     empty, a term is not finite, a cell's peak, all-gather or wire bytes a
@@ -3669,10 +3804,19 @@ def dryrun_path(card: str, paths: list, capacity: int) -> dict:
     from repro_torch.launch.dryrun import N_SITES, PRODUCTION_MESHES
     from repro_torch.launch.roofline import PEAK_FLOPS_BF16
     t0 = time.perf_counter()
-    jobs = ([f"{a} {s} {int(mp)}" for a, s, mp in DRYRUN_CELLS]
+    import torch
+    # the peak jobs first, the full depth's the longest trace
+    jobs = ([f"peak {a} {s} {m} {n} {v}" for a, s, m, n in DRYRUN_PEAK_ENTRIES
+             for v in (DRYRUN_PEAK_VARIANTS if n else ("as-traced",))]
+            + [f"{a} {s} {int(mp)}" for a, s, mp in DRYRUN_CELLS]
             + ["calibrate train", "calibrate prefill", "counters"])
     results, sweep = dryrun_sweep(card, jobs, capacity)
     log("phase t counters: " + json.dumps(results["counters"]))
+    tracker = mem_tracker_dispatch()
+    log(f"phase t MemTracker.__torch_dispatch__ of torch "
+        f"{torch.__version__} leaves out another fake mode's ops: "
+        f"{tracker['fake_mode_filter']}")
+    peaks = peak_report(results, card)
     cells, rises = [], []
     for arch, shape, mp in DRYRUN_CELLS:
         r = results[f"{arch} {shape} {int(mp)}"]
@@ -3702,7 +3846,10 @@ def dryrun_path(card: str, paths: list, capacity: int) -> dict:
         log(f"phase t {name} per rank [{card}]: peak "
             f"{mem['peak_bytes'] / 1e9:.3f} GB (before {b_peak};"
             f" reference args + temps {j_mem}, XLA's CPU buffer "
-            f"assignment on a host), all-gather {gathered / 1e6:.1f} MB "
+            f"assignment on a host, which leaves out the outputs' "
+            f"{mem['output_bytes'] / 1e9:.3f} GB: peak less outputs "
+            f"{(mem['peak_bytes'] - mem['output_bytes']) / 1e9:.3f} GB), "
+            f"all-gather {gathered / 1e6:.1f} MB "
             f"(before {b_ag}; reference {j_ag}), "
             f"wire {wire / 1e9:.4f} GB (before {b_wire})")
         log(f"phase t {name} collective sites (count, wire MB): " + "; ".join(
@@ -3754,7 +3901,8 @@ def dryrun_path(card: str, paths: list, capacity: int) -> dict:
     wall = time.perf_counter() - t0
     log(f"phase t: {len(jobs) + len(sweep['pairs'])} jobs, {wall:.1f} s")
     return {"counters": results["counters"], "cells": cells,
-            "calibration": calib, "sweep": sweep, "phase_s": wall}
+            "calibration": calib, "sweep": sweep, "peaks": peaks,
+            "mem_tracker": tracker, "phase_s": wall}
 
 
 # -- times ----------------------------------------------------------------------

@@ -23,7 +23,11 @@ place of XLA's analyses:
   propagation also runs every op once at its global shape on the same fake
   mode; those ops are marked while they run and left out
   (``FlopCounterMode`` alone counts them, a factor of the rank count too
-  many).
+  many).  An op with no sharding strategy of its own (softplus on torch
+  2.11, hardswish on 2.13) is propagated through its decomposition, run
+  on meta tensors at the global shape on a one-rank mesh of DTensor's
+  own, once a process for each op and placements: marked and left out
+  too.
 * Bytes per rank (``"bytes accessed"``): every tensor input and output of
   every local op, views and collectives left out.  This is the port's
   eager, unfused traffic: larger than XLA's fused figure, and what the
@@ -57,6 +61,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import heapq
 import json
 import math
 import os
@@ -90,8 +95,10 @@ class _Marks:
     (installed on entry, restored on exit):
 
     * ``propagating``: sharding propagation running an op at its global
-      shape (``ShardingPropagator._propagate_tensor_meta_non_cached``),
-      which the counters leave out;
+      shape (``ShardingPropagator._propagate_tensor_meta_non_cached``, and
+      ``DecompShardingStrategy.propagate_strategy`` where this torch
+      propagates an op through its decomposition), which the counters
+      leave out;
     * ``alltoall``: a Shard(i) -> Shard(j) reshard (``shard_dim_alltoall``).
       On a mesh of device type ``cpu``, the fake group's, DTensor runs it
       as an all-gather and a local chunk (gloo has no all-to-all); on an
@@ -111,6 +118,17 @@ class _Marks:
             ShardingPropagator
         prop = ShardingPropagator._propagate_tensor_meta_non_cached
         a2a = _collective_utils.shard_dim_alltoall
+        try:
+            from torch.distributed.tensor._decompositions import \
+                DecompShardingStrategy as decomp
+        except ImportError:         # a torch that does not decompose
+            decomp = None
+        if decomp is not None and not hasattr(decomp, "propagate_strategy"):
+            raise RuntimeError(
+                "torch.distributed.tensor._decompositions.DecompShardingStrategy"
+                " no longer has propagate_strategy; the dry-run would count "
+                "the global-shape ops of its decompositions on this torch "
+                f"{torch.__version__}")
         if getattr(placement_types, "shard_dim_alltoall", None) is not a2a:
             # Shard.redistribute would go round the patch, and a Shard->Shard
             # reshard would be counted as the cpu mesh's all-gather
@@ -120,12 +138,14 @@ class _Marks:
                 "dry-run cannot count all-to-alls on this torch "
                 f"{torch.__version__}")
 
-        def propagate(self, *args, **kwargs):
-            cls.propagating += 1
-            try:
-                return prop(self, *args, **kwargs)
-            finally:
-                cls.propagating -= 1
+        def marked(fn):
+            def propagate(self, *args, **kwargs):
+                cls.propagating += 1
+                try:
+                    return fn(self, *args, **kwargs)
+                finally:
+                    cls.propagating -= 1
+            return propagate
 
         def reshard(x, gather_dim, shard_dim, mesh, mesh_dim):
             if not cls.alltoall:
@@ -140,7 +160,11 @@ class _Marks:
 
         cls._saved = [(ShardingPropagator,
                        "_propagate_tensor_meta_non_cached", prop)]
-        ShardingPropagator._propagate_tensor_meta_non_cached = propagate
+        if decomp is not None:
+            cls._saved.append((decomp, "propagate_strategy",
+                               decomp.propagate_strategy))
+        for obj, name, fn in cls._saved:
+            setattr(obj, name, marked(fn))
         for mod in (_collective_utils, placement_types):
             cls._saved.append((mod, "shard_dim_alltoall", a2a))
             mod.shard_dim_alltoall = reshard
@@ -321,40 +345,132 @@ def _local_bytes(tree) -> int:
     return total
 
 
-def _mem_tracker():
+class PeakProbe:
+    """What the memory tracker holds when its total first reaches its
+    peak: the op and the port's frames (:func:`_site`) there, and the
+    :attr:`TOP` largest storages it holds then, each with the shape, dtype and
+    device of the tensor that brought it in, the op and frames that made
+    it, and the fake mode it was made under (``step``: the step's own;
+    ``other``; ``none``: not a fake tensor).  ``external`` and ``resize``
+    off leave out the tracker's tracking of the step's arguments
+    (``track_external``) and of storage resizes."""
+
+    TOP = 8
+
+    def __init__(self, external: bool = True, resize: bool = True):
+        from torch.utils.weak import WeakIdKeyDictionary
+        self.external, self.resize = external, resize
+        self._made = WeakIdKeyDictionary()
+        self.step_mode = None
+        self.peak = 0
+        self.at: Dict = {}
+
+    def arguments(self, tracker) -> None:
+        """Marks what the tracker holds before the step: its arguments."""
+        for st in list(tracker._WINFO.keys()):
+            self._made.setdefault(st, {"op": "argument", "mode": "argument"})
+
+    def _mode(self, t) -> str:
+        mode = getattr(t, "fake_mode", None)
+        return ("none" if mode is None else
+                "step" if mode is self.step_mode else "other")
+
+    def seen(self, tracker, func, res) -> None:
+        """After the tracker took ``func``'s outputs ``res``."""
+        from torch._guards import active_fake_mode
+        from torch.distributed._tools.common_utils import get_untyped_storages
+        op = str(func)
+        for t in _tensors(res):
+            for st in get_untyped_storages(t):
+                if st not in self._made:
+                    self._made[st] = {
+                        "shape": list(t.shape), "dtype": str(t.dtype),
+                        "device": str(t.device), "op": op, "site": _site(),
+                        "mode": self._mode(t)}
+        total = sum(s.get("Total", 0)
+                    for s in tracker._curr_mem_snap.values())
+        if total <= self.peak:
+            return
+        live = [(winfo.mem_consumed, i, st)
+                for i, (st, (winfo, _)) in enumerate(tracker._WINFO.items())]
+        kinds: Dict[str, List[int]] = {}
+        for b, _, st in live:
+            made = self._made.get(st, {})
+            kind = " ".join(made.get(k, "") for k in ("mode", "device"))
+            kind = kind.strip() or "untracked"
+            kinds.setdefault(kind, [0, 0])
+            kinds[kind][0] += 1
+            kinds[kind][1] += b
+        self.peak = total
+        self.at = {
+            "op": op, "site": _site(), "total": total,
+            "under_step_mode": active_fake_mode() is self.step_mode,
+            "by_device": {str(d): s.get("Total", 0) for d, s in
+                          tracker._curr_mem_snap.items()},
+            "by_kind": {k: {"storages": n, "bytes": b}
+                        for k, (n, b) in kinds.items()},
+            "held": [{"bytes": b, **self._made.get(st, {"op": "untracked"})}
+                     for b, _, st in heapq.nlargest(self.TOP, live)]}
+
+
+def _mem_tracker(probe: Optional[PeakProbe] = None):
     """``MemTracker`` that leaves out the global-shape ops of DTensor's
-    sharding propagation (it tells them apart by their fake mode, which is
-    the step's own here)."""
+    sharding propagation (marked while they run, since their fake mode is
+    the step's own here); ``probe`` sees each op it tracks."""
     from torch.distributed._tools.mem_tracker import MemTracker
     from torch.distributed.tensor import DTensor
 
     class _LocalMemTracker(MemTracker):
+        def _track_resize(self):
+            if probe is None or probe.resize:
+                super()._track_resize()
+
+        def _restore_resize(self):
+            if probe is None or probe.resize:
+                super()._restore_resize()
+
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             if _Marks.propagating and not any(issubclass(t, DTensor)
                                               for t in types):
                 return func(*args, **(kwargs or {}))
-            return super().__torch_dispatch__(func, types, args, kwargs)
+            res = super().__torch_dispatch__(func, types, args, kwargs)
+            if probe is not None and res is not NotImplemented:
+                probe.seen(self, func, res)
+            return res
 
     return _LocalMemTracker()
 
 
-def measure(fn, *args):
+def measure(fn, *args, probe: Optional[PeakProbe] = None):
     """Run ``fn(*args)`` under :class:`StepCounter` and the memory tracker
     -> (result, counter, memory dict with the reference's
-    ``memory_analysis`` keys and ``peak_bytes``)."""
+    ``memory_analysis`` keys and ``peak_bytes``; ``peak_detail`` with a
+    :class:`PeakProbe`)."""
     counter = StepCounter()
-    mem = _mem_tracker()
+    mem = _mem_tracker(probe)
+    if probe is not None:
+        from torch._guards import active_fake_mode
+        probe.step_mode = active_fake_mode()
     ext = _tensors(args)
-    if ext:
+    if ext and (probe is None or probe.external):
         mem.track_external(*ext)
+    if probe is not None:
+        probe.arguments(mem)
     with _Marks.active(), mem, counter:
         out = fn(*args)
-    peak = sum(v["Total"] for v in
-               mem.get_tracker_snapshot("peak").values())
+    snap = mem.get_tracker_snapshot("peak")
+    if len(snap) > 1:
+        # one device's peaks added to another's: a stretch of DTensor's
+        # own that makes tensors elsewhere and that _Marks does not mark
+        raise RuntimeError("the memory tracker counted tensors on "
+                           f"{sorted(map(str, snap))}; a step's lie on one")
+    peak = sum(v["Total"] for v in snap.values())
     arg_b, out_b = _local_bytes(args), _local_bytes(out)
     memory = {"argument_bytes": arg_b, "output_bytes": out_b,
               "temp_bytes": max(0, peak - arg_b - out_b), "alias_bytes": 0,
               "peak_bytes": peak}
+    if probe is not None:
+        memory["peak_detail"] = probe.at
     return out, counter, memory
 
 
@@ -531,9 +647,10 @@ def trace_cell(cfg: ModelConfig, shape: ShapeConfig,
                mesh_shape: Sequence[int], *, remat: bool = True,
                grad_compress: bool = False,
                extra: Optional[Dict] = None,
-               n_sites: Optional[int] = N_SITES) -> Dict:
+               n_sites: Optional[int] = N_SITES,
+               probe: Optional[PeakProbe] = None) -> Dict:
     """Trace one step of ``cfg`` x ``shape`` on a fake mesh of
-    ``mesh_shape`` under the counters.
+    ``mesh_shape`` under the counters (and ``probe``).
     -> {flops, bytes, collective (CollectiveStats), sites (the
     ``n_sites`` largest of :meth:`StepCounter.top_sites`, None: all),
     memory, lower_s, trace_s, ops}.  Nothing is allocated: the fake mode
@@ -553,7 +670,7 @@ def trace_cell(cfg: ModelConfig, shape: ShapeConfig,
                              shardings))
             lower_s = time.perf_counter() - t0
             t0 = time.perf_counter()
-            _, counter, memory = measure(step, *args)
+            _, counter, memory = measure(step, *args, probe=probe)
             trace_s = time.perf_counter() - t0
     return {"flops": counter.flops, "bytes": counter.bytes,
             "collective": counter.collective,
@@ -562,19 +679,20 @@ def trace_cell(cfg: ModelConfig, shape: ShapeConfig,
 
 
 def trace_pair(arch: str, shape_name: str, mesh_name: str,
-               layers: int = 0) -> Dict:
+               layers: int = 0, probe: Optional[PeakProbe] = None) -> Dict:
     """``arch`` x ``shape_name`` on the production mesh ``mesh_name``, cut
     to ``layers`` layers (0: the config's depth), traced -> one rank's
-    {peak_bytes, argument_bytes, all_gather, wire_bytes, counts,
-    trace_s}."""
+    {peak_bytes, argument_bytes, memory (:func:`measure`'s), all_gather,
+    wire_bytes, counts, trace_s}."""
     cfg = get_config(arch)
     if layers:
         cfg = cut_layers(cfg, layers)
     traced = trace_cell(cfg, get_shape(shape_name),
-                        PRODUCTION_MESHES[mesh_name])
+                        PRODUCTION_MESHES[mesh_name], probe=probe)
     coll = traced["collective"]
     return {"peak_bytes": traced["memory"]["peak_bytes"],
             "argument_bytes": traced["memory"]["argument_bytes"],
+            "memory": traced["memory"],
             "all_gather": float(coll.bytes_by_op.get("all-gather", 0.0)),
             "wire_bytes": float(coll.wire_bytes),
             "counts": dict(coll.counts), "trace_s": traced["trace_s"]}

@@ -259,6 +259,47 @@ def test_counter_counts_one_rank_of_a_sharded_mlp():
     assert mem["peak_bytes"] >= mem["argument_bytes"] + mem["output_bytes"]
 
 
+def test_decomposed_propagation_adds_nothing_to_the_counts():
+    """An op with no sharding strategy of its own (hardswish on this torch)
+    is propagated through its decomposition, run on global-shape meta
+    tensors on a one-rank mesh DTensor makes and keeps: on a fake (2, 2)
+    mesh, ``measure``'s peak is the local shards' bytes alone (f32 (24, 40,
+    56) in and out, the input's (48, 40, 56) sharded over 'data'), and the
+    counter counts the one local op; neither counts the propagation's
+    tensors, nor its mesh's."""
+    import torch.nn.functional as F
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor import distribute_tensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    meta_ops = []
+
+    class _Spy(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if any(issubclass(t, DTensor) for t in types):
+                return NotImplemented
+            out = func(*args, **(kwargs or {}))
+            if any(t.device.type == "meta" for t in D._tensors(out)):
+                meta_ops.append(func)
+            return out
+
+    def step(x):
+        with _Spy():
+            return F.hardswish(x)
+
+    with D.fake_group(4):
+        mesh = D._make_mesh((2, 2))
+        with _fake():
+            x = distribute_tensor(torch.empty(48, 40, 56), mesh,
+                                  [Shard(0), Replicate()])
+            y, c, mem = D.measure(step, x)
+    local = 24 * 40 * 56 * 4
+    assert meta_ops, "hardswish no longer propagates through its decomposition"
+    assert tuple(y.to_local().shape) == (24, 40, 56)
+    assert mem["peak_bytes"] == 2 * local
+    assert (c.ops, c.bytes, c.flops) == (1, 2 * local, 0)
+
+
 def test_counter_counts_each_collective_of_known_redistributes():
     """On (16, 16): a partial f32 (16, 1024) to replicated is one
     all-reduce over 'model', a bf16 (4096, 512) sharded on 'model' to

@@ -34,7 +34,8 @@ mamba2-1.3b prefill_32k and hymba-1.5b train_4k (50 heads padded to 64)
 all-gather at most the reference's bytes a rank
 (``scripts/dryrun_parity.py --reference-only`` in a subprocess), and no
 all-gather site in ``models/ssm.py`` moves as much as one rank's (B_l, S,
-d_inner / 16) bf16 x activation.
+d_inner / 16) bf16 x activation; mamba2's peaks at most the reference's
+argument + temp bytes a rank.
 """
 import dataclasses
 import inspect
@@ -406,18 +407,40 @@ def _ssm_gathers(traced, shape, cfg):
     return sites
 
 
-def test_mamba2_prefill_gathers_at_most_the_reference(reference_dryrun):
+@pytest.fixture(scope="module")
+def mamba2_prefill():
+    """mamba2-1.3b prefill_32k at 2 layers traced on a fake (16, 16) mesh,
+    every collective site kept -> (cfg, shape, traced)."""
+    cfg = dataclasses.replace(get_config("mamba2-1.3b"), n_layers=DRY_LAYERS)
+    shape = get_shape("prefill_32k")
+    return cfg, shape, D.trace_cell(cfg, shape, (16, 16), n_sites=None)
+
+
+def test_mamba2_prefill_gathers_at_most_the_reference(reference_dryrun,
+                                                      mamba2_prefill):
     """mamba2-1.3b prefill_32k at 2 layers on a fake (16, 16) mesh: the
     port's all-gather wire bytes a rank are at most the reference's, and
     no all-gather site in ``models/ssm.py`` moves (per call) as much as a
     rank's (B_l, S, d_inner / 16) bf16 x activation."""
-    cfg = dataclasses.replace(get_config("mamba2-1.3b"), n_layers=DRY_LAYERS)
-    shape = get_shape("prefill_32k")
-    traced = D.trace_cell(cfg, shape, (16, 16), n_sites=None)
+    cfg, shape, traced = mamba2_prefill
     got = traced["collective"].bytes_by_op.get("all-gather", 0.0)
     ref = reference_dryrun("mamba2-1.3b")["all_gather"]
     assert got <= ref, (got, ref)
     _ssm_gathers(traced, shape, cfg)
+
+
+def test_mamba2_prefill_peaks_at_most_the_reference(reference_dryrun,
+                                                    mamba2_prefill):
+    """The same trace's peak a rank is at most the reference's argument +
+    temp bytes (XLA's CPU buffer assignment of the same cut cell), though
+    it holds the outputs, the full-position logits, which those leave
+    out.  Where torch has no sharding strategy for softplus (2.11), its
+    propagation through the decomposition on global-shape meta tensors
+    counts nowhere (``launch.dryrun._Marks``)."""
+    _, _, traced = mamba2_prefill
+    got = traced["memory"]["peak_bytes"]
+    ref = reference_dryrun("mamba2-1.3b")["args_temps"]
+    assert got <= ref, (got, ref)
 
 
 def test_hymba_train_pads_heads_and_gathers_at_most_the_reference(
