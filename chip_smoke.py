@@ -210,10 +210,12 @@ Phases, each of which raises (and exits non-zero) on failure:
       steps of batch 1 with every layer's cache laid out over its 64 slots
       on the data axes (the sequence-sharded decode core, vocab-sharded
       logits), logits and caches against the ``mesh=None`` decode,
-      seconds per step of both; mnist-cnn's ``"dist"`` target on the (1,)
+      seconds per step of both; qwen1.5-0.5b's prefill and 2 train steps
+      of batch 1, (1, 2048), on data axes of one rank (the batch left
+      whole there); mnist-cnn's ``"dist"`` target on the (1,)
       data mesh behind ``AccelServer``, batches 8, 3 and 1 equal to the
       ``"torch"`` target's bit for bit, then requests/s of both targets.
-      On the one rank the prefill, the train step and the decode must
+      On the one rank the prefills, the train steps and the decode must
       equal ``mesh=None``'s bit for bit;
    t. the dry-run (:func:`dryrun_path`, after the times below), its jobs
       in a pool of ``min(os.cpu_count(), 16)`` worker processes, each job
@@ -2742,6 +2744,10 @@ SPMD_BF16_GATE = 2.0 ** -5       # tests/test_torch_lm.py's bf16 logits gate
 SPMD_DIST_BATCHES = (8, 3, 1)
 SPMD_DECODE_SLOTS = 64           # the cache's slots, over the data axes
 SPMD_DECODE_STEPS = 8            # batch 1, as long_500k's
+# a prefill and a train step of batch 1: data axes of one rank, where the
+# port leaves the batch whole (``sharding.batch_entry``)
+SPMD_BATCH1_SHAPE = (1, 2048)
+SPMD_BATCH1_STEPS = 2
 
 
 def _mesh_path_name(mesh) -> str:
@@ -3064,17 +3070,19 @@ def spmd_dist_serve(cfg, mesh, card: str = "", device: str = "cuda") -> dict:
 def spmd_path(card: str = "", device: str = "cuda", prefill_cfg=None,
               train_cfg=None, prefill_shape=SPMD_PREFILL_SHAPE,
               train_shape=SPMD_TRAIN_SHAPE,
-              train_steps: int = SPMD_TRAIN_STEPS) -> list:
+              train_steps: int = SPMD_TRAIN_STEPS,
+              batch1_shape=SPMD_BATCH1_SHAPE) -> list:
     """Phase s: a one-rank process group (NCCL on the card) and its
     (1, 1) ``make_local_mesh()``; mamba2-1.3b's prefill on the mesh
     (:func:`spmd_prefill`), qwen1.5-0.5b's train step through
     ``jit_train_step`` (:func:`spmd_train`, the vocab-parallel
     cross-entropy), its decode on a cache sharded over its slots
-    (:func:`spmd_decode`) and mnist-cnn's ``"dist"`` target on the (1,)
-    data mesh (:func:`spmd_dist_serve`).  On one rank the prefill, the
-    train step and the decode must equal ``mesh=None``'s bit for bit.  The
-    group is destroyed at the end; a group that does not start fails the
-    phase."""
+    (:func:`spmd_decode`), its prefill and a train step (no
+    microbatches) of ``batch1_shape``, a batch of 1, and mnist-cnn's
+    ``"dist"`` target on the (1,) data mesh (:func:`spmd_dist_serve`).
+    On one rank the prefills, the train steps and the decode must equal
+    ``mesh=None``'s bit for bit.  The group is destroyed at the end; a
+    group that does not start fails the phase."""
     import torch.distributed as dist
     from repro_torch.configs import get_config
     from repro_torch.configs.mnist_cnn import CNNConfig
@@ -3091,13 +3099,18 @@ def spmd_path(card: str = "", device: str = "cuda", prefill_cfg=None,
                           device, train_shape, train_steps),
                spmd_decode(train_cfg or get_config(TRAIN_ARCH), mesh, card,
                            device),
+               spmd_prefill(train_cfg or get_config(TRAIN_ARCH), mesh, card,
+                            device, batch1_shape),
+               spmd_train(train_cfg or get_config(TRAIN_ARCH), mesh, card,
+                          device, batch1_shape, SPMD_BATCH1_STEPS,
+                          microbatches=1),
                spmd_dist_serve(CNNConfig(), compat_make_mesh((1,), ("data",)),
                                card, device)]
     finally:
         dist.destroy_process_group()
     if all(n == 1 for n in tuple(mesh.shape)):
-        off = [f"{p['model']} {p['path']}" for p in out[:3]
-               if not p["bit_equal_to_mesh_none"]]
+        off = [f"{p['model']} {p['path']}" for p in out
+               if not p.get("bit_equal_to_mesh_none", True)]
         if off:
             raise AssertionError(f"phase s: on one rank {off} differ from "
                                  "mesh=None")
@@ -3329,10 +3342,12 @@ DRYRUN_SWEEP_GATHER_EXEMPT = {
         "(attention.query_exchange): one head's k and v gathered, where the "
         "reference splits d_head and all-reduces f32 scores",
     "whisper-base decode_32k 16x16":
-        "q, k and v of the one new token gathered over 'model' at "
-        "attention._proj_flat (0.1 MB a rank on torch 2.11)",
+        "q, k and v of the one new token gathered over 'model' by "
+        "attention._proj_qkv's heads views (8 heads on model 16) and the "
+        "split-head decode's output (107,520 B a rank on torch 2.11 and "
+        "2.13)",
     "whisper-base decode_32k 2x16x16":
-        "as on 16x16 (0.1 MB a rank on torch 2.11)"}
+        "as on 16x16 (53,760 B a rank on torch 2.11 and 2.13)"}
 # pairs whose peak a rank may not exceed the reference's argument + temp
 # bytes (mamba2's prefill: every output it holds is the logits', which the
 # reference's argument + temp bytes leave out)
@@ -3722,8 +3737,8 @@ def dryrun_sweep(card: str, jobs: tuple = (),
             f"({r['layers']} layers) per rank [{card}]: "
             f"trace_s={r['trace_s']:.2f} peak {r['peak_bytes'] / 1e9:.3f} GB "
             f"(reference args + temps {ref_mem / 1e9:.3f}) all-gather "
-            f"{r['all_gather'] / 1e6:.1f} MB ({ref_ag / 1e6:.1f}) wire "
-            f"{r['wire_bytes'] / 1e9:.4f} GB ({ref_wire / 1e9:.4f}) "
+            f"{r['all_gather']:.0f} B ({ref_ag:.0f}) wire "
+            f"{r['wire_bytes']:.0f} B ({ref_wire:.0f}) "
             f"collectives={json.dumps(r['counts'], sort_keys=True)}")
         if not sum(r["counts"].values()) > 0:
             fail(job, "no collective counted")

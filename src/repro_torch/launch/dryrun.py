@@ -683,7 +683,8 @@ def trace_pair(arch: str, shape_name: str, mesh_name: str,
     """``arch`` x ``shape_name`` on the production mesh ``mesh_name``, cut
     to ``layers`` layers (0: the config's depth), traced -> one rank's
     {peak_bytes, argument_bytes, memory (:func:`measure`'s), all_gather,
-    wire_bytes, counts, trace_s}."""
+    wire_bytes, counts, sites (the :data:`N_SITES` largest collective
+    sites), trace_s}."""
     cfg = get_config(arch)
     if layers:
         cfg = cut_layers(cfg, layers)
@@ -695,7 +696,8 @@ def trace_pair(arch: str, shape_name: str, mesh_name: str,
             "memory": traced["memory"],
             "all_gather": float(coll.bytes_by_op.get("all-gather", 0.0)),
             "wire_bytes": float(coll.wire_bytes),
-            "counts": dict(coll.counts), "trace_s": traced["trace_s"]}
+            "counts": dict(coll.counts), "sites": traced["sites"],
+            "trace_s": traced["trace_s"]}
 
 
 def report_for(arch: str, shape: ShapeConfig, mesh_name: str, chips: int,

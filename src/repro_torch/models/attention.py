@@ -83,10 +83,11 @@ import torch
 from repro_torch import perf
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import apply_rope, rope_angles
-from repro_torch.sharding import (P, axis_names, batch_axes, constrain,
-                                  dp_size, group_all_to_all, group_gather,
-                                  heads_view, mesh_shape, padded_heads,
-                                  pin_residual, shard_map, tp_size, zero_pad)
+from repro_torch.sharding import (P, axis_names, batch_axes, batch_entry,
+                                  constrain, dp_size, group_all_to_all,
+                                  group_gather, heads_view, mesh_shape,
+                                  padded_heads, pin_residual, shard_map,
+                                  tp_size, zero_pad)
 
 Q_CHUNK = 1024  # query-block size for chunked attention
 PAD_POS = -10 ** 9     # position of the keys padded in front of a band
@@ -356,9 +357,10 @@ def attend(q, k, v, positions, kpos, cfg: ModelConfig, causal: bool = True,
 
 def _group_specs(mesh, B: int, Hkv: int, batch: bool = True):
     """(q spec (B,S,Hkv,G,Dh), k/v spec (B,S,Hkv,Dh)): whole kv-head groups
-    over 'model' and the batch over the data axes (unless ``batch`` is
-    False), each where it divides."""
-    bspec = batch_axes(mesh) if batch and B % dp_size(mesh) == 0 else None
+    over 'model' where they divide it, and the batch as
+    :func:`~repro_torch.sharding.batch_entry` lays it out (whole if
+    ``batch`` is False)."""
+    bspec = batch_entry(B, mesh) if batch else None
     hspec = "model" if Hkv % tp_size(mesh) == 0 else None
     return P(bspec, None, hspec, None, None), P(bspec, None, hspec, None)
 
@@ -706,7 +708,10 @@ def decode_attention(x: torch.Tensor, p: LayerAttnParams, cfg: ModelConfig,
                                                       cache_k, cache_v)
     else:
         _, kvspec = _group_specs(mesh, B, k.shape[2])
-        cspec = P(kvspec[0], None, kvspec[2])
+        # the caches keep their stored layout (``decode_state_sharding``
+        # shards a batch the data axes divide, one data rank too)
+        cspec = P(batch_axes(mesh) if B % dp_size(mesh) == 0 else None, None,
+                  kvspec[2])
         out, cache_k, cache_v = _on_kv_groups(
             core, mesh, q, k, v, cache_k, cache_v,
             extra_specs=(cspec, cspec), extra_out=(cspec, cspec))

@@ -76,10 +76,9 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
     bit."""
     if mesh is None:
         return table[tokens]
-    from repro_torch.sharding import (P, batch_axes, constrain, dp_size,
-                                      shard_map, tp_size, with_partial)
-    bspec = batch_axes(mesh) if tokens.shape[0] % dp_size(mesh) == 0 \
-        else None
+    from repro_torch.sharding import (P, batch_entry, constrain, shard_map,
+                                      tp_size, with_partial)
+    bspec = batch_entry(tokens.shape[0], mesh)
     rows = P(bspec, None, None)
     if table.shape[0] % tp_size(mesh):         # the rule left it whole
         return shard_map(lambda t, tok: t[tok], mesh,

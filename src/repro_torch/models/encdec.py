@@ -180,7 +180,7 @@ def _decode_step(params, tokens, state: EncDecDecodeState, cfg: ModelConfig,
     dec_pos = params["dec_pos"]
     # the reference's dynamic_slice_in_dim clamps past the table's last row
     row = min(idx, dec_pos.shape[0] - 1)
-    x = x + dec_pos[None, row:row + 1].to(x.dtype)
+    x = pin_residual(x + dec_pos[None, row:row + 1].to(x.dtype), mesh)
     lt = layer_tree(params)
     new_k, new_v = [], []
     for i in range(cfg.n_layers):
@@ -189,13 +189,14 @@ def _decode_step(params, tokens, state: EncDecDecodeState, cfg: ModelConfig,
         a, nk, nv = decode_attention(xn, _attn_params(lp), cfg,
                                      state.cache_k[i], state.cache_v[i], idx,
                                      mesh=mesh)
-        x = x + a
+        x = pin_residual(x + a, mesh)
         xn = norm(x, lp["cross_norm/w"], cfg.norm)
         c, _, _ = decode_attention(
             xn, _attn_params(lp, "cross"), cfg, None, None, idx,
             kv_override=(state.cross_k[i], state.cross_v[i], None), mesh=mesh)
-        x = x + c
-        x = x + _mlp(norm(x, lp["mlp_norm/w"], cfg.norm), lp, cfg)
+        x = pin_residual(x + c, mesh)
+        x = pin_residual(
+            x + _mlp(norm(x, lp["mlp_norm/w"], cfg.norm), lp, cfg), mesh)
         new_k.append(nk)
         new_v.append(nv)
     x = norm(x, params["final_norm/w"], cfg.norm)

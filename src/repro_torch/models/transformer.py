@@ -254,7 +254,7 @@ def decode_step(params: Dict[str, torch.Tensor], tokens: torch.Tensor,
 
 def _decode_step(params, tokens, state: DecodeState, cfg: ModelConfig, mesh,
                  tp_total):
-    x = embed_lookup(params["embed/table"], tokens, mesh)
+    x = pin_residual(embed_lookup(params["embed/table"], tokens, mesh), mesh)
     lt = layer_tree(params)
     B = x.shape[0]
     idx = state.index
@@ -293,10 +293,10 @@ def _decode_step(params, tokens, state: DecodeState, cfg: ModelConfig, mesh,
             dx = 0.5 * (a + s)
         else:
             dx = attn_step(norm(x, lp["attn_norm/w"], cfg.norm), lp, i)
-        x = x + dx
+        x = pin_residual(x + dx, mesh)
         dx, _ = _channel_mixer(x, lp, cfg, mesh, tp_total)
         if dx is not None:
-            x = x + dx
+            x = pin_residual(x + dx, mesh)
     logits = _logits(params, x, cfg, mesh)
 
     def stacked(ts):

@@ -26,7 +26,9 @@ forward only; :func:`pin` also holds its cotangent to the same layout,
 as JAX transposes a ``with_sharding_constraint``.  The residual stream is
 pinned after every residual add (:func:`pin_residual`) and holds its
 cotangent too, so each layer's backward starts from the residual's
-layout, batch-sharded and whole over 'model'.
+layout, batch-sharded and whole over 'model'.  The one-token decode pins
+its residual stream at the same places, so its norms and projections see
+the forward's layout on every torch.
 
 :func:`group_all_to_all` and :func:`group_gather` exchange a rank's local
 tensor with the few ranks of a process group (the model ranks that hold
@@ -172,12 +174,21 @@ def pin(x, mesh, spec: Sequence):
     return _Pin.apply(x, mesh, spec)
 
 
+def batch_entry(batch: int, mesh):
+    """A spec's entry for a batch dim of ``batch`` rows: the data axes
+    where they hold more than one rank and divide the batch, else None
+    (whole).  On data axes of one rank a shard and a replica hold the same
+    rows, and only the whole dim is one that every torch's DTensor flattens
+    with the sequence (a ``Shard(0)`` of a batch of 1 it may refuse)."""
+    dp = dp_size(mesh)
+    return batch_axes(mesh) if dp > 1 and batch % dp == 0 else None
+
+
 def residual_spec(batch: int, mesh) -> P:
     """A (B, S, d) activation as the reference's compiled program keeps the
-    residual stream: the batch over the data axes (where they divide it),
+    residual stream: the batch over the data axes (:func:`batch_entry`),
     whole over 'model'."""
-    return P(batch_axes(mesh) if batch % dp_size(mesh) == 0 else None,
-             None, None)
+    return P(batch_entry(batch, mesh), None, None)
 
 
 def pin_residual(x, mesh):

@@ -9,7 +9,8 @@ reaching its input has the pinned placements whatever layout the
 cotangent came in (``constrain`` passes it on as it comes where the
 layout already matched).  ``pin_residual`` lays a (B, S, d) residual out
 batch-sharded over the data axes (where they divide the batch) and whole
-over 'model'.  Both are the identity without a mesh and on a plain
+over 'model' (whole on data axes of one rank, where a shard holds every
+row).  Both are the identity without a mesh and on a plain
 tensor.  ``pin_residual`` holds its cotangent as ``pin`` does: the
 gradient reaching its input is batch-sharded and whole over 'model'
 whatever layout the cotangent came in.  On a one-rank gloo mesh the
@@ -103,6 +104,28 @@ def test_pin_residual_shards_the_batch_where_the_data_axis_divides_it(
                            (Replicate(), Partial()), run_check=False)
     assert tuple(pin_residual(x, fake_mesh).placements) == \
         tuple(_placements(want))
+
+
+@pytest.mark.parametrize("axes, batch, want", [
+    ({"data": 1, "model": 1}, 1, P(None, None, None)),
+    ({"data": 1, "model": 1}, 4, P(None, None, None)),
+    ({"data": 2, "model": 4}, 2, P(("data",), None, None)),
+    ({"data": 2, "model": 4}, 3, P(None, None, None)),
+    ({"pod": 2, "data": 16, "model": 16}, 32,
+     P(("pod", "data"), None, None)),
+], ids=["1x1-batch1", "1x1-batch4", "2x4-batch2", "2x4-batch3",
+        "2x16x16-batch32"])
+def test_residual_spec_shards_the_batch_over_data_ranks_that_divide_it(
+        axes, batch, want):
+    """The batch over the data axes where they hold more than one rank and
+    divide it, else whole: on data axes of one rank a shard holds every
+    row, and a batch of 1 left whole is one every torch's DTensor flattens
+    with the sequence."""
+    from types import SimpleNamespace
+    from repro_torch.sharding import batch_entry, residual_spec
+    mesh = SimpleNamespace(shape=axes, axis_names=tuple(axes))
+    assert residual_spec(batch, mesh) == want
+    assert batch_entry(batch, mesh) == want[0]
 
 
 @pytest.mark.parametrize("grad_layout", LAYOUTS)
