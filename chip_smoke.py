@@ -79,7 +79,10 @@ Phases, each of which raises (and exits non-zero) on failure:
    f. ``AdaptiveLMServer`` at full width in bf16, batch 4: 12 decode steps
       with the budget walking 1.0 -> 0 (points w8, w4, w2 in order, weight
       bytes falling, master codes unchanged, logits finite, tokens/s per
-      point), then ``greedy_generate`` of 8 tokens after a 16-token prompt;
+      point), then ``greedy_generate`` of 8 tokens after a 16-token prompt
+      (it donates its decode state), its tokens/s and its peak device
+      memory above what was held before it printed (in this and every
+      later LM phase);
    g. the design-space explorer on separable-cnn and mnist-cnn
       (:func:`dse_path`): ``DesignFlow.explore`` on 32 seeded images, its
       front equal to the CPU's in every field of ``to_json()``, with
@@ -209,14 +212,17 @@ Phases, each of which raises (and exits non-zero) on failure:
       both and peak memory beside phase q's; qwen1.5-0.5b's 8 decode
       steps of batch 1 with every layer's cache laid out over its 64 slots
       on the data axes (the sequence-sharded decode core, vocab-sharded
-      logits), logits and caches against the ``mesh=None`` decode,
-      seconds per step of both; qwen1.5-0.5b's prefill and 2 train steps
+      logits), logits and caches against the ``mesh=None`` decode, the
+      same steps donated (``donate=True``) on the mesh, bit for bit
+      against the undonated ones and writing into the state's own
+      storages, seconds per step of all three; qwen1.5-0.5b's prefill and
+      2 train steps
       of batch 1, (1, 2048), on data axes of one rank (the batch left
       whole there); mnist-cnn's ``"dist"`` target on the (1,)
       data mesh behind ``AccelServer``, batches 8, 3 and 1 equal to the
       ``"torch"`` target's bit for bit, then requests/s of both targets.
-      On the one rank the prefills, the train steps and the decode must
-      equal ``mesh=None``'s bit for bit;
+      On the one rank the prefills, the train steps and the decode
+      (donated or not) must equal ``mesh=None``'s bit for bit;
    t. the dry-run (:func:`dryrun_path`, after the times below), its jobs
       in a pool of ``min(os.cpu_count(), 16)`` worker processes, each job
       on a fake process group of its own, its worker's default group:
@@ -260,8 +266,9 @@ Phases, each of which raises (and exits non-zero) on failure:
       reference's pair a rank (``DRYRUN_SWEEP_REFERENCE``; but whisper's
       prefill_32k on 2x16x16, whose query positions are traded over a
       head's ranks, and its decode_32k, ``DRYRUN_SWEEP_GATHER_EXEMPT``) or
-      moves more wire bytes, mamba2's prefill_32k peaks a rank above the
-      reference's argument + temp bytes (``DRYRUN_SWEEP_PEAK_HELD``), or an
+      moves more wire bytes, a pair peaks a rank above the reference's
+      argument + temp bytes (``DRYRUN_SWEEP_PEAK_HELD``: all 68, the
+      decode cells donating their state as the reference's do), or an
       attention core of whisper's train_4k on 16x16 or its prefill_32k on
       2x16x16 scores another count of heads or rows than one head of half
       of the rank's rows, or of its one row (``DRYRUN_SWEEP_HEAD_ROWS``);
@@ -2249,11 +2256,21 @@ def lm_serve_path(cfg, params, batch: int = 4, steps: int = 12,
             torch.equal(codes[k], srv.qparams.codes[k]) for k in codes):
         raise AssertionError(f"{name}: the master codes changed")
     prompt = _tokens(cfg, (batch, prompt_len), SEED + 8, device)
+    del state
+    gen_peak = phase_peak = None
+    if device == "cuda":
+        # greedy_generate's own peak, above what is held before it; the
+        # phase's peak so far kept for lm_paths
+        phase_peak = torch.cuda.max_memory_allocated()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
     t1 = time.perf_counter()
     out = greedy_generate(params, cfg, prompt, max_new=new,
                           seq_len=prompt_len + new, batch_extras=extras)
     _sync(device)
     gen_s = time.perf_counter() - t1
+    if device == "cuda":
+        gen_peak = torch.cuda.max_memory_allocated() - held
     if tuple(out.shape) != (batch, prompt_len + new) \
             or not torch.equal(out[:, :prompt_len], prompt) \
             or int(out.min()) < 0 or int(out.max()) >= cfg.vocab:
@@ -2266,7 +2283,9 @@ def lm_serve_path(cfg, params, batch: int = 4, steps: int = 12,
             "decode_tokens_per_s": {p: batch / statistics.median(v)
                                     for p, v in step_s.items()},
             "greedy_generate_s": gen_s,
-            "greedy_tokens_per_s": batch * (prompt_len + new) / gen_s}
+            "greedy_tokens_per_s": batch * (prompt_len + new) / gen_s,
+            "greedy_peak_memory_bytes": gen_peak,
+            "phase_peak_before_greedy_bytes": phase_peak}
     log(f"main path {name}: " + json.dumps(info))
     return info
 
@@ -2292,15 +2311,19 @@ def lm_paths(cfg, card: str = "", seq: int = 2048, max_seq: int = 0,
         _expect_no_stray_launches(f"{cfg.name} {p['path']}", p["launches"],
                                   cfg)
     if device == "cuda":
-        peak = torch.cuda.max_memory_allocated()
+        peak = max(torch.cuda.max_memory_allocated(),
+                   out[2]["phase_peak_before_greedy_bytes"])
         torch.cuda.empty_cache()
         out[0]["peak_memory_bytes"] = peak
         enc = out[0].get("encoder_frames_per_s")
         log(f"phase {cfg.name}: prefill {out[0]['tokens_per_s']:.1f} "
             "tokens/s" + ("" if enc is None else
                           f", encoder {enc:.1f} frames/s")
-            + f", peak memory {peak} B ({peak / 2 ** 30:.2f} GiB), "
-            f"{time.perf_counter() - t0:.1f} s, on {card}")
+            + f", peak memory {peak} B ({peak / 2 ** 30:.2f} GiB); "
+            f"greedy_generate {out[2]['greedy_tokens_per_s']:.1f} tokens/s, "
+            f"its peak {out[2]['greedy_peak_memory_bytes']} B above what "
+            f"was held before it; {time.perf_counter() - t0:.1f} s, on "
+            f"{card}")
     return out
 
 
@@ -2942,7 +2965,11 @@ def spmd_decode(cfg, mesh, card: str = "", device: str = "cuda",
     sequence-sharded core and the head returns vocab-sharded logits: each
     step's logits and the final caches against the ``mesh=None`` decode of
     the same weights and tokens, bit for bit on one rank (else within
-    ``SPMD_BF16_GATE`` of max|logit|); seconds per step of both."""
+    ``SPMD_BF16_GATE`` of max|logit|); the same steps again donated
+    (``donate=True``) from an equal state on the mesh: each step's logits
+    and the final caches bit for bit against the undonated mesh decode's,
+    and every step's state the storages it was given; seconds per step of
+    all three."""
     import statistics
     import torch
     from repro_torch.runtime import model_api
@@ -2957,8 +2984,16 @@ def spmd_decode(cfg, mesh, card: str = "", device: str = "cuda",
     dparams = place_tree(params, param_sharding(params, mesh))
     st2 = st1._replace(cache_k=place(st1.cache_k, mesh, cspec),
                        cache_v=place(st1.cache_v, mesh, cspec))
-    secs = {"mesh": [], "none": []}
-    equal, diff, scale = True, 0.0, 0.0
+    st3 = st1._replace(cache_k=place(st1.cache_k, mesh, cspec),
+                       cache_v=place(st1.cache_v, mesh, cspec))
+
+    def storages(st):
+        return [t.to_local().untyped_storage().data_ptr()
+                for t in (st.cache_k, st.cache_v)]
+
+    held = storages(st3)
+    secs = {"mesh": [], "none": [], "donated": []}
+    equal, donated_equal, diff, scale = True, True, 0.0, 0.0
     _zero_counts()
     with torch.no_grad():
         for i in range(steps):
@@ -2979,6 +3014,17 @@ def spmd_decode(cfg, mesh, card: str = "", device: str = "cuda",
             equal &= torch.equal(full, want)
             diff = max(diff, float((full.float() - want.float()).abs().max()))
             scale = max(scale, float(want.float().abs().max()))
+            t2 = time.perf_counter()
+            got, st3 = model_api.decode_step(
+                dparams, place(toks[:, i:i + 1], mesh, P()), st3, cfg,
+                mesh=mesh, donate=True)
+            got = got.full_tensor()
+            _sync(device)
+            secs["donated"].append(time.perf_counter() - t2)
+            donated_equal &= torch.equal(got, full)
+            if storages(st3) != held:
+                raise AssertionError(f"{name}: donated step {i} returned "
+                                     f"other storages than its state's")
     launches = _read_counts()
     _expect_no_stray_launches(name, launches, cfg)
     if tuple(st2.cache_k.placements) != to_placements(cspec, mesh):
@@ -2986,6 +3032,11 @@ def spmd_decode(cfg, mesh, card: str = "", device: str = "cuda",
                              f"{st2.cache_k.placements}")
     for a, b in ((st2.cache_k, st1.cache_k), (st2.cache_v, st1.cache_v)):
         equal &= torch.equal(a.full_tensor(), b)
+    for a, b in ((st3.cache_k, st2.cache_k), (st3.cache_v, st2.cache_v)):
+        donated_equal &= torch.equal(a.full_tensor(), b.full_tensor())
+    if not donated_equal or st3.index != st2.index:
+        raise AssertionError(f"{name}: the donated decode's logits or caches "
+                             f"differ from the undonated mesh decode's")
     if not equal and diff > SPMD_BF16_GATE * scale:
         raise AssertionError(f"{name}: max |diff| {diff} from the mesh=None "
                              f"decode over the gate {SPMD_BF16_GATE} * "
@@ -2994,15 +3045,19 @@ def spmd_decode(cfg, mesh, card: str = "", device: str = "cuda",
                     f"{slots} slots over the data axes", "model": cfg.name,
             "launches": launches, "steps": steps,
             "bit_equal_to_mesh_none": equal, "max_abs_diff": diff,
+            "donated_bit_equal": donated_equal,
             "logits_max_abs": scale, "step_s": secs["mesh"],
             "step_s_mesh_none": secs["none"],
+            "step_s_donated": secs["donated"],
             "s_per_step": statistics.median(secs["mesh"][1:]),
-            "s_per_step_mesh_none": statistics.median(secs["none"][1:])}
+            "s_per_step_mesh_none": statistics.median(secs["none"][1:]),
+            "s_per_step_donated": statistics.median(secs["donated"][1:])}
     log(f"main path {name}: " + json.dumps(info))
     log(f"phase s {name}: {steps} steps, {info['s_per_step']:.4f} s a step "
-        f"on the mesh, {info['s_per_step_mesh_none']:.4f} with mesh=None, "
+        f"on the mesh, {info['s_per_step_donated']:.4f} donated, "
+        f"{info['s_per_step_mesh_none']:.4f} with mesh=None, "
         f"logits and caches {'bit for bit' if equal else f'max |diff| {diff}'}"
-        f", on {card}")
+        f" (donated: bit for bit against the mesh's), on {card}")
     del dparams, params
     if device == "cuda":
         torch.cuda.empty_cache()
@@ -3141,8 +3196,8 @@ DRYRUN_TIMEOUT_S = 900
 # the digits given there).
 DRYRUN_BEFORE = {"qwen1.5-0.5b train_4k": (8.267e9, 54.5e6, 30.8713e9),
                  "mamba2-1.3b prefill_32k": (1.899e9, 1513.7e6, 26.1998e9),
-                 "mixtral-8x7b decode_32k": (6.243e9, 2.5e6, 0.0148e9),
-                 "hymba-1.5b long_500k": (0.224e9, 5.4e6, 0.0060e9),
+                 "mixtral-8x7b decode_32k": (6.117e9, 2.5e6, 0.0148e9),
+                 "hymba-1.5b long_500k": (0.212e9, 5.4e6, 0.0060e9),
                  "hymba-1.5b train_4k": (18.367e9, 9545.4e6, 156.4525e9),
                  "mixtral-8x7b train_4k": (46.067e9, 6549.0e6, 181.1214e9)}
 # (unit, decimals) each DRYRUN_BEFORE figure is given to
@@ -3226,34 +3281,34 @@ DRYRUN_SWEEP_BEFORE = {
     "phi-3-vision-4.2b prefill_32k 2x16x16": (1.737e9, 0.0e6, 1.8874e9),
     "mamba2-1.3b prefill_32k 16x16": (1.739e9, 63.1e6, 1.5740e9),
     "mamba2-1.3b prefill_32k 2x16x16": (0.879e9, 31.6e6, 0.7870e9),
-    "granite-moe-3b-a800m decode_32k 16x16": (0.236e9, 0.1e6, 0.0066e9),
-    "granite-moe-3b-a800m decode_32k 2x16x16": (0.136e9, 0.1e6, 0.0033e9),
-    "mixtral-8x7b decode_32k 16x16": (0.446e9, 0.3e6, 0.0020e9),
+    "granite-moe-3b-a800m decode_32k 16x16": (0.139e9, 0.1e6, 0.0066e9),
+    "granite-moe-3b-a800m decode_32k 2x16x16": (0.089e9, 0.1e6, 0.0033e9),
+    "mixtral-8x7b decode_32k 16x16": (0.429e9, 0.3e6, 0.0020e9),
     "mixtral-8x7b decode_32k 2x16x16": (0.547e9, 0.2e6, 0.0010e9),
     "mixtral-8x7b long_500k 16x16": (0.396e9, 0.0e6, 0.0001e9),
     "mixtral-8x7b long_500k 2x16x16": (0.396e9, 0.0e6, 0.0001e9),
-    "whisper-base decode_32k 16x16": (0.294e9, 0.1e6, 0.0023e9),
-    "whisper-base decode_32k 2x16x16": (0.169e9, 0.1e6, 0.0012e9),
-    "hymba-1.5b decode_32k 16x16": (0.135e9, 39.6e6, 0.0398e9),
-    "hymba-1.5b decode_32k 2x16x16": (0.080e9, 19.8e6, 0.0199e9),
+    "whisper-base decode_32k 16x16": (0.209e9, 0.1e6, 0.0023e9),
+    "whisper-base decode_32k 2x16x16": (0.127e9, 0.1e6, 0.0012e9),
+    "hymba-1.5b decode_32k 16x16": (0.093e9, 39.6e6, 0.0398e9),
+    "hymba-1.5b decode_32k 2x16x16": (0.059e9, 19.8e6, 0.0199e9),
     "hymba-1.5b long_500k 16x16": (0.026e9, 0.3e6, 0.0004e9),
     "hymba-1.5b long_500k 2x16x16": (0.026e9, 0.2e6, 0.0002e9),
-    "phi3-mini-3.8b decode_32k 16x16": (1.264e9, 0.0e6, 0.0005e9),
-    "phi3-mini-3.8b decode_32k 2x16x16": (0.659e9, 0.0e6, 0.0002e9),
-    "h2o-danube-3-4b decode_32k 16x16": (0.117e9, 0.3e6, 0.0019e9),
+    "phi3-mini-3.8b decode_32k 16x16": (0.861e9, 0.0e6, 0.0005e9),
+    "phi3-mini-3.8b decode_32k 2x16x16": (0.457e9, 0.0e6, 0.0002e9),
+    "h2o-danube-3-4b decode_32k 16x16": (0.100e9, 0.3e6, 0.0019e9),
     "h2o-danube-3-4b decode_32k 2x16x16": (0.203e9, 0.1e6, 0.0010e9),
     "h2o-danube-3-4b long_500k 16x16": (0.070e9, 0.0e6, 0.0001e9),
     "h2o-danube-3-4b long_500k 2x16x16": (0.070e9, 0.0e6, 0.0001e9),
-    "codeqwen1.5-7b decode_32k 16x16": (1.766e9, 0.0e6, 0.0006e9),
-    "codeqwen1.5-7b decode_32k 2x16x16": (0.960e9, 0.0e6, 0.0003e9),
-    "qwen1.5-0.5b decode_32k 16x16": (0.426e9, 0.0e6, 0.0002e9),
-    "qwen1.5-0.5b decode_32k 2x16x16": (0.224e9, 0.0e6, 0.0001e9),
-    "phi-3-vision-4.2b decode_32k 16x16": (1.283e9, 0.0e6, 0.0005e9),
-    "phi-3-vision-4.2b decode_32k 2x16x16": (0.677e9, 0.0e6, 0.0002e9),
-    "mamba2-1.3b decode_32k 16x16": (0.028e9, 0.2e6, 0.0004e9),
-    "mamba2-1.3b decode_32k 2x16x16": (0.024e9, 0.1e6, 0.0002e9),
-    "mamba2-1.3b long_500k 16x16": (0.021e9, 0.1e6, 0.0001e9),
-    "mamba2-1.3b long_500k 2x16x16": (0.021e9, 0.1e6, 0.0001e9),
+    "codeqwen1.5-7b decode_32k 16x16": (1.229e9, 0.0e6, 0.0006e9),
+    "codeqwen1.5-7b decode_32k 2x16x16": (0.691e9, 0.0e6, 0.0003e9),
+    "qwen1.5-0.5b decode_32k 16x16": (0.225e9, 0.0e6, 0.0002e9),
+    "qwen1.5-0.5b decode_32k 2x16x16": (0.124e9, 0.0e6, 0.0001e9),
+    "phi-3-vision-4.2b decode_32k 16x16": (0.880e9, 0.0e6, 0.0005e9),
+    "phi-3-vision-4.2b decode_32k 2x16x16": (0.476e9, 0.0e6, 0.0002e9),
+    "mamba2-1.3b decode_32k 16x16": (0.024e9, 0.2e6, 0.0004e9),
+    "mamba2-1.3b decode_32k 2x16x16": (0.022e9, 0.1e6, 0.0002e9),
+    "mamba2-1.3b long_500k 16x16": (0.020e9, 0.1e6, 0.0001e9),
+    "mamba2-1.3b long_500k 2x16x16": (0.020e9, 0.1e6, 0.0001e9),
 }
 # Per rank, the reference's (argument + temp bytes, all-gather wire bytes,
 # all wire bytes) of every pair of the sweep at DRYRUN_SWEEP_LAYERS layers
@@ -3349,10 +3404,12 @@ DRYRUN_SWEEP_GATHER_EXEMPT = {
     "whisper-base decode_32k 2x16x16":
         "as on 16x16 (53,760 B a rank on torch 2.11 and 2.13)"}
 # pairs whose peak a rank may not exceed the reference's argument + temp
-# bytes (mamba2's prefill: every output it holds is the logits', which the
-# reference's argument + temp bytes leave out)
-DRYRUN_SWEEP_PEAK_HELD = ("mamba2-1.3b prefill_32k 16x16",
-                          "mamba2-1.3b prefill_32k 2x16x16")
+# bytes: all 68.  The decode cells donate their state, as the reference's
+# jits its decode with donate_argnums=(2,): each layer's cache is held
+# once, and the new state is the argument's storage (alias bytes, which
+# the reference's argument + temp bytes count once too).  A prefill's
+# logits are outputs, which the reference's figure leaves out.
+DRYRUN_SWEEP_PEAK_HELD = tuple(DRYRUN_SWEEP_REFERENCE)
 # pairs whose attention scores each head on one of the model ranks that
 # hold its dims (``attention.row_exchange``, ``query_exchange``): (q heads,
 # batch rows) every attention core on the traced rank must score
@@ -3736,6 +3793,7 @@ def dryrun_sweep(card: str, jobs: tuple = (),
         log(f"phase t pair {r['arch']} x {r['shape']} x {r['mesh']} "
             f"({r['layers']} layers) per rank [{card}]: "
             f"trace_s={r['trace_s']:.2f} peak {r['peak_bytes'] / 1e9:.3f} GB "
+            f"= {r['peak_bytes']} B, alias {r['memory']['alias_bytes']} B "
             f"(reference args + temps {ref_mem / 1e9:.3f}) all-gather "
             f"{r['all_gather']:.0f} B ({ref_ag:.0f}) wire "
             f"{r['wire_bytes']:.0f} B ({ref_wire:.0f}) "

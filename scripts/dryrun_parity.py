@@ -19,7 +19,8 @@ Prints one line a figure and a last JSON line ``{"reference": {...},
 "port": {...}}``.  ``--reference-only`` prints the reference's JSON line
 alone (``REF {...}``) for one or more ``--cell arch:shape``, as
 ``tests/test_torch_head_sharding.py`` reads it; ``--port-only`` the
-port's (``PORT {...}``) for ``--arch``/``--shape``.  Needs jax for the
+port's (``PORT {...}``: ``trace_pair``'s report, its ``memory`` with the
+peak, argument, output, temp and alias bytes) for ``--arch``/``--shape``.  Needs jax for the
 reference; the port's half needs torch only.
 """
 from __future__ import annotations
@@ -120,7 +121,9 @@ def main(argv=None) -> int:
     print(f"{name}:")
     print(f"  memory: reference args + temps {ref['args_temps'] / 1e9:.4f} GB"
           f" (XLA CPU buffer assignment), port peak "
-          f"{port['peak_bytes'] / 1e9:.4f} GB")
+          f"{port['peak_bytes'] / 1e9:.4f} GB = {port['peak_bytes']} B, of "
+          f"which {port['memory']['alias_bytes']} B alias an argument (a "
+          f"decode cell's donated state)")
     print(f"  all-gather wire bytes: reference {ref['all_gather'] / 1e6:.3f}"
           f" MB, port {port['all_gather'] / 1e6:.3f} MB")
     print(f"  wire bytes: reference {ref['wire_bytes'] / 1e9:.4f} GB, port "

@@ -43,8 +43,13 @@ place of XLA's analyses:
 * Memory (``memory_analysis()``): the peak of
   ``torch.distributed._tools.mem_tracker.MemTracker`` over the step (local
   storages, the state included), the local shards of the arguments and of
-  the outputs; ``alias_bytes`` is 0, since ``donate`` does nothing in the
-  port.
+  the outputs; ``alias_bytes``, the local bytes of the outputs that share
+  a storage with an argument.  A decode cell donates its state, as the
+  reference jits its decode with ``donate_argnums=(2,)``: the step writes
+  each layer's k/v slot and SSM state into the state it was given
+  (``decode_step(..., donate=True)``), so its new state is all alias
+  bytes and the peak holds each layer's cache once.  A train cell's
+  ``donate`` stays a no-op (the eager step drops the old state).
 
 The port's layer loops are Python, so every layer is traced and counted:
 the reference's ``_layer_points`` / ``_analyze_extrapolated``, which exist
@@ -331,15 +336,23 @@ class StepCounter:
         self.bytes += nbytes
 
 
-def _local_bytes(tree) -> int:
-    """Bytes of one rank's shards of the tensors in ``tree`` (each storage
-    once)."""
+def _locals(tree) -> List[torch.Tensor]:
+    """One rank's shards of the tensors in ``tree``."""
     from torch.distributed.tensor import DTensor
+    return [t.to_local() if isinstance(t, DTensor) else t
+            for t in _tensors(tree)]
+
+
+def _local_bytes(tree, within=None) -> int:
+    """Bytes of one rank's shards of the tensors in ``tree`` (each storage
+    once); with ``within``, only of those that share a storage with one of
+    ``within``'s (the outputs a donated argument's storage holds)."""
+    owned = (None if within is None else
+             {t.untyped_storage()._cdata for t in _locals(within)})
     seen, total = set(), 0
-    for t in _tensors(tree):
-        t = t.to_local() if isinstance(t, DTensor) else t
+    for t in _locals(tree):
         key = t.untyped_storage()._cdata
-        if key not in seen:
+        if key not in seen and (owned is None or key in owned):
             seen.add(key)
             total += _nbytes(t)
     return total
@@ -466,9 +479,10 @@ def measure(fn, *args, probe: Optional[PeakProbe] = None):
                            f"{sorted(map(str, snap))}; a step's lie on one")
     peak = sum(v["Total"] for v in snap.values())
     arg_b, out_b = _local_bytes(args), _local_bytes(out)
+    alias_b = _local_bytes(out, within=args)
     memory = {"argument_bytes": arg_b, "output_bytes": out_b,
-              "temp_bytes": max(0, peak - arg_b - out_b), "alias_bytes": 0,
-              "peak_bytes": peak}
+              "temp_bytes": max(0, peak - arg_b - (out_b - alias_b)),
+              "alias_bytes": alias_b, "peak_bytes": peak}
     if probe is not None:
         memory["peak_detail"] = probe.at
     return out, counter, memory
@@ -628,8 +642,11 @@ def _build_step(cfg: ModelConfig, shape: ShapeConfig, mesh, *, remat: bool,
     st_sh = S.decode_state_sharding(cfg, state, mesh)
 
     def decode(p, t, st):
+        # the state donated, as the reference's decode cell donates it:
+        # ``new`` holds the state's own tensors, which place_tree keeps
         logits, new = model_api.decode_step(dequant(p), t, st, cfg,
-                                            mesh=mesh, tp_total=tp_total)
+                                            mesh=mesh, tp_total=tp_total,
+                                            donate=True)
         return logits, place_tree(new, st_sh)
 
     return decode, (params, toks, state), (

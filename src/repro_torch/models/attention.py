@@ -366,10 +366,10 @@ def _group_specs(mesh, B: int, Hkv: int, batch: bool = True):
 
 
 def _on_kv_groups(core, mesh, q, k, v, *extra, extra_specs=(),
-                  extra_out=(), batch: bool = True):
-    """``core(q, k, v, *extra)`` -> (out (B,S,H,Dh), *more) on each rank's
-    local kv-head groups: q (B,S,H,Dh), k/v (B,S,Hkv,Dh); the batch over
-    the data axes unless ``batch`` is False."""
+                  batch: bool = True):
+    """``core(q, k, v, *extra)`` -> out (B,S,H,Dh) on each rank's local
+    kv-head groups: q (B,S,H,Dh), k/v (B,S,Hkv,Dh); the batch over the data
+    axes unless ``batch`` is False."""
     B, S, H, Dh = q.shape
     Hkv = k.shape[2]
     G = H // Hkv
@@ -381,16 +381,10 @@ def _on_kv_groups(core, mesh, q, k, v, *extra, extra_specs=(),
     def body(q5, k, v, *rest):
         b, s, hl = q5.shape[:3]
         out = core(q5.reshape(b, s, hl * G, Dh), k, v, *rest)
-        if not extra_out:
-            return out.reshape(b, s, hl, G, Dh)
-        return (out[0].reshape(b, s, hl, G, Dh),) + tuple(out[1:])
+        return out.reshape(b, s, hl, G, Dh)
 
-    outs = shard_map(body, mesh, (qspec, kvspec, kvspec) + tuple(extra_specs),
-                     [qspec, *extra_out] if extra_out else qspec)(
-        q5, k, v, *extra)
-    if not extra_out:
-        return outs.reshape(B, S, H, Dh)
-    return (outs[0].reshape(B, S, H, Dh),) + tuple(outs[1:])
+    return shard_map(body, mesh, (qspec, kvspec, kvspec) + tuple(extra_specs),
+                     qspec)(q5, k, v, *extra).reshape(B, S, H, Dh)
 
 
 def _on_q_shards(core, mesh, q, k, v, n_heads: int):
@@ -627,16 +621,53 @@ def _slot(cfg: ModelConfig, index: int, smax: int) -> int:
     return min(slot, smax - 1)
 
 
+def _write_slot(cache, new, slot: int) -> None:
+    """``new`` (B, 1, Hkv, Dh) written into slot ``slot`` of the (B, Smax,
+    Hkv*Dh) ``cache`` in place.  A DTensor cache takes it on its own
+    shards: ``new`` cut to the cache's layout of one slot, and each rank
+    writes its own columns of its own rows where its shard holds the slot.
+    The cache never moves, so a decode core that gathers it afterwards
+    reads the new slot too.  Raises ValueError where the mesh dims that
+    shard the slots do not split them evenly."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    new = new.reshape(new.shape[0], 1, -1)
+    with torch.no_grad():
+        if not isinstance(cache, DTensor):
+            cache[:, slot:slot + 1] = new.to(cache.dtype)
+            return
+        mesh = cache.device_mesh
+        # the rank's slot shard, the mesh dims that shard the slots major
+        # first
+        coord, shard, n = mesh.get_coordinate(), 0, 1
+        for d, p in enumerate(cache.placements):
+            if p == Shard(1):
+                shard, n = shard * mesh.size(d) + coord[d], n * mesh.size(d)
+        if cache.shape[1] % n:
+            raise ValueError(f"decode cache: {cache.shape[1]} slots over "
+                             f"{n} ranks do not split evenly")
+        pl = tuple(Replicate() if p == Shard(1) else p
+                   for p in cache.placements)
+        if tuple(new.placements) != pl:
+            new = new.redistribute(mesh, pl)
+        local = cache.to_local()
+        at = slot - shard * local.shape[1]
+        if 0 <= at < local.shape[1]:
+            local[:, at:at + 1] = new.to_local().to(local.dtype)
+
+
 def decode_attention(x: torch.Tensor, p: LayerAttnParams, cfg: ModelConfig,
                      cache_k: torch.Tensor, cache_v: torch.Tensor, index: int,
-                     *, kv_override=None, mesh=None):
+                     *, kv_override=None, mesh=None, donate: bool = False):
     """Single-token decode.  x: (B, 1, d); cache_k/v: (B, Smax, Hkv*Dh)
     *flattened* on the kv dim; index: host int, the tokens already in the
     cache.
 
     RoPE is applied at insertion, so SWA ring buffers need no re-rotation.
-    Returns (out, new_cache_k, new_cache_v): new tensors, the caches passed
-    in are left as they were."""
+    The new k/v are written into the slot (on a mesh into the caches'
+    stored shards, :func:`_write_slot`) before any core reads the caches.
+    Returns (out, new_cache_k, new_cache_v): copies of the caches passed
+    in, which are left as they were; with ``donate`` (the reference's
+    ``donate_argnums``) the caches passed in, written in place."""
     B = x.shape[0]
     q, k, v = _proj_qkv(x, p, cfg, mesh)
     scale = cfg.head_dim ** -0.5
@@ -661,34 +692,31 @@ def decode_attention(x: torch.Tensor, p: LayerAttnParams, cfg: ModelConfig,
                                cfg.head_dim, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
+    if not donate:
+        cache_k, cache_v = cache_k.clone(), cache_v.clone()
+    slot = _slot(cfg, index, cache_k.shape[1])
+    _write_slot(cache_k, k, slot)
+    _write_slot(cache_v, v, slot)
 
     def core(q, k, v, cache_k, cache_v, first: int = 0, smax=None,
              softmax=_softmax):
-        """Insert k/v at the slot and attend over the written slots (batch
-        and head counts from the tensors: on a mesh, the local shards).
-        ``cache_k``/``cache_v`` hold the slots from ``first`` on of a cache
-        of ``smax`` slots (all of them by default); the slot is written only
-        where it falls among them, and ``softmax`` completes the softmax
-        over the slots the other shards hold."""
+        """Attend over the written slots (batch and head counts from the
+        tensors: on a mesh, the local shards).  ``cache_k``/``cache_v``
+        hold the slots from ``first`` on of a cache of ``smax`` slots (all
+        of them by default), and ``softmax`` completes the softmax over the
+        slots the other shards hold."""
         Bl, Hkv, Dh = k.shape[0], k.shape[2], k.shape[3]
         held = cache_k.shape[1]
         smax = held if smax is None else smax
-        slot = _slot(cfg, index, smax) - first
-        if 0 <= slot < held:
-            cache_k = cache_k.clone()
-            cache_v = cache_v.clone()
-            cache_k[:, slot] = k.reshape(Bl, Hkv * Dh).to(cache_k.dtype)
-            cache_v[:, slot] = v.reshape(Bl, Hkv * Dh).to(cache_v.dtype)
         kc = cache_k.reshape(Bl, held, Hkv, Dh).to(q.dtype)
         vc = cache_v.reshape(Bl, held, Hkv, Dh).to(q.dtype)
         valid = torch.arange(first, first + held, device=dev) <= min(
             index, smax - 1)
         kpos = torch.where(valid, 0, EMPTY_POS)  # unwritten slots fail causality
-        out = _sdpa_chunk(q, kc, vc,
-                          torch.zeros(1, dtype=torch.long, device=dev),
-                          kpos, None, True, scale, perf.FLAGS.gqa_grouped,
-                          softmax)
-        return out, cache_k, cache_v
+        return _sdpa_chunk(q, kc, vc,
+                           torch.zeros(1, dtype=torch.long, device=dev),
+                           kpos, None, True, scale, perf.FLAGS.gqa_grouped,
+                           softmax)
 
     # On a mesh: a cache whose flat kv dim splits inside a kv head (8 kv
     # heads over model 16: mixtral, granite, h2o-danube3, whisper's
@@ -697,24 +725,22 @@ def decode_attention(x: torch.Tensor, p: LayerAttnParams, cfg: ModelConfig,
     # its own dims of its own slots; one whose slots alone are sharded so
     # on each rank's own slots (hymba's 5 kv heads over 16, whose shards
     # cross head boundaries); else (kv heads that divide the model axis)
-    # on whole kv-head groups.
+    # on whole kv-head groups, whose body may read a gathered copy.
     if mesh is None:
-        out, cache_k, cache_v = core(q, k, v, cache_k, cache_v)
+        out = core(q, k, v, cache_k, cache_v)
     elif _split_in_head(cache_k, mesh, k.shape[2]):
-        out, cache_k, cache_v = _decode_on_split_heads(
-            mesh, q, k, v, cache_k, cache_v, cfg, index, scale)
+        out = _decode_on_split_heads(mesh, q, k, v, cache_k, cache_v, index,
+                                     scale)
     elif _seq_sharded(cache_k, mesh):
-        out, cache_k, cache_v = _decode_on_seq_shards(core, mesh, q, k, v,
-                                                      cache_k, cache_v)
+        out = _decode_on_seq_shards(core, mesh, q, k, v, cache_k, cache_v)
     else:
         _, kvspec = _group_specs(mesh, B, k.shape[2])
-        # the caches keep their stored layout (``decode_state_sharding``
+        # the caches read on their stored layout (``decode_state_sharding``
         # shards a batch the data axes divide, one data rank too)
         cspec = P(batch_axes(mesh) if B % dp_size(mesh) == 0 else None, None,
                   kvspec[2])
-        out, cache_k, cache_v = _on_kv_groups(
-            core, mesh, q, k, v, cache_k, cache_v,
-            extra_specs=(cspec, cspec), extra_out=(cspec, cspec))
+        out = _on_kv_groups(core, mesh, q, k, v, cache_k, cache_v,
+                            extra_specs=(cspec, cspec))
     out = out.reshape(B, 1, cfg.q_dim)
     return torch.matmul(out, p.wo), cache_k, cache_v
 
@@ -764,27 +790,25 @@ def _data_softmax(mesh):
 
 def _decode_on_seq_shards(core, mesh, q, k, v, cache_k, cache_v):
     """The decode ``core`` on each rank's own cache slots, the batch
-    replicated over the data axes: the rank that holds the slot writes k
-    and v, each rank scores its slots, and all-reduces over the data axes
-    of the scores' max (B, H), the softmax's sum (B, H) and the output (B,
-    H, Dh) complete the softmax and the value product; the cache is never
-    gathered.  On one data rank each all-reduce returns its input, so the
-    result is the one-device core's, bit for bit.  A cache that is also
-    split inside its kv heads takes :func:`_decode_on_split_heads`."""
+    replicated over the data axes: each rank scores its slots, and
+    all-reduces over the data axes of the scores' max (B, H), the
+    softmax's sum (B, H) and the output (B, H, Dh) complete the softmax and
+    the value product; the cache is never gathered.  On one data rank each
+    all-reduce returns its input, so the result is the one-device core's,
+    bit for bit.  A cache that is also split inside its kv heads takes
+    :func:`_decode_on_split_heads`."""
     smax = cache_k.shape[1]
     softmax = _data_softmax(mesh)
 
     def body(q, k, v, cache_k, cache_v):
-        out, cache_k, cache_v = core(q, k, v, cache_k, cache_v,
-                                     _data_rank(mesh) * cache_k.shape[1],
-                                     smax, softmax)
-        return _data_all_reduce(mesh, out, "sum"), cache_k, cache_v
+        out = core(q, k, v, cache_k, cache_v,
+                   _data_rank(mesh) * cache_k.shape[1], smax, softmax)
+        return _data_all_reduce(mesh, out, "sum")
 
     _, kvspec = _group_specs(mesh, q.shape[0], k.shape[2], batch=False)
     cspec = P(None, batch_axes(mesh), kvspec[2])
     return _on_kv_groups(body, mesh, q, k, v, cache_k, cache_v,
-                         extra_specs=(cspec, cspec), extra_out=(cspec, cspec),
-                         batch=False)
+                         extra_specs=(cspec, cspec), batch=False)
 
 
 def _split_in_head(cache, mesh, n_kv: int) -> bool:
@@ -828,31 +852,29 @@ def _slots_on_data(cache, mesh) -> bool:
         for a in batch_axes(mesh))
 
 
-def _decode_on_split_heads(mesh, q, k, v, cache_k, cache_v,
-                           cfg: ModelConfig, index: int, scale: float):
+def _decode_on_split_heads(mesh, q, k, v, cache_k, cache_v, index: int,
+                           scale: float):
     """The decode core on a cache whose kv heads are each split over r =
     tp / Hkv consecutive model ranks (:func:`_split_in_head`), on the
     cache's own shards: model rank m holds dims [(m % r) * Dh/r, +Dh/r) of
-    kv head m // r.  Each rank writes its dims of the new k and v (after
-    RoPE, whole) into the slot, scores its dims of the q heads of its
-    head's group against its cache dims, and an all-reduce over the r
-    ranks of the head (:func:`_head_group`) completes the (B, G, Smax)
-    f32 scores; then the scale, the mask and the softmax as
-    :func:`_sdpa_chunk` runs them, and each rank's dims of the value
-    product.  The (B, H, Dh) output is made whole from the parts; the
+    kv head m // r, the new slot written (:func:`_write_slot`).  Each rank
+    scores its dims of the q heads of its head's group against its cache
+    dims, and an all-reduce over the r ranks of the head
+    (:func:`_head_group`) completes the (B, G, Smax) f32 scores; then the
+    scale, the mask and the softmax as :func:`_sdpa_chunk` runs them, and
+    each rank's dims of the value product.  The (B, H, Dh) output is made whole from the parts; the
     cache is never gathered.  The scores are summed in another order than
-    the one-device dot, so they match it within float tolerance; the
-    caches are copies, bit for bit.
+    the one-device dot, so they match it within float tolerance.
 
     Where the cache's slots are sharded over the data axes too
     (:func:`_seq_sharded`: batch 1, long_500k; the batch replicated over
-    them), data rank j holds slots [j * held, +held) of those dims: only
-    the rank that holds the slot writes it, each rank scores its own
-    (held, Dh/r) block, and the softmax and the value product are
-    completed over the data axes as :func:`_decode_on_seq_shards`
-    completes them (all-reduces of the max, the sum and the (B, G, Dh/r)
-    partial output).  Raises where the slots do not split evenly over the
-    data ranks or a head's dims over its r ranks."""
+    them), data rank j holds slots [j * held, +held) of those dims: each
+    rank scores its own (held, Dh/r) block, and the softmax and the value
+    product are completed over the data axes as
+    :func:`_decode_on_seq_shards` completes them (all-reduces of the max,
+    the sum and the (B, G, Dh/r) partial output).  Raises where the slots
+    do not split evenly over the data ranks or a head's dims over its r
+    ranks."""
     from torch.distributed import _functional_collectives as funcol
     B, _, H, Dh = q.shape
     Hkv = k.shape[2]
@@ -865,7 +887,6 @@ def _decode_on_split_heads(mesh, q, k, v, cache_k, cache_v,
         raise ValueError(f"split-head decode: {Dh} head dims over {r} model "
                          f"ranks or {smax} slots over {dp_size(mesh)} data "
                          f"ranks do not split evenly")
-    slot = _slot(cfg, index, smax)
     part = _head_group(mesh, r)
     sdt = torch.bfloat16 if (perf.FLAGS.attn_bf16_scores
                              and q.dtype == torch.bfloat16) else torch.float32
@@ -876,11 +897,6 @@ def _decode_on_split_heads(mesh, q, k, v, cache_k, cache_v,
         h, d0 = m // r, (m % r) * dl
         held = cache_k.shape[1]
         first = _data_rank(mesh) * held if seq else 0
-        at = slot - first
-        if 0 <= at < held:
-            cache_k, cache_v = cache_k.clone(), cache_v.clone()
-            cache_k[:, at] = k[:, 0, h, d0:d0 + dl].to(cache_k.dtype)
-            cache_v[:, at] = v[:, 0, h, d0:d0 + dl].to(cache_v.dtype)
         qh = q[:, 0, h * G:(h + 1) * G, d0:d0 + dl]          # (Bl, G, dl)
         s = torch.einsum("bgd,bkd->bgk", qh.float(),
                          cache_k.to(q.dtype).float())
@@ -893,15 +909,13 @@ def _decode_on_split_heads(mesh, q, k, v, cache_k, cache_v,
         o = torch.einsum("bgk,bkd->bgd", prob, cache_v.to(q.dtype))
         if seq:
             o = _data_all_reduce(mesh, o, "sum")
-        return o[:, None], cache_k, cache_v                 # (Bl, 1, G, dl)
+        return o[:, None]                                   # (Bl, 1, G, dl)
 
     bspec = batch_axes(mesh) if B % dp_size(mesh) == 0 and not seq else None
     whole = P(bspec, None, None, None)
     cspec = P(bspec, batch_axes(mesh) if seq else None, "model")
-    o, cache_k, cache_v = shard_map(
-        body, mesh, (whole, whole, whole, cspec, cspec),
-        [P(bspec, "model", None, None), cspec, cspec])(q, k, v, cache_k,
-                                                       cache_v)
+    o = shard_map(body, mesh, (whole, whole, whole, cspec, cspec),
+                  P(bspec, "model", None, None))(q, k, v, cache_k, cache_v)
     # (B, tp, G, dl), model rank m = h * r + part -> (B, 1, H, Dh)
     o = constrain(o, mesh, whole).reshape(B, Hkv, r, G, dl)
-    return o.transpose(2, 3).reshape(B, 1, H, Dh), cache_k, cache_v
+    return o.transpose(2, 3).reshape(B, 1, H, Dh)

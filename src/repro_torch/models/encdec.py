@@ -165,11 +165,17 @@ def abstract_decode_state(cfg: ModelConfig, batch: int, seq_len: int,
 
 def decode_step(params: Dict[str, torch.Tensor], tokens: torch.Tensor,
                 state: EncDecDecodeState, cfg: ModelConfig, *, mesh=None,
-                tp_total: int = 1):
-    """tokens: (B, 1) -> (logits, new state).  The state passed in is left
-    as it was."""
+                tp_total: int = 1, donate: bool = False):
+    """tokens: (B, 1) -> (logits, new state).  Each layer's new k/v slot
+    is written into its self-attention cache in place, and ``donate``
+    takes the state as :func:`repro_torch.models.transformer.decode_step`
+    takes it: without it the caches are copied first, and ``state`` is
+    left as it was."""
     del tp_total          # no MoE in the encoder-decoder
-    with mesh_scope(mesh):
+    if not donate:
+        state = state._replace(cache_k=state.cache_k.clone(),
+                               cache_v=state.cache_v.clone())
+    with mesh_scope(mesh), torch.no_grad():
         return _decode_step(params, tokens, state, cfg, mesh)
 
 
@@ -182,13 +188,12 @@ def _decode_step(params, tokens, state: EncDecDecodeState, cfg: ModelConfig,
     row = min(idx, dec_pos.shape[0] - 1)
     x = pin_residual(x + dec_pos[None, row:row + 1].to(x.dtype), mesh)
     lt = layer_tree(params)
-    new_k, new_v = [], []
     for i in range(cfg.n_layers):
         lp = _layer(lt, i)
         xn = norm(x, lp["attn_norm/w"], cfg.norm)
-        a, nk, nv = decode_attention(xn, _attn_params(lp), cfg,
-                                     state.cache_k[i], state.cache_v[i], idx,
-                                     mesh=mesh)
+        a, _, _ = decode_attention(xn, _attn_params(lp), cfg,
+                                   state.cache_k[i], state.cache_v[i], idx,
+                                   mesh=mesh, donate=True)
         x = pin_residual(x + a, mesh)
         xn = norm(x, lp["cross_norm/w"], cfg.norm)
         c, _, _ = decode_attention(
@@ -197,9 +202,6 @@ def _decode_step(params, tokens, state: EncDecDecodeState, cfg: ModelConfig,
         x = pin_residual(x + c, mesh)
         x = pin_residual(
             x + _mlp(norm(x, lp["mlp_norm/w"], cfg.norm), lp, cfg), mesh)
-        new_k.append(nk)
-        new_v.append(nv)
     x = norm(x, params["final_norm/w"], cfg.norm)
     logits = unembed(x, params["lm_head/w"], False, mesh)
-    return logits, EncDecDecodeState(torch.stack(new_k), torch.stack(new_v),
-                                     state.cross_k, state.cross_v, idx + 1)
+    return logits, state._replace(index=idx + 1)

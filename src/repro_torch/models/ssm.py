@@ -25,6 +25,7 @@ the decode state stores it (:func:`decodes_flat`,
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -35,8 +36,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike
 from repro_torch.models.common import rmsnorm
 from repro_torch.sharding import (P, axis_names, batch_axes, constrain,
-                                  dp_size, heads_view, padded_heads, pin,
-                                  pin_residual, shard_map, tp_size)
+                                  dp_size, heads_view, holds, padded_heads,
+                                  pin, pin_residual, shard_map, store,
+                                  tp_size)
 from repro_torch.sharding import zero_pad as _zero_pad
 
 
@@ -240,35 +242,47 @@ def ssd_chunked(x, dt, A, Bm, C, D, chunk: int, init_state=None):
                      perf.FLAGS.ssd_bf16_intra)
 
 
-def ssd_decode_step(x, dt, A, Bm, C, D, state):
+def _decay_add(state, dA, upd, inplace: bool):
+    """``state * dA + upd``; ``inplace``: the same two ops written into
+    ``state`` (the same numbers bit for bit, no new state tensor)."""
+    if inplace:
+        return state.mul_(dA).add_(upd)
+    return state * dA + upd
+
+
+def ssd_decode_step(x, dt, A, Bm, C, D, state, inplace: bool = False):
     """One-token SSD update.  x: (B,H,P); dt: (B,H); Bm/C: (B,G,N);
-    state: (B,H,P,N) f32.  Returns (y (B,H,P), new_state)."""
+    state: (B,H,P,N) f32.  Returns (y (B,H,P), new_state): a new tensor,
+    as the reference's; ``inplace`` (the decode routes of
+    :func:`ssm_decode`) writes it into ``state`` and returns that."""
     H = x.shape[1]
     rep = H // Bm.shape[1]
     Bx = Bm.repeat_interleave(rep, dim=1).to(torch.float32)          # (B,H,N)
     Cx = C.repeat_interleave(rep, dim=1).to(torch.float32)
     dA = torch.exp(dt * A[None, :])                                  # (B,H)
     upd = (dt[:, :, None] * x.to(torch.float32))[..., None] * Bx[:, :, None, :]
-    new_state = state * dA[:, :, None, None] + upd                   # (B,H,P,N)
+    new_state = _decay_add(state, dA[:, :, None, None], upd,
+                           inplace)                                  # (B,H,P,N)
     y = torch.einsum("bhpn,bhn->bhp", new_state, Cx)
     y = y + x.to(torch.float32) * D[None, :, None]
     return y.to(x.dtype), new_state
 
 
-def ssd_decode_channels(x, dt, A, Bm, C, D, state):
+def ssd_decode_channels(x, dt, A, Bm, C, D, state, inplace: bool = False):
     """:func:`ssd_decode_step` on flat channels, channel c = h * P + p of
     head h: x, dt (B, C); A, D (C,) (dt, A and D of each channel's head);
     Bm/C (B, N), shared by every channel (one group), or (B, C, N), each
     channel's group's; state (B, C, N) f32.  The same operations in the
     same order, channel by channel, so any run of channels updates on its
     own: the new state equals ``ssd_decode_step``'s bit for bit, y within
-    the rounding of the sum over N.  Returns (y (B, C), new_state)."""
+    the rounding of the sum over N.  Returns (y (B, C), new_state);
+    ``inplace`` as :func:`ssd_decode_step`'s."""
     one = Bm.ndim == 2
     Bx = (Bm[:, None, :] if one else Bm).to(torch.float32)          # (B,C,N)
     Cx = C.to(torch.float32)
     dA = torch.exp(dt * A[None, :])                                  # (B,C)
     upd = (dt * x.to(torch.float32))[..., None] * Bx
-    new_state = state * dA[..., None] + upd                          # (B,C,N)
+    new_state = _decay_add(state, dA[..., None], upd, inplace)       # (B,C,N)
     y = torch.einsum("bcn,bn->bc" if one else "bcn,bcn->bc", new_state, Cx)
     y = y + x.to(torch.float32) * D[None, :]
     return y.to(x.dtype), new_state
@@ -417,16 +431,20 @@ def ssm_block(x: torch.Tensor, p: SSMLayerParams, cfg: ModelConfig,
 def _decode_on_shards(mesh, xh, dt, A, Bm, C, D, state):
     """``ssd_decode_step`` on each rank's local heads and batch rows, as
     :func:`_scan_on_shards` runs the scan (the model axis divides the
-    heads)."""
+    heads).  The new state is written into ``state`` (in place where it
+    lies on the update's layout, else :func:`store`d), which is
+    returned."""
     bspec = batch_axes(mesh) if xh.shape[0] % dp_size(mesh) == 0 else None
     heads = P(bspec, "model", None)
     st = P(bspec, "model", None, None)
-    fn = shard_map(ssd_decode_step, mesh,
+    inplace = holds(state, mesh, st)
+    fn = shard_map(functools.partial(ssd_decode_step, inplace=inplace), mesh,
                    (heads, P(bspec, "model"), P("model"),
                     P(bspec, None, None), P(bspec, None, None), P("model"),
                     st),
                    [heads, st])
-    return fn(xh, dt, A, Bm, C, D, state)
+    y, new = fn(xh, dt, A, Bm, C, D, state)
+    return y, (state if inplace else store(state, new))
 
 
 def decodes_flat(cfg: ModelConfig, mesh) -> bool:
@@ -457,7 +475,8 @@ def _decode_on_channels(mesh, x, dt, A, Bm, C, D, state, d_head: int):
     where 'model' divides C; ``runtime.serve.decode_state_shardings``
     always, unevenly as ``torch.chunk`` splits them where it does not) or
     whole; the batch over the data axes where they divide it.  So neither
-    the state nor y is gathered.  Raises ValueError on a state whose
+    the state nor y is gathered; the new state is written into ``state``
+    as :func:`_decode_on_shards` writes it.  Raises ValueError on a state whose
     channels lie otherwise over 'model' (a shard the route would have to
     gather)."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
@@ -477,11 +496,13 @@ def _decode_on_channels(mesh, x, dt, A, Bm, C, D, state, d_head: int):
         Bm, C, bc = Bm[:, 0], C[:, 0], P(bspec, None)
     else:
         Bm, C, bc = _spread(Bm, 1, Cn // G), _spread(C, 1, Cn // G), st
-    fn = shard_map(ssd_decode_channels, mesh,
-                   (ch, ch, P(feat), bc, bc, P(feat), st), [ch, st],
+    inplace = holds(state, mesh, st)
+    fn = shard_map(functools.partial(ssd_decode_channels, inplace=inplace),
+                   mesh, (ch, ch, P(feat), bc, bc, P(feat), st), [ch, st],
                    out_shapes=[(Bsz, Cn), (Bsz, Cn, N)])
-    return fn(x, _spread(dt, 1, d_head), _spread(A, 0, d_head), Bm, C,
-              _spread(D, 0, d_head), state)
+    y, new = fn(x, _spread(dt, 1, d_head), _spread(A, 0, d_head), Bm, C,
+                _spread(D, 0, d_head), state)
+    return y, (state if inplace else store(state, new))
 
 
 def ssm_decode(x: torch.Tensor, p: SSMLayerParams, cfg: ModelConfig,
@@ -491,7 +512,11 @@ def ssm_decode(x: torch.Tensor, p: SSMLayerParams, cfg: ModelConfig,
     model axis does not divide the heads (:func:`decodes_flat`) on each
     rank's own flat channels, the SSD state taken and returned flat, (B,
     d_inner, N), as the decode state stores it, and y left on its channel
-    shards through the gate, the norm and the out-projection."""
+    shards through the gate, the norm and the out-projection.  The new
+    SSD and conv states are written into ``state``'s tensors (the SSD
+    state updated in place where the update gets its own storage), and
+    the returned state holds them: a decode step's state is its own
+    (``transformer.decode_step`` copies one it does not donate)."""
     s = cfg.ssm
     B = x.shape[0]
     H, Pd = cfg.n_ssm_heads, s.d_head
@@ -518,11 +543,12 @@ def ssm_decode(x: torch.Tensor, p: SSMLayerParams, cfg: ModelConfig,
         xh = heads_view(xi, (B, H, Pd), H, mesh)
         if mesh is None:
             yh, ssd_state = ssd_decode_step(xh, dt, A, Bm, Cm, p.D,
-                                            state.ssd)
+                                            state.ssd, inplace=True)
         else:
             yh, ssd_state = _decode_on_shards(mesh, xh, dt, A, Bm, Cm, p.D,
                                               state.ssd)
         yh = heads_view(yh, (B, cfg.d_inner), H, mesh)
+    conv_state = store(state.conv, conv_state)
     # on channel shards the mean is a sum over them (even where torch.chunk
     # splits them unevenly) divided by d_inner
     yh = rmsnorm(yh * F.silu(z.to(torch.float32)).to(yh.dtype), p.norm_w,

@@ -230,7 +230,9 @@ def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int,
         st = init_ssm_state(cfg, batch, dtype, device)
         sd = torch.zeros((L, batch, cfg.d_inner, cfg.ssm.d_state),
                          dtype=torch.float32, device=device)
-        sc = st.conv[None].expand((L,) + tuple(st.conv.shape))
+        # every layer's conv state its own storage: a donated step writes
+        # each layer's in place
+        sc = st.conv[None].repeat((L,) + (1,) * st.conv.ndim)
     return DecodeState(ck, cv, sd, sc, 0)
 
 
@@ -244,11 +246,23 @@ def abstract_decode_state(cfg: ModelConfig, batch: int, seq_len: int,
 
 def decode_step(params: Dict[str, torch.Tensor], tokens: torch.Tensor,
                 state: DecodeState, cfg: ModelConfig, *, mesh=None,
-                tp_total: int = 1):
-    """tokens: (B, 1) -> (logits (B, 1, Vp), new DecodeState).  The state
-    passed in is left as it was.  The MoE aux losses are dropped, and the
-    vision stub's patches take no part, as in the reference."""
-    with mesh_scope(mesh):
+                tp_total: int = 1, donate: bool = False):
+    """tokens: (B, 1) -> (logits (B, 1, Vp), new DecodeState).  The MoE aux
+    losses are dropped, and the vision stub's patches take no part, as in
+    the reference.
+
+    Each layer's new k/v slot and SSM state are written into the state's
+    tensors in place (on a mesh into their stored shards), and the
+    returned state holds those tensors with ``index + 1`` (but a conv
+    state in another dtype than the model's, which is cast to it once).
+    ``donate`` is the reference's ``donate_argnums`` on the state: the
+    step writes into ``state``'s own tensors.  Without it, it writes into
+    copies, and ``state`` is left as it was.  The step records no autograd
+    graph."""
+    if not donate:
+        state = DecodeState(*(t.clone() if isinstance(t, torch.Tensor) else t
+                              for t in state))
+    with mesh_scope(mesh), torch.no_grad():
         return _decode_step(params, tokens, state, cfg, mesh, tp_total)
 
 
@@ -258,7 +272,12 @@ def _decode_step(params, tokens, state: DecodeState, cfg: ModelConfig, mesh,
     lt = layer_tree(params)
     B = x.shape[0]
     idx = state.index
-    new_k, new_v, new_sd, new_sc = [], [], [], []
+    if state.ssm_conv is not None and state.ssm_conv.dtype != x.dtype:
+        # the new conv state is the model's dtype (the reference's too),
+        # and the step reads the old one cast to it: a conv state made in
+        # another dtype takes the model's once, as XLA cannot alias a
+        # buffer of one dtype with an output of another
+        state = state._replace(ssm_conv=state.ssm_conv.to(x.dtype))
 
     def ssm_step(xn, lp, i):
         H, Pd, N = cfg.n_ssm_heads, cfg.ssm.d_head, cfg.ssm.d_state
@@ -268,19 +287,14 @@ def _decode_step(params, tokens, state: DecodeState, cfg: ModelConfig, mesh,
         sd = state.ssm_ssd[i]
         if not flat:
             sd = heads_view(sd, (B, H, Pd, N), H, mesh)
-        dx, st = ssm_mod.ssm_decode(xn, _ssm_params(lp), cfg,
-                                    SSMState(sd, state.ssm_conv[i]), mesh)
-        new_sd.append(st.ssd if flat else
-                      heads_view(st.ssd, (B, cfg.d_inner, N), H, mesh))
-        new_sc.append(st.conv)
+        dx, _ = ssm_mod.ssm_decode(xn, _ssm_params(lp), cfg,
+                                   SSMState(sd, state.ssm_conv[i]), mesh)
         return dx
 
     def attn_step(xn, lp, i):
-        dx, nk, nv = decode_attention(xn, _attn_params(lp), cfg,
-                                      state.cache_k[i], state.cache_v[i], idx,
-                                      mesh=mesh)
-        new_k.append(nk)
-        new_v.append(nv)
+        dx, _, _ = decode_attention(xn, _attn_params(lp), cfg,
+                                    state.cache_k[i], state.cache_v[i], idx,
+                                    mesh=mesh, donate=True)
         return dx
 
     for i in range(cfg.n_layers):
@@ -298,9 +312,4 @@ def _decode_step(params, tokens, state: DecodeState, cfg: ModelConfig, mesh,
         if dx is not None:
             x = pin_residual(x + dx, mesh)
     logits = _logits(params, x, cfg, mesh)
-
-    def stacked(ts):
-        return torch.stack(ts) if ts else None
-
-    return logits, DecodeState(stacked(new_k), stacked(new_v),
-                               stacked(new_sd), stacked(new_sc), idx + 1)
+    return logits, state._replace(index=idx + 1)

@@ -65,9 +65,13 @@ def init_decode_state(params, batch: Dict, cfg: ModelConfig, batch_size: int,
 
 
 def decode_step(params, tokens, state, cfg: ModelConfig, *, mesh=None,
-                tp_total: int = 1):
+                tp_total: int = 1, donate: bool = False):
+    """One decode step -> (logits, new state).  ``donate`` (the reference's
+    ``donate_argnums`` on the state) writes the new state into ``state``'s
+    own tensors and returns them; without it the step writes into a copy,
+    and ``state`` is left as it was."""
     if cfg.family == "audio":
         return encdec.decode_step(params, tokens, state, cfg, mesh=mesh,
-                                  tp_total=tp_total)
+                                  tp_total=tp_total, donate=donate)
     return transformer.decode_step(params, tokens, state, cfg, mesh=mesh,
-                                   tp_total=tp_total)
+                                   tp_total=tp_total, donate=donate)

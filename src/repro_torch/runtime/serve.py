@@ -141,7 +141,9 @@ def greedy_generate(params, cfg: ModelConfig, prompt: torch.Tensor,
     Always returns ``max_new`` generated tokens after the prompt.  A
     zero-length prompt is legal: with nothing to condition on, generation is
     seeded with token 0 (BOS convention) and that seed counts as the first
-    generated token."""
+    generated token.  The decode state is this function's own, so every
+    step donates it (``decode_step(..., donate=True)``): each layer's cache
+    is held once and written in place."""
     B, S0 = prompt.shape
     batch = {"tokens": prompt, **(batch_extras or {})}
     state = model_api.init_decode_state(params, batch, cfg, B, seq_len)
@@ -150,13 +152,14 @@ def greedy_generate(params, cfg: ModelConfig, prompt: torch.Tensor,
         # feed the prompt token by token (cache warmup), then generate
         for i in range(S0):
             logits, state = model_api.decode_step(params, prompt[:, i:i + 1],
-                                                  state, cfg)
+                                                  state, cfg, donate=True)
         tok = _next_token(logits, cfg).to(prompt.dtype)
     else:
         tok = torch.zeros((B, 1), dtype=prompt.dtype, device=prompt.device)
     for _ in range(max_new):
         out.append(tok)
-        logits, state = model_api.decode_step(params, tok, state, cfg)
+        logits, state = model_api.decode_step(params, tok, state, cfg,
+                                              donate=True)
         tok = _next_token(logits, cfg).to(prompt.dtype)
     return torch.cat(out, dim=1)
 

@@ -150,6 +150,28 @@ def constrain(x, mesh, spec: Sequence):
     return x.redistribute(mesh, placements)
 
 
+def holds(x, mesh, spec: Sequence) -> bool:
+    """Whether the DTensor ``x`` lies on ``spec``'s layout already, so a
+    :func:`shard_map` body that takes it there gets ``x``'s own local
+    shard (a view of its storage, which an in-place update reaches) and
+    not a redistributed copy."""
+    from torch.distributed.tensor import DTensor
+    return (isinstance(x, DTensor)
+            and tuple(x.placements) == _placements(spec, mesh))
+
+
+def store(dst, src):
+    """``dst`` overwritten in place with ``src``, on ``dst``'s own layout
+    (a DTensor ``src`` redistributed to it first) -> ``dst``: a donated
+    state's form of returning ``src``."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(dst, DTensor) and isinstance(src, DTensor) and \
+            tuple(src.placements) != tuple(dst.placements):
+        src = src.redistribute(dst.device_mesh, dst.placements)
+    with torch.no_grad():
+        return dst.copy_(src)
+
+
 class _Pin(torch.autograd.Function):
     """:func:`constrain` forward, and on the gradient backward."""
 

@@ -67,17 +67,21 @@ TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -5}
 DRY_LAYERS = 2
 
 
-def _cfg(get, window, dtype: str):
-    """qwen's smoke layer with 2 kv heads: 4 q heads, head dim 16."""
+def _cfg(get, window, dtype: str, heads=(4, 2)):
+    """qwen's smoke layer with ``heads`` (q, kv) heads of 16 dims: 4 q and
+    2 kv heads by default; (10, 5) lays 5 kv heads over model 4 as
+    hymba's 5 lie over model 16, each rank's flat cache shard crossing a
+    head boundary."""
     import dataclasses
-    return dataclasses.replace(get("qwen1.5-0.5b").smoke(), n_kv_heads=2,
-                               dtype=dtype, sliding_window=window)
+    return dataclasses.replace(get("qwen1.5-0.5b").smoke(), n_heads=heads[0],
+                               n_kv_heads=heads[1], dtype=dtype,
+                               sliding_window=window)
 
 
-def _setup(window, dtype: str, seed: int = 0, batch: int = B):
+def _setup(window, dtype: str, seed: int = 0, batch: int = B, heads=(4, 2)):
     """(cfg, f32 weights (wq, wk, wv, wo), xs (STEPS, batch, 1, d),
     smax)."""
-    cfg = _cfg(get_config, window, dtype)
+    cfg = _cfg(get_config, window, dtype, heads)
     rng = np.random.default_rng(seed)
     d, qd, kd = cfg.d_model, cfg.q_dim, cfg.kv_dim
     w = tuple((0.2 * rng.standard_normal(s)).astype(np.float32)
@@ -86,14 +90,22 @@ def _setup(window, dtype: str, seed: int = 0, batch: int = B):
     return cfg, w, xs, attention.cache_size(cfg, SEQ)
 
 
-def _decode(cfg, w, xs, smax, mesh=None, cspec=None):
+def _decode(cfg, w, xs, smax, mesh=None, cspec=None, donate=False):
     """The port's decode steps -> (outputs, cache_k, cache_v); on a mesh
     the weights by the sharding rules, the caches on ``cspec`` and the
-    inputs' batch as the caches'.  Self-contained: the rank processes run
-    its source."""
+    inputs' batch as the caches'.  ``donate``: every step writes into the
+    caches it is given, and every step's caches are the first step's
+    storages (a rank's own shards on a mesh).  Self-contained: the rank
+    processes run its source."""
     import torch
+    from torch.distributed.tensor import DTensor
     from repro_torch.models import attention
     from repro_torch.sharding import P, mesh_scope, place
+
+    def storage(t):
+        t = t.to_local() if isinstance(t, DTensor) else t
+        return t.untyped_storage().data_ptr()
+
     B = xs.shape[1]
     dt = getattr(torch, cfg.dtype)
     p = attention.LayerAttnParams(*(torch.from_numpy(a).to(dt) for a in w))
@@ -104,6 +116,7 @@ def _decode(cfg, w, xs, smax, mesh=None, cspec=None):
         p = attention.LayerAttnParams(*(place(t, mesh, s)
                                         for t, s in zip(p, specs)))
         ck, cv = place(ck, mesh, cspec), place(cv, mesh, cspec)
+    held = storage(ck), storage(cv)
     outs = []
     with torch.no_grad(), mesh_scope(mesh):
         for i, x in enumerate(xs):
@@ -111,14 +124,16 @@ def _decode(cfg, w, xs, smax, mesh=None, cspec=None):
             if mesh is not None:
                 x = place(x, mesh, P(cspec[0], None, None))
             o, ck, cv = attention.decode_attention(x, p, cfg, ck, cv, i,
-                                                   mesh=mesh)
+                                                   mesh=mesh, donate=donate)
             outs.append(o)
+            if donate:
+                assert (storage(ck), storage(cv)) == held, i
     return outs, ck, cv
 
 
-def _reference(window, dtype: str, w, xs, smax):
+def _reference(window, dtype: str, heads, w, xs, smax):
     """The reference's eight decode steps on the same weights and inputs."""
-    cfg = _cfg(j_get_config, window, dtype)
+    cfg = _cfg(j_get_config, window, dtype, heads)
     dt = getattr(jnp, dtype)
     p = j_attn.LayerAttnParams(*(jnp.asarray(a, dt) for a in w))
     ck = jnp.zeros((xs.shape[1], smax, cfg.kv_dim), dt)
@@ -150,19 +165,29 @@ def test_split_head_decode_on_2x4_ranks(tmp_path):
     (at batch 1 against the same steps with the slots replicated over
     'data', and within the tolerance of ``mesh=None``'s), and every step
     through the split-head core, none through the sequence-sharded
-    one."""
+    one.  The same with 5 kv heads (hymba's layout: each rank's flat
+    cache shard crosses a head boundary, so the kv-group core at batch 2
+    and the sequence-sharded core at batch 1 read a copy gathered over
+    'model'), its caches within the tolerance of ``mesh=None``'s.  Every
+    case also decodes donated (``donate=True``): outputs and caches equal
+    the undonated run's bit for bit, on the same layout, every step's
+    caches the stored shards it was given, which so hold each new
+    slot."""
     cases = []
-    for batch in (B, 1):
-        for window in (None, 4):
-            for dtype in ("float32", "bfloat16"):
-                cfg, w, xs, smax = _setup(window, dtype, batch=batch)
-                outs, ck, cv = _decode(cfg, w, xs, smax)
-                for got, want in zip(outs, _reference(window, dtype, w, xs,
-                                                      smax)):
-                    _close(got, want, TOL[dtype])
-                cases.append({"window": window, "dtype": dtype, "w": w,
-                              "xs": xs, "smax": smax, "outs": outs,
-                              "ck": ck, "cv": cv})
+    for heads in ((4, 2), (10, 5)):
+        for batch in (B, 1):
+            for window in (None, 4):
+                for dtype in ("float32", "bfloat16"):
+                    cfg, w, xs, smax = _setup(window, dtype, batch=batch,
+                                              heads=heads)
+                    outs, ck, cv = _decode(cfg, w, xs, smax)
+                    for got, want in zip(outs, _reference(
+                            window, dtype, heads, w, xs, smax)):
+                        _close(got, want, TOL[dtype])
+                    cases.append({"heads": heads, "window": window,
+                                  "dtype": dtype, "w": w, "xs": xs,
+                                  "smax": smax, "outs": outs, "ck": ck,
+                                  "cv": cv})
     torch.save(cases, tmp_path / "in.pt")
     helpers = "".join(textwrap.dedent(inspect.getsource(f)) + "\n"
                       for f in (_cfg, _decode, _close))
@@ -185,19 +210,35 @@ def test_split_head_decode_on_2x4_ranks(tmp_path):
             "seq", attention._decode_on_seq_shards)
         mesh = compat_make_mesh((2, 4), ("data", "model"))
         for c in torch.load(os.path.join(DATA, "in.pt"), weights_only=False):
-            cfg = _cfg(get_config, c["window"], c["dtype"])
+            cfg = _cfg(get_config, c["window"], c["dtype"], c["heads"])
             tol = {TOL!r}[c["dtype"]]
             seq = c["xs"].shape[1] == 1
+            split = c["heads"][1] == 2
             cspec = P(None, "data", "model") if seq else P("data", None,
                                                            "model")
-            n = len(calls["split"])
+            n = {{k: len(v) for k, v in calls.items()}}
             outs, ck, cv = _decode(cfg, c["w"], c["xs"], c["smax"], mesh,
                                    cspec)
-            assert len(calls["split"]) - n == {STEPS}, calls
-            assert not calls["seq"], calls
+            assert len(calls["split"]) - n["split"] == (
+                {STEPS} if split else 0), calls
+            assert len(calls["seq"]) - n["seq"] == (
+                {STEPS} if seq and not split else 0), calls
             for g, want in zip(outs, c["outs"]):
                 _close(g.full_tensor(), want, tol)
+            # donated: the same numbers, written into the stored shards
+            douts, dk, dv = _decode(cfg, c["w"], c["xs"], c["smax"], mesh,
+                                    cspec, donate=True)
+            for g, want in zip(douts, outs):
+                assert torch.equal(g.full_tensor(), want.full_tensor())
+            for g, want in ((dk, ck), (dv, cv)):
+                assert tuple(g.placements) == to_placements(cspec, mesh)
+                assert torch.equal(g.full_tensor(), want.full_tensor()), (
+                    c["heads"], c["window"], c["dtype"], tuple(cspec))
             wants = [(ck, c["ck"]), (cv, c["cv"])]
+            if not split:
+                for g, want in wants:
+                    _close(g.full_tensor(), want, tol)
+                continue
             if seq:
                 # at batch 1 the mesh's k/v projection rounds otherwise than
                 # mesh=None's one-row product: the caches are held within

@@ -111,8 +111,13 @@ def _run(params, toks, labels, cfg, mesh=None):
     decode steps' logits, the last decode state, the loss and the
     gradients), the inputs placed on ``mesh`` if given (the parameters by
     the sharding rules, the decode state by ``decode_state_shardings``).
-    Self-contained: the rank processes run its source."""
+    The decode steps run again donated from an equal state: every step's
+    logits and the last state equal the undonated ones bit for bit, and
+    every step returns the state's own storages (a rank's own shards on a
+    mesh), which so hold each new slot and SSM state.  Self-contained:
+    the rank processes run its source."""
     import torch
+    from torch.distributed.tensor import DTensor
     from repro_torch.models import transformer
     from repro_torch.runtime import model_api, serve
     from repro_torch.runtime.train import _grads_of
@@ -127,16 +132,40 @@ def _run(params, toks, labels, cfg, mesh=None):
     with torch.no_grad(), mesh_scope(mesh):
         logits, _, (_, _, st) = transformer.forward(
             params, batch["tokens"], cfg, mesh=mesh, collect_cache=True)
-        state = model_api.init_decode_state(params, {}, cfg, B, SMAX,
-                                            torch.float32)
-        if mesh is not None:
-            state = place_tree(state, serve.decode_state_shardings(
-                cfg, state, mesh))
+        states = []
+        for _ in range(2):
+            s0 = model_api.init_decode_state(params, {}, cfg, B, SMAX,
+                                             torch.float32)
+            if mesh is not None:
+                s0 = place_tree(s0, serve.decode_state_shardings(
+                    cfg, s0, mesh))
+            states.append(s0)
+        state, donated = states
+
+        def storages(s0):
+            return [(t.to_local() if isinstance(t, DTensor) else t
+                     ).untyped_storage().data_ptr()
+                    for t in s0 if isinstance(t, torch.Tensor)]
+
+        def whole(x):
+            return x.full_tensor() if isinstance(x, DTensor) else x
+
+        held = storages(donated)
         steps = []
         for t in range(STEPS):
-            out, state = model_api.decode_step(
-                params, batch["tokens"][:, t:t + 1], state, cfg, mesh=mesh)
+            tok = batch["tokens"][:, t:t + 1]
+            out, state = model_api.decode_step(params, tok, state, cfg,
+                                               mesh=mesh)
             steps.append(out)
+            out, donated = model_api.decode_step(params, tok, donated, cfg,
+                                                 mesh=mesh, donate=True)
+            assert storages(donated) == held, t
+            assert torch.equal(whole(out), whole(steps[-1])), t
+        for got, want in zip(donated, state):
+            if isinstance(want, torch.Tensor):
+                assert torch.equal(whole(got), whole(want))
+            else:
+                assert got == want
     with mesh_scope(mesh):          # as the train step runs it
         metrics, grads = _grads_of(params, batch, cfg, remat=False,
                                    mesh=mesh)
@@ -160,8 +189,9 @@ def test_ssm_on_2x4_ranks_matches_one_device(tmp_path, case, arch, d_model,
     (prefill and decode) too, the first layer's bit for bit; the prefill
     logits within 1e-5 of the reference's max |logit|.  Every decode layer
     of the cases whose heads model 4 does not divide takes the flat
-    channel route (``ssm._decode_on_channels``), and no layer of the
-    others does."""
+    channel route (``ssm._decode_on_channels``), donated or not, and no
+    layer of the others does; the donated decode equals the undonated one
+    bit for bit on the state's own shards (``_run``)."""
     cfg, params, toks, labels, ref = _inputs(arch, d_model, d_head)
     conv_dim = cfg.d_inner + 2 * cfg.ssm.n_groups * cfg.ssm.d_state
     assert conv_dim % 4 == 0 and cfg.d_inner % (conv_dim // 4)
@@ -199,7 +229,8 @@ def test_ssm_on_2x4_ranks_matches_one_device(tmp_path, case, arch, d_model,
         ssm._decode_on_channels = counted
         got = _run(d["params"], d["toks"], d["labels"], cfg, mesh)
         want = d["want"]
-        assert len(flat) == (len(got[2]) * cfg.n_layers
+        # every layer of the undonated and of the donated decode steps
+        assert len(flat) == (2 * len(got[2]) * cfg.n_layers
                              if cfg.n_ssm_heads % 4 else 0), len(flat)
 
         def close(g, w, what):
